@@ -1,0 +1,188 @@
+"""Reader of the versioned on-disk deployment artifact (int4 payload).
+
+An artifact is a directory
+
+    <path>/
+      manifest.json   — schema version, RSNNConfig, CompressionConfig,
+                        measured SparsityProfile, size report, preferred
+                        backend, per-tensor shape/dtype index
+      tensors.npz     — every deployed array, verbatim
+
+written by the reference's ``save_artifact``.  This module reads it with
+numpy and torch alone.  Schema v2 keys each sparse tensor as
+``<layout>.<name>.<field>`` and records the per-tensor layout tags under
+``layouts``; schema v1 artifacts (no ``layouts``) load their ``csc.*`` keys
+as implicit padded CSC.  Any other version, a tensor missing from
+``tensors.npz``, or a shape or dtype that disagrees with the manifest
+raises ``ArtifactError``.
+
+Only the int4 payload is served by the port so far.  A float payload or an
+``nm_group`` tensor raises ``NotImplementedError`` naming its ROADMAP
+item; the write side is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import layouts
+from repro_torch.core.complexity import SparsityProfile
+from repro_torch.core.rsnn import RSNNConfig
+from repro_torch.core.sparse import PackedRSNN, QuantTensor
+
+SUPPORTED_VERSIONS = (1, 2)
+MANIFEST = "manifest.json"
+TENSORS = "tensors.npz"
+_NOT_PORTED_LAYOUTS = {"nm_group": "ROADMAP queue 2, K5 (nm_fc)"}
+
+
+class ArtifactError(ValueError):
+    """Unreadable, incompatible, or internally inconsistent artifact."""
+
+
+class RSNNArtifact(NamedTuple):
+    """A loaded int4 artifact: the manifest plus the packed weights (CPU
+    tensors; ``CompiledRSNN`` moves them to its device)."""
+
+    manifest: dict
+    cfg: RSNNConfig
+    packed: PackedRSNN
+    sparsity: SparsityProfile | None
+    input_scale: torch.Tensor | None
+
+    @property
+    def precision(self) -> str:
+        return self.manifest["precision"]
+
+    @property
+    def backend(self) -> str | None:
+        return self.manifest.get("backend")
+
+    @property
+    def sparse_fc(self) -> bool:
+        """Whether the model prefers the zero-skip layout FC path (absent
+        in v1 manifests -> False)."""
+        return bool(self.manifest.get("sparse_fc", False))
+
+    @property
+    def layouts(self) -> dict:
+        """Per-tensor layout tags (v1 manifests: derived from the payload)."""
+        if "layouts" in self.manifest:
+            return self.manifest["layouts"]
+        return {n: layouts.layout_of(t).name
+                for n, t in self.packed.sparse.items()}
+
+
+def _decode_rsnn_config(d: dict) -> RSNNConfig:
+    d = dict(d)
+    dtype = d.pop("dtype", "float32")
+    if dtype != "float32":
+        raise ArtifactError(f"rsnn_config dtype {dtype!r}: the port serves "
+                            f"float32 models only")
+    fields = {f.name for f in dataclasses.fields(RSNNConfig)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise ArtifactError(f"rsnn_config has unknown fields {unknown}")
+    return RSNNConfig(**d)
+
+
+def _decode_sparsity(d: dict | None) -> SparsityProfile | None:
+    if d is None:
+        return None
+    d = dict(d)
+    for k in ("l0_density", "l1_density", "fc_density"):
+        d[k] = tuple(d[k])
+    return SparsityProfile(**d)
+
+
+def packed_from_arrays(arrays: dict[str, np.ndarray]) -> PackedRSNN:
+    """The packed model from the flat key/array dict the reference's
+    ``_flatten_packed`` produces (``quant.<name>.<field>``,
+    ``<layout>.<name>.<field>``, ``lif.<name>``); other keys, such as
+    ``input_scale``, are not part of the packed model and are skipped.
+    Arrays become CPU tensors, bit for bit."""
+    quant: dict[str, dict] = {}
+    sparse_fields: dict[str, dict] = {}
+    sparse_tags: dict[str, str] = {}
+    lif: dict[str, torch.Tensor] = {}
+    known = set(layouts.available_layouts())
+    for key, arr in arrays.items():
+        kind, _, rest = key.partition(".")
+        if kind in _NOT_PORTED_LAYOUTS:
+            raise NotImplementedError(
+                f"tensor {key!r} uses the {kind!r} weight layout, which is "
+                f"not yet ported to repro_torch ({_NOT_PORTED_LAYOUTS[kind]})")
+        if kind == "quant":
+            name, field = rest.rsplit(".", 1)
+            quant.setdefault(name, {})[field] = torch.from_numpy(
+                np.array(arr))
+        elif kind == "lif":
+            lif[rest] = torch.from_numpy(np.array(arr))
+        elif kind in known:
+            name, field = rest.rsplit(".", 1)
+            sparse_tags[name] = kind
+            sparse_fields.setdefault(name, {})[field] = torch.from_numpy(
+                np.array(arr))
+    return PackedRSNN(
+        quant={n: QuantTensor(**f) for n, f in quant.items()},
+        sparse={n: layouts.get_layout(sparse_tags[n]).unflatten(f)
+                for n, f in sparse_fields.items()},
+        lif=lif)
+
+
+def load_artifact(path: str | Path) -> RSNNArtifact:
+    """Read an int4 artifact directory written by the reference writer."""
+    path = Path(path)
+    mf = path / MANIFEST
+    if not mf.exists():
+        raise ArtifactError(f"no artifact at {path} (missing {MANIFEST})")
+    manifest = json.loads(mf.read_text())
+    version = manifest.get("schema_version")
+    if version not in SUPPORTED_VERSIONS:
+        raise ArtifactError(
+            f"artifact at {path} has schema version {version!r}; this "
+            f"reader supports versions {SUPPORTED_VERSIONS}. Re-export the "
+            f"artifact with a matching writer or upgrade this reader")
+    with np.load(path / TENSORS) as data:
+        arrays = {k: data[k] for k in data.files}
+    declared = manifest.get("tensors", {})
+    missing = sorted(set(declared) - set(arrays))
+    if missing:
+        raise ArtifactError(f"artifact tensors missing from {TENSORS}: "
+                            f"{missing}")
+    for key, meta in declared.items():
+        arr = arrays[key]
+        if list(arr.shape) != meta["shape"] or str(arr.dtype) != meta["dtype"]:
+            raise ArtifactError(
+                f"tensor {key!r} is {arr.shape}/{arr.dtype}, manifest "
+                f"declares {tuple(meta['shape'])}/{meta['dtype']}")
+
+    precision = manifest["precision"]
+    if precision == "float":
+        raise NotImplementedError(
+            "float-precision artifacts are not yet served by repro_torch "
+            "(ROADMAP queue 1, the float engine)")
+    if precision != "int4":
+        raise ArtifactError(f"unknown artifact precision {precision!r}")
+    cfg = _decode_rsnn_config(manifest["rsnn_config"])
+    scale = (torch.from_numpy(np.array(arrays["input_scale"]))
+             if manifest.get("has_input_scale") else None)
+    packed = packed_from_arrays(arrays)
+    declared_tags = manifest.get("layouts")
+    if declared_tags is not None:  # v2: manifest tags must match payload
+        actual = {n: layouts.layout_of(t).name
+                  for n, t in packed.sparse.items()}
+        if actual != declared_tags:
+            raise ArtifactError(
+                f"manifest layout tags {declared_tags} disagree with the "
+                f"tensor payload {actual}")
+    return RSNNArtifact(
+        manifest=manifest, cfg=cfg, packed=packed,
+        sparsity=_decode_sparsity(manifest.get("sparsity_profile")),
+        input_scale=scale)

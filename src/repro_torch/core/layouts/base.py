@@ -1,0 +1,85 @@
+"""The ``WeightLayout`` interface and registry, serving side.
+
+A weight layout is how one packed 2-D weight is stored and executed at
+deployment.  Each layout is one object owning its layout-specific
+decisions; the port carries the serving half of the reference's
+interface:
+
+  * ``matmul`` / ``fc_oracle`` — the plain PyTorch execution oracles;
+  * ``fc_kernel``             — the merged-spike readout through
+    ``kernels/ops.py`` (a CUDA kernel on a CUDA tensor);
+  * ``unflatten``             — the on-disk tensor codec used by
+    ``core/artifact.py``.
+
+Layouts register by name; ``layout_of`` maps a packed tensor back to its
+layout by type, so the serving op table resolves the readout from whatever
+the artifact holds.  The packing half (``pack``, size accounting,
+``flatten``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import abc
+
+import torch
+
+
+class WeightLayout(abc.ABC):
+    """One packed-weight storage format.  Stateless singletons: all
+    per-tensor data lives in the packed tensor (``tensor_type``)."""
+
+    name: str
+    tensor_type: type
+
+    @abc.abstractmethod
+    def matmul(self, x: torch.Tensor, t) -> torch.Tensor:
+        """Plain oracle: ``x`` (B, K) @ packed -> (B, N) float32."""
+
+    def fc_oracle(self, spikes_ts: torch.Tensor, t) -> torch.Tensor:
+        """Merged-spike readout oracle: sum the (TS, B, H) spike trains
+        over TS, then one layout matmul (paper §II-D2)."""
+        merged = spikes_ts.sum(dim=0) if spikes_ts.dim() == 3 else spikes_ts
+        return self.matmul(merged, t)
+
+    @abc.abstractmethod
+    def fc_kernel(self, spikes_ts: torch.Tensor, t) -> torch.Tensor:
+        """Merged-spike readout through the layout's kernel."""
+
+    @abc.abstractmethod
+    def unflatten(self, fields: dict[str, torch.Tensor]):
+        """Named arrays (as loaded from disk) -> the packed tensor."""
+
+
+_REGISTRY: dict[str, WeightLayout] = {}
+
+
+def register_layout(layout: WeightLayout) -> WeightLayout:
+    """Register a layout instance under ``layout.name`` (idempotent for the
+    same instance; another instance under a taken name is an error —
+    artifacts key tensors on these tags)."""
+    existing = _REGISTRY.get(layout.name)
+    if existing is not None and existing is not layout:
+        raise ValueError(f"layout name {layout.name!r} is already "
+                         f"registered by {type(existing).__name__}")
+    _REGISTRY[layout.name] = layout
+    return layout
+
+
+def available_layouts() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def get_layout(name: str) -> WeightLayout:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown weight layout {name!r}; "
+                         f"available: {available_layouts()}")
+    return _REGISTRY[name]
+
+
+def layout_of(t) -> WeightLayout:
+    """The layout that owns packed tensor ``t`` (dispatch by type)."""
+    for layout in _REGISTRY.values():
+        if isinstance(t, layout.tensor_type):
+            return layout
+    raise TypeError(f"no registered weight layout packs {type(t).__name__}; "
+                    f"available: {available_layouts()}")

@@ -1,0 +1,51 @@
+"""Device dispatch for the hand-written kernels.
+
+A CPU tensor runs the kernel's plain PyTorch version (``ref.py``); a CUDA
+tensor launches the CUDA kernel, and a build or launch failure raises —
+nothing falls back.  Any other device raises.  The first argument's device
+decides; the CUDA wrappers check that every operand lies on it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import int4_matmul as _i4
+from repro_torch.kernels import merged_spike_fc as _mfc
+from repro_torch.kernels import ref
+from repro_torch.kernels import rsnn_cell as _cell
+from repro_torch.kernels import sparse_fc as _sfc
+
+
+def _plain(op: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor, False for a CUDA one; raises otherwise."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{op}: no kernel or plain version for a tensor on "
+                     f"{t.device}")
+
+
+def rsnn_cell(stim_base, s_prev, w, u0, h0, beta, vth):
+    if _plain("rsnn_cell", s_prev):
+        return ref.rsnn_cell_ref(stim_base, s_prev, w, u0, h0, beta, vth)
+    return _cell.rsnn_cell(stim_base, s_prev, w, u0, h0, beta, vth)
+
+
+def int4_matmul(x, packed, scale):
+    if _plain("int4_matmul", x):
+        return ref.int4_matmul_ref(x, packed, scale)
+    return _i4.int4_matmul(x, packed, scale)
+
+
+def merged_spike_fc(spikes_ts, packed, scale):
+    if _plain("merged_spike_fc", spikes_ts):
+        return ref.merged_spike_fc_ref(spikes_ts, packed, scale)
+    return _mfc.merged_spike_fc(spikes_ts, packed, scale)
+
+
+def sparse_fc(spikes_ts, indices, values, scale):
+    if _plain("sparse_fc", spikes_ts):
+        return ref.sparse_fc_ref(spikes_ts, indices, values, scale)
+    return _sfc.sparse_fc(spikes_ts, indices, values, scale)

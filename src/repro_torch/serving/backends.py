@@ -1,0 +1,166 @@
+"""Named execution backends for the streaming RSNN engine.
+
+A backend is a named recipe that, given the deployed weight bundle
+(``BackendContext``), returns a uniform ``OpTable``:
+
+  * ``rsnn_cell`` — fused recurrent spiking layer step (TS parallel);
+  * ``ff_matmul`` — per-layer feedforward stimulus ``x @ W`` (dense
+    dequantized weights, or the int4 kernel on the packed nibbles);
+  * ``fc``        — the readout over the TS spike trains (merged-spike
+    int4, per-ts int4, or the packed layout's zero-skip path).
+
+The zero-skip readout is layout-dispatched: the packed FC tensor's type
+resolves its ``core/layouts`` ``WeightLayout`` and the backend binds the
+layout's plain oracle (``ref``) or its kernel (``cuda``/``sparse``).
+
+Built-in backends:
+
+  ``ref`` (alias ``jnp``)    — the plain PyTorch versions in
+      ``kernels/ref.py`` over dense dequantized weights; with
+      ``sparse_fc`` the readout is the packed layout's plain oracle.
+  ``cuda`` (alias ``pallas``) — the hand-written kernels through
+      ``kernels/ops.py``: a CUDA kernel on CUDA tensors, the plain
+      version on CPU tensors.  The alias keeps the backend name stored in
+      the reference's artifacts resolvable.
+  ``sparse``                 — ``cuda`` plus the packed FC layout's
+      zero-skip kernel (``kernels/sparse_fc.py`` for padded CSC).
+
+The reference's ``fused``, ``delta``, ``spike`` and ``fused_spike``
+backends are not ported yet (ROADMAP queue 2, K6-K10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import layouts
+from repro_torch.core.rsnn import RSNNConfig
+from repro_torch.kernels import ops, ref
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendContext:
+    """The deployed int4 weight bundle an OpTable is resolved against.
+
+    ``dense`` holds the dequantized float32 matrices of the ops that
+    consume dense weights; ``quant`` the packed int4 tensors and
+    ``sparse`` each pruned tensor's layout-resolved packed form.
+    """
+
+    cfg: RSNNConfig
+    sparse_fc: bool  # zero-skip layout readout instead of the dense FC
+    dense: dict  # name -> (K, N) float32
+    quant: dict  # name -> layouts.dense.QuantTensor
+    sparse: dict  # name -> layout tensor (SparseColumns)
+
+
+class OpTable(NamedTuple):
+    """Uniform per-backend op set consumed by ``CompiledRSNN``."""
+
+    name: str
+    rsnn_cell: Callable  # (stim, s_prev, w, u0, h0, beta, vth) -> (s, u)
+    ff_matmul: Callable  # (x2d (M, K), layer_name) -> (M, N)
+    fc: Callable  # (spikes_ts (TS, B, H)) -> (B, fc_dim)
+
+
+class _Entry(NamedTuple):
+    builder: Callable  # BackendContext -> OpTable
+    dense_stimulus: bool  # int4 ff_matmul consumes dense dequant weights
+
+
+_REGISTRY: dict[str, _Entry] = {}
+
+
+def register(name: str, *aliases: str, dense_stimulus: bool = False):
+    """Decorator: register an OpTable builder under ``name`` (+ aliases).
+
+    ``dense_stimulus=True`` declares that at int4 the backend's
+    ``ff_matmul`` reads dense dequantized weights (so the engine must
+    materialize them) rather than the packed nibbles.
+    """
+
+    def deco(builder: Callable[[BackendContext], OpTable]):
+        for key in (name, *aliases):
+            _REGISTRY[key] = _Entry(builder, dense_stimulus)
+        return builder
+
+    return deco
+
+
+def available() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def _entry(name: str) -> _Entry:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown backend {name!r}; available: "
+                         f"{available()}")
+    return _REGISTRY[name]
+
+
+def needs_dense_stimulus(name: str) -> bool:
+    """Whether backend ``name``'s int4 feedforward path wants dense weights."""
+    return _entry(name).dense_stimulus
+
+
+def resolve(name: str, ctx: BackendContext) -> OpTable:
+    """Build the op table of backend ``name`` over the weight bundle."""
+    return _entry(name).builder(ctx)
+
+
+# ------------------------------------------------------------ op resolution
+
+
+def _fc_op(ctx: BackendContext, *, mfc: Callable, i4mm: Callable,
+           fused: bool) -> Callable:
+    """Resolve the readout: layout zero-skip > packed int4.
+
+    The zero-skip path dispatches on the packed FC tensor's layout.
+    ``fused=True`` binds the layout's kernel, ``False`` its plain oracle.
+    """
+    if ctx.sparse_fc:
+        t = ctx.sparse["fc_w"]
+        layout = layouts.layout_of(t)
+        fc_fn = layout.fc_kernel if fused else layout.fc_oracle
+        return lambda s1: fc_fn(s1, t)
+    qt = ctx.quant["fc_w"]
+    scale = qt.scale.reshape(-1)
+    if ctx.cfg.merged_spike:
+        return lambda s1: mfc(s1, qt.packed, scale)
+    return lambda s1: sum(i4mm(s1[t], qt.packed, scale)
+                          for t in range(ctx.cfg.num_ts))
+
+
+# ------------------------------------------------------- built-in backends
+
+
+@register("ref", "jnp", dense_stimulus=True)
+def _build_ref(ctx: BackendContext) -> OpTable:
+    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
+        return x2d @ ctx.dense[name]
+
+    fc = _fc_op(ctx, mfc=ref.merged_spike_fc_ref, i4mm=ref.int4_matmul_ref,
+                fused=False)
+    return OpTable(name="ref", rsnn_cell=ref.rsnn_cell_ref, ff_matmul=ff,
+                   fc=fc)
+
+
+@register("cuda", "pallas")
+def _build_cuda(ctx: BackendContext) -> OpTable:
+    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
+        qt = ctx.quant[name]
+        return ops.int4_matmul(x2d, qt.packed, qt.scale.reshape(-1))
+
+    fc = _fc_op(ctx, mfc=ops.merged_spike_fc, i4mm=ops.int4_matmul,
+                fused=True)
+    return OpTable(name="cuda", rsnn_cell=ops.rsnn_cell, ff_matmul=ff, fc=fc)
+
+
+@register("sparse")
+def _build_sparse(ctx: BackendContext) -> OpTable:
+    """``cuda`` cells/stimulus + the packed layout's zero-skip readout."""
+    ctx = dataclasses.replace(ctx, sparse_fc=True)
+    return _build_cuda(ctx)._replace(name="sparse")

@@ -1,0 +1,484 @@
+"""Streaming compressed-RSNN inference engine (frames -> slots -> state).
+
+The serving path for the paper's workload: always-on speech recognition
+over 10-ms audio frames from the pruned int4 model.
+
+1. **Frames.** Audio arrives as per-utterance feature sequences
+   ``(T, input_dim)``, quantized to the 8-bit fixed-point input format with
+   a static calibrated scale (``quantize_features``).
+2. **Slots.** ``StreamLoop`` packs N concurrent utterances into a fixed
+   batch of ``batch_slots`` slots.  Every step advances each active slot by
+   one frame; a finished slot has its recurrent state zeroed
+   (``reset_slot``) and is refilled from the queue without stopping the
+   batch.
+3. **State.** ``CompiledRSNN`` carries ``RSNNState`` (per-ts spikes + LIF
+   membrane chain) across frames.  Each frame is the L0 cell, the L1 cell
+   and the FC readout, composed from the op table that the backend
+   registry (``serving/backends.py``) resolved at construction.
+
+The port runs the reference's synchronous v1 contract (one logit fetch and
+one counter fetch per step) at one frame per step.  The pipelined v2
+contract (``pipeline_depth > 0``), frame chunking (``chunk_frames > 1``),
+the float engine and the ``fused``/``delta``/``spike`` backends are not
+ported yet (ROADMAP).
+
+Entry points (``CompiledRSNN``, ``CompiledRSNN.from_artifact``,
+``StreamLoop`` through its engine) run on ``device="cuda"`` unless the
+caller asks for ``device="cpu"``; with no GPU present the default raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import complexity, rsnn, spike_ops
+from repro_torch.core.lif import LIFState
+from repro_torch.core.rsnn import RSNNConfig, RSNNState
+from repro_torch.core.sparse import PackedRSNN, SparseColumns, dequantize
+from repro_torch.serving import backends
+from repro_torch.serving.slots import SlotScheduler
+
+_V2 = "ROADMAP queue 1, P7 (slot loop v2, chunking)"
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Execution-path selection for CompiledRSNN.  The port serves the
+    packed int4 model only: the float engine is not ported yet (ROADMAP
+    queue 1, P1), so there is no ``precision`` field."""
+
+    backend: str = "jnp"  # registered name in serving/backends.py
+    sparse_fc: bool = False  # zero-skip layout path for the pruned FC
+    input_scale: float | torch.Tensor | None = None  # static 8-bit calibration
+
+    def __post_init__(self):
+        if self.backend not in backends.available():
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"available: {backends.available()}")
+
+    @property
+    def wants_sparse_fc(self) -> bool:
+        """The zero-skip readout: the flag, or the dedicated backend."""
+        return self.sparse_fc or self.backend == "sparse"
+
+
+def calibrate_input_scale(features: torch.Tensor, bits: int = 8
+                          ) -> torch.Tensor:
+    """Static input quantization scale from calibration audio (max-abs)."""
+    return spike_ops.quantize_input(features, bits)[1]
+
+
+def reset_slot(state: RSNNState, i: int) -> RSNNState:
+    """Zero one slot's recurrent state (fresh utterance boundary).  Returns
+    a new state; the tensors of ``state`` are left as they were."""
+
+    def zero(t: torch.Tensor, dim: int) -> torch.Tensor:
+        t = t.clone()
+        t.select(dim, i).zero_()
+        return t
+
+    def zl(s: LIFState) -> LIFState:
+        return LIFState(u=zero(s.u, 0), spike=zero(s.spike, 0))
+
+    return RSNNState(h0=zero(state.h0, 1), h1=zero(state.h1, 1),
+                     lif0=zl(state.lif0), lif1=zl(state.lif1))
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no GPU present
+    raises instead of carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch serves on a CUDA device and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}; use cuda or cpu")
+    return device
+
+
+def _check_packed(cfg: RSNNConfig, packed: PackedRSNN) -> None:
+    """Shapes of the packed weights against the config, and every CSC row
+    index inside its matrix (the gather kernel reads them unchecked by the
+    host; padding is index 0)."""
+    for name, (k, n) in cfg.layer_shapes.items():
+        qt = packed.quant[name]
+        if tuple(qt.packed.shape) != (k // 2, n) or qt.scale.numel() != n:
+            raise ValueError(
+                f"packed {name} is {tuple(qt.packed.shape)} with "
+                f"{qt.scale.numel()} scales; the config needs ({k // 2}, "
+                f"{n}) with {n}")
+    for name, t in packed.sparse.items():
+        if isinstance(t, SparseColumns):
+            k = cfg.layer_shapes[name][0]
+            if t.indices.numel() and not (
+                    0 <= int(t.indices.min()) and int(t.indices.max()) < k):
+                raise ValueError(f"CSC indices of {name} leave [0, {k})")
+
+
+def _to(tree, device: torch.device):
+    """Move every tensor of a (nested) NamedTuple/dict to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, device) for v in tree))
+    return tree
+
+
+class CompiledRSNN:
+    """One int4 RSNN ready for streaming inference on one device.
+
+    Owns the packed weights (moved to ``device``), the static input scale
+    and the op table of its backend; state threads through explicitly so
+    callers control the frame/slot lifecycle.
+    """
+
+    def __init__(self, cfg: RSNNConfig, packed: PackedRSNN,
+                 engine: EngineConfig = EngineConfig(), *,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.engine = engine
+        missing = set(cfg.layer_shapes) - set(packed.quant)
+        if missing:
+            raise ValueError(f"int4 engine needs every layer weight "
+                             f"quantized; missing: {sorted(missing)}")
+        if engine.wants_sparse_fc and "fc_w" not in packed.sparse:
+            raise ValueError("sparse_fc needs a mask-pruned fc_w (a packed "
+                             "sparse layout to serve)")
+        _check_packed(cfg, packed)
+        self.packed = _to(packed, self.device)
+        # dense dequantized copies only where the backend consumes dense
+        # weights: the recurrent cells always do; backends that declare
+        # dense_stimulus (the plain ref path) need the feedforward ones too
+        dense_needed = {"l0_wh", "l1_wh"}
+        if backends.needs_dense_stimulus(engine.backend):
+            dense_needed |= {"l0_wx", "l1_wx"}
+        dense = {n: dequantize(self.packed.quant[n]) for n in dense_needed}
+        self._lif = {k: v.to(torch.float32)
+                     for k, v in self.packed.lif.items()}
+        self._ctx = backends.BackendContext(
+            cfg=cfg, sparse_fc=engine.wants_sparse_fc, dense=dense,
+            quant=dict(self.packed.quant), sparse=dict(self.packed.sparse))
+        self.ops = backends.resolve(engine.backend, self._ctx)
+        self._w = self._ctx.dense
+        scale = engine.input_scale
+        self._input_scale = (None if scale is None else torch.as_tensor(
+            scale, dtype=torch.float32).to(self.device))
+
+    @classmethod
+    def from_artifact(cls, path, engine: EngineConfig | None = None, *,
+                      backend: str | None = None,
+                      device: torch.device | str = "cuda") -> "CompiledRSNN":
+        """Build an engine from an on-disk int4 deployment artifact
+        (``core/artifact.py``).
+
+        ``engine=None`` derives the execution path from the manifest: its
+        preferred backend (overridable via ``backend=``), its zero-skip FC
+        preference and its stored static input scale.  An explicit
+        ``engine`` is used verbatim.
+        """
+        from repro_torch.core import artifact as artifact_lib
+
+        device = resolve_device(device)
+        art = artifact_lib.load_artifact(path)
+        if engine is None:
+            engine = EngineConfig(backend=backend or art.backend or "jnp",
+                                  sparse_fc=art.sparse_fc,
+                                  input_scale=art.input_scale)
+        return cls(art.cfg, art.packed, engine, device=device)
+
+    # ------------------------------------------------------------ frontend
+
+    def init_state(self, batch: int) -> RSNNState:
+        return rsnn.init_state(self.cfg, batch, device=self.device)
+
+    def quantize_features(self, x) -> torch.Tensor:
+        """8-bit fixed-point input quantization with the static scale.
+
+        ``input_scale=None`` means the features are already integer-valued
+        (pre-quantized upstream); that contract is checked here.
+        """
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        if self._input_scale is None and bool((x != torch.round(x)).any()):
+            raise ValueError(
+                "input_scale=None requires integer-valued features; pass "
+                "input_scale=calibrate_input_scale(features)")
+        return self._quantize(x)
+
+    def _quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """``quantize_features`` without the integer check (the loop checks
+        at submit time)."""
+        if self._input_scale is None:
+            return x
+        return spike_ops.quantize_input(x, self.cfg.input_bits,
+                                        self._input_scale)[0]
+
+    # ------------------------------------------------------- layer dispatch
+
+    def _compose_step(self, state: RSNNState, x_t: torch.Tensor):
+        """One quantized frame x_t (B, input_dim) -> (state, logits, aux):
+        both cells, the readout, and the counters composed from the op
+        table — every kernel choice goes through ``self.ops``."""
+        cell, ff, fc = self.ops.rsnn_cell, self.ops.ff_matmul, self.ops.fc
+        w, lif = self._w, self._lif
+        ts, b, h = state.h0.shape[0], x_t.shape[0], self.cfg.hidden_dim
+
+        # L0: feedforward stimulus once per frame, a broadcast view over TS
+        ff0 = ff(x_t, "l0_wx")  # (B, H)
+        stim0 = ff0.unsqueeze(0).expand(ts, b, h)
+        s0, u0 = cell(stim0, state.h0, w["l0_wh"], state.lif0.u,
+                      state.lif0.spike, lif["beta0"], lif["vth0"])
+        lif0 = LIFState(u=u0, spike=s0[-1])
+
+        # L1: per-ts feedforward from L0 spikes + recurrent
+        stim1 = ff(s0.reshape(ts * b, h), "l1_wx").reshape(ts, b, h)
+        s1, u1 = cell(stim1, state.h1, w["l1_wh"], state.lif1.u,
+                      state.lif1.spike, lif["beta1"], lif["vth1"])
+        lif1 = LIFState(u=u1, spike=s1[-1])
+
+        logits = fc(s1)
+        aux = _frame_counters(x_t, s0, s1, self.cfg.input_bits)
+        return RSNNState(h0=s0, h1=s1, lif0=lif0, lif1=lif1), logits, aux
+
+    # ------------------------------------------------------------ execution
+
+    def step(self, state: RSNNState, x_q: torch.Tensor):
+        """Advance every slot by one quantized frame. x_q: (B, input_dim).
+        Returns (state, logits (B, fc_dim), per-slot counters)."""
+        return self._compose_step(state, x_q)
+
+    def step_masked(self, state: RSNNState, x_q: torch.Tensor,
+                    active: torch.Tensor):
+        """``step`` with idle-slot masking of the counters: returns (state,
+        logits, packed counter vector) where the vector is already masked
+        to active slots and reduced (``pack_step_aux``)."""
+        state, logits, aux = self._compose_step(state, x_q)
+        return state, logits, pack_step_aux(aux, active)
+
+
+def _frame_counters(x_t: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+                    input_bits: int) -> dict:
+    """Per-slot zero-skip counters for one frame."""
+    one_bits = spike_ops.bitplanes(x_t, input_bits).sum(dim=(1, 2))  # (B,)
+    zero = torch.zeros_like(one_bits, dtype=torch.float32)
+    return {
+        "spikes_l0": s0.sum(dim=2),  # (TS, B)
+        "spikes_l1": s1.sum(dim=2),  # (TS, B)
+        "union_l1": s1.amax(dim=0).sum(dim=1),  # (B,)
+        "input_one_bits": one_bits.to(torch.float32),  # (B,)
+        # delta-gating counters: no ported backend gates, so always zero
+        # (read back as density 1.0, "not measured")
+        "delta_propagated": zero,  # (B,)
+        "delta_skipped": zero,  # (B,)
+    }
+
+
+def pack_step_aux(aux: dict, active: torch.Tensor) -> torch.Tensor:
+    """Mask the per-slot counters of one step by ``active`` and reduce over
+    slots, packed into one flat vector: ``[spikes_l0 (TS,), spikes_l1
+    (TS,), union_l1, input_one_bits, delta_propagated, delta_skipped]`` —
+    one host transfer per step instead of one per counter key."""
+    act = active.to(torch.float32)
+    return torch.cat([
+        (aux["spikes_l0"] * act).sum(dim=-1),
+        (aux["spikes_l1"] * act).sum(dim=-1),
+        (aux["union_l1"] * act).sum(dim=-1, keepdim=True),
+        (aux["input_one_bits"] * act).sum(dim=-1, keepdim=True),
+        (aux["delta_propagated"] * act).sum(dim=-1, keepdim=True),
+        (aux["delta_skipped"] * act).sum(dim=-1, keepdim=True),
+    ])
+
+
+def unpack_step_aux(vec, num_ts: int) -> dict:
+    """Host-side inverse of ``pack_step_aux`` -> the dict
+    ``complexity.SparsityCounters.update`` consumes."""
+    v = (vec.detach().cpu().numpy() if isinstance(vec, torch.Tensor)
+         else np.asarray(vec))
+    return {"spikes_l0": v[:num_ts], "spikes_l1": v[num_ts:2 * num_ts],
+            "union_l1": v[2 * num_ts], "input_one_bits": v[2 * num_ts + 1],
+            "delta_propagated": v[2 * num_ts + 2],
+            "delta_skipped": v[2 * num_ts + 3]}
+
+
+# ---------------------------------------------------------------------------
+# Slot-based continuous batching over audio streams
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StreamRequest:
+    """One utterance: its frames in, its per-frame logits out.
+
+    Lifecycle timestamps (``StreamLoop.clock``, monotonic seconds):
+    ``t_submit`` at enqueue, ``t_start`` when the stream takes a slot,
+    ``t_done`` when its last frame is served and ``t_harvest`` when its
+    logits are on the host — the same moment in the synchronous contract.
+    """
+
+    sid: int
+    frames: np.ndarray  # (T, input_dim) raw features
+    fc_dim: int = 0  # logit width, stamped by StreamLoop.submit
+    logits: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_submit: float | None = None
+    t_start: float | None = None
+    t_done: float | None = None
+    t_harvest: float | None = None
+
+    def stacked_logits(self) -> np.ndarray:
+        if not self.logits:
+            return np.zeros((0, self.fc_dim), np.float32)
+        return np.stack(self.logits)
+
+
+class StreamLoop(SlotScheduler):
+    """Continuous batching of audio streams over recurrent-state slots.
+
+    N submitted utterances share a fixed batch of ``batch_slots`` rows.
+    Each ``step_once`` advances every active slot by one frame; a slot
+    whose utterance ends is state-reset and refilled from the queue
+    mid-batch.  Idle slots carry zero frames and are excluded from the
+    sparsity counters.  This is the synchronous v1 contract: the logits
+    and the packed counter vector cross to the host every step
+    (``host_syncs``).  ``pipeline_depth`` and ``chunk_frames`` other than
+    0 and 1 are not ported yet and raise.
+    """
+
+    def __init__(self, engine: CompiledRSNN, batch_slots: int = 4,
+                 pipeline_depth: int = 0, chunk_frames: int = 1):
+        super().__init__(batch_slots)
+        if pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be >= 0, "
+                             f"got {pipeline_depth}")
+        if chunk_frames < 1:
+            raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+        if pipeline_depth != 0:
+            raise NotImplementedError(
+                f"pipeline_depth={pipeline_depth}: the pipelined v2 loop is "
+                f"not yet ported to repro_torch ({_V2}); use 0")
+        if chunk_frames != 1:
+            raise NotImplementedError(
+                f"chunk_frames={chunk_frames}: frame-chunked dispatch is not "
+                f"yet ported to repro_torch ({_V2}); use 1")
+        self.engine = engine
+        self.pipeline_depth = pipeline_depth
+        self.chunk_frames = chunk_frames
+        self.clock = time.monotonic  # swappable for deterministic tests
+        self.state = engine.init_state(batch_slots)
+        self.reset_metrics()
+
+    # ------------------------------------------------------------- frontend
+
+    def submit(self, frames: np.ndarray) -> int:
+        return self._enqueue(self._validate_frames(frames))
+
+    def _validate_frames(self, frames) -> np.ndarray:
+        frames = np.asarray(frames)
+        d = self.engine.cfg.input_dim
+        if frames.ndim != 2 or frames.shape[-1] != d:
+            raise ValueError(
+                f"frames must have shape (T, input_dim={d}); "
+                f"got {frames.shape}")
+        if (self.engine._input_scale is None
+                and frames.size and np.any(frames != np.round(frames))):
+            raise ValueError(
+                "input_scale=None requires integer-valued features; "
+                "pass input_scale=calibrate_input_scale(features)")
+        return frames
+
+    def _enqueue(self, frames: np.ndarray) -> int:
+        sid = self._new_sid()
+        req = StreamRequest(sid, frames, fc_dim=self.engine.cfg.fc_dim)
+        req.t_submit = self.clock()
+        if len(req.frames) == 0:  # empty utterance: nothing to stream
+            req.done = True
+            req.t_start = req.t_done = req.t_harvest = req.t_submit
+            self.finished.append(req)
+        else:
+            self.queue.append(req)
+        return sid
+
+    def _on_slot_filled(self, i: int, req: StreamRequest) -> None:
+        """Fresh utterance boundary: zero the slot's recurrent state."""
+        req.t_start = self.clock()
+        self.state = reset_slot(self.state, i)
+
+    def _finish_slot(self, i: int) -> StreamRequest:
+        req = super()._finish_slot(i)
+        req.t_done = req.t_harvest = self.clock()
+        return req
+
+    # ------------------------------------------------------------ step path
+
+    def _gather_host_frames(self) -> np.ndarray:
+        """Host-side frame assembly: idle slots carry zero frames (the
+        counter masking keys off the active mask, not this zeroing)."""
+        x = np.zeros((self.slots, self.engine.cfg.input_dim), np.float32)
+        for i, r in enumerate(self.slot_req):
+            if r is not None:
+                x[i] = r.frames[self.slot_pos[i]]
+        return x
+
+    def _dispatch_step(self, active: np.ndarray):
+        """Advance the engine one frame over all slots.  Returns (logits
+        (slots, fc_dim) np, packed masked counter vector)."""
+        dev = self.engine.device
+        x = torch.from_numpy(self._gather_host_frames()).to(dev)
+        act = torch.from_numpy(active).to(dev)
+        self.state, logits, aux_vec = self.engine.step_masked(
+            self.state, self.engine._quantize(x), act)
+        return logits.cpu().numpy(), aux_vec
+
+    def step_once(self) -> bool:
+        """One engine step over all slots; returns False when fully drained
+        (empty queue and empty slots)."""
+        self._refill()
+        active = self.active_mask()
+        if not active.any():
+            return False
+        logits_np, aux_vec = self._dispatch_step(active)
+        self.host_syncs += 1  # per-frame logit fetch
+        self.steps += 1
+        self.frames_served += int(active.sum())
+        self.counters.update(unpack_step_aux(aux_vec, self.engine.cfg.num_ts),
+                             active_frames=float(active.sum()))
+        self.host_syncs += 1  # per-frame counter fetch
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            r.logits.append(logits_np[i])
+            self.slot_pos[i] += 1
+            if self.slot_pos[i] == len(r.frames):
+                self._finish_slot(i)
+                self.state = reset_slot(self.state, i)
+        return True
+
+    def run(self) -> list[StreamRequest]:
+        """Drain queue and slots; returns finished requests in sid order."""
+        while self.step_once():
+            pass
+        return sorted(self.finished, key=lambda r: r.sid)
+
+    # --------------------------------------------------- measured complexity
+
+    def reset_metrics(self) -> None:
+        """Zero the measured-traffic counters (e.g. after a warmup run)."""
+        cfg = self.engine.cfg
+        self.counters = complexity.SparsityCounters(
+            num_ts=cfg.num_ts, hidden_dim=cfg.hidden_dim,
+            input_dim=cfg.input_dim, input_bits=cfg.input_bits)
+        self.steps = 0
+        self.host_syncs = 0
+        self.frames_served = 0  # slot-frames advanced
+
+    def sparsity_profile(self) -> complexity.SparsityProfile:
+        return self.counters.profile()

@@ -1,0 +1,199 @@
+"""repro_torch kernels' plain versions vs the reference's Pallas kernels.
+
+The same seeded numpy inputs go through ``repro.kernels.ops`` (the Pallas
+kernels, interpret mode on the CPU) and ``repro_torch.kernels.ops`` on CPU
+tensors (the plain PyTorch versions the CUDA kernels are held against on
+the card).  K2-K4 sum integer-valued products and scale once, so they must
+agree bit for bit; K1's recurrent sum of float32 weights depends on its
+order, so u agrees within ``U_TOL`` and a spike may differ only where the
+potential is within ``U_TOL`` of the threshold.  Widths: ``small_cfg``'s
+and the paper's PRUNED model's.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import rsnn_cell as cell_kernel
+from repro_torch.kernels import sparse_fc as sfc_kernel
+
+U_TOL = 1e-5  # K1: |du| <= U_TOL * (1 + |u|)
+
+# (input_dim, hidden, fc_dim, batch): small_cfg's widths and PRUNED's
+WIDTHS = {"small": (8, 16, 12, 4), "pruned": (40, 128, 1920, 8)}
+
+
+def _packed(rng, k, n):
+    return rng.integers(-128, 128, size=(k // 2, n)).astype(np.int8)
+
+
+def _csc(rng, k, n, prune=0.4):
+    keep = rng.random((k, n)) >= prune
+    q = np.where(keep, rng.integers(-8, 8, size=(k, n)), 0)
+    nnz = max(int(keep.sum(0).max()), 1)
+    order = np.argsort(~keep, axis=0, kind="stable")[:nnz]
+    taken = np.take_along_axis(keep, order, 0)
+    vals = np.where(taken, np.take_along_axis(q, order, 0), 0)
+    return (np.where(taken, order, 0).astype(np.int32),
+            vals.astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return jnp.asarray(a)
+
+
+def test_unpack_int4_every_byte():
+    """All 256 bytes: low nibble = even row, sign-extended, as the ref."""
+    from repro.core.compression.quantization import unpack_int4 as j_unpack
+
+    packed = np.arange(-128, 128, dtype=np.int8).reshape(2, 128)
+    got = ref.unpack_int4_ref(_t(packed)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_unpack(_j(packed))))
+    assert got.dtype == np.int8 and got.min() == -8 and got.max() == 7
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("layer", ["l0", "l1"])
+def test_int4_matmul_bitwise(width, layer):
+    d, h, _, b = WIDTHS[width]
+    rng = np.random.default_rng(11)
+    if layer == "l0":  # 8-bit quantized inputs, M = B
+        x = rng.integers(-128, 128, size=(b, d)).astype(np.float32)
+    else:  # L0 spikes folded over TS, M = TS * B
+        x = rng.integers(0, 2, size=(2 * b, h)).astype(np.float32)
+    k = x.shape[1]
+    packed = _packed(rng, k, h)
+    scale = rng.uniform(0.001, 0.1, h).astype(np.float32)
+    got = ops.int4_matmul(_t(x), _t(packed), _t(scale)).numpy()
+    want = np.asarray(jops.int4_matmul(_j(x), _j(packed), _j(scale)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("ts", [1, 2])
+def test_merged_spike_fc_bitwise(width, ts):
+    _, h, n, b = WIDTHS[width]
+    rng = np.random.default_rng(12 + ts)
+    spikes = rng.integers(0, 2, size=(ts, b, h)).astype(np.float32)
+    packed = _packed(rng, h, n)
+    scale = rng.uniform(0.001, 0.1, n).astype(np.float32)
+    got = ops.merged_spike_fc(_t(spikes), _t(packed), _t(scale)).numpy()
+    want = np.asarray(jops.merged_spike_fc(_j(spikes), _j(packed),
+                                           _j(scale)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("merged", [False, True])
+def test_sparse_fc_bitwise(width, merged):
+    _, h, n, b = WIDTHS[width]
+    rng = np.random.default_rng(13)
+    spikes = rng.integers(0, 2, size=(2, b, h)).astype(np.float32)
+    if merged:  # a pre-merged (B, H) input is accepted too
+        spikes = spikes.sum(axis=0)
+    idx, vals = _csc(rng, h, n)
+    scale = rng.uniform(0.001, 0.1, (1, n)).astype(np.float32)
+    got = ops.sparse_fc(_t(spikes), _t(idx), _t(vals), _t(scale)).numpy()
+    want = np.asarray(jops.sparse_fc(_j(spikes), _j(idx), _j(vals),
+                                     _j(scale)))
+    np.testing.assert_array_equal(got, want)
+
+
+def _near_threshold(stim, s_prev, w, u0, h0, beta, vth):
+    """(B, H) elements whose membrane is within U_TOL of the threshold at
+    some time step (numpy float64 replay of the chain)."""
+    stim = np.broadcast_to(stim, s_prev.shape).astype(np.float64)
+    u, h, near = u0.astype(np.float64), h0, np.zeros(u0.shape, bool)
+    for t in range(s_prev.shape[0]):
+        u = stim[t] + s_prev[t] @ w + beta * u * (1.0 - h)
+        near |= np.abs(u - vth) <= U_TOL * (1.0 + np.abs(u))
+        h = (u >= vth).astype(np.float64)
+    return near
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("broadcast", [True, False])
+def test_rsnn_cell_within_tolerance(width, broadcast):
+    """K1 plain vs the Pallas kernel.  ``broadcast`` feeds the L0 form: one
+    (B, H) stimulus row expanded over TS as a stride-0 view."""
+    _, h, _, b = WIDTHS[width]
+    ts = 2
+    rng = np.random.default_rng(14)
+    if broadcast:
+        row = rng.normal(size=(1, b, h)).astype(np.float32)
+        stim_np = np.broadcast_to(row, (ts, b, h))
+        stim_t = _t(row).expand(ts, b, h)
+    else:
+        stim_np = rng.normal(size=(ts, b, h)).astype(np.float32)
+        stim_t = _t(stim_np)
+    s_prev = rng.integers(0, 2, (ts, b, h)).astype(np.float32)
+    w = (rng.normal(size=(h, h)) * 0.1).astype(np.float32)
+    u0 = rng.normal(size=(b, h)).astype(np.float32)
+    h0 = rng.integers(0, 2, (b, h)).astype(np.float32)
+    beta = rng.choice([0.5, 0.75, 0.875], h).astype(np.float32)
+    vth = rng.choice([0.5, 1.0, 2.0], h).astype(np.float32)
+    args = (s_prev, w, u0, h0, beta, vth)
+    sp, u = ops.rsnn_cell(stim_t, *map(_t, args))
+    sp_j, u_j = jops.rsnn_cell(_j(np.ascontiguousarray(stim_np)),
+                               *map(_j, args))
+    sp_j, u_j = np.asarray(sp_j), np.asarray(u_j)
+    near = _near_threshold(stim_np, *args)
+    flipped = (sp.numpy() != sp_j).any(axis=0)
+    assert not (flipped & ~near).any()
+    ok = ~(flipped | near)
+    np.testing.assert_allclose(u.numpy()[ok], u_j[ok], rtol=U_TOL,
+                               atol=U_TOL)
+
+
+def test_cpu_tensor_runs_plain_version_without_launching():
+    rng = np.random.default_rng(15)
+    before = (cell_kernel.launches, sfc_kernel.launches)
+    idx, vals = _csc(rng, 16, 12)
+    spikes = _t(rng.integers(0, 2, (2, 4, 16)).astype(np.float32))
+    out = ops.sparse_fc(spikes, _t(idx), _t(vals), torch.ones(12))
+    assert out.shape == (4, 12)
+    assert (cell_kernel.launches, sfc_kernel.launches) == before
+    assert _build._lib is None  # nothing was built
+
+
+def test_other_device_and_cpu_operands_to_kernel_raise():
+    """A tensor on neither CPU nor CUDA has no version to run, and a CUDA
+    wrapper refuses CPU operands instead of computing on the host."""
+    meta = torch.empty((2, 4, 16), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ops.merged_spike_fc(meta, meta, meta)
+    z = torch.zeros((2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        cell_kernel.rsnn_cell(z, z, torch.zeros(16, 16), z[0], z[0],
+                              torch.ones(16), torch.ones(16))
+
+
+def test_spike_ops_match_reference():
+    """quantize_input (clipping included: the straight-through form need not
+    equal q there), bitplanes and the merged-spike readout, bit for bit."""
+    from repro.core import spike_ops as j_ops
+    from repro_torch.core import spike_ops
+
+    rng = np.random.default_rng(16)
+    x = (rng.normal(size=(64, 40)) * 3).astype(np.float32)
+    for scale in (None, np.float32(0.01)):  # 0.01 clips most values
+        q, s = spike_ops.quantize_input(
+            _t(x), 8, None if scale is None else torch.tensor(scale))
+        qj, sj = j_ops.quantize_input(_j(x), 8,
+                                      None if scale is None else _j(scale))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+        np.testing.assert_array_equal(spike_ops.bitplanes(q).numpy(),
+                                      np.asarray(j_ops.bitplanes(qj)))
+    spikes = rng.integers(0, 2, (2, 8, 16)).astype(np.float32)
+    w = rng.integers(-8, 8, (16, 12)).astype(np.float32)
+    np.testing.assert_array_equal(
+        spike_ops.merged_spike_fc(_t(spikes), _t(w)).numpy(),
+        np.asarray(j_ops.merged_spike_fc(_j(spikes), _j(w))))
