@@ -23,11 +23,19 @@ Phases, each printed on its own line:
      bit-equal (the dense and CSC readouts hold the same int4 matrix and
      sum integers); each is compared with the port's ``ref`` backend on
      the card: argmax agreement and spike-flip rate are printed, and a
-     teacher-forced run of frames is asserted within tolerance;
-  5. frames/s, and each kernel's mean time per frame at B = 256 from CUDA
+     teacher-forced run of frames is asserted: a slot's spikes may differ
+     only where the ``ref`` engine's potential lies within ``U_RTOL``/
+     ``U_ATOL`` of the threshold (those slots are counted and printed),
+     and the other slots' logits and potentials must agree within
+     ``LOGIT_ATOL``;
+  5. frames/s; the device busy share of one more run of each backend
+     under ``torch.profiler``, with the device operations that took most
+     of it; each kernel's mean time per frame at B = 256 from CUDA
      events beside its plain version, a PyTorch library yardstick and the
-     H100 bound (bytes over 3.35 TB/s or float32 operations over 67
-     TFLOP/s, whichever is larger).
+     H100 bound: the larger of bytes over 3.35 TB/s and operations over
+     the peak rate of their type (float32 outside the tensor cores, 67
+     TFLOP/s, for K1's dequantized weights; int8, 1,979 TOP/s, for K2-K4,
+     whose operands are 8-bit integers, spikes and int4 weights).
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.  The script imports neither
@@ -58,8 +66,15 @@ from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
 U_RTOL = 1e-5  # K1: order-dependent float32 recurrent sum
 U_ATOL = 1e-5
 LOGIT_ATOL = 1e-4  # cuda vs ref backend, teacher-forced frames
+STREAMS = 512  # utterances served per backend
+SLOTS = 256  # StreamLoop batch slots
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Peak operation rate of each kernel's operand type (H100 SXM data sheet,
+# dense): K1 multiplies float32 dequantized weights, which neither TF32 nor
+# int8 holds exactly; K2-K4 multiply 8-bit integer inputs or spikes by int4
+# weights, exact on the int8 tensor cores.
+PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
+                  "merged_spike_fc": 1979e12, "sparse_fc": 1979e12}
 LAYERS = ("l0_wx", "l0_wh", "l1_wx", "l1_wh", "fc_w")
 # uniform half-width of the float weights before int4 quantization, per
 # layer, chosen so that both layers fire at moderate rates on N(0, 1)
@@ -291,11 +306,11 @@ def check_kernels(packed, dev, seed: int) -> dict[str, float]:
 # ---------------------------------------------------------------- serving
 
 
-def serve(engine, utts, slots: int):
+def serve(engine, utts):
     """One StreamLoop run; returns (loop, finished requests, seconds)."""
     from repro_torch.serving.stream import StreamLoop
 
-    loop = StreamLoop(engine, batch_slots=slots, pipeline_depth=0)
+    loop = StreamLoop(engine, batch_slots=SLOTS, pipeline_depth=0)
     for u in utts:
         loop.submit(u)
     torch.cuda.synchronize()
@@ -322,31 +337,92 @@ def compare_free_running(eng, ref_eng, utts, frames: int):
     return flips / total
 
 
-def teacher_forced(eng, ref_eng, utts, frames: int) -> float:
-    """Each frame, both engines start from the ref engine's state; logits
-    and u must agree within tolerance, spikes may flip only near the
-    threshold (counted).  Returns the largest logit difference."""
+def near_threshold(ref_eng, state, xq, ref_next) -> list[torch.Tensor]:
+    """Per slot, for L0 and L1: whether the ``ref`` engine's step from
+    ``state`` on ``xq`` brings some neuron within ``U_RTOL``/``U_ATOL`` of
+    its threshold at some time step.  Recomputes the step's membrane
+    trace with the engine's own plain operations and checks that its
+    spikes are those of ``ref_next``, the engine's next state."""
+    ff, w, lif = ref_eng.ops.ff_matmul, ref_eng._w, ref_eng._lif
+    ts, b, h = state.h0.shape[0], xq.shape[0], ref_eng.cfg.hidden_dim
+    stim = ff(xq, "l0_wx").unsqueeze(0).expand(ts, b, h)
+    near = []
+    for i, (h_prev, lif_prev, s_next) in enumerate(
+            ((state.h0, state.lif0, ref_next.h0),
+             (state.h1, state.lif1, ref_next.h1))):
+        beta, vth = lif[f"beta{i}"], lif[f"vth{i}"]
+        trace = lif_trace(stim, torch.matmul(h_prev, w[f"l{i}_wh"]),
+                          lif_prev.u, lif_prev.spike, beta, vth)
+        spikes = (trace >= vth).float()
+        if not torch.equal(spikes, s_next):
+            raise AssertionError(f"near_threshold: the L{i} trace does not "
+                                 f"reproduce the ref engine's spikes")
+        near.append(((trace - vth).abs() <= U_ATOL + U_RTOL * vth.abs())
+                    .any(dim=0).any(dim=1))
+        stim = ff(spikes.reshape(ts * b, h), "l1_wx").reshape(ts, b, h)
+    return near
+
+
+def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
+    """Each frame, both engines start from the ref engine's state.  A slot's
+    spikes may differ only where the ref engine's potential is within
+    tolerance of the threshold (in L0, or in L1 with equal L0 spikes);
+    every other slot's logits and u must agree within tolerance.  Returns
+    (largest logit difference, slot-frames let through near threshold)."""
     b = len(utts)
     x = torch.from_numpy(np.stack([u[:frames] for u in utts], 1))
     state = ref_eng.init_state(b)
-    worst = 0.0
+    worst, let_through = 0.0, 0
     for t in range(frames):
         xq = ref_eng.quantize_features(x[t])
         sa, la, _ = eng.step(state, xq)
         sb, lb, _ = ref_eng.step(state, xq)
-        same = ((sa.h1 == sb.h1).all(dim=0).all(dim=1)
-                & (sa.h0 == sb.h0).all(dim=0).all(dim=1))
-        if float(same.float().mean()) < 0.99:
-            raise AssertionError(f"teacher-forced frame {t}: spikes differ "
-                                 f"in {int((~same).sum())} of {b} slots")
-        d = float((la - lb)[same].abs().max())
-        du = float((sa.lif1.u - sb.lif1.u)[same].abs().max())
-        if d > LOGIT_ATOL or du > 1e-4:
-            raise AssertionError(f"teacher-forced frame {t}: |dlogit| {d}, "
-                                 f"|du| {du}")
-        worst = max(worst, d)
+        near0, near1 = near_threshold(ref_eng, state, xq, sb)
+        diff0 = (sa.h0 != sb.h0).any(dim=0).any(dim=1)
+        diff1 = (sa.h1 != sb.h1).any(dim=0).any(dim=1)
+        bad = (diff0 & ~near0) | (diff1 & ~diff0 & ~near1)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"teacher-forced frame {t}: spikes differ away from the "
+                f"threshold in {int(bad.sum())} of {b} slots")
+        same = ~(diff0 | diff1)
+        let_through += int((~same).sum())
+        if bool(same.any()):
+            d = float((la - lb)[same].abs().max())
+            du = max(float((p.u - q.u)[same].abs().max())
+                     for p, q in ((sa.lif0, sb.lif0), (sa.lif1, sb.lif1)))
+            if d > LOGIT_ATOL or du > LOGIT_ATOL:
+                raise AssertionError(f"teacher-forced frame {t}: |dlogit| "
+                                     f"{d}, |du| {du}")
+            worst = max(worst, d)
         state = sb
-    return worst
+    return worst, let_through
+
+
+def device_busy(engine, utts, backend: str) -> None:
+    """Phase 5: one StreamLoop run under ``torch.profiler``; prints the
+    share of its wall time in which the card ran a kernel or a copy, and
+    the device operations that took most of it.  The profiler slows the
+    host, so the share is a lower bound for the unprofiled loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop, _, secs = serve(engine, utts)
+    ops = [(e.self_device_time_total, e.count, e.key)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in ops)
+    if busy_us <= 0:
+        print("device busy share: not measured (the profiler recorded no "
+              "device time)")
+        return
+    top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
+                    for t, c, k in sorted(ops, reverse=True)[:8])
+    print(f"device busy share ({backend}, profiled): "
+          f"{busy_us / 1e6 / secs!r} of {secs!r} s over {loop.steps} "
+          f"steps; device ms/step {busy_us / 1e3 / loop.steps!r}; top: {top}")
 
 
 # ----------------------------------------------------------------- timing
@@ -372,7 +448,7 @@ def nbytes(*ts) -> int:
 
 
 def work(name: str, args) -> tuple[int, float]:
-    """(bytes moved, float operations) of one kernel call on ``args``:
+    """(bytes moved, operations) of one kernel call on ``args``:
     each input read once (a broadcast stimulus counts its one row), each
     output written once; the sparse readout counts the stored entries."""
     if name == "rsnn_cell":
@@ -447,13 +523,14 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
             ms += cuda_ms(kern, args)
             plain_ms += cuda_ms(plain, args)
             by, ops = work(name, args)
-            bound += max(by / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+            bound += max(by / HBM_BYTES_PER_S,
+                         ops / PEAK_OPS_PER_S[name]) * 1e3
             lib = library_fn(name, args)
             lib_ms = None if lib is None or lib_ms is None else \
                 lib_ms + cuda_ms(*lib)
         by_bytes = all(
             work(name, a)[0] / HBM_BYTES_PER_S
-            >= work(name, a)[1] / F32_FLOP_PER_S for _, _, a in items)
+            >= work(name, a)[1] / PEAK_OPS_PER_S[name] for _, _, a in items)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src[name][0]}",
@@ -473,8 +550,6 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--streams", type=int, default=512)
-    ap.add_argument("--slots", type=int, default=256)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks)")
     args = ap.parse_args(argv)
@@ -500,7 +575,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0!r} s (nvcc "
           f"{_build.build_seconds!r} s)")
 
-    utts = utterances(args.seed, args.streams)
+    utts = utterances(args.seed, STREAMS)
     with tempfile.TemporaryDirectory() as tmp:
         path = write_artifact(Path(tmp) / "art", args.seed, utts)
         art = load_artifact(path)
@@ -511,7 +586,7 @@ def main(argv=None) -> int:
             return 0
 
         ref = CompiledRSNN.from_artifact(path, backend="ref")
-        _, ref_done, ref_s = serve(ref, utts, args.slots)
+        _, ref_done, ref_s = serve(ref, utts)
         ref_logits = [r.stacked_logits() for r in ref_done]
         modules = {"rsnn_cell": rsnn_cell, "int4_matmul": int4_matmul,
                    "merged_spike_fc": merged_spike_fc, "sparse_fc": sparse_fc}
@@ -525,7 +600,7 @@ def main(argv=None) -> int:
             eng = CompiledRSNN.from_artifact(path, backend=backend)
             for m in modules.values():
                 m.launches = 0
-            loop, done, secs = serve(eng, utts, args.slots)
+            loop, done, secs = serve(eng, utts)
             counts = {n: m.launches for n, m in modules.items()}
             for n, c in counts.items():
                 if c != loop.steps * expect[n]:
@@ -542,17 +617,19 @@ def main(argv=None) -> int:
             agree = float(np.mean(np.concatenate(
                 [a.argmax(1) == b.argmax(1)
                  for a, b in zip(logits, ref_logits)])))
-            flips = compare_free_running(eng, ref, utts[:args.slots], 40)
-            tf = teacher_forced(eng, ref, utts[:args.slots], 16)
+            flips = compare_free_running(eng, ref, utts[:SLOTS], 40)
+            tf, tf_near = teacher_forced(eng, ref, utts[:SLOTS], 16)
             prof = loop.sparsity_profile()
             print(f"serve {backend}: {len(done)} streams, {loop.steps} "
                   f"steps, {loop.frames_served} frames in {secs!r} s = "
                   f"{loop.frames_served / secs!r} frames/s; launches "
                   f"{counts}; argmax agreement with ref {agree!r}; spike "
                   f"flip rate {flips!r}; teacher-forced max |dlogit| "
-                  f"{tf!r}; L0/L1 density {prof.l0_density}/"
+                  f"{tf!r}, slot-frames let through near the threshold "
+                  f"{tf_near}; L0/L1 density {prof.l0_density}/"
                   f"{prof.l1_density}")
             served[backend] = logits
+            device_busy(eng, utts, backend)
         print(f"serve ref: {ref_s!r} s = "
               f"{sum(map(len, utts)) / ref_s!r} frames/s")
         for a, b in zip(served["pallas"], served["sparse"]):

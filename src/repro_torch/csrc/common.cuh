@@ -2,8 +2,9 @@
 //
 // Every kernel here is a plain CUDA C++ kernel behind an extern "C" launch
 // function: pointers and the stream arrive as void*, sizes as int, and the
-// launch function returns cudaGetLastError() so that the Python wrapper
-// raises on a refused launch.  No kernel allocates or synchronises.
+// launch function returns cudaGetLastError() (or one of the kErr codes
+// below, without launching) so that the Python wrapper raises on a refused
+// launch.  No kernel allocates or synchronises.
 //
 // Tiling shared by the four kernels: one thread per output column (kCols
 // columns per block, neighbouring threads on neighbouring addresses, so
@@ -21,6 +22,12 @@ namespace reprotorch {
 constexpr int kCols = 128;  // output columns per block, one per thread
 constexpr int kRows = 8;    // batch rows per block
 constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
+constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
+
+// Status codes a launch function returns, besides the cudaError_t values
+// (>= 0), for a shape its kernel cannot take; status.cu gives their text.
+constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
+constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {

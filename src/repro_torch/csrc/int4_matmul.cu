@@ -12,11 +12,14 @@
 // and the single multiply by the scale rounds once: bit-equal to the plain
 // version.
 //
-// Bound on the H100: at B = 256 the L0 call is bound by bytes (0.05 us) and
-// the L1 call by float32 operations (0.25 us).  Measured 0.028 ms a call
-// (chip_smoke.py, H100 80GB HBM3 at 700 W): 32-64 blocks, each thread
-// waiting on one packed byte per step of its loop.  Design: one thread per output
-// column, kRows rows of x in shared memory, each packed byte loaded once
+// Bound on the H100: the operands are 8-bit integers or spikes times int4
+// weights, exact on the int8 tensor cores (1,979 TOP/s), so bytes bound
+// both calls at B = 256: 0.175 MB for L0 (0.052 us) and 0.533 MB for L1
+// (0.159 us).  The measured time (PERF.md, from chip_smoke.py) is far above
+// it: 32-64 blocks, each thread waiting on one packed byte per step of its
+// loop.
+//
+// Design: one thread per output column, kRows rows of x in shared memory, each packed byte loaded once
 // (coalesced across n) and unpacked in registers for kRows rows — the int4
 // weights never exist in memory at float precision.
 #include "common.cuh"
@@ -59,6 +62,7 @@ extern "C" int int4_matmul_launch(const void* x, const void* packed,
                                   int n, void* stream) {
   const dim3 grid((n + kCols - 1) / kCols, (m + kRows - 1) / kRows);
   const size_t smem = sizeof(float) * static_cast<size_t>(m < kRows ? m : kRows) * k;
+  if (smem > reprotorch::kMaxSharedBytes) return reprotorch::kErrSharedMemory;
   int4_matmul_kernel<<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(packed),
       static_cast<const float*>(scale), static_cast<float*>(out), m, k, n);

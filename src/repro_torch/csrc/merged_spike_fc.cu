@@ -9,10 +9,14 @@
 // (N,) float32; out (B, N) float32.  Merged spikes lie in {0..TS}, so the
 // sums are exact integers and the result is bit-equal to the plain version.
 //
-// Bound on the H100: at B = 256, H = 128, N = 1920 the call moves 2.4 MB
-// (the 1.97 MB output dominates) and does 126 MFLOP, so float32 operations
-// bound it at 1.9 us.  Measured 0.026 ms (chip_smoke.py, H100 80GB HBM3 at
-// 700 W): each thread's loop waits on one packed byte per step.  Design: the TS trains of kRows rows are summed once into shared memory
+// Bound on the H100: at B = 256, H = 128, N = 1920 the call moves 2.36 MB
+// (the 1.97 MB output dominates) and does 126 M operations on spikes in
+// {0..TS} and int4 weights, exact on the int8 tensor cores (1,979 TOP/s):
+// bytes bound it, at 0.70 us.  The measured time (PERF.md, from
+// chip_smoke.py) is far above it: each thread's loop waits on one packed
+// byte per step.
+//
+// Design: the TS trains of kRows rows are summed once into shared memory
 // (one weight pass serves every time step), then each thread walks one
 // output column's packed bytes, unpacking nibbles in registers.
 #include "common.cuh"
@@ -53,6 +57,7 @@ extern "C" int merged_spike_fc_launch(const void* spikes, const void* packed,
                                       int b, int h, int n, void* stream) {
   const dim3 grid((n + kCols - 1) / kCols, (b + kRows - 1) / kRows);
   const size_t smem = sizeof(float) * static_cast<size_t>(b < kRows ? b : kRows) * h;
+  if (smem > reprotorch::kMaxSharedBytes) return reprotorch::kErrSharedMemory;
   merged_spike_fc_kernel<<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(spikes), static_cast<const int8_t*>(packed),
       static_cast<const float*>(scale), static_cast<float*>(out), ts, b, h, n);

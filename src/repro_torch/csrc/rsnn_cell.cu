@@ -13,11 +13,14 @@
 // u (B, H), all float32.
 //
 // Bound on the H100: at the main path's B = 256, H = 128, TS = 2 a call
-// moves 1.1-1.2 MB and does 17 MFLOP: bytes bound it, at 0.33-0.37 us.
-// Measured 0.14 ms a call (chip_smoke.py, H100 80GB HBM3 at 700 W): with
-// 8 rows a block there are only 32 blocks, and each thread's loop over k
-// waits on one W load per step, so the kernel is latency-bound.  Design: one thread per output neuron n and kRows
-// batch rows per block; the rows' previous spikes sit in shared memory, each
+// moves 1.1-1.2 MB and does 17 MFLOP of float32 (67 TFLOP/s outside the
+// tensor cores, which hold no float32 product exactly): bytes bound it, at
+// 0.33-0.37 us.  The measured time (PERF.md, from chip_smoke.py) is far
+// above it: with 8 rows a block there are only 32 blocks, and each
+// thread's loop over k waits on one W load per step, so the kernel is
+// latency-bound.
+//
+// Design: one thread per output neuron n and kRows batch rows per block; the rows' previous spikes sit in shared memory, each
 // W[k][n] is loaded once (coalesced across n) and feeds kRows x TS
 // accumulators in registers, and the LIF chain runs in the epilogue so the
 // stimulus never goes back to global memory.  The chain rounds every
@@ -101,6 +104,8 @@ extern "C" int rsnn_cell_launch(const void* stim, long long stim_st,
                                 int h, void* stream) {
   const dim3 grid((h + kCols - 1) / kCols, (b + kRows - 1) / kRows);
   const size_t smem = sizeof(float) * static_cast<size_t>(b < kRows ? b : kRows) * ts * h;
+  if (ts > kMaxTs) return reprotorch::kErrTooManySteps;
+  if (smem > reprotorch::kMaxSharedBytes) return reprotorch::kErrSharedMemory;
   rsnn_cell_kernel<<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(stim), stim_st, stim_sb,
       static_cast<const float*>(s_prev), static_cast<const float*>(w),

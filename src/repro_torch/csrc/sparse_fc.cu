@@ -16,9 +16,11 @@
 //
 // Bound on the H100: bytes — the 8 bytes of index + value per padded
 // entry (nnz_max x 1920 x 8 B, 1.5 MB at 40% pruning) and the 1.97 MB
-// output at B = 256: 1.1 us.  Measured 0.066 ms (chip_smoke.py, H100 80GB
-// HBM3 at 700 W): each thread's loop waits on one index, then one value,
-// per step.  Design: the merged spikes of kRows rows sit in shared
+// output at B = 256: 1.1 us.  The measured time (PERF.md, from
+// chip_smoke.py) is far above it: each thread's loop waits on one index,
+// then one value, per step.
+//
+// Design: the merged spikes of kRows rows sit in shared
 // memory; each thread walks one output column's index/value lists
 // (coalesced across n) and gathers from shared memory for kRows rows, so
 // the TPU kernel's (B, nnz_max, N) gather intermediate never exists.
@@ -71,6 +73,7 @@ extern "C" int sparse_fc_launch(const void* spikes, const void* indices,
                                 int n, void* stream) {
   const dim3 grid((n + kCols - 1) / kCols, (b + kRows - 1) / kRows);
   const size_t smem = sizeof(float) * static_cast<size_t>(b < kRows ? b : kRows) * h;
+  if (smem > reprotorch::kMaxSharedBytes) return reprotorch::kErrSharedMemory;
   sparse_fc_kernel<<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(spikes), static_cast<const int*>(indices),
       static_cast<const float*>(values), static_cast<const float*>(scale),

@@ -1,6 +1,13 @@
 // Error text for the status codes the launch functions return.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 extern "C" const char* reprotorch_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case reprotorch::kErrTooManySteps:
+      return "more time steps than the kernel keeps in registers (kMaxTs)";
+    case reprotorch::kErrSharedMemory:
+      return "the block's operand rows exceed its shared memory (kMaxSharedBytes)";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }

@@ -6,7 +6,8 @@ linked into one shared library, ``build/libreprotorch.so`` at the root of
 the checkout, which is loaded with ``ctypes``.  The kernels expose a plain
 C interface: every pointer and the stream pass as ``c_void_p``, sizes as
 ``c_int``/``c_longlong``, and each launch function returns
-``cudaGetLastError()``, which ``check`` turns into an exception.
+``cudaGetLastError()``, or a negative code for a shape its kernel cannot
+take, which ``check`` turns into an exception.
 
 The library is rebuilt whenever the sources or the flags change (a SHA-256
 stamp beside it).  Nothing here runs at import time, and there is no
@@ -124,11 +125,12 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def check(status: int, kernel: str) -> None:
-    """Raise if a launch function returned a CUDA error."""
+    """Raise if a launch function returned a CUDA error, or refused a
+    shape its kernel cannot take (a negative status, see csrc/common.cuh)."""
     if status != 0:
         text = library().reprotorch_error_string(status).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
-                           f"{status} ({text})")
+        raise RuntimeError(f"{kernel} kernel launch failed: status {status} "
+                           f"({text})")
 
 
 def cuda_device(kernel: str, dtypes: dict, **tensors) -> torch.device:
@@ -149,10 +151,3 @@ def stream(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``, for a launch."""
     return torch.cuda.current_stream(device).cuda_stream
 
-
-def shared_bytes_ok(kernel: str, nbytes: int) -> None:
-    """Raise if a launch would need more than the 48 KB of shared memory a
-    block gets without opting in."""
-    if nbytes > 48 * 1024:
-        raise ValueError(f"{kernel}: needs {nbytes} bytes of shared memory "
-                         f"per block, more than the 49152 this kernel uses")

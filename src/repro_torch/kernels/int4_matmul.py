@@ -15,7 +15,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROWS = 8  # kRows in csrc/common.cuh
 launches = 0
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -36,7 +35,6 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"int4_matmul: x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)}, scale {tuple(scale.shape)} "
                          f"do not agree")
-    _build.shared_bytes_ok("int4_matmul", 4 * min(ROWS, m) * k)
     x, packed = x.contiguous(), packed.contiguous()
     scale = scale.reshape(n).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

@@ -15,7 +15,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROWS = 8  # kRows in csrc/common.cuh
 launches = 0
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -37,7 +36,6 @@ def merged_spike_fc(spikes_ts: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"merged_spike_fc: spikes {tuple(spikes_ts.shape)},"
                          f" packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)} do not agree")
-    _build.shared_bytes_ok("merged_spike_fc", 4 * min(ROWS, b) * h)
     spikes_ts, packed = spikes_ts.contiguous(), packed.contiguous()
     scale = scale.reshape(n).contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=dev)

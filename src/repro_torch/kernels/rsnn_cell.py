@@ -16,8 +16,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_TS = 4  # kMaxTs in csrc/common.cuh
-ROWS = 8  # kRows in csrc/common.cuh
 launches = 0
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
@@ -47,10 +45,6 @@ def rsnn_cell(stim_base: torch.Tensor, s_prev: torch.Tensor, w: torch.Tensor,
             f"{tuple(s_prev.shape)}, w {tuple(w.shape)}, u0 "
             f"{tuple(u0.shape)}, h0 {tuple(h0.shape)}, beta "
             f"{tuple(beta.shape)}, vth {tuple(vth.shape)} do not agree")
-    if ts > MAX_TS:
-        raise ValueError(f"rsnn_cell kernel keeps at most {MAX_TS} time "
-                         f"steps in registers, got {ts}")
-    _build.shared_bytes_ok("rsnn_cell", 4 * min(ROWS, b) * ts * h)
     if stim_base.stride(2) != 1:
         stim_base = stim_base.contiguous()
     s_prev, w, u0, h0 = (t.contiguous() for t in (s_prev, w, u0, h0))

@@ -15,7 +15,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROWS = 8  # kRows in csrc/common.cuh
 launches = 0
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -39,7 +38,6 @@ def sparse_fc(spikes_ts: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"sparse_fc: indices {tuple(indices.shape)}, values "
                          f"{tuple(values.shape)}, scale {tuple(scale.shape)} "
                          f"do not agree")
-    _build.shared_bytes_ok("sparse_fc", 4 * min(ROWS, b) * h)
     spikes_ts, indices, values = (t.contiguous()
                                   for t in (spikes_ts, indices, values))
     scale = scale.reshape(n).contiguous()
