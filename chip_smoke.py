@@ -7,35 +7,52 @@ against their plain PyTorch versions.
 Phases, each printed on its own line:
 
   1. the card (``nvidia-smi`` name and power limit) and the kernel build;
-  2. each kernel (K1 rsnn_cell, K2 int4_matmul, K3 merged_spike_fc, K4
-     sparse_fc) against its plain version on the card at the main path's
-     shapes, B = 256 and a ragged B = 200: K2-K4 bit for bit
-     (``torch.equal``), K1 within ``U_RTOL``/``U_ATOL`` on the membrane
-     potential, with a spike allowed to differ only where the plain
-     version's potential lies within that tolerance of the threshold;
+  2. each kernel against its plain version on the card at the main path's
+     shapes, B = 256 and a ragged B = 200 (``check_call``): K2-K4
+     (int4_matmul, merged_spike_fc, sparse_fc) bit for bit
+     (``torch.equal``); K1 (rsnn_cell) and K10 (spike_cell) within
+     ``U_RTOL``/``U_ATOL`` on the membrane potential, with a spike allowed
+     to differ only where the plain potential lies within that tolerance
+     of the threshold; K9 (spike_broadcast: the 2-D L1 feed-forward and
+     the 3-D FC union) within ``TOL``; K8 (delta_step) with mask, held
+     input and cached rows exact and recomputed rows within ``TOL``.
+     K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row; K8 at
+     ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
+     row takes the cached branch;
   3. a PRUNED int4 artifact (40 -> 128 -> 128 -> 1920, TS = 2, FC pruned
      40% into padded CSC) made from ``--seed`` with numpy and written in
      the reference's schema-v2 format;
   4. 512 seeded utterances of 40-100 frames served through
-     ``StreamLoop(batch_slots=256, pipeline_depth=0)`` with backend
-     ``pallas`` and with backend ``sparse``; every kernel's launch count
-     must equal steps x launches per step; the two backends' logits must be
-     bit-equal (the dense and CSC readouts hold the same int4 matrix and
-     sum integers); each is compared with the port's ``ref`` backend on
-     the card: argmax agreement and spike-flip rate are printed, and a
-     teacher-forced run of frames is asserted: a slot's spikes may differ
-     only where the ``ref`` engine's potential lies within ``U_RTOL``/
-     ``U_ATOL`` of the threshold (those slots are counted and printed),
-     and the other slots' logits and potentials must agree within
-     ``LOGIT_ATOL``;
-  5. frames/s; the device busy share of one more run of each backend
-     under ``torch.profiler``, with the device operations that took most
-     of it; each kernel's mean time per frame at B = 256 from CUDA
-     events beside its plain version, a PyTorch library yardstick and the
-     H100 bound: the larger of bytes over 3.35 TB/s and operations over
-     the peak rate of their type (float32 outside the tensor cores, 67
-     TFLOP/s, for K1's dequantized weights; int8, 1,979 TOP/s, for K2-K4,
-     whose operands are 8-bit integers, spikes and int4 weights).
+     ``StreamLoop(batch_slots=256, pipeline_depth=0)`` in every
+     configuration of ``SERVED``: ``pallas``, ``sparse``, ``spike`` with
+     the CSC readout (K4) and without it (K9's union), ``delta`` at
+     threshold 0 and at ``DELTA_THRESHOLD``.  Every kernel's launch count
+     must equal steps x its launches per step in that configuration (0
+     for a kernel it does not run); ``pallas`` and ``sparse`` logits must
+     be bit-equal (the dense and CSC readouts hold the same int4 matrix
+     and sum integers).  Each is compared with the port's ``ref`` backend
+     on the card: argmax agreement and spike-flip rate are printed, and
+     where the configuration computes ``ref``'s function (all but
+     ``delta`` at a positive threshold) a teacher-forced run of frames is
+     asserted: a slot's spikes may differ only where the ``ref`` engine's
+     potential lies within ``U_RTOL``/``U_ATOL`` of the threshold (those
+     slots are counted and printed), and the other slots' logits and
+     potentials must agree within ``LOGIT_ATOL``.  Frames/s, the measured
+     densities, ``delta_input_density`` and ``mmac_per_second()`` are
+     printed;
+  5. the device busy share of one more run of ``pallas``, ``sparse``,
+     ``spike`` and ``delta`` at ``DELTA_THRESHOLD`` under
+     ``torch.profiler``, with the device operations that took most of it;
+     each kernel's mean time per frame at B = 256 from CUDA events beside
+     its plain version, a PyTorch library yardstick where one call
+     computes the same function, and the H100 bound: the larger of bytes
+     over 3.35 TB/s and operations over the peak rate of their type
+     (float32 outside the tensor cores, 67 TFLOP/s, for K1 and K8-K10,
+     whose dequantized weights no tensor-core type holds exactly; int8,
+     1,979 TOP/s, for K2-K4, whose operands are 8-bit integers, spikes and
+     int4 weights).  A gathered or gated kernel counts what this run's
+     data needs (``work``).  Every configuration is then served once more,
+     in reverse order, for the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.  The script imports neither
@@ -51,6 +68,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -63,18 +81,36 @@ import torch  # noqa: E402
 from repro_torch.configs.rsnn_timit import PRUNED  # noqa: E402
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
 
-U_RTOL = 1e-5  # K1: order-dependent float32 recurrent sum
+U_RTOL = 1e-5  # K1/K10: order-dependent float32 recurrent sum
 U_ATOL = 1e-5
-LOGIT_ATOL = 1e-4  # cuda vs ref backend, teacher-forced frames
-STREAMS = 512  # utterances served per backend
+TOL = 1e-5  # K8 recomputed rows, K9: |d| <= TOL * (1 + |y|), float32 sums
+LOGIT_ATOL = 1e-4  # kernel backends vs ref backend, teacher-forced frames
+STREAMS = 512  # utterances served per configuration
 SLOTS = 256  # StreamLoop batch slots
+TRUNC_CAPACITY = 16  # a truncating event list: rows hold ~38-65 events
+DELTA_THRESHOLD = 2.0  # LSB of the 8-bit input
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak operation rate of each kernel's operand type (H100 SXM data sheet,
-# dense): K1 multiplies float32 dequantized weights, which neither TF32 nor
-# int8 holds exactly; K2-K4 multiply 8-bit integer inputs or spikes by int4
-# weights, exact on the int8 tensor cores.
+# dense): K1 and K8-K10 multiply float32 dequantized weights, which
+# neither TF32 nor int8 holds exactly; K2-K4 multiply 8-bit integer inputs
+# or spikes by int4 weights, exact on the int8 tensor cores.
 PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
-                  "merged_spike_fc": 1979e12, "sparse_fc": 1979e12}
+                  "merged_spike_fc": 1979e12, "sparse_fc": 1979e12,
+                  "delta_step": 67e12, "spike_broadcast": 67e12,
+                  "spike_cell": 67e12}
+# kernel -> (CUDA source in csrc/, the TPU kernel's pl.pallas_call)
+SOURCES = {
+    "rsnn_cell": ("rsnn_cell.cu", "src/repro/kernels/rsnn_cell.py:53"),
+    "int4_matmul": ("int4_matmul.cu", "src/repro/kernels/int4_matmul.py:65"),
+    "merged_spike_fc": ("merged_spike_fc.cu",
+                        "src/repro/kernels/merged_spike_fc.py:43"),
+    "sparse_fc": ("sparse_fc.cu", "src/repro/kernels/sparse_fc.py:69"),
+    "delta_step": ("delta_step.cu", "src/repro/kernels/delta_step.py:57"),
+    "spike_broadcast": ("spike_broadcast.cu",
+                        "src/repro/kernels/spike_broadcast.py:132"),
+    "spike_cell": ("spike_cell.cu",
+                   "src/repro/kernels/spike_broadcast.py:183"),
+}
 LAYERS = ("l0_wx", "l0_wh", "l1_wx", "l1_wh", "fc_w")
 # uniform half-width of the float weights before int4 quantization, per
 # layer, chosen so that both layers fire at moderate rates on N(0, 1)
@@ -200,28 +236,52 @@ def lif_trace(stim: torch.Tensor, rec: torch.Tensor, u0, h0, beta, vth):
     return torch.stack(trace)
 
 
-def check_cell(got, want, stim, s_prev, w, u0, h0, beta, vth) -> float:
-    """K1 within tolerance: u close where the spike trains agree; a spike
-    may differ only where the plain potential is within tolerance of the
-    threshold at some time step.  Returns the largest |du| kept."""
+def check_cell(name, got, want, stim, rec, u0, h0, beta, vth) -> float:
+    """K1/K10 within tolerance: u close where the spike trains agree; a
+    spike may differ only where the plain potential (over the plain
+    recurrent term ``rec``) is within tolerance of the threshold at some
+    time step.  Returns the largest |du| kept."""
     (s_k, u_k), (s_p, u_p) = got, want
-    trace = lif_trace(stim, torch.matmul(s_prev, w), u0, h0, beta, vth)
+    trace = lif_trace(stim, rec, u0, h0, beta, vth)
     near = ((trace - vth).abs() <= U_ATOL + U_RTOL * vth.abs()).any(dim=0)
     flipped = (s_k != s_p).any(dim=0)
     if bool((flipped & ~near).any()):
-        raise AssertionError("rsnn_cell: a spike differs away from the "
-                             "threshold")
+        raise AssertionError(f"{name}: a spike differs away from the "
+                             f"threshold")
     ok = ~(flipped | near)
     du = (u_k - u_p).abs()[ok]
     lim = (U_ATOL + U_RTOL * u_p.abs())[ok]
     if bool((du > lim).any()):
-        raise AssertionError(f"rsnn_cell: |du| up to {float(du.max())}")
+        raise AssertionError(f"{name}: |du| up to {float(du.max())}")
     return float(du.max()) if du.numel() else 0.0
+
+
+def check_close(name, got, want) -> float:
+    """``|got - want| <= TOL * (1 + |want|)`` everywhere; returns the
+    largest |difference|."""
+    d = (got - want).abs()
+    if bool((d > TOL * (1.0 + want.abs())).any()):
+        raise AssertionError(f"{name}: |diff| up to {float(d.max())}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_delta(got, want, x, x_prev, pre_prev, w, thr) -> float:
+    """K8: mask and x_hat exact, a row that propagated nothing bit-equal
+    to ``pre_prev``, a recomputed row within ``TOL``."""
+    (xh_k, pre_k, m_k), (xh_p, pre_p, m_p) = got, want
+    if not (torch.equal(m_k, m_p) and torch.equal(xh_k, xh_p)):
+        raise AssertionError("delta_step: mask or x_hat differ")
+    held = ~m_p.bool().any(dim=1)
+    if not torch.equal(pre_k[held], pre_prev[held]):
+        raise AssertionError("delta_step: a cached row is not pre_prev")
+    return check_close("delta_step", pre_k[~held], pre_p[~held])
 
 
 def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
     """Main-path operands for batch ``b``: int4 weights of the artifact,
-    8-bit integer inputs, random 0/1 spikes and membrane state."""
+    8-bit integer inputs, random 0/1 spikes and membrane state, and for
+    K8 a previous frame whose rows repeat (every 4th), move by at most
+    ``DELTA_THRESHOLD`` LSB (every 4th, one further) or change."""
     from repro_torch.core.sparse import dequantize
 
     cfg = PRUNED
@@ -234,32 +294,53 @@ def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
         return packed.quant[name].packed.to(dev), \
             packed.quant[name].scale.reshape(-1).to(dev)
 
-    x = torch.randint(-128, 128, (b, d), generator=gen).float().to(dev)
+    def w(name):
+        return dequantize(packed.quant[name]).to(dev)
+
+    x = torch.randint(-128, 128, (b, d), generator=gen).float()
+    x_prev = torch.randint(-128, 128, (b, d), generator=gen).float()
+    x_prev[0::4] = x[0::4]
+    x_prev[1::4] = x[1::4] + torch.randint(
+        -int(DELTA_THRESHOLD), int(DELTA_THRESHOLD) + 1,
+        x[1::4].shape, generator=gen).float()
     ff0 = (torch.randn((b, h), generator=gen) * 0.8).to(dev)
     csc = packed.sparse["fc_w"]
     return {
-        "x": x, "l0": q("l0_wx"), "l1": q("l1_wx"), "fc": q("fc_w"),
+        "x": x.to(dev), "x_prev": x_prev.to(dev),
+        "pre_prev": torch.randn((b, h), generator=gen).to(dev),
+        "l0": q("l0_wx"), "l1": q("l1_wx"), "fc": q("fc_w"),
         "csc": (csc.indices.to(dev), csc.values.to(dev),
                 csc.scale.reshape(-1).to(dev)),
         "stim0": ff0.unsqueeze(0).expand(ts, b, h),
         "stim1": (torch.randn((ts, b, h), generator=gen) * 0.8).to(dev),
         "s0": spikes(ts, b, h), "s1": spikes(ts, b, h),
-        "w0h": dequantize(packed.quant["l0_wh"]).to(dev),
-        "w1h": dequantize(packed.quant["l1_wh"]).to(dev),
+        "w0x": w("l0_wx"), "w1x": w("l1_wx"), "wfc": w("fc_w"),
+        "w0h": w("l0_wh"), "w1h": w("l1_wh"),
         "u0": torch.randn((b, h), generator=gen).to(dev),
         "h0": spikes(b, h),
         "beta": packed.lif["beta0"].to(dev), "vth": packed.lif["vth0"].to(dev),
     }
 
 
-def kernel_calls(a: dict) -> dict:
+def kernel_calls(a: dict, capacity: int | None = None,
+                 threshold: float = DELTA_THRESHOLD) -> dict:
     """Each kernel's calls of one frame on operands ``a``: name ->
-    list of (kernel, plain, args).  Imported late: the module needs the
-    package on ``sys.path``."""
-    from repro_torch.kernels import (int4_matmul, merged_spike_fc, ref,
-                                     rsnn_cell, sparse_fc)
+    list of (kernel, plain, args).  K9/K10 run at event-list ``capacity``
+    (``None``: lossless, as served), K8 at ``threshold``; K9's two calls
+    are those of a ``spike`` frame without ``sparse_fc`` (L1 feedforward,
+    FC union).  Imported late: the module needs the package on
+    ``sys.path``."""
+    from repro_torch.kernels import (delta_step, int4_matmul,
+                                     merged_spike_fc, ref, rsnn_cell,
+                                     sparse_fc, spike_broadcast)
 
     cell = (a["u0"], a["h0"], a["beta"], a["vth"])
+    cap = {"capacity": capacity}
+    sb = functools.partial(spike_broadcast.spike_broadcast, **cap)
+    sb_ref = functools.partial(ref.spike_broadcast_ref, **cap)
+    sc = functools.partial(spike_broadcast.spike_cell, **cap)
+    sc_ref = functools.partial(ref.spike_cell_ref, **cap)
+    s0_rows = a["s0"].reshape(-1, a["s0"].shape[-1])
     return {
         "rsnn_cell": [
             (rsnn_cell.rsnn_cell, ref.rsnn_cell_ref,
@@ -270,40 +351,83 @@ def kernel_calls(a: dict) -> dict:
             (int4_matmul.int4_matmul, ref.int4_matmul_ref,
              (a["x"], *a["l0"])),
             (int4_matmul.int4_matmul, ref.int4_matmul_ref,
-             (a["s0"].reshape(-1, a["s0"].shape[-1]), *a["l1"]))],
+             (s0_rows, *a["l1"]))],
         "merged_spike_fc": [
             (merged_spike_fc.merged_spike_fc, ref.merged_spike_fc_ref,
              (a["s1"], *a["fc"]))],
         "sparse_fc": [
             (sparse_fc.sparse_fc, ref.sparse_fc_ref, (a["s1"], *a["csc"]))],
+        "delta_step": [
+            (delta_step.delta_step, ref.delta_step_ref,
+             (a["x"], a["x_prev"], a["pre_prev"], a["w0x"], threshold))],
+        "spike_broadcast": [
+            (sb, sb_ref, (s0_rows, a["w1x"])),
+            (sb, sb_ref, (a["s1"], a["wfc"]))],
+        "spike_cell": [
+            (sc, sc_ref, (a["stim0"], a["s0"], a["w0h"], *cell)),
+            (sc, sc_ref, (a["stim1"], a["s1"], a["w1h"], *cell))],
     }
 
 
+def check_call(name, got, want, args, capacity) -> float:
+    """One kernel call against its plain version; returns its error."""
+    from repro_torch.kernels.ref import spike_broadcast_ref
+
+    if name in ("rsnn_cell", "spike_cell"):
+        stim, s, w, *cell = args
+        ts, b, h = s.shape
+        rec = spike_broadcast_ref(s.reshape(ts * b, h), w, capacity
+                                  if name == "spike_cell" else None)
+        return check_cell(name, got, want, stim, rec.reshape(ts, b, h),
+                          *cell)
+    if name == "delta_step":
+        return check_delta(got, want, *args)
+    if name == "spike_broadcast":
+        return check_close(name, got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to its plain version: "
+                             f"max |diff| {float((got - want).abs().max())}")
+    return 0.0
+
+
 def check_kernels(packed, dev, seed: int) -> dict[str, float]:
-    """Phase 2: every kernel against its plain version on the card."""
+    """Phase 2: every kernel against its plain version on the card, at
+    B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
+    at threshold 0 (first on a repeated frame: every row cached) and
+    ``DELTA_THRESHOLD``."""
     errs: dict[str, float] = {}
     gen = torch.Generator().manual_seed(seed)
     for b in (256, 200):
-        calls = kernel_calls(kernel_inputs(packed, b, gen, dev))
-        for name, items in calls.items():
-            for kern, plain, args in items:
-                got, want = kern(*args), plain(*args)
-                torch.cuda.synchronize()
-                if name == "rsnn_cell":
-                    err = check_cell(got, want, *args)
-                elif not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{name}: not bit-equal to its plain version at "
-                        f"B={b}: max |diff| "
-                        f"{float((got - want).abs().max())}")
-                else:
-                    err = 0.0
-                errs[name] = max(errs.get(name, 0.0), err)
-            print(f"check {name} B={b}: ok, max_abs_err {errs[name]!r}")
+        a = kernel_inputs(packed, b, gen, dev)
+        repeat = dict(a, x_prev=a["x"])
+        variants = [
+            (None, DELTA_THRESHOLD, kernel_calls(a)),
+            (None, 0.0, {"delta_step": kernel_calls(
+                repeat, threshold=0.0)["delta_step"]}),
+            (TRUNC_CAPACITY, 0.0, {
+                k: v for k, v in kernel_calls(a, TRUNC_CAPACITY, 0.0).items()
+                if k in ("spike_broadcast", "spike_cell", "delta_step")})]
+        for cap, thr, calls in variants:
+            for name, items in calls.items():
+                for kern, plain, args in items:
+                    got, want = kern(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    err = check_call(name, got, want, args, cap)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                knob = {"delta_step": f" threshold={thr}",
+                        "spike_broadcast": f" capacity={cap}",
+                        "spike_cell": f" capacity={cap}"}.get(name, "")
+                print(f"check {name} B={b}{knob}: ok, max_abs_err "
+                      f"{errs[name]!r}")
     return errs
 
 
 # ---------------------------------------------------------------- serving
+
+
+def core(state):
+    """The recurrent state inside a delta backend's state."""
+    return getattr(state, "rsnn", state)
 
 
 def serve(engine, utts):
@@ -331,7 +455,7 @@ def compare_free_running(eng, ref_eng, utts, frames: int):
         xq = eng.quantize_features(x[t])
         sa, _, _ = eng.step(sa, xq)
         sb, _, _ = ref_eng.step(sb, xq)
-        for p, q in ((sa.h0, sb.h0), (sa.h1, sb.h1)):
+        for p, q in ((core(sa).h0, sb.h0), (core(sa).h1, sb.h1)):
             flips += int((p != q).sum())
             total += p.numel()
     return flips / total
@@ -364,18 +488,22 @@ def near_threshold(ref_eng, state, xq, ref_next) -> list[torch.Tensor]:
 
 
 def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
-    """Each frame, both engines start from the ref engine's state.  A slot's
-    spikes may differ only where the ref engine's potential is within
-    tolerance of the threshold (in L0, or in L1 with equal L0 spikes);
-    every other slot's logits and u must agree within tolerance.  Returns
-    (largest logit difference, slot-frames let through near threshold)."""
+    """Each frame, both engines start from the ref engine's state (a delta
+    engine keeps its own held input and cached pre-activation around it).
+    A slot's spikes may differ only where the ref engine's potential is
+    within tolerance of the threshold (in L0, or in L1 with equal L0
+    spikes); every other slot's logits and u must agree within tolerance.
+    Returns (largest logit difference, slot-frames let through near the
+    threshold)."""
     b = len(utts)
     x = torch.from_numpy(np.stack([u[:frames] for u in utts], 1))
-    state = ref_eng.init_state(b)
+    state, own = ref_eng.init_state(b), eng.init_state(b)
     worst, let_through = 0.0, 0
     for t in range(frames):
         xq = ref_eng.quantize_features(x[t])
-        sa, la, _ = eng.step(state, xq)
+        own = own._replace(rsnn=state) if hasattr(own, "rsnn") else state
+        own, la, _ = eng.step(own, xq)
+        sa = core(own)
         sb, lb, _ = ref_eng.step(state, xq)
         near0, near1 = near_threshold(ref_eng, state, xq, sb)
         diff0 = (sa.h0 != sb.h0).any(dim=0).any(dim=1)
@@ -399,7 +527,7 @@ def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
     return worst, let_through
 
 
-def device_busy(engine, utts, backend: str) -> None:
+def device_busy(engine, utts, name: str) -> None:
     """Phase 5: one StreamLoop run under ``torch.profiler``; prints the
     share of its wall time in which the card ran a kernel or a copy, and
     the device operations that took most of it.  The profiler slows the
@@ -420,43 +548,150 @@ def device_busy(engine, utts, backend: str) -> None:
         return
     top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
                     for t, c, k in sorted(ops, reverse=True)[:8])
-    print(f"device busy share ({backend}, profiled): "
+    print(f"device busy share ({name}, profiled): "
           f"{busy_us / 1e6 / secs!r} of {secs!r} s over {loop.steps} "
           f"steps; device ms/step {busy_us / 1e3 / loop.steps!r}; top: {top}")
+
+
+# Served configurations: name -> (EngineConfig fields, launches per step of
+# each kernel, held against ref with teacher-forced frames, profiled).
+SERVED = {
+    "pallas": ({"backend": "pallas"}, {"rsnn_cell": 2, "int4_matmul": 2,
+                                       "merged_spike_fc": 1}, True, True),
+    "sparse": ({"backend": "sparse"}, {"rsnn_cell": 2, "int4_matmul": 2,
+                                       "sparse_fc": 1}, True, True),
+    "spike": ({"backend": "spike", "sparse_fc": True},
+              {"spike_cell": 2, "spike_broadcast": 1, "sparse_fc": 1},
+              True, True),
+    "spike sparse_fc=False": ({"backend": "spike"},
+                              {"spike_cell": 2, "spike_broadcast": 2},
+                              True, False),
+    "delta threshold=0": ({"backend": "delta"},
+                          {"spike_cell": 2, "delta_step": 1}, True, False),
+    f"delta threshold={DELTA_THRESHOLD}": (
+        {"backend": "delta", "delta_threshold": DELTA_THRESHOLD},
+        {"spike_cell": 2, "delta_step": 1}, False, True),
+}
+
+
+def serve_all(path, art, utts) -> tuple[dict, dict]:
+    """Phase 4: every configuration of ``SERVED`` over the same streams,
+    against the port's ``ref`` backend; returns (launches of each kernel
+    over all runs, logits by configuration)."""
+    from repro_torch.serving.stream import CompiledRSNN, EngineConfig
+
+    ref = CompiledRSNN.from_artifact(path, backend="ref")
+    _, ref_done, ref_s = serve(ref, utts)
+    ref_logits = [r.stacked_logits() for r in ref_done]
+    print(f"serve ref: {ref_s!r} s = {sum(map(len, utts)) / ref_s!r} "
+          f"frames/s")
+    launches = dict.fromkeys(kernel_modules(), 0)
+    served = {}
+    for name, (fields, per_step, forced, profiled) in SERVED.items():
+        eng = CompiledRSNN.from_artifact(path, EngineConfig(
+            **fields, input_scale=art.input_scale))
+        set_counts(0)
+        loop, done, secs = serve(eng, utts)
+        counts = read_counts()
+        for n, c in counts.items():
+            if c != loop.steps * per_step.get(n, 0):
+                raise AssertionError(
+                    f"{name}: {n} launched {c} times, expected "
+                    f"{loop.steps} steps x {per_step.get(n, 0)}")
+            launches[n] += c
+        logits = [r.stacked_logits() for r in done]
+        for r, lg in zip(done, logits):
+            if lg.shape != (len(r.frames), PRUNED.fc_dim) \
+                    or not np.isfinite(lg).all():
+                raise AssertionError(f"{name}: request {r.sid} logits "
+                                     f"{lg.shape} not finite")
+        agree = float(np.mean(np.concatenate(
+            [a.argmax(1) == b.argmax(1) for a, b in zip(logits, ref_logits)])))
+        flips = compare_free_running(eng, ref, utts[:SLOTS], 40)
+        forced_text = "not asserted (another function than ref)"
+        if forced:
+            tf, tf_near = teacher_forced(eng, ref, utts[:SLOTS], 16)
+            forced_text = (f"max |dlogit| {tf!r}, slot-frames let through "
+                           f"near the threshold {tf_near}")
+        prof = loop.sparsity_profile()
+        print(f"serve {name}: {len(done)} streams, {loop.steps} steps, "
+              f"{loop.frames_served} frames in {secs!r} s = "
+              f"{loop.frames_served / secs!r} frames/s; launches "
+              f"{ {n: c for n, c in counts.items() if c} }; argmax agreement "
+              f"with ref {agree!r}; spike flip rate {flips!r}; "
+              f"teacher-forced {forced_text}; L0/L1 density "
+              f"{prof.l0_density}/{prof.l1_density}, FC union "
+              f"{prof.fc_union_density!r}, delta_input_density "
+              f"{prof.delta_input_density!r}; MMAC/s "
+              f"{loop.mmac_per_second()!r}")
+        served[name] = (eng, logits)
+        if profiled:
+            device_busy(eng, utts, name)
+    for name in reversed(SERVED):  # order effects: serve again, reversed
+        loop, _, secs = serve(served[name][0], utts)
+        print(f"serve again {name}: {loop.frames_served / secs!r} frames/s")
+    return launches, {name: lg for name, (_, lg) in served.items()}
 
 
 # ----------------------------------------------------------------- timing
 
 
-def cuda_ms(fn, args, reps: int = 200) -> float:
-    """Mean time of ``fn(*args)`` from CUDA events over ``reps`` calls."""
+def cuda_ms(fn, args, reps: int = 50) -> float:
+    """Mean device time of ``fn(*args)`` from CUDA events over ``reps``
+    back-to-back calls.  A wrapper's host work (checks, allocation, the
+    ctypes call) takes longer than the smaller kernels, so events around
+    calls made as the host issues them time the host.  The calls are
+    therefore queued behind ``torch.cuda._sleep`` and run back to back
+    once it ends; the sleep grows until the host finished queuing before
+    it ended, which the host clock and the sleep's own events show."""
     for _ in range(10):
         fn(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 10_000_000
+    for _ in range(6):
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if queued_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 4
+    raise RuntimeError(f"cuda_ms: the host took {queued_ms} ms to queue "
+                       f"{reps} calls, longer than the longest sleep")
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def events(x: torch.Tensor) -> tuple[float, int]:
+    """(events, distinct rows named) of the lossless event lists of the
+    rows of ``x`` (R, K): what a gather over them must read."""
+    live = x != 0
+    return float(live.sum()), int(live.any(dim=0).sum())
+
+
 def work(name: str, args) -> tuple[int, float]:
-    """(bytes moved, operations) of one kernel call on ``args``:
-    each input read once (a broadcast stimulus counts its one row), each
-    output written once; the sparse readout counts the stored entries."""
-    if name == "rsnn_cell":
+    """(bytes moved, operations) of one kernel call on ``args``: each
+    input read once (a broadcast stimulus counts its one row), each output
+    written once; a sparse or gated call counts what these inputs need:
+    the stored CSC entries, the events and the W rows they name, the
+    recomputed K8 rows and the cached rows read in their place."""
+    if name in ("rsnn_cell", "spike_cell"):
         stim, s, w, u0, h0, beta, vth = args
         ts, b, h = s.shape
         stim_b = b * h * 4 if stim.stride(0) == 0 else nbytes(stim)
-        return (stim_b + nbytes(s, w, u0, h0, beta, vth) + nbytes(s, u0),
-                2.0 * ts * b * h * h + 5.0 * ts * b * h)
+        io = stim_b + nbytes(s, u0, h0, beta, vth) + nbytes(s, u0)
+        if name == "rsnn_cell":
+            return io + nbytes(w), 2.0 * ts * b * h * h + 5.0 * ts * b * h
+        ev, named = events(s.reshape(ts * b, h))
+        return io + named * h * 4, 2.0 * ev * h + 5.0 * ts * b * h
     if name == "int4_matmul":
         x, p, sc = args
         m, k = x.shape
@@ -468,6 +703,23 @@ def work(name: str, args) -> tuple[int, float]:
         n = p.shape[1]
         return (nbytes(s, p, sc) + b * n * 4,
                 (ts - 1.0) * b * h + 2.0 * b * h * n)
+    if name == "delta_step":
+        x, xp, pp, w, thr = args
+        b, d = x.shape
+        h = w.shape[1]
+        changed = int(((x - xp).abs() > thr).any(dim=1).sum())
+        w_b = nbytes(w) if changed else 0
+        return (nbytes(x, xp) + (b - changed) * h * 4 + w_b
+                + 2 * nbytes(x) + b * h * 4,
+                2.0 * changed * d * h + 2.0 * b * d)
+    if name == "spike_broadcast":
+        x, w = args
+        merged = x.sum(dim=0) if x.dim() == 3 else x
+        r, k = merged.shape
+        n = w.shape[1]
+        ev, named = events(merged)
+        return (nbytes(x) + named * n * 4 + r * n * 4,
+                2.0 * ev * n + (x.numel() - merged.numel()))
     s, idx, val, sc = args
     ts, b, h = s.shape
     stored = float((val != 0).sum())
@@ -490,6 +742,11 @@ def library_fn(name: str, args):
         s, p, sc = args
         w = unpack_int4_ref(p).float() * sc
         return (lambda s_, w_: torch.einsum("tbh,hn->bn", s_, w_)), (s, w)
+    if name == "spike_broadcast":  # lossless: the dense product
+        x, w = args
+        if x.dim() == 3:
+            return (lambda s_, w_: torch.einsum("tbk,kn->bn", s_, w_)), args
+        return torch.matmul, args
     if name == "sparse_fc":
         s, idx, val, sc = args
         h, n = s.shape[-1], idx.shape[1]
@@ -506,16 +763,11 @@ def library_fn(name: str, args):
 
 
 def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
-    """Phase 5: per-frame time of each kernel at B = 256."""
+    """Phase 5: per-frame time of each kernel at B = 256 (K9/K10
+    lossless, K8 at ``DELTA_THRESHOLD``)."""
     gen = torch.Generator().manual_seed(seed + 7)
     calls = kernel_calls(kernel_inputs(packed, 256, gen, dev))
     rows = []
-    src = {"rsnn_cell": ("rsnn_cell.cu", "src/repro/kernels/rsnn_cell.py:53"),
-           "int4_matmul": ("int4_matmul.cu",
-                           "src/repro/kernels/int4_matmul.py:65"),
-           "merged_spike_fc": ("merged_spike_fc.cu",
-                               "src/repro/kernels/merged_spike_fc.py:43"),
-           "sparse_fc": ("sparse_fc.cu", "src/repro/kernels/sparse_fc.py:69")}
     for name, items in calls.items():
         ms = plain_ms = bound = 0.0
         lib_ms: float | None = 0.0
@@ -533,8 +785,8 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
             >= work(name, a)[1] / PEAK_OPS_PER_S[name] for _, _, a in items)
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src[name][0]}",
-            "replaces": src[name][1], "launches": launches[name],
+            "source": f"src/repro_torch/csrc/{SOURCES[name][0]}",
+            "replaces": SOURCES[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes" if by_bytes else
             "operations", "library_ms": lib_ms})
@@ -545,6 +797,30 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
 
 
 # ------------------------------------------------------------------- main
+
+
+def kernel_modules() -> dict:
+    """Kernel name -> (wrapper module, its launch counter's name)."""
+    from repro_torch.kernels import (delta_step, int4_matmul,
+                                     merged_spike_fc, rsnn_cell, sparse_fc,
+                                     spike_broadcast)
+
+    return {"rsnn_cell": (rsnn_cell, "launches"),
+            "int4_matmul": (int4_matmul, "launches"),
+            "merged_spike_fc": (merged_spike_fc, "launches"),
+            "sparse_fc": (sparse_fc, "launches"),
+            "delta_step": (delta_step, "launches"),
+            "spike_broadcast": (spike_broadcast, "launches"),
+            "spike_cell": (spike_broadcast, "cell_launches")}
+
+
+def set_counts(value: int) -> None:
+    for module, attr in kernel_modules().values():
+        setattr(module, attr, value)
+
+
+def read_counts() -> dict[str, int]:
+    return {n: getattr(m, a) for n, (m, a) in kernel_modules().items()}
 
 
 def main(argv=None) -> int:
@@ -558,10 +834,11 @@ def main(argv=None) -> int:
               "needs a CUDA GPU", file=sys.stderr)
         return 1
     from repro_torch.core.artifact import load_artifact
-    from repro_torch.kernels import (_build, int4_matmul, merged_spike_fc,
-                                     rsnn_cell, sparse_fc)
-    from repro_torch.serving.stream import CompiledRSNN
+    from repro_torch.kernels import _build
 
+    # the plain versions' products on the card run in IEEE float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -584,54 +861,7 @@ def main(argv=None) -> int:
         errs = check_kernels(art.packed, dev, args.seed)
         if args.kernels_only:
             return 0
-
-        ref = CompiledRSNN.from_artifact(path, backend="ref")
-        _, ref_done, ref_s = serve(ref, utts)
-        ref_logits = [r.stacked_logits() for r in ref_done]
-        modules = {"rsnn_cell": rsnn_cell, "int4_matmul": int4_matmul,
-                   "merged_spike_fc": merged_spike_fc, "sparse_fc": sparse_fc}
-        per_step = {"pallas": {"rsnn_cell": 2, "int4_matmul": 2,
-                               "merged_spike_fc": 1, "sparse_fc": 0},
-                    "sparse": {"rsnn_cell": 2, "int4_matmul": 2,
-                               "merged_spike_fc": 0, "sparse_fc": 1}}
-        launches = dict.fromkeys(modules, 0)
-        served = {}
-        for backend, expect in per_step.items():
-            eng = CompiledRSNN.from_artifact(path, backend=backend)
-            for m in modules.values():
-                m.launches = 0
-            loop, done, secs = serve(eng, utts)
-            counts = {n: m.launches for n, m in modules.items()}
-            for n, c in counts.items():
-                if c != loop.steps * expect[n]:
-                    raise AssertionError(
-                        f"{backend}: {n} launched {c} times, expected "
-                        f"{loop.steps} steps x {expect[n]}")
-                launches[n] += c
-            logits = [r.stacked_logits() for r in done]
-            for r, lg in zip(done, logits):
-                if lg.shape != (len(r.frames), PRUNED.fc_dim) \
-                        or not np.isfinite(lg).all():
-                    raise AssertionError(f"{backend}: request {r.sid} "
-                                         f"logits {lg.shape} not finite")
-            agree = float(np.mean(np.concatenate(
-                [a.argmax(1) == b.argmax(1)
-                 for a, b in zip(logits, ref_logits)])))
-            flips = compare_free_running(eng, ref, utts[:SLOTS], 40)
-            tf, tf_near = teacher_forced(eng, ref, utts[:SLOTS], 16)
-            prof = loop.sparsity_profile()
-            print(f"serve {backend}: {len(done)} streams, {loop.steps} "
-                  f"steps, {loop.frames_served} frames in {secs!r} s = "
-                  f"{loop.frames_served / secs!r} frames/s; launches "
-                  f"{counts}; argmax agreement with ref {agree!r}; spike "
-                  f"flip rate {flips!r}; teacher-forced max |dlogit| "
-                  f"{tf!r}, slot-frames let through near the threshold "
-                  f"{tf_near}; L0/L1 density {prof.l0_density}/"
-                  f"{prof.l1_density}")
-            served[backend] = logits
-            device_busy(eng, utts, backend)
-        print(f"serve ref: {ref_s!r} s = "
-              f"{sum(map(len, utts)) / ref_s!r} frames/s")
+        launches, served = serve_all(path, art, utts)
         for a, b in zip(served["pallas"], served["sparse"]):
             if not np.array_equal(a, b):
                 raise AssertionError("pallas and sparse logits differ")

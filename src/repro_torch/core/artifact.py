@@ -71,6 +71,28 @@ class RSNNArtifact(NamedTuple):
         return bool(self.manifest.get("sparse_fc", False))
 
     @property
+    def fc_prune_fraction(self) -> float:
+        """Deployed pruned fraction of the FC readout, from the manifest's
+        compression config (the reference's
+        ``CompressionConfig.fc_prune_fraction``): an explicit ``fc_w``
+        prune spec over the legacy ``fc_prune_frac``/``prune_names``
+        shorthand; an N:M spec prunes ``1 - n/m``.  0.0 without a config
+        or a spec."""
+        cc = self.manifest.get("compression_config") or {}
+        spec = None
+        if cc.get("fc_prune_frac", 0.0) > 0.0 \
+                and "fc_w" in cc.get("prune_names", ("fc_w",)):
+            spec = {"kind": "magnitude", "frac": cc["fc_prune_frac"]}
+        for name, s in cc.get("prune_specs", ()):
+            if name == "fc_w":
+                spec = s
+        if spec is None:
+            return 0.0
+        if spec.get("kind", "magnitude") == "nm":
+            return 1.0 - spec.get("n", 2) / spec.get("m", 4)
+        return max(float(spec.get("frac", 0.0)), 0.0)
+
+    @property
     def layouts(self) -> dict:
         """Per-tensor layout tags (v1 manifests: derived from the payload)."""
         if "layouts" in self.manifest:

@@ -6,7 +6,7 @@
 // below, without launching) so that the Python wrapper raises on a refused
 // launch.  No kernel allocates or synchronises.
 //
-// Tiling shared by the four kernels: one thread per output column (kCols
+// Tiling shared by the kernels: one thread per output column (kCols
 // columns per block, neighbouring threads on neighbouring addresses, so
 // every weight row is one coalesced load) and kRows batch rows per block,
 // so each weight element loaded from global memory serves kRows rows.  The
@@ -28,6 +28,7 @@ constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory withou
 // (>= 0), for a shape its kernel cannot take; status.cu gives their text.
 constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
 constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
+constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
@@ -70,6 +71,40 @@ __device__ __forceinline__ void int4_column_dot(
       }
     }
   }
+}
+
+// Priority-encode one row of k values into an ascending-index event list
+// (K9/K10's form of the reference's compact_spikes): the row's value at i
+// is sum_t row[t * ts_stride + i] for t < ts, summed t = 0, 1, ... (a
+// merged spike count for ts > 1).  Every nonzero value is an event; the
+// first cap events in index order land in idx[0..)/val[0..), the rest are
+// dropped, as the reference truncates a row over capacity.  Each 32-wide
+// chunk of the row is one __ballot_sync; an event's slot is the events
+// before it: the running count plus the __popc of the lower lanes' bits.
+// Called by all 32 lanes of one warp (base is uniform across it, so the
+// early exit is too).  Returns the number of events kept, min(nnz, cap).
+__device__ __forceinline__ int compact_row(const float* __restrict__ row,
+                                           long long ts_stride, int ts,
+                                           int k, int cap, int* idx,
+                                           float* val) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int base = 0;
+  for (int k0 = 0; k0 < k && base < cap; k0 += 32) {
+    const int i = k0 + lane;
+    float v = 0.0f;
+    if (i < k) {
+      for (int t = 0; t < ts; ++t) v = __fadd_rn(v, row[t * ts_stride + i]);
+    }
+    const unsigned live = __ballot_sync(0xffffffffu, v != 0.0f);
+    const int pos = base + __popc(live & below);
+    if (v != 0.0f && pos < cap) {
+      idx[pos] = i;
+      val[pos] = v;
+    }
+    base += __popc(live);
+  }
+  return base < cap ? base : cap;
 }
 
 }  // namespace reprotorch

@@ -7,6 +7,8 @@ extern "C" const char* reprotorch_error_string(int code) {
       return "more time steps than the kernel keeps in registers (kMaxTs)";
     case reprotorch::kErrSharedMemory:
       return "the block's operand rows exceed its shared memory (kMaxSharedBytes)";
+    case reprotorch::kErrCapacity:
+      return "event-list capacity outside [1, k]";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import delta_step as _delta
 from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import merged_spike_fc as _mfc
 from repro_torch.kernels import ref
 from repro_torch.kernels import rsnn_cell as _cell
 from repro_torch.kernels import sparse_fc as _sfc
+from repro_torch.kernels import spike_broadcast as _sb
 
 
 def _plain(op: str, t: torch.Tensor) -> bool:
@@ -49,3 +51,25 @@ def sparse_fc(spikes_ts, indices, values, scale):
     if _plain("sparse_fc", spikes_ts):
         return ref.sparse_fc_ref(spikes_ts, indices, values, scale)
     return _sfc.sparse_fc(spikes_ts, indices, values, scale)
+
+
+def delta_step(x, x_prev, pre_prev, w, threshold):
+    if _plain("delta_step", x):
+        return ref.delta_step_ref(x, x_prev, pre_prev, w, threshold)
+    return _delta.delta_step(x, x_prev, pre_prev, w, threshold)
+
+
+def spike_broadcast(x, w, *, capacity=None):
+    if _plain("spike_broadcast", x):
+        _sb.event_capacity(capacity, x.shape[-1])
+        return ref.spike_broadcast_ref(x, w, capacity)
+    return _sb.spike_broadcast(x, w, capacity=capacity)
+
+
+def spike_cell(stim_base, s_prev, w, u0, h0, beta, vth, *, capacity=None):
+    if _plain("spike_cell", s_prev):
+        _sb.event_capacity(capacity, s_prev.shape[-1])
+        return ref.spike_cell_ref(stim_base, s_prev, w, u0, h0, beta, vth,
+                                  capacity)
+    return _sb.spike_cell(stim_base, s_prev, w, u0, h0, beta, vth,
+                          capacity=capacity)

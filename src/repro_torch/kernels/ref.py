@@ -14,7 +14,10 @@ per-channel scale once at the end, as the Pallas kernels do: with 8-bit
 inputs or spikes in {0..TS} every partial sum is an integer below 2**24,
 so any summation order gives the same float and the results agree bit for
 bit.  ``rsnn_cell_ref`` sums float32 dequantized weights, whose result
-depends on the order; it agrees within a stated tolerance.
+depends on the order; it agrees within a stated tolerance, as do
+``delta_step_ref``'s recomputed rows, ``spike_broadcast_ref`` and
+``spike_cell_ref``.  ``compact_spikes`` (the event lists of K9/K10) and
+``delta_step_ref``'s mask, held input and cached rows are exact.
 """
 
 from __future__ import annotations
@@ -35,7 +38,12 @@ def rsnn_cell_ref(stim_base: torch.Tensor, s_prev: torch.Tensor,
     then the LIF chain ``u = stim[t] + (beta*u)*(1-h)``, ``h = u >= vth``.
     Returns (spikes (TS, B, H) float32, u_final (B, H)).
     """
-    stim = stim_base + torch.matmul(s_prev, w)
+    return _lif_chain(stim_base + torch.matmul(s_prev, w), u0, h0, beta, vth)
+
+
+def _lif_chain(stim, u0, h0, beta, vth):
+    """``u = stim[t] + (beta*u)*(1-h)``, ``h = u >= vth`` for t = 0..TS-1.
+    Returns (spikes (TS, B, H), u_final (B, H))."""
     u, h = u0, h0
     spikes = []
     for ts in range(stim.shape[0]):
@@ -43,6 +51,94 @@ def rsnn_cell_ref(stim_base: torch.Tensor, s_prev: torch.Tensor,
         h = (u >= vth).to(stim.dtype)
         spikes.append(h)
     return torch.stack(spikes), u
+
+
+def delta_step_ref(x: torch.Tensor, x_prev: torch.Tensor,
+                   pre_prev: torch.Tensor, w: torch.Tensor,
+                   threshold: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Delta-temporal input gating (EdgeDRNN).
+
+    ``mask = |x - x_prev| > threshold`` (strict), ``x_hat = where(mask, x,
+    x_prev)``; a row with a propagated element gets ``x_hat @ w``, a row
+    with none keeps ``pre_prev``'s bits.  At ``threshold=0`` ``x_hat``
+    equals ``x`` elementwise.
+
+    x/x_prev: (B, D); pre_prev: (B, H); w: (D, H).  Returns (x_hat (B, D),
+    pre (B, H), mask (B, D) float {0, 1}).
+    """
+    mask = (x - x_prev).abs() > threshold
+    x_hat = torch.where(mask, x, x_prev)
+    changed = mask.any(dim=1, keepdim=True)
+    pre = torch.where(changed, torch.matmul(x_hat, w), pre_prev)
+    return x_hat, pre, mask.to(torch.float32)
+
+
+def compact_spikes(x: torch.Tensor, capacity: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row of ``x`` (R, K) as an ascending-index event list.
+
+    Returns ``(idx, vals)``, each (R, capacity): ``idx[r, j]`` is the
+    column of row r's (j+1)-th nonzero (clamped to K-1 past the end) and
+    ``vals[r, j]`` its value, 0 on padding.  A row with more than
+    ``capacity`` nonzeros drops its highest-index ones.  The reference's
+    cumsum/compare cascade, expression for expression.
+    """
+    r, k = x.shape
+    cnt = torch.cumsum((x != 0).to(torch.int32), dim=1)  # (R, K) inclusive
+    slot = torch.arange(capacity, dtype=torch.int32,
+                        device=x.device).reshape(1, capacity, 1)
+    idx = (cnt[:, None, :] <= slot).sum(dim=2)  # (R, capacity)
+    idx = torch.clamp(idx, max=k - 1)
+    valid = torch.arange(capacity, device=x.device).reshape(1, capacity) \
+        < cnt[:, -1:]
+    vals = torch.take_along_dim(x, idx, dim=1)
+    vals = torch.where(valid, vals, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+    return idx, vals
+
+
+def gather_matmul(x: torch.Tensor, w: torch.Tensor,
+                  capacity: int) -> torch.Tensor:
+    """``x (R, K) @ w (K, N)`` over each row's event list: only the rows of
+    ``w`` the events name are gathered, and the accumulate runs over the
+    event axis.  Returns (R, N) float32."""
+    idx, vals = compact_spikes(x, capacity)
+    r = x.shape[0]
+    g = w[idx.reshape(-1)].reshape(r, capacity, w.shape[1])
+    return torch.einsum("rc,rcn->rn", vals, g)
+
+
+def spike_broadcast_ref(x: torch.Tensor, w: torch.Tensor,
+                        capacity: int | None = None) -> torch.Tensor:
+    """Event-driven ``x @ w`` as a dense product over the kept events.
+
+    ``x``: (R, K) rows, or (TS, B, K) spike trains merged over TS first
+    (values in {0..TS}); ``w``: (K, N).  Each row keeps its first
+    ``capacity`` nonzero entries in ascending index order (``None``: all of
+    them, the plain ``x @ w``).  Returns (R|B, N) float32.
+    """
+    if x.dim() == 3:
+        x = x.sum(dim=0)
+    x = x.to(torch.float32)
+    if capacity is not None:
+        cnt = torch.cumsum((x != 0).to(torch.int32), dim=1)
+        x = torch.where(cnt <= capacity, x, torch.zeros((), device=x.device))
+    return torch.matmul(x, w.to(torch.float32))
+
+
+def spike_cell_ref(stim_base: torch.Tensor, s_prev: torch.Tensor,
+                   w: torch.Tensor, u0: torch.Tensor, h0: torch.Tensor,
+                   beta: torch.Tensor, vth: torch.Tensor,
+                   capacity: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rsnn_cell_ref`` with the recurrent product over spike events: TS
+    folds into the event-row axis (``s_prev.reshape(TS*B, H)``), each row
+    keeps its first ``capacity`` events.  At ``capacity=None`` it is
+    ``rsnn_cell_ref``."""
+    ts, b, h = s_prev.shape
+    rec = spike_broadcast_ref(s_prev.reshape(ts * b, h), w, capacity)
+    return _lif_chain(stim_base + rec.reshape(ts, b, -1), u0, h0, beta, vth)
 
 
 def unpack_int4_ref(packed: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,113 @@
+"""K9 and K10 wrappers: event-driven spike-broadcast matmul
+(``csrc/spike_broadcast.cu``) and the recurrent cell over it
+(``csrc/spike_cell.cu``).
+
+Replace ``src/repro/kernels/spike_broadcast.py`` ``spike_broadcast`` (its
+``pl.pallas_call`` at line 132) and ``spike_cell`` (line 183).  The plain
+versions are ``ref.spike_broadcast_ref`` and ``ref.spike_cell_ref``; they
+agree within the tolerance stated in ``chip_smoke.py`` and the tests (a
+float32 sum of dequantized weights, in event order here).  The event
+lists follow ``ref.compact_spikes``: ascending index, the first
+``capacity`` nonzeros of a row kept (``None``: all K).  ``launches``
+counts K9's launches of this process, ``cell_launches`` K10's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0  # K9 spike_broadcast
+cell_launches = 0  # K10 spike_cell
+
+_SB_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_CELL_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+              + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p])
+
+
+def event_capacity(capacity: int | None, k: int) -> int:
+    """Event-list slots per row: ``k`` (lossless) for ``None``, else
+    ``min(capacity, k)``; a capacity below 1 raises."""
+    if capacity is None:
+        return k
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    return min(capacity, k)
+
+
+def spike_broadcast(x: torch.Tensor, w: torch.Tensor, *,
+                    capacity: int | None = None) -> torch.Tensor:
+    """Launch K9 on CUDA tensors: ``x`` (R, K), or (TS, B, K) spike trains
+    merged over TS first; ``w`` (K, N), float32.  Returns (R|B, N)
+    float32."""
+    global launches
+    dev = _build.cuda_device("spike_broadcast", {"x": torch.float32,
+                                                 "w": torch.float32},
+                             x=x, w=w)
+    x3 = x.unsqueeze(0) if x.dim() == 2 else x
+    if x3.dim() != 3 or w.dim() != 2 or x3.shape[2] != w.shape[0]:
+        raise ValueError(f"spike_broadcast: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not agree")
+    ts, r, k = x3.shape
+    n = w.shape[1]
+    cap = event_capacity(capacity, k)
+    x3, w = x3.contiguous(), w.contiguous()
+    out = torch.empty((r, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("spike_broadcast_launch", _SB_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(x3.data_ptr(), w.data_ptr(), out.data_ptr(), ts, r, k, n,
+                    cap, _build.stream(dev))
+    _build.check(status, "spike_broadcast")
+    launches += 1
+    return out
+
+
+def spike_cell(stim_base: torch.Tensor, s_prev: torch.Tensor, w: torch.Tensor,
+               u0: torch.Tensor, h0: torch.Tensor, beta: torch.Tensor,
+               vth: torch.Tensor, *, capacity: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K10 on CUDA tensors, K1's arguments (``stim_base`` may be a
+    broadcast view: its strides are passed, it is never read as dense)
+    plus the event-list ``capacity``.  Returns (spikes (TS, B, H), u
+    (B, H)), float32."""
+    global cell_launches
+    f32 = torch.float32
+    dev = _build.cuda_device(
+        "spike_cell", dict.fromkeys(("stim_base", "s_prev", "w", "u0", "h0",
+                                     "beta", "vth"), f32),
+        stim_base=stim_base, s_prev=s_prev, w=w, u0=u0, h0=h0, beta=beta,
+        vth=vth)
+    ts, b, h = s_prev.shape
+    if stim_base.shape != (ts, b, h) or w.shape != (h, h) \
+            or u0.shape != (b, h) or h0.shape != (b, h) \
+            or beta.numel() != h or vth.numel() != h:
+        raise ValueError(
+            f"spike_cell: shapes stim_base {tuple(stim_base.shape)}, s_prev "
+            f"{tuple(s_prev.shape)}, w {tuple(w.shape)}, u0 "
+            f"{tuple(u0.shape)}, h0 {tuple(h0.shape)}, beta "
+            f"{tuple(beta.shape)}, vth {tuple(vth.shape)} do not agree")
+    cap = event_capacity(capacity, h)
+    if stim_base.stride(2) != 1:
+        stim_base = stim_base.contiguous()
+    s_prev, w, u0, h0 = (t.contiguous() for t in (s_prev, w, u0, h0))
+    beta, vth = beta.reshape(h).contiguous(), vth.reshape(h).contiguous()
+    spikes = torch.empty((ts, b, h), dtype=f32, device=dev)
+    u = torch.empty((b, h), dtype=f32, device=dev)
+    if spikes.numel() == 0:
+        return spikes, u0.clone()
+    fn = _build.function("spike_cell_launch", _CELL_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(stim_base.data_ptr(), stim_base.stride(0),
+                    stim_base.stride(1), s_prev.data_ptr(), w.data_ptr(),
+                    u0.data_ptr(), h0.data_ptr(), beta.data_ptr(),
+                    vth.data_ptr(), spikes.data_ptr(), u.data_ptr(), ts, b, h,
+                    cap, _build.stream(dev))
+    _build.check(status, "spike_cell")
+    cell_launches += 1
+    return spikes, u

@@ -7,7 +7,11 @@ A backend is a named recipe that, given the deployed weight bundle
   * ``ff_matmul`` — per-layer feedforward stimulus ``x @ W`` (dense
     dequantized weights, or the int4 kernel on the packed nibbles);
   * ``fc``        — the readout over the TS spike trains (merged-spike
-    int4, per-ts int4, or the packed layout's zero-skip path).
+    int4, per-ts int4, or the packed layout's zero-skip path);
+  * ``delta_gate`` — set by ``delta`` only: ``(x_t, x_prev, pre_prev) ->
+    (x_hat, pre, mask)``, run before the cells; ``pre`` replaces the L0
+    feedforward stimulus and the engine carries ``x_hat``/``pre`` per slot
+    (``stream.DeltaRSNNState``).
 
 The zero-skip readout is layout-dispatched: the packed FC tensor's type
 resolves its ``core/layouts`` ``WeightLayout`` and the backend binds the
@@ -24,19 +28,27 @@ Built-in backends:
       the reference's artifacts resolvable.
   ``sparse``                 — ``cuda`` plus the packed FC layout's
       zero-skip kernel (``kernels/sparse_fc.py`` for padded CSC).
+  ``spike``                  — activation-side zero skip: both recurrent
+      cells through K10 ``spike_cell`` and the L1 feedforward through K9
+      ``spike_broadcast``, over ascending event lists of
+      ``ctx.spike_capacity`` slots (``None``: lossless).
+  ``delta``                  — the ``ref`` table plus the K8 ``delta_step``
+      gate over the L0 feedforward, with the cells through K10.
 
-The reference's ``fused``, ``delta``, ``spike`` and ``fused_spike``
-backends are not ported yet (ROADMAP queue 2, K6-K10).
+The reference's ``fused`` and ``fused_spike`` backends are not ported yet
+(ROADMAP queue 2, K6-K7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.core import layouts
+from repro_torch.core.layouts.dense import dequantize
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.kernels import ops, ref
 
@@ -55,6 +67,8 @@ class BackendContext:
     dense: dict  # name -> (K, N) float32
     quant: dict  # name -> layouts.dense.QuantTensor
     sparse: dict  # name -> layout tensor (SparseColumns)
+    delta_threshold: float = 0.0  # delta backend's |x_t - x_prev| gate
+    spike_capacity: int | None = None  # event-list slots (None = lossless)
 
 
 class OpTable(NamedTuple):
@@ -64,6 +78,8 @@ class OpTable(NamedTuple):
     rsnn_cell: Callable  # (stim, s_prev, w, u0, h0, beta, vth) -> (s, u)
     ff_matmul: Callable  # (x2d (M, K), layer_name) -> (M, N)
     fc: Callable  # (spikes_ts (TS, B, H)) -> (B, fc_dim)
+    # (x_t, x_prev, pre_prev) -> (x_hat, pre, mask); set by ``delta`` only
+    delta_gate: Callable | None = None
 
 
 class _Entry(NamedTuple):
@@ -164,3 +180,67 @@ def _build_sparse(ctx: BackendContext) -> OpTable:
     """``cuda`` cells/stimulus + the packed layout's zero-skip readout."""
     ctx = dataclasses.replace(ctx, sparse_fc=True)
     return _build_cuda(ctx)._replace(name="sparse")
+
+
+@register("spike", dense_stimulus=True)
+def _build_spike(ctx: BackendContext) -> OpTable:
+    """Event-driven spike-broadcast path: input-side zero skipping.
+
+    Every spike-consuming matmul runs over ascending-index event lists:
+    both recurrent cells through K10 ``spike_cell``, the L1 feedforward
+    through K9 ``spike_broadcast``.  The L0 stimulus consumes the analog
+    input, not spikes, and stays a dense ``x @ W`` over the dequantized
+    weights, as in the reference (outside any Pallas kernel there too).
+    The readout is the packed layout's zero-skip kernel with
+    ``sparse_fc`` (K4 for CSC); otherwise K9's merged-spike-union path
+    (a 3-D input) over the dequantized FC weights, built once, or one K9
+    call per time step for a config without merged spikes.
+    """
+    cfg, cap, dense = ctx.cfg, ctx.spike_capacity, ctx.dense
+    cell = functools.partial(ops.spike_cell, capacity=cap)
+
+    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
+        if name == "l1_wx":  # spike-consuming: gather over spike events
+            return ops.spike_broadcast(x2d, dense[name], capacity=cap)
+        return x2d @ dense[name]  # analog input stimulus: dense
+
+    if ctx.sparse_fc:
+        t = ctx.sparse["fc_w"]
+        fc_fn = layouts.layout_of(t).fc_kernel
+        fc = lambda s1: fc_fn(s1, t)  # noqa: E731
+    else:
+        w_fc = dequantize(ctx.quant["fc_w"])
+        if cfg.merged_spike:
+            fc = lambda s1: ops.spike_broadcast(  # noqa: E731
+                s1, w_fc, capacity=cap)
+        else:
+            fc = lambda s1: sum(  # noqa: E731
+                ops.spike_broadcast(s1[t], w_fc, capacity=cap)
+                for t in range(cfg.num_ts))
+    return OpTable(name="spike", rsnn_cell=cell, ff_matmul=ff, fc=fc)
+
+
+@register("delta", dense_stimulus=True)
+def _build_delta(ctx: BackendContext) -> OpTable:
+    """EdgeDRNN-style delta-temporal zero skipping over the ``ref`` table.
+
+    ``delta_gate`` is K8 ``delta_step`` over the dequantized L0
+    feedforward weights: the engine carries each slot's held input and
+    cached L0 pre-activation (``stream.DeltaRSNNState``), and only a slot
+    with a propagated element (``|x_t - x_prev| > ctx.delta_threshold``)
+    recomputes its row.  Both cells run through K10 ``spike_cell``, the
+    spike-domain gate of the recurrent operand.  The L1 feedforward
+    (``x @ W``) and the readout (the layout's ``fc_oracle``, or
+    ``merged_spike_fc_ref``) are the ``ref`` table's plain PyTorch: the
+    reference computes them outside any Pallas kernel too, so this is the
+    backend's definition, not a fallback.
+    """
+    w0x = ctx.dense["l0_wx"]
+    thr = float(ctx.delta_threshold)
+    cell = functools.partial(ops.spike_cell, capacity=ctx.spike_capacity)
+
+    def delta_gate(x_t, x_prev, pre_prev):
+        return ops.delta_step(x_t, x_prev, pre_prev, w0x, thr)
+
+    return _build_ref(ctx)._replace(name="delta", rsnn_cell=cell,
+                                    delta_gate=delta_gate)

@@ -12,15 +12,17 @@ over 10-ms audio frames from the pruned int4 model.
    (``reset_slot``) and is refilled from the queue without stopping the
    batch.
 3. **State.** ``CompiledRSNN`` carries ``RSNNState`` (per-ts spikes + LIF
-   membrane chain) across frames.  Each frame is the L0 cell, the L1 cell
-   and the FC readout, composed from the op table that the backend
-   registry (``serving/backends.py``) resolved at construction.
+   membrane chain) across frames, wrapped in ``DeltaRSNNState`` (held
+   input, cached L0 pre-activation) when the backend gates its input.
+   Each frame is the L0 cell, the L1 cell and the FC readout, composed
+   from the op table that the backend registry (``serving/backends.py``)
+   resolved at construction.
 
 The port runs the reference's synchronous v1 contract (one logit fetch and
 one counter fetch per step) at one frame per step.  The pipelined v2
 contract (``pipeline_depth > 0``), frame chunking (``chunk_frames > 1``),
-the float engine and the ``fused``/``delta``/``spike`` backends are not
-ported yet (ROADMAP).
+the float engine and the ``fused``/``fused_spike`` backends are not ported
+yet (ROADMAP).
 
 Entry points (``CompiledRSNN``, ``CompiledRSNN.from_artifact``,
 ``StreamLoop`` through its engine) run on ``device="cuda"`` unless the
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,11 +57,32 @@ class EngineConfig:
     backend: str = "jnp"  # registered name in serving/backends.py
     sparse_fc: bool = False  # zero-skip layout path for the pruned FC
     input_scale: float | torch.Tensor | None = None  # static 8-bit calibration
+    delta_threshold: float = 0.0  # delta backend: |x_t - x_prev| gate (LSBs)
+    spike_capacity: int | None = None  # spike/delta: event-list slots per
+    # row (None = sized to the contraction dim, lossless; smaller values
+    # model a finite hardware event queue and drop each row's
+    # highest-index spike events)
 
     def __post_init__(self):
         if self.backend not in backends.available():
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"available: {backends.available()}")
+        if self.delta_threshold < 0.0:
+            raise ValueError(
+                f"delta_threshold must be >= 0, got {self.delta_threshold}")
+        if self.delta_threshold != 0.0 and self.backend != "delta":
+            raise ValueError(
+                "delta_threshold is the 'delta' backend's knob; backend "
+                f"{self.backend!r} would silently ignore it")
+        if self.spike_capacity is not None:
+            if self.spike_capacity < 1:
+                raise ValueError(
+                    f"spike_capacity must be >= 1, got {self.spike_capacity}")
+            if self.backend not in ("spike", "delta"):
+                raise ValueError(
+                    "spike_capacity is the event-queue knob of the 'spike'"
+                    " and 'delta' backends; backend "
+                    f"{self.backend!r} would silently ignore it")
 
     @property
     def wants_sparse_fc(self) -> bool:
@@ -72,19 +96,39 @@ def calibrate_input_scale(features: torch.Tensor, bits: int = 8
     return spike_ops.quantize_input(features, bits)[1]
 
 
-def reset_slot(state: RSNNState, i: int) -> RSNNState:
-    """Zero one slot's recurrent state (fresh utterance boundary).  Returns
-    a new state; the tensors of ``state`` are left as they were."""
+class DeltaRSNNState(NamedTuple):
+    """Per-slot step state of the ``delta`` backend: the core recurrent
+    state plus the EdgeDRNN carries — ``x_prev`` the held input vector
+    (skipped elements keep their last propagated value) and ``pre`` the
+    cached L0 pre-activation reused when a slot propagates nothing."""
 
-    def zero(t: torch.Tensor, dim: int) -> torch.Tensor:
-        t = t.clone()
-        t.select(dim, i).zero_()
-        return t
+    rsnn: RSNNState
+    x_prev: torch.Tensor  # (B, input_dim) held input
+    pre: torch.Tensor  # (B, hidden_dim) cached x_hat @ l0_wx
+
+
+def _zero_slot(t: torch.Tensor, dim: int, i: int) -> torch.Tensor:
+    t = t.clone()
+    t.select(dim, i).zero_()
+    return t
+
+
+def reset_slot(state, i: int):
+    """Zero one slot's recurrent state (fresh utterance boundary), and for
+    a ``DeltaRSNNState`` its held input and cached pre-activation too: a
+    fresh utterance must not inherit the previous occupant's.  Returns a
+    new state; the tensors of ``state`` are left as they were."""
+    if isinstance(state, DeltaRSNNState):
+        return DeltaRSNNState(rsnn=reset_slot(state.rsnn, i),
+                              x_prev=_zero_slot(state.x_prev, 0, i),
+                              pre=_zero_slot(state.pre, 0, i))
 
     def zl(s: LIFState) -> LIFState:
-        return LIFState(u=zero(s.u, 0), spike=zero(s.spike, 0))
+        return LIFState(u=_zero_slot(s.u, 0, i),
+                        spike=_zero_slot(s.spike, 0, i))
 
-    return RSNNState(h0=zero(state.h0, 1), h1=zero(state.h1, 1),
+    return RSNNState(h0=_zero_slot(state.h0, 1, i),
+                     h1=_zero_slot(state.h1, 1, i),
                      lif0=zl(state.lif0), lif1=zl(state.lif1))
 
 
@@ -143,10 +187,13 @@ class CompiledRSNN:
 
     def __init__(self, cfg: RSNNConfig, packed: PackedRSNN,
                  engine: EngineConfig = EngineConfig(), *,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 fc_prune_frac: float = 0.0):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine = engine
+        # deployed FC pruning fraction, for the measured MMAC/s accounting
+        self.fc_prune_frac = fc_prune_frac
         missing = set(cfg.layer_shapes) - set(packed.quant)
         if missing:
             raise ValueError(f"int4 engine needs every layer weight "
@@ -167,7 +214,9 @@ class CompiledRSNN:
                      for k, v in self.packed.lif.items()}
         self._ctx = backends.BackendContext(
             cfg=cfg, sparse_fc=engine.wants_sparse_fc, dense=dense,
-            quant=dict(self.packed.quant), sparse=dict(self.packed.sparse))
+            quant=dict(self.packed.quant), sparse=dict(self.packed.sparse),
+            delta_threshold=engine.delta_threshold,
+            spike_capacity=engine.spike_capacity)
         self.ops = backends.resolve(engine.backend, self._ctx)
         self._w = self._ctx.dense
         scale = engine.input_scale
@@ -184,7 +233,9 @@ class CompiledRSNN:
         ``engine=None`` derives the execution path from the manifest: its
         preferred backend (overridable via ``backend=``), its zero-skip FC
         preference and its stored static input scale.  An explicit
-        ``engine`` is used verbatim.
+        ``engine`` is used verbatim, ``delta_threshold`` and
+        ``spike_capacity`` included.  The manifest's compression config
+        gives ``fc_prune_frac``.
         """
         from repro_torch.core import artifact as artifact_lib
 
@@ -194,12 +245,25 @@ class CompiledRSNN:
             engine = EngineConfig(backend=backend or art.backend or "jnp",
                                   sparse_fc=art.sparse_fc,
                                   input_scale=art.input_scale)
-        return cls(art.cfg, art.packed, engine, device=device)
+        return cls(art.cfg, art.packed, engine, device=device,
+                   fc_prune_frac=art.fc_prune_fraction)
 
     # ------------------------------------------------------------ frontend
 
-    def init_state(self, batch: int) -> RSNNState:
-        return rsnn.init_state(self.cfg, batch, device=self.device)
+    def init_state(self, batch: int):
+        """Zero state for ``batch`` slots; a ``DeltaRSNNState`` with zero
+        carries when the backend gates its input (so frame 1 of every
+        stream propagates all its nonzero elements)."""
+        state = rsnn.init_state(self.cfg, batch, device=self.device)
+        if self.ops.delta_gate is None:
+            return state
+
+        def z(n):
+            return torch.zeros((batch, n), dtype=torch.float32,
+                               device=self.device)
+
+        return DeltaRSNNState(rsnn=state, x_prev=z(self.cfg.input_dim),
+                              pre=z(self.cfg.hidden_dim))
 
     def quantize_features(self, x) -> torch.Tensor:
         """8-bit fixed-point input quantization with the static scale.
@@ -224,16 +288,34 @@ class CompiledRSNN:
 
     # ------------------------------------------------------- layer dispatch
 
-    def _compose_step(self, state: RSNNState, x_t: torch.Tensor):
-        """One quantized frame x_t (B, input_dim) -> (state, logits, aux):
-        both cells, the readout, and the counters composed from the op
-        table — every kernel choice goes through ``self.ops``."""
+    def _frame_step(self, state, x_t: torch.Tensor):
+        """One quantized frame x_t (B, input_dim) -> (state, logits, aux).
+        With a ``delta_gate`` the gate runs first: it propagates only the
+        elements with ``|x_t - x_prev| > threshold``, holds the rest, and
+        reuses the cached L0 pre-activation of a slot with no delta; the
+        held ``x_hat`` also feeds the bit counters."""
+        if self.ops.delta_gate is None:
+            return self._compose_step(state, x_t)
+        x_hat, pre, mask = self.ops.delta_gate(x_t, state.x_prev, state.pre)
+        core, logits, aux = self._compose_step(state.rsnn, x_hat, ff0=pre)
+        prop = mask.sum(dim=1)
+        aux = dict(aux, delta_propagated=prop,
+                   delta_skipped=x_t.shape[1] - prop)
+        return DeltaRSNNState(rsnn=core, x_prev=x_hat, pre=pre), logits, aux
+
+    def _compose_step(self, state: RSNNState, x_t: torch.Tensor,
+                      ff0: torch.Tensor | None = None):
+        """Both cells, the readout, and the counters of one frame, composed
+        from the op table — every kernel choice goes through ``self.ops``.
+        ``ff0`` replaces the L0 feedforward stimulus (the delta route's
+        gated pre-activation)."""
         cell, ff, fc = self.ops.rsnn_cell, self.ops.ff_matmul, self.ops.fc
         w, lif = self._w, self._lif
         ts, b, h = state.h0.shape[0], x_t.shape[0], self.cfg.hidden_dim
 
         # L0: feedforward stimulus once per frame, a broadcast view over TS
-        ff0 = ff(x_t, "l0_wx")  # (B, H)
+        if ff0 is None:
+            ff0 = ff(x_t, "l0_wx")  # (B, H)
         stim0 = ff0.unsqueeze(0).expand(ts, b, h)
         s0, u0 = cell(stim0, state.h0, w["l0_wh"], state.lif0.u,
                       state.lif0.spike, lif["beta0"], lif["vth0"])
@@ -251,17 +333,16 @@ class CompiledRSNN:
 
     # ------------------------------------------------------------ execution
 
-    def step(self, state: RSNNState, x_q: torch.Tensor):
+    def step(self, state, x_q: torch.Tensor):
         """Advance every slot by one quantized frame. x_q: (B, input_dim).
         Returns (state, logits (B, fc_dim), per-slot counters)."""
-        return self._compose_step(state, x_q)
+        return self._frame_step(state, x_q)
 
-    def step_masked(self, state: RSNNState, x_q: torch.Tensor,
-                    active: torch.Tensor):
+    def step_masked(self, state, x_q: torch.Tensor, active: torch.Tensor):
         """``step`` with idle-slot masking of the counters: returns (state,
         logits, packed counter vector) where the vector is already masked
         to active slots and reduced (``pack_step_aux``)."""
-        state, logits, aux = self._compose_step(state, x_q)
+        state, logits, aux = self._frame_step(state, x_q)
         return state, logits, pack_step_aux(aux, active)
 
 
@@ -275,8 +356,8 @@ def _frame_counters(x_t: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
         "spikes_l1": s1.sum(dim=2),  # (TS, B)
         "union_l1": s1.amax(dim=0).sum(dim=1),  # (B,)
         "input_one_bits": one_bits.to(torch.float32),  # (B,)
-        # delta-gating counters: no ported backend gates, so always zero
-        # (read back as density 1.0, "not measured")
+        # delta-gating counters: zero unless the delta route overwrites
+        # them (zero totals read back as density 1.0, "not measured")
         "delta_propagated": zero,  # (B,)
         "delta_skipped": zero,  # (B,)
     }
@@ -482,3 +563,10 @@ class StreamLoop(SlotScheduler):
 
     def sparsity_profile(self) -> complexity.SparsityProfile:
         return self.counters.profile()
+
+    def mmac_per_second(self) -> float:
+        """Zero-skip MMAC/s of the traffic served so far (paper Fig. 13),
+        at the pruning fraction of the model the engine serves."""
+        return self.counters.mmac_per_second(
+            self.engine.cfg, merged_spike=self.engine.cfg.merged_spike,
+            fc_prune_frac=self.engine.fc_prune_frac)

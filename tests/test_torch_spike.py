@@ -1,0 +1,330 @@
+"""repro_torch's spike-event kernels (K9 ``spike_broadcast``, K10
+``spike_cell``) and ``spike`` backend vs the reference's, on the CPU.
+
+The same seeded numpy inputs go through ``repro.kernels`` (the Pallas
+kernels in interpret mode, and ``compact_spikes``/``gather_matmul``) and
+``repro_torch.kernels`` on CPU tensors (the plain versions the CUDA
+kernels are held against on the card).  Tolerances:
+
+* the event lists (``compact_spikes`` indices and values, truncation
+  included) are exact;
+* ``spike_broadcast`` and K10's ``u`` sum float32 weights in an order that
+  differs between the two (and, on this JAX build, between the reference's
+  own gather and dense paths, by up to 1.9e-6), so they agree within
+  ``|d| <= TOL * (1 + |y|)``; a K10 spike may differ only where the
+  potential lies within that tolerance of the threshold;
+* served frames: spikes and counters exact (these seeds put no potential
+  within rounding of a threshold), ``u`` and logits within ``TOL``, and
+  logits bit-equal where the readout is K4's integer sum.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import artifact as j_artifact
+from repro.core import complexity as j_complexity
+from repro.kernels import ops as jops
+from repro.kernels import spike_broadcast as jsb
+from repro.serving import stream as S
+from repro_torch.core import artifact as t_artifact
+from repro_torch.core import complexity
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import spike_broadcast as sb_kernel
+from repro_torch.serving import stream as TS
+from test_torch_stream import _to_torch, pruned_path, small_path  # noqa: F401
+
+TOL = 1e-5  # |d| <= TOL * (1 + |y|)
+
+# (input_dim, hidden, fc_dim, batch): small_cfg's widths and PRUNED's
+WIDTHS = {"small": (8, 16, 12, 4), "pruned": (40, 128, 1920, 8)}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= TOL * (1.0 + np.abs(want)))
+
+
+def _spikes(rng, shape, density):
+    return (rng.random(shape) < density).astype(np.float32)
+
+
+# ------------------------------------------------------------- compaction
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+@pytest.mark.parametrize("capacity", ["full", 5, "over"])
+def test_compact_spikes_exact(width, density, capacity):
+    """Indices ascending, padding clamped to K-1 with value 0, a row over
+    capacity dropping its highest-index events: equal to the reference's
+    cascade.  Merged {0, 1, 2} counts and a row of arbitrary magnitudes
+    ride along (values are gathered, never assumed 1)."""
+    _, h, _, b = WIDTHS[width]
+    rng = np.random.default_rng(31)
+    x = (_spikes(rng, (2, 2 * b, h), density).sum(axis=0)).astype(np.float32)
+    x[0] *= rng.normal(size=h).astype(np.float32)
+    cap = {"full": h, "over": h + 3}.get(capacity, capacity)
+    idx, vals = ref.compact_spikes(_t(x), cap)
+    idx_j, vals_j = jsb.compact_spikes(jnp.asarray(x), cap)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(vals_j))
+    # the gather form over those lists is the dense oracle over kept events
+    w = rng.normal(size=(h, 7)).astype(np.float32)
+    _close(ref.gather_matmul(_t(x), _t(w), cap).numpy(),
+           ref.spike_broadcast_ref(_t(x), _t(w), cap).numpy())
+    _close(ref.gather_matmul(_t(x), _t(w), cap).numpy(),
+           np.asarray(jsb.gather_matmul(jnp.asarray(x), jnp.asarray(w), cap)))
+
+
+# -------------------------------------------------------- spike_broadcast
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("form", ["2d", "3d"])
+@pytest.mark.parametrize("capacity", [None, 3])
+def test_spike_broadcast_within_tolerance(width, form, capacity):
+    """2-D: the L1 feedforward over TS*B spike rows; 3-D: the FC readout's
+    merged-spike union (values in {0..TS}); lossless and truncating."""
+    _, h, n, b = WIDTHS[width]
+    rng = np.random.default_rng(32)
+    if form == "2d":
+        x = _spikes(rng, (2 * b, h), 0.38)
+        n = h
+    else:
+        x = _spikes(rng, (2, b, h), 0.38)
+    w = (rng.normal(size=(h, n)) * 0.1).astype(np.float32)
+    got = ops.spike_broadcast(_t(x), _t(w), capacity=capacity).numpy()
+    want = jops.spike_broadcast(jnp.asarray(x), jnp.asarray(w),
+                                capacity=capacity)
+    _close(got, want)
+    if form == "3d":
+        merged = x.sum(axis=0)
+        assert set(np.unique(merged)) == {0.0, 1.0, 2.0}
+        if capacity is None:
+            _close(got, merged @ w)
+
+
+def test_capacity_below_one_raises():
+    x = torch.ones((2, 4))
+    with pytest.raises(ValueError, match="capacity"):
+        ops.spike_broadcast(x, torch.ones((4, 3)), capacity=0)
+    with pytest.raises(ValueError, match="capacity"):
+        sb_kernel.event_capacity(0, 4)
+    assert sb_kernel.event_capacity(None, 4) == 4
+    assert sb_kernel.event_capacity(9, 4) == 4
+
+
+def test_cpu_tensor_runs_plain_version_without_launching():
+    before = (sb_kernel.launches, sb_kernel.cell_launches)
+    z = torch.zeros((2, 4, 16))
+    ops.spike_broadcast(z, torch.ones((16, 12)))
+    ops.spike_cell(z, z, torch.ones((16, 16)), z[0], z[0], torch.ones(16),
+                   torch.ones(16), capacity=3)
+    assert (sb_kernel.launches, sb_kernel.cell_launches) == before
+    assert _build._lib is None  # nothing was built
+    with pytest.raises(ValueError, match="CUDA"):
+        sb_kernel.spike_broadcast(z, torch.ones((16, 12)))
+
+
+# ------------------------------------------------------------- spike_cell
+
+
+def _near_threshold(stim, s_prev, w, u0, h0, beta, vth, capacity):
+    """(B, H) elements whose membrane is within TOL of the threshold at
+    some time step (float64 replay of the chain over the kept events)."""
+    ts, b, h = s_prev.shape
+    kept = ref.spike_broadcast_ref(
+        _t(s_prev.reshape(ts * b, h)), torch.eye(h), capacity)
+    s_kept = kept.numpy().reshape(ts, b, h).astype(np.float64)
+    stim = np.broadcast_to(stim, s_prev.shape).astype(np.float64)
+    u, hh, near = u0.astype(np.float64), h0, np.zeros(u0.shape, bool)
+    for t in range(ts):
+        u = stim[t] + s_kept[t] @ w + beta * u * (1.0 - hh)
+        near |= np.abs(u - vth) <= TOL * (1.0 + np.abs(u))
+        hh = (u >= vth).astype(np.float64)
+    return near
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("broadcast", [True, False])
+@pytest.mark.parametrize("capacity", [None, 4])
+def test_spike_cell_within_tolerance(width, broadcast, capacity):
+    """K10 plain vs the reference's ``spike_cell``.  ``broadcast`` feeds
+    the L0 form: one (B, H) stimulus row expanded over TS (stride 0)."""
+    _, h, _, b = WIDTHS[width]
+    ts = 2
+    rng = np.random.default_rng(33)
+    if broadcast:
+        row = rng.normal(size=(1, b, h)).astype(np.float32)
+        stim_np = np.broadcast_to(row, (ts, b, h))
+        stim_t = _t(row).expand(ts, b, h)
+    else:
+        stim_np = rng.normal(size=(ts, b, h)).astype(np.float32)
+        stim_t = _t(stim_np)
+    s_prev = _spikes(rng, (ts, b, h), 0.38)
+    w = (rng.normal(size=(h, h)) * 0.1).astype(np.float32)
+    u0 = rng.normal(size=(b, h)).astype(np.float32)
+    h0 = _spikes(rng, (b, h), 0.5)
+    beta = rng.choice([0.5, 0.75, 0.875], h).astype(np.float32)
+    vth = rng.choice([0.5, 1.0, 2.0], h).astype(np.float32)
+    args = (s_prev, w, u0, h0, beta, vth)
+    sp, u = ops.spike_cell(stim_t, *map(_t, args), capacity=capacity)
+    sp_j, u_j = jops.spike_cell(jnp.asarray(np.ascontiguousarray(stim_np)),
+                                *map(jnp.asarray, args), capacity=capacity)
+    sp_j, u_j = np.asarray(sp_j), np.asarray(u_j)
+    near = _near_threshold(stim_np, *args, capacity)
+    flipped = (sp.numpy() != sp_j).any(axis=0)
+    assert not (flipped & ~near).any()
+    ok = ~(flipped | near)
+    _close(u.numpy()[ok], u_j[ok])
+    if capacity is None:  # lossless: the plain cell is K1's plain cell
+        sp1, u1 = ref.rsnn_cell_ref(stim_t, *map(_t, args))
+        assert torch.equal(sp1, sp) and torch.equal(u1, u)
+
+
+# ------------------------------------------------------ served frames
+
+
+def _engines(path, backend, **kw):
+    """The reference's and the port's engine on one artifact, with the
+    same explicit engine config."""
+    art_j = j_artifact.load_artifact(path)
+    art_t = t_artifact.load_artifact(path)
+    ref_eng = S.CompiledRSNN.from_artifact(path, S.EngineConfig(
+        backend=backend, precision="int4", input_scale=art_j.input_scale,
+        **kw))
+    port = TS.CompiledRSNN.from_artifact(path, TS.EngineConfig(
+        backend=backend, input_scale=art_t.input_scale, **kw), device="cpu")
+    return ref_eng, port
+
+
+def assert_frames_match(ref_eng, port, exact_logits: bool, frames: int = 3,
+                        seed: int = 21):
+    """Teacher-forced frames: both engines start each frame from the
+    reference's state (a delta state's carries included)."""
+    cfg, b = ref_eng.cfg, 4
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(frames, b, cfg.input_dim)).astype(np.float32)
+    x[1, 0] = x[0, 0]  # a repeated frame: the delta gate holds the row
+    active = np.array([True, True, False, True])
+    state = ref_eng.init_state(b)
+    for t in range(frames):
+        xq_j = ref_eng.quantize_features(jnp.asarray(x[t]))
+        xq_p = port.quantize_features(x[t])
+        np.testing.assert_array_equal(xq_p.numpy(), np.asarray(xq_j))
+        sj, lj, aj = ref_eng.step_masked(state, xq_j, jnp.asarray(active))
+        sp, lp, ap = port.step_masked(_state_to_torch(state), xq_p,
+                                      torch.from_numpy(active))
+        core_j, core_p = getattr(sj, "rsnn", sj), getattr(sp, "rsnn", sp)
+        for a, c in ((core_p.h0, core_j.h0), (core_p.h1, core_j.h1),
+                     (core_p.lif0.spike, core_j.lif0.spike),
+                     (core_p.lif1.spike, core_j.lif1.spike)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+        _close(core_p.lif0.u.numpy(), core_j.lif0.u)
+        _close(core_p.lif1.u.numpy(), core_j.lif1.u)
+        if hasattr(sj, "x_prev"):
+            np.testing.assert_array_equal(sp.x_prev.numpy(),
+                                          np.asarray(sj.x_prev))
+            _close(sp.pre.numpy(), sj.pre)
+        if exact_logits:
+            np.testing.assert_array_equal(lp.numpy(), np.asarray(lj))
+        else:
+            _close(lp.numpy(), lj)
+        np.testing.assert_array_equal(ap.numpy(), np.asarray(aj))
+        state = sj
+    assert float(np.asarray(getattr(state, "rsnn", state).h1).mean()) > 0.0
+
+
+def _state_to_torch(state):
+    if isinstance(state, S.DeltaRSNNState):
+        return TS.DeltaRSNNState(rsnn=_to_torch(state.rsnn),
+                                 x_prev=_t(np.array(state.x_prev)),
+                                 pre=_t(np.array(state.pre)))
+    return _to_torch(state)
+
+
+@pytest.mark.parametrize("width", ["small", "pruned"])
+@pytest.mark.parametrize("sparse_fc", [True, False])
+def test_spike_frames_teacher_forced_match_reference(small_path, pruned_path,
+                                                     width, sparse_fc):
+    """``sparse_fc``: the readout is K4's integer CSC sum, bit-equal;
+    without it, K9's merged-spike union over the dequantized FC."""
+    path = small_path if width == "small" else pruned_path
+    ref_eng, port = _engines(path, "spike", sparse_fc=sparse_fc)
+    assert_frames_match(ref_eng, port, exact_logits=sparse_fc)
+
+
+def test_spike_streamloop_matches_reference_loop(small_path, small_cfg):
+    """Per-request logits, measured sparsity and MMAC/s against the
+    reference's synchronous loop, at a truncating capacity."""
+    rng = np.random.default_rng(5)
+    utts = [rng.normal(size=(t, small_cfg.input_dim)).astype(np.float32)
+            for t in (7, 10, 4, 6)]
+    loops = []
+    for eng, loop_cls in zip(_engines(small_path, "spike", spike_capacity=3),
+                             (S.StreamLoop, TS.StreamLoop)):
+        loop = loop_cls(eng, batch_slots=2, pipeline_depth=0)
+        for u in utts:
+            loop.submit(u)
+        loops.append((loop, loop.run()))
+    (lj, dj), (lp, dp) = loops
+    assert dataclasses.asdict(lp.sparsity_profile()) == \
+        dataclasses.asdict(lj.sparsity_profile())
+    assert lp.mmac_per_second() == lj.mmac_per_second()
+    for a, b in zip(dp, dj):
+        _close(a.stacked_logits(), b.stacked_logits())
+
+
+# ---------------------------------------------------- config + complexity
+
+
+def test_engine_config_capacity_validation():
+    with pytest.raises(ValueError, match="spike_capacity must be >= 1"):
+        TS.EngineConfig(backend="spike", spike_capacity=0)
+    with pytest.raises(ValueError, match="event-queue knob"):
+        TS.EngineConfig(backend="jnp", spike_capacity=8)
+    TS.EngineConfig(backend="spike", spike_capacity=8)  # ok
+    TS.EngineConfig(backend="delta", spike_capacity=8)  # ok
+
+
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("prune", [0.0, 0.4])
+def test_complexity_equal_figures_for_equal_counters(merged, prune):
+    """One counter vector through both packages' SparsityCounters:
+    profile, accumulates, MMAC/s and the spike-broadcast report equal."""
+    from repro.core.rsnn import RSNNConfig as JCfg
+    from repro_torch.configs.rsnn_timit import PRUNED
+
+    jcfg = JCfg(**{f.name: getattr(PRUNED, f.name)
+                   for f in dataclasses.fields(PRUNED)})
+    aux = {"spikes_l0": [410.0, 388.0], "spikes_l1": [301.0, 290.0],
+           "union_l1": 402.0, "input_one_bits": 1234.0,
+           "delta_propagated": 290.0, "delta_skipped": 30.0}
+    kw = dict(num_ts=2, hidden_dim=128, input_dim=40, input_bits=8)
+    cj, cp = j_complexity.SparsityCounters(**kw), \
+        complexity.SparsityCounters(**kw)
+    for c in (cj, cp):
+        c.update(aux, active_frames=8.0)
+        c.update(dict(aux, union_l1=380.0), active_frames=8.0)
+    assert dataclasses.asdict(cp.profile()) == \
+        dataclasses.asdict(cj.profile())
+    prof_j, prof_p = cj.profile(), cp.profile()
+    for sp_j, sp_p in ((None, None), (prof_j, prof_p)):
+        kw = dict(merged_spike=merged, fc_prune_frac=prune)
+        assert complexity.accumulates_per_frame(PRUNED, 2, sp_p, **kw) == \
+            j_complexity.accumulates_per_frame(jcfg, 2, sp_j, **kw)
+        assert complexity.mmac_per_second(PRUNED, 2, sparsity=sp_p, **kw) \
+            == j_complexity.mmac_per_second(jcfg, 2, sparsity=sp_j, **kw)
+        assert complexity.spike_broadcast_report(PRUNED, 2, sp_p, **kw) == \
+            j_complexity.spike_broadcast_report(jcfg, 2, sp_j, **kw)
+    assert cp.mmac_per_second(PRUNED, merged, prune) == \
+        cj.mmac_per_second(jcfg, merged, prune)

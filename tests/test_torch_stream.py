@@ -116,11 +116,12 @@ def test_frames_teacher_forced_equal_reference(small_path, pruned_path,
     assert float(np.asarray(state.h1).mean()) > 0.0  # the layers fire
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", BACKENDS + ["spike", "delta"])
 def test_streamloop_matches_reference_loop(small_path, small_cfg, backend):
-    """Per-request logits, refill order and measured sparsity against the
-    reference's synchronous loop; the same deterministic clock stamps both
-    loops' request lifecycles."""
+    """Per-request logits, refill order, measured sparsity and MMAC/s
+    against the reference's synchronous loop; the same deterministic clock
+    stamps both loops' request lifecycles.  ``spike``/``delta`` logits sum
+    dequantized float32 weights in another order: within ``LOGIT_TOL``."""
     path = small_path
     rng = np.random.default_rng(5)
     utts = [rng.normal(size=(t, small_cfg.input_dim)).astype(np.float32)
@@ -146,9 +147,10 @@ def test_streamloop_matches_reference_loop(small_path, small_cfg, backend):
         (lj.steps, lj.frames_served, lj.host_syncs)
     assert dataclasses.asdict(lp.sparsity_profile()) == \
         dataclasses.asdict(lj.sparsity_profile())
+    assert lp.mmac_per_second() == lj.mmac_per_second()
     for a, b in zip(dp, dj):
         assert a.stacked_logits().shape == b.stacked_logits().shape
-        if backend == "ref":
+        if backend in ("ref", "spike", "delta"):
             np.testing.assert_allclose(a.stacked_logits(), b.stacked_logits(),
                                        rtol=LOGIT_TOL, atol=LOGIT_TOL)
         else:
@@ -169,7 +171,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serving.stream, "
-            "repro_torch.core.artifact, repro_torch.kernels.ops; "
+            "repro_torch.core.artifact, repro_torch.core.complexity, "
+            "repro_torch.kernels.ops, repro_torch.kernels.spike_broadcast, "
+            "repro_torch.kernels.delta_step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "assert not bad, bad")
