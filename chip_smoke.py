@@ -18,7 +18,14 @@ Phases, each printed on its own line:
      input and cached rows exact and recomputed rows within ``TOL``.
      K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row; K8 at
      ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
-     row takes the cached branch;
+     row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
+     in both FC modes (``dense_int4``, ``csc``) over chunks of 1 and
+     ``MEGA_FRAMES`` frames (``check_megastep``): a slot may differ from
+     the plain version only where the plain chain, replayed frame by
+     frame, comes within ``U_RTOL``/``U_ATOL`` of a threshold; every other
+     slot's spikes, counters and logits are bit-equal and its u within
+     that tolerance; the input one-bits are bit-equal everywhere, and K7
+     is bit-equal to K6 on the same inputs;
   3. a PRUNED int4 artifact (40 -> 128 -> 128 -> 1920, TS = 2, FC pruned
      40% into padded CSC) made from ``--seed`` with numpy and written in
      the reference's schema-v2 format;
@@ -26,11 +33,13 @@ Phases, each printed on its own line:
      ``StreamLoop(batch_slots=256, pipeline_depth=0)`` in every
      configuration of ``SERVED``: ``pallas``, ``sparse``, ``spike`` with
      the CSC readout (K4) and without it (K9's union), ``delta`` at
-     threshold 0 and at ``DELTA_THRESHOLD``.  Every kernel's launch count
-     must equal steps x its launches per step in that configuration (0
-     for a kernel it does not run); ``pallas`` and ``sparse`` logits must
+     threshold 0 and at ``DELTA_THRESHOLD``, ``fused`` and ``fused_spike``
+     (one K6 or K7 launch a frame) with and without the CSC readout.
+     Every kernel's launch count must equal steps x its launches per step
+     in that configuration (0 for a kernel it does not run); ``pallas`` and ``sparse`` logits must
      be bit-equal (the dense and CSC readouts hold the same int4 matrix
-     and sum integers).  Each is compared with the port's ``ref`` backend
+     and sum integers), and so must ``fused`` and ``fused_spike`` (K7 is
+     bit-equal to K6).  Each is compared with the port's ``ref`` backend
      on the card: argmax agreement and spike-flip rate are printed, and
      where the configuration computes ``ref``'s function (all but
      ``delta`` at a positive threshold) a teacher-forced run of frames is
@@ -39,19 +48,22 @@ Phases, each printed on its own line:
      slots are counted and printed), and the other slots' logits and
      potentials must agree within ``LOGIT_ATOL``.  Frames/s, the measured
      densities, ``delta_input_density`` and ``mmac_per_second()`` are
-     printed;
+     printed.  The chunk axis: ``CompiledRSNN._chunk_step`` over
+     ``MEGA_FRAMES`` frames of ``fused`` and ``fused_spike`` equals as
+     many ``step`` calls bit for bit, in one launch against one a frame;
   5. the device busy share of one more run of ``pallas``, ``sparse``,
-     ``spike`` and ``delta`` at ``DELTA_THRESHOLD`` under
-     ``torch.profiler``, with the device operations that took most of it;
-     each kernel's mean time per frame at B = 256 from CUDA events beside
+     ``spike``, ``delta`` at ``DELTA_THRESHOLD``, ``fused`` and
+     ``fused_spike`` under ``torch.profiler``, with the device operations
+     that took most of it; each kernel's mean time per frame at B = 256 from CUDA events beside
      its plain version, a PyTorch library yardstick where one call
      computes the same function, and the H100 bound: the larger of bytes
      over 3.35 TB/s and operations over the peak rate of their type
      (float32 outside the tensor cores, 67 TFLOP/s, for K1 and K8-K10,
      whose dequantized weights no tensor-core type holds exactly; int8,
      1,979 TOP/s, for K2-K4, whose operands are 8-bit integers, spikes and
-     int4 weights).  A gathered or gated kernel counts what this run's
-     data needs (``work``).  Every configuration is then served once more,
+     int4 weights; K6/K7 take their layer products at the float32 rate and
+     their FC's integer sums at the int8 rate).  A gathered or gated
+     kernel counts what this run's data needs (``work``).  Every configuration is then served once more,
      in reverse order, for the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -89,6 +101,7 @@ STREAMS = 512  # utterances served per configuration
 SLOTS = 256  # StreamLoop batch slots
 TRUNC_CAPACITY = 16  # a truncating event list: rows hold ~38-65 events
 DELTA_THRESHOLD = 2.0  # LSB of the 8-bit input
+MEGA_FRAMES = 4  # the longer megastep chunk (frames a launch)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak operation rate of each kernel's operand type (H100 SXM data sheet,
 # dense): K1 and K8-K10 multiply float32 dequantized weights, which
@@ -97,7 +110,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
                   "merged_spike_fc": 1979e12, "sparse_fc": 1979e12,
                   "delta_step": 67e12, "spike_broadcast": 67e12,
-                  "spike_cell": 67e12}
+                  "spike_cell": 67e12, "megastep": 67e12,
+                  "megastep_spike": 67e12}
+INT8_OPS_PER_S = 1979e12  # K6/K7's FC: integer sums of int4 weights
 # kernel -> (CUDA source in csrc/, the TPU kernel's pl.pallas_call)
 SOURCES = {
     "rsnn_cell": ("rsnn_cell.cu", "src/repro/kernels/rsnn_cell.py:53"),
@@ -110,7 +125,13 @@ SOURCES = {
                         "src/repro/kernels/spike_broadcast.py:132"),
     "spike_cell": ("spike_cell.cu",
                    "src/repro/kernels/spike_broadcast.py:183"),
+    "megastep": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
+    "megastep_spike": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
 }
+# megastep's nine outputs, and the slot axis of each
+MEGA_OUTS = {"s0": 1, "u0": 0, "s1": 1, "u1": 0, "logits": 1,
+             "spikes_l0": 2, "spikes_l1": 2, "union_l1": 1,
+             "input_one_bits": 1}
 LAYERS = ("l0_wx", "l0_wh", "l1_wx", "l1_wh", "fc_w")
 # uniform half-width of the float weights before int4 quantization, per
 # layer, chosen so that both layers fire at moderate rates on N(0, 1)
@@ -319,7 +340,36 @@ def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
         "u0": torch.randn((b, h), generator=gen).to(dev),
         "h0": spikes(b, h),
         "beta": packed.lif["beta0"].to(dev), "vth": packed.lif["vth0"].to(dev),
+        # megastep: MEGA_FRAMES frames, the L1 carries, all LIF constants
+        # and the packed layer weights
+        "xf": torch.randint(-128, 128, (MEGA_FRAMES, b, d),
+                            generator=gen).float().to(dev),
+        "u1": torch.randn((b, h), generator=gen).to(dev),
+        "h1": spikes(b, h),
+        "lif": tuple(packed.lif[k].to(dev)
+                     for k in ("beta0", "vth0", "beta1", "vth1")),
+        "wq": tuple(t for n in ("l0_wx", "l0_wh", "l1_wx", "l1_wh")
+                    for t in q(n)),
     }
+
+
+def megastep_args(a: dict, frames: int, fc_mode: str) -> tuple:
+    """megastep's operands from ``kernel_inputs``: the first ``frames``
+    frames, the FC as dense int4 nibbles or padded CSC."""
+    fc = a["fc"] if fc_mode == "dense_int4" else a["csc"]
+    return (a["xf"][:frames], a["s0"], a["u0"], a["h0"], a["s1"], a["u1"],
+            a["h1"], *a["lif"], a["wq"], fc)
+
+
+def megastep_pair(fc_mode: str, spike: bool):
+    """(kernel, plain version) of K6 (``spike=False``) or K7 in one FC
+    mode.  Imported late, as ``kernel_calls``."""
+    from repro_torch.kernels import megastep, ref
+
+    kw = {"fc_mode": fc_mode, "input_bits": PRUNED.input_bits,
+          "spike": spike}
+    return (functools.partial(megastep.megastep, **kw),
+            functools.partial(ref.megastep_ref, **kw))
 
 
 def kernel_calls(a: dict, capacity: int | None = None,
@@ -366,6 +416,11 @@ def kernel_calls(a: dict, capacity: int | None = None,
         "spike_cell": [
             (sc, sc_ref, (a["stim0"], a["s0"], a["w0h"], *cell)),
             (sc, sc_ref, (a["stim1"], a["s1"], a["w1h"], *cell))],
+        # a frame of fused / fused_spike as served: the CSC readout
+        "megastep": [(*megastep_pair("csc", False),
+                      megastep_args(a, 1, "csc"))],
+        "megastep_spike": [(*megastep_pair("csc", True),
+                            megastep_args(a, 1, "csc"))],
     }
 
 
@@ -390,6 +445,120 @@ def check_call(name, got, want, args, capacity) -> float:
     return 0.0
 
 
+def megastep_near(args) -> torch.Tensor:
+    """Per slot: whether the plain chain over ``args``, replayed frame by
+    frame with dense products (``lif_trace``), brings some neuron of either
+    layer within ``U_RTOL``/``U_ATOL`` of its threshold at some time step
+    of some frame: ``check_cell``'s rule over a chunk.  Returns (B,)
+    bool."""
+    from repro_torch.kernels.ref import unpack_int4_ref
+
+    x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wq, _ = args
+    w0x, w0h, w1x, w1h = (unpack_int4_ref(q).float() * sc
+                          for q, sc in zip(wq[0::2], wq[1::2]))
+    ts, b, h = s0.shape
+    near = torch.zeros(b, dtype=torch.bool, device=x.device)
+    for xf in x:
+        stim0 = (xf @ w0x).unsqueeze(0).expand(ts, b, h)
+        tr0 = lif_trace(stim0, torch.matmul(s0, w0h), u0, h0, beta0, vth0)
+        s0 = (tr0 >= vth0).float()
+        u0, h0 = tr0[-1], s0[-1]
+        stim1 = (s0.reshape(ts * b, h) @ w1x).reshape(ts, b, h)
+        tr1 = lif_trace(stim1, torch.matmul(s1, w1h), u1, h1, beta1, vth1)
+        s1 = (tr1 >= vth1).float()
+        u1, h1 = tr1[-1], s1[-1]
+        for tr, vth in ((tr0, vth0), (tr1, vth1)):
+            near |= ((tr - vth).abs() <= U_ATOL + U_RTOL * vth.abs()) \
+                .any(dim=0).any(dim=1)
+    return near
+
+
+def check_mega(name, got, want, near) -> dict[str, float]:
+    """K6/K7 against their plain version over a chunk: on the slots away
+    from the threshold (``~near``) spikes, counters and logits bit-equal
+    and u within ``U_RTOL``/``U_ATOL``; the input one-bits bit-equal on
+    every slot.  Returns each output's largest |difference| there."""
+    keep = ~near
+    errs = {}
+    for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
+        if out == "input_one_bits":
+            gk, wk = g, w
+        else:
+            gk, wk = (t.transpose(0, axis)[keep] for t in (g, w))
+        d = (gk - wk).abs()
+        errs[out] = float(d.max()) if d.numel() else 0.0
+        if out in ("u0", "u1"):
+            if bool((d > U_ATOL + U_RTOL * wk.abs()).any()):
+                raise AssertionError(f"{name}: |d{out}| up to {errs[out]}")
+        elif not torch.equal(gk, wk):
+            raise AssertionError(f"{name}: {out} differs away from the "
+                                 f"threshold by up to {errs[out]}")
+    return errs
+
+
+def check_megastep(a: dict, b: int, errs: dict) -> None:
+    """Phase 2 for K6 and K7: both FC modes, chunks of 1 and
+    ``MEGA_FRAMES`` frames, each against its plain version, and K7
+    against K6 bit for bit."""
+    for fc_mode in ("dense_int4", "csc"):
+        for frames in (1, MEGA_FRAMES):
+            args = megastep_args(a, frames, fc_mode)
+            near = megastep_near(args)
+            outs = {}
+            for spike in (False, True):
+                name = "megastep_spike" if spike else "megastep"
+                kern, plain = megastep_pair(fc_mode, spike)
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                e = check_mega(name, got, want, near)
+                errs[name] = max(errs.get(name, 0.0), *e.values())
+                differs = torch.zeros_like(near)
+                for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
+                    if out not in ("u0", "u1", "input_one_bits"):
+                        differs |= (g != w).transpose(0, axis).reshape(
+                            b, -1).any(dim=1)
+                print(f"check {name} B={b} fc_mode={fc_mode} F={frames}: "
+                      f"ok, slots near the threshold {int(near.sum())} "
+                      f"(differing {int(differs.sum())}), max_abs_err "
+                      f"{e!r}")
+                outs[spike] = got
+            if not all(torch.equal(p, q) for p, q in zip(outs[True],
+                                                          outs[False])):
+                raise AssertionError(f"megastep B={b} fc_mode={fc_mode} "
+                                     f"F={frames}: K7 differs from K6")
+            print(f"check megastep_spike == megastep B={b} "
+                  f"fc_mode={fc_mode} F={frames}: bit-equal")
+
+
+def check_megastep_refusals() -> None:
+    """The mega-step's launch function refuses, with its negative status
+    and before it reads an operand or launches, TS over kMaxTs (-1), a
+    shared-memory request over kMaxMegastepSharedBytes (-2: K7 at TS = 4,
+    H = 256), a hidden width over kMegaThreads (-4) and an FC mode it
+    does not serve (-5)."""
+    from repro_torch.kernels import _build, megastep
+
+    fn = _build.function("megastep_launch", megastep._ARGS)
+    d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
+    cases = {  # status -> (fc_mode, ts, h, spike)
+        -1: (1, 5, 128, 0), -2: (1, 4, 256, 1), -4: (1, 2, 258, 0),
+        -5: (7, 2, 128, 0)}
+    for want, (mode, ts, h, spike) in cases.items():
+        status = fn(*[None] * 19, mode, *[None] * 12, 1, ts, SLOTS, d, h,
+                    fc, nnz, PRUNED.input_bits, spike, None)
+        if status != want:
+            raise AssertionError(f"megastep_launch(fc_mode={mode}, ts={ts}, "
+                                 f"h={h}, spike={spike}) returned {status}, "
+                                 f"expected {want}")
+        try:
+            _build.check(status, "megastep")
+        except RuntimeError as err:
+            text = str(err)
+        else:
+            raise AssertionError(f"status {status} did not raise")
+        print(f"check megastep refuses status {status}: {text}")
+
+
 def check_kernels(packed, dev, seed: int) -> dict[str, float]:
     """Phase 2: every kernel against its plain version on the card, at
     B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
@@ -409,6 +578,8 @@ def check_kernels(packed, dev, seed: int) -> dict[str, float]:
                 if k in ("spike_broadcast", "spike_cell", "delta_step")})]
         for cap, thr, calls in variants:
             for name, items in calls.items():
+                if name.startswith("megastep"):
+                    continue  # check_megastep sweeps its modes below
                 for kern, plain, args in items:
                     got, want = kern(*args), plain(*args)
                     torch.cuda.synchronize()
@@ -419,6 +590,8 @@ def check_kernels(packed, dev, seed: int) -> dict[str, float]:
                         "spike_cell": f" capacity={cap}"}.get(name, "")
                 print(f"check {name} B={b}{knob}: ok, max_abs_err "
                       f"{errs[name]!r}")
+        check_megastep(a, b, errs)
+    check_megastep_refusals()
     return errs
 
 
@@ -571,6 +744,14 @@ SERVED = {
     f"delta threshold={DELTA_THRESHOLD}": (
         {"backend": "delta", "delta_threshold": DELTA_THRESHOLD},
         {"spike_cell": 2, "delta_step": 1}, False, True),
+    "fused": ({"backend": "fused", "sparse_fc": True}, {"megastep": 1},
+              True, True),
+    "fused sparse_fc=False": ({"backend": "fused"}, {"megastep": 1}, True,
+                              False),
+    "fused_spike": ({"backend": "fused_spike", "sparse_fc": True},
+                    {"megastep_spike": 1}, True, True),
+    "fused_spike sparse_fc=False": ({"backend": "fused_spike"},
+                                    {"megastep_spike": 1}, True, False),
 }
 
 
@@ -633,6 +814,55 @@ def serve_all(path, art, utts) -> tuple[dict, dict]:
     return launches, {name: lg for name, (_, lg) in served.items()}
 
 
+def check_chunk(path, art, utts, backend: str) -> None:
+    """The chunk axis on the card: ``_chunk_step`` over ``MEGA_FRAMES``
+    frames (after as many single steps from zero) equals as many ``step``
+    calls bit for bit, state, logits and counters, in one launch of the
+    backend's kernel against one a frame and none of any other."""
+    from repro_torch.serving.stream import CompiledRSNN, EngineConfig
+
+    eng = CompiledRSNN.from_artifact(path, EngineConfig(
+        backend=backend, sparse_fc=True, input_scale=art.input_scale))
+    kernel = "megastep_spike" if backend == "fused_spike" else "megastep"
+    x = torch.from_numpy(np.stack([u[:2 * MEGA_FRAMES]
+                                   for u in utts[:SLOTS]], 1))
+    xq = eng.quantize_features(x)
+    state = eng.init_state(SLOTS)
+    for t in range(MEGA_FRAMES):
+        state, _, _ = eng.step(state, xq[t])
+    chunk = xq[MEGA_FRAMES:]
+    set_counts(0)
+    st_c, lg_c, aux_c = eng._chunk_step(state, chunk)
+    torch.cuda.synchronize()
+    n_chunk = read_counts()
+    set_counts(0)
+    st_f, lg_f, aux_f = state, [], []
+    for x_t in chunk:
+        st_f, lg, aux = eng.step(st_f, x_t)
+        lg_f.append(lg)
+        aux_f.append(aux)
+    torch.cuda.synchronize()
+    n_steps = read_counts()
+    for counts, want in ((n_chunk, 1), (n_steps, MEGA_FRAMES)):
+        if counts != {k: want if k == kernel else 0 for k in counts}:
+            raise AssertionError(f"chunk {backend}: launches {counts}, "
+                                 f"expected {want} of {kernel} only")
+    same = torch.equal(lg_c, torch.stack(lg_f)) and all(
+        torch.equal(a, b) for a, b in zip(
+            (st_c.h0, st_c.h1, st_c.lif0.u, st_c.lif0.spike, st_c.lif1.u,
+             st_c.lif1.spike),
+            (st_f.h0, st_f.h1, st_f.lif0.u, st_f.lif0.spike, st_f.lif1.u,
+             st_f.lif1.spike))) and all(
+        torch.equal(aux_c[k], torch.stack([a[k] for a in aux_f]))
+        for k in aux_c)
+    if not same:
+        raise AssertionError(f"chunk {backend}: {MEGA_FRAMES}-frame chunk "
+                             f"differs from {MEGA_FRAMES} steps")
+    print(f"chunk {backend}: _chunk_step over {MEGA_FRAMES} frames == "
+          f"{MEGA_FRAMES} steps bit for bit; {kernel} launches "
+          f"{n_chunk[kernel]} against {n_steps[kernel]}")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -682,7 +912,11 @@ def work(name: str, args) -> tuple[int, float]:
     input read once (a broadcast stimulus counts its one row), each output
     written once; a sparse or gated call counts what these inputs need:
     the stored CSC entries, the events and the W rows they name, the
-    recomputed K8 rows and the cached rows read in their place."""
+    recomputed K8 rows and the cached rows read in their place.  For
+    K6/K7 the operations are a pair: (float32 layer products and LIF
+    chains, integer FC sums)."""
+    if name.startswith("megastep"):
+        return megastep_work(name, args)
     if name in ("rsnn_cell", "spike_cell"):
         stim, s, w, u0, h0, beta, vth = args
         ts, b, h = s.shape
@@ -725,6 +959,57 @@ def work(name: str, args) -> tuple[int, float]:
     stored = float((val != 0).sum())
     return (nbytes(s, idx, val, sc) + b * idx.shape[1] * 4,
             (ts - 1.0) * b * h + 2.0 * b * stored)
+
+
+def megastep_work(name: str, args) -> tuple[int, tuple[float, float]]:
+    """``work`` of one K6/K7 call: every operand read once and every output
+    written once; float32 operations of the L0 feed-forward, the three
+    spike products (K7: 2 x H per event of the rows it compacts, which the
+    plain version's spike trains of this call give) and both LIF chains;
+    integer operations of the merged-spike FC (the stored CSC entries; K7
+    with dense_int4: the merged union's events)."""
+    from repro_torch.kernels import ref
+
+    x, s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, wq, fc = args
+    frames, b, d = x.shape
+    ts, _, h = s0.shape
+    n = fc[0].shape[1]
+    moved = (nbytes(x, s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, *wq, *fc)
+             + nbytes(s0, u0, s1, u1) + frames * b * n * 4
+             + 2 * frames * ts * b * 4 + 2 * frames * b * 4)
+    f32 = frames * (2.0 * b * d * h + 2 * 5.0 * ts * b * h)
+    merge = frames * (ts - 1.0) * b * h
+    dense_fc = len(fc) == 2
+    if name == "megastep":
+        f32 += frames * 3 * 2.0 * ts * b * h * h
+        fc_ops = 2.0 * b * h * n if dense_fc else 2.0 * b * float(
+            (fc[1] != 0).sum())
+        return moved, (f32, merge + frames * fc_ops)
+    fc_ops = 0.0
+    st0, st1 = s0, s1
+    for f in range(frames):  # the trains each frame compacts
+        out = ref.megastep_ref(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0,
+                               b1, v1, wq, fc, fc_mode="dense_int4"
+                               if dense_fc else "csc",
+                               input_bits=PRUNED.input_bits)
+        ev = sum(events(t.reshape(-1, h))[0] for t in (st0, out[0], st1))
+        f32 += 2.0 * h * ev
+        fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
+                   else 2.0 * b * float((fc[1] != 0).sum()))
+        st0, u0, st1, u1 = out[:4]
+        h0, h1 = st0[-1], st1[-1]
+    return moved, (f32, merge + fc_ops)
+
+
+def bound_parts(name: str, args) -> tuple[float, float]:
+    """(seconds for the bytes at the memory rate, seconds for the
+    operations at the peak rate of their type) of one call on the H100."""
+    moved, ops = work(name, args)
+    if name.startswith("megastep"):
+        f32, ints = ops
+        return (moved / HBM_BYTES_PER_S,
+                f32 / PEAK_OPS_PER_S[name] + ints / INT8_OPS_PER_S)
+    return moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[name]
 
 
 def library_fn(name: str, args):
@@ -771,18 +1056,19 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
     for name, items in calls.items():
         ms = plain_ms = bound = 0.0
         lib_ms: float | None = 0.0
+        by_bytes = True
+        # the plain mega-step issues ~100-150 launches a call: few enough
+        # calls that they all queue behind the sleep
+        plain_reps = 4 if name.startswith("megastep") else 50
         for kern, plain, args in items:
             ms += cuda_ms(kern, args)
-            plain_ms += cuda_ms(plain, args)
-            by, ops = work(name, args)
-            bound += max(by / HBM_BYTES_PER_S,
-                         ops / PEAK_OPS_PER_S[name]) * 1e3
+            plain_ms += cuda_ms(plain, args, plain_reps)
+            t_bytes, t_ops = bound_parts(name, args)
+            bound += max(t_bytes, t_ops) * 1e3
+            by_bytes &= t_bytes >= t_ops
             lib = library_fn(name, args)
             lib_ms = None if lib is None or lib_ms is None else \
                 lib_ms + cuda_ms(*lib)
-        by_bytes = all(
-            work(name, a)[0] / HBM_BYTES_PER_S
-            >= work(name, a)[1] / PEAK_OPS_PER_S[name] for _, _, a in items)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{SOURCES[name][0]}",
@@ -793,6 +1079,17 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
         print(f"time {name} (per frame, B=256, {len(items)} call(s)): "
               f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, "
               f"bound {bound!r} ms")
+    a = kernel_inputs(packed, 256, gen, dev)
+    for fc_mode in ("dense_int4", "csc"):  # the other FC mode, and chunks
+        for frames in (1, MEGA_FRAMES):
+            for spike in (False, True):
+                name = "megastep_spike" if spike else "megastep"
+                args = megastep_args(a, frames, fc_mode)
+                ms = cuda_ms(megastep_pair(fc_mode, spike)[0], args)
+                bound = max(bound_parts(name, args)) * 1e3
+                print(f"time {name} fc_mode={fc_mode} F={frames} (B=256): "
+                      f"{ms / frames!r} ms a frame, bound "
+                      f"{bound / frames!r} ms a frame")
     return rows
 
 
@@ -801,7 +1098,7 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
 
 def kernel_modules() -> dict:
     """Kernel name -> (wrapper module, its launch counter's name)."""
-    from repro_torch.kernels import (delta_step, int4_matmul,
+    from repro_torch.kernels import (delta_step, int4_matmul, megastep,
                                      merged_spike_fc, rsnn_cell, sparse_fc,
                                      spike_broadcast)
 
@@ -811,7 +1108,9 @@ def kernel_modules() -> dict:
             "sparse_fc": (sparse_fc, "launches"),
             "delta_step": (delta_step, "launches"),
             "spike_broadcast": (spike_broadcast, "launches"),
-            "spike_cell": (spike_broadcast, "cell_launches")}
+            "spike_cell": (spike_broadcast, "cell_launches"),
+            "megastep": (megastep, "launches"),
+            "megastep_spike": (megastep, "spike_launches")}
 
 
 def set_counts(value: int) -> None:
@@ -866,6 +1165,16 @@ def main(argv=None) -> int:
             if not np.array_equal(a, b):
                 raise AssertionError("pallas and sparse logits differ")
         print("serve: pallas and sparse logits bit-equal")
+        for k6, k7 in (("fused", "fused_spike"),
+                       ("fused sparse_fc=False",
+                        "fused_spike sparse_fc=False")):
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(served[k6], served[k7])):
+                raise AssertionError(f"{k6} and {k7} logits differ")
+        print("serve: fused and fused_spike logits bit-equal, with and "
+              "without sparse_fc")
+        for backend in ("fused", "fused_spike"):
+            check_chunk(path, art, utts, backend)
         rows = time_kernels(art.packed, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -8,6 +8,8 @@ interface:
   * ``matmul`` / ``fc_oracle`` — the plain PyTorch execution oracles;
   * ``fc_kernel``             — the merged-spike readout through
     ``kernels/ops.py`` (a CUDA kernel on a CUDA tensor);
+  * ``megastep_fc``           — the FC operands of the mega-step kernel
+    (``kernels/megastep.py``, the ``fused`` backends);
   * ``unflatten``             — the on-disk tensor codec used by
     ``core/artifact.py``.
 
@@ -44,6 +46,17 @@ class WeightLayout(abc.ABC):
     @abc.abstractmethod
     def fc_kernel(self, spikes_ts: torch.Tensor, t) -> torch.Tensor:
         """Merged-spike readout through the layout's kernel."""
+
+    def megastep_fc(self, t) -> tuple[str, tuple, dict]:
+        """Operand binding for the mega-step kernel's FC stage:
+        ``(fc_mode, operands, statics)``, where ``fc_mode`` selects the
+        kernel's readout branch, ``operands`` are the tensors handed to it
+        and ``statics`` extra keyword arguments.  A layout without a
+        mega-step branch keeps this default, which leaves the ``fused``
+        backends unavailable for the tensors it packs."""
+        raise NotImplementedError(
+            f"layout {self.name!r} has no mega-step FC binding; the "
+            f"'fused' backend cannot serve this packed tensor")
 
     @abc.abstractmethod
     def unflatten(self, fields: dict[str, torch.Tensor]):

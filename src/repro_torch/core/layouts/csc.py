@@ -1,7 +1,8 @@
 """Padded-CSC layout: zero-skipping storage for unstructured sparsity.
 
 For every output channel the surviving row indices and int4 values, padded
-to the densest column.  ``kernels/sparse_fc.py`` reads this layout.
+to the densest column.  ``kernels/sparse_fc.py`` and
+``kernels/megastep.py`` read this layout.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ class SparseColumnsLayout(base.WeightLayout):
         from repro_torch.kernels import ops  # deferred: kernels sit above
 
         return ops.sparse_fc(spikes_ts, t.indices, t.values, t.scale)
+
+    def megastep_fc(self, t: SparseColumns) -> tuple[str, tuple, dict]:
+        return "csc", (t.indices, t.values, t.scale), {}
 
     def unflatten(self, fields) -> SparseColumns:
         return SparseColumns(**fields)

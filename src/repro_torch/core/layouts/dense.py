@@ -1,8 +1,8 @@
 """Dense int4 layout: nibble-packed weights + per-channel scales.
 
 The paper's baseline storage (Fig. 12): every weight at 4 bits, zero index
-overhead.  ``kernels/int4_matmul.py`` and ``kernels/merged_spike_fc.py``
-read this layout directly.
+overhead.  ``kernels/int4_matmul.py``, ``kernels/merged_spike_fc.py`` and
+``kernels/megastep.py`` read this layout directly.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ class DenseInt4Layout(base.WeightLayout):
         from repro_torch.kernels import ops  # deferred: kernels sit above
 
         return ops.merged_spike_fc(spikes_ts, t.packed, t.scale.reshape(-1))
+
+    def megastep_fc(self, t: QuantTensor) -> tuple[str, tuple, dict]:
+        return "dense_int4", (t.packed, t.scale), {}
 
     def unflatten(self, fields) -> QuantTensor:
         return QuantTensor(**fields)

@@ -23,12 +23,20 @@ constexpr int kCols = 128;  // output columns per block, one per thread
 constexpr int kRows = 8;    // batch rows per block
 constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
+// megastep (K6/K7): threads a block (one per hidden column, all of them on
+// the FC columns), and the dynamic shared memory it opts in to, up to the
+// H100's per-block maximum of 227 KB
+constexpr int kMegaThreads = 256;
+constexpr size_t kMaxMegastepSharedBytes = 227 * 1024;
 
 // Status codes a launch function returns, besides the cudaError_t values
 // (>= 0), for a shape its kernel cannot take; status.cu gives their text.
 constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
 constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
+                                      // (kMaxMegastepSharedBytes for megastep)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
+constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
+constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {

@@ -6,9 +6,14 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrTooManySteps:
       return "more time steps than the kernel keeps in registers (kMaxTs)";
     case reprotorch::kErrSharedMemory:
-      return "the block's operand rows exceed its shared memory (kMaxSharedBytes)";
+      return "the block's operand rows exceed its shared memory "
+             "(kMaxSharedBytes; kMaxMegastepSharedBytes for megastep)";
     case reprotorch::kErrCapacity:
       return "event-list capacity outside [1, k]";
+    case reprotorch::kErrTooWide:
+      return "hidden width over the megastep block's threads (kMegaThreads)";
+    case reprotorch::kErrFcMode:
+      return "an FC mode the megastep kernel does not serve (dense_int4, csc)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

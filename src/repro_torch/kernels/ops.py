@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import delta_step as _delta
 from repro_torch.kernels import int4_matmul as _i4
+from repro_torch.kernels import megastep as _mega
 from repro_torch.kernels import merged_spike_fc as _mfc
 from repro_torch.kernels import ref
 from repro_torch.kernels import rsnn_cell as _cell
@@ -73,3 +74,14 @@ def spike_cell(stim_base, s_prev, w, u0, h0, beta, vth, *, capacity=None):
                                   capacity)
     return _sb.spike_cell(stim_base, s_prev, w, u0, h0, beta, vth,
                           capacity=capacity)
+
+
+def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wargs,
+             fcargs, *, fc_mode, input_bits, spike=False):
+    if _plain("megastep", x):
+        return ref.megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0,
+                                beta1, vth1, wargs, fcargs, fc_mode=fc_mode,
+                                input_bits=input_bits, spike=spike)
+    return _mega.megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1,
+                          vth1, wargs, fcargs, fc_mode=fc_mode,
+                          input_bits=input_bits, spike=spike)

@@ -18,12 +18,16 @@ depends on the order; it agrees within a stated tolerance, as do
 ``delta_step_ref``'s recomputed rows, ``spike_broadcast_ref`` and
 ``spike_cell_ref``.  ``compact_spikes`` (the event lists of K9/K10) and
 ``delta_step_ref``'s mask, held input and cached rows are exact.
+``megastep_ref`` (K6/K7) composes these: its potentials agree within the
+stated tolerance, its counters exactly, and its logits bit for bit given
+equal merged spikes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import spike_ops
 from repro_torch.core.compression.quantization import unpack_int4
 
 
@@ -175,3 +179,67 @@ def sparse_fc_ref(spikes_ts: torch.Tensor, indices: torch.Tensor,
     sc = SparseColumns(indices=indices, values=values,
                        scale=scale.reshape(1, -1))
     return sparse_matmul(merged, sc)
+
+
+def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
+                 wargs: tuple, fcargs: tuple, *, fc_mode: str,
+                 input_bits: int, spike: bool = False):
+    """The whole frame step over an F-frame chunk (K6; K7 at
+    ``spike=True``), composed from the plain versions above in the
+    reference oracle's order.
+
+    ``x`` (F, B, D) quantized frames; ``s0``/``s1`` (TS, B, H) the previous
+    frame's spike trains; ``u*``/``h*`` (B, H) the LIF carries (``h*`` the
+    last spike, ``lif*.spike``); ``beta*``/``vth*`` (H,); ``wargs`` the
+    packed ``(q, scale)`` pairs of ``l0_wx, l0_wh, l1_wx, l1_wh``;
+    ``fcargs`` ``(packed, scale)`` for ``fc_mode="dense_int4"`` or
+    ``(indices, values, scale)`` for ``"csc"``.  ``spike=True`` runs the
+    three spike-consuming products (L0 recurrent, L1 feed-forward, L1
+    recurrent) and the dense FC through ``gather_matmul`` at lossless
+    capacity; the dense FC gathers the int4 values and scales once, as K3
+    does, so its integer sums equal the dense readout's bit for bit.
+
+    Returns ``(s0, u0, s1, u1, logits (F, B, N), spikes_l0 (F, TS, B),
+    spikes_l1 (F, TS, B), union_l1 (F, B), input_one_bits (F, B))``.
+    """
+    if fc_mode not in ("dense_int4", "csc"):
+        raise ValueError(f"unknown fc_mode {fc_mode!r}; megastep serves "
+                         f"'dense_int4' and 'csc'")
+    w0x, w0h, w1x, w1h = (unpack_int4_ref(q).to(torch.float32) * sc
+                          for q, sc in zip(wargs[0::2], wargs[1::2]))
+    ts, b, h = s0.shape
+
+    def cell(stim, s_prev, w, u, hh, beta, vth):
+        if not spike:
+            return rsnn_cell_ref(stim, s_prev, w, u, hh, beta, vth)
+        rec = gather_matmul(s_prev.reshape(ts * b, h), w, h)
+        return _lif_chain(stim + rec.reshape(ts, b, -1), u, hh, beta, vth)
+
+    def readout(s):
+        if fc_mode == "csc":
+            return sparse_fc_ref(s, *fcargs)
+        packed, scale = fcargs
+        if not spike:
+            return merged_spike_fc_ref(s, packed, scale.reshape(-1))
+        w = unpack_int4_ref(packed).to(torch.float32)
+        return gather_matmul(s.sum(dim=0), w, h) \
+            * scale.reshape(-1).to(torch.float32)
+
+    logits, sp0, sp1, union, bits = [], [], [], [], []
+    for f in range(x.shape[0]):
+        xf = x[f].to(torch.float32)
+        stim0 = (xf @ w0x).unsqueeze(0).expand(ts, b, h)
+        s0, u0 = cell(stim0, s0, w0h, u0, h0, beta0, vth0)
+        h0 = s0[-1]
+        s0_rows = s0.reshape(ts * b, h)
+        ff1 = gather_matmul(s0_rows, w1x, h) if spike else s0_rows @ w1x
+        s1, u1 = cell(ff1.reshape(ts, b, h), s1, w1h, u1, h1, beta1, vth1)
+        h1 = s1[-1]
+        logits.append(readout(s1))
+        sp0.append(s0.sum(dim=2))
+        sp1.append(s1.sum(dim=2))
+        union.append(s1.amax(dim=0).sum(dim=1))
+        bits.append(spike_ops.bitplanes(xf, input_bits).sum(dim=(1, 2))
+                    .to(torch.float32))
+    return (s0, u0, s1, u1, torch.stack(logits), torch.stack(sp0),
+            torch.stack(sp1), torch.stack(union), torch.stack(bits))

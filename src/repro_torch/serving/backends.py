@@ -11,7 +11,11 @@ A backend is a named recipe that, given the deployed weight bundle
   * ``delta_gate`` — set by ``delta`` only: ``(x_t, x_prev, pre_prev) ->
     (x_hat, pre, mask)``, run before the cells; ``pre`` replaces the L0
     feedforward stimulus and the engine carries ``x_hat``/``pre`` per slot
-    (``stream.DeltaRSNNState``).
+    (``stream.DeltaRSNNState``);
+  * ``megastep``  — set by ``fused``/``fused_spike`` only: ``(state,
+    x_chunk (F, B, D), lif) -> (state, logits (F, B, N), aux)``, the whole
+    frame step of F frames in one call; the three entries above then
+    raise.
 
 The zero-skip readout is layout-dispatched: the packed FC tensor's type
 resolves its ``core/layouts`` ``WeightLayout`` and the backend binds the
@@ -35,8 +39,11 @@ Built-in backends:
   ``delta``                  — the ``ref`` table plus the K8 ``delta_step``
       gate over the L0 feedforward, with the cells through K10.
 
-The reference's ``fused`` and ``fused_spike`` backends are not ported yet
-(ROADMAP queue 2, K6-K7).
+  ``fused``                  — the whole frame step (both cells, the
+      packed layout's FC, the sparsity counters) in one K6 ``megastep``
+      launch a frame, or a chunk of frames.
+  ``fused_spike``            — ``fused`` through K7, the mega-step whose
+      spike-consuming products run over lossless event lists.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ import torch
 
 from repro_torch.core import layouts
 from repro_torch.core.layouts.dense import dequantize
-from repro_torch.core.rsnn import RSNNConfig
+from repro_torch.core.lif import LIFState
+from repro_torch.core.rsnn import RSNNConfig, RSNNState
 from repro_torch.kernels import ops, ref
 
 
@@ -80,6 +88,8 @@ class OpTable(NamedTuple):
     fc: Callable  # (spikes_ts (TS, B, H)) -> (B, fc_dim)
     # (x_t, x_prev, pre_prev) -> (x_hat, pre, mask); set by ``delta`` only
     delta_gate: Callable | None = None
+    # (state, x_chunk, lif) -> (state, logits, aux); set by ``fused*`` only
+    megastep: Callable | None = None
 
 
 class _Entry(NamedTuple):
@@ -244,3 +254,68 @@ def _build_delta(ctx: BackendContext) -> OpTable:
 
     return _build_ref(ctx)._replace(name="delta", rsnn_cell=cell,
                                     delta_gate=delta_gate)
+
+
+@register("fused")
+def _build_fused(ctx: BackendContext) -> OpTable:
+    """Single-launch mega-step: the op table collapses to one call.
+
+    Both cells, the layout-resolved zero-skip FC and the sparsity counters
+    run inside one K6 ``megastep`` launch a frame (or a chunk of frames)
+    with the packed weights and the recurrent state held on chip; the
+    per-op entries raise.  The FC operands come from the packed tensor's
+    ``WeightLayout.megastep_fc`` binding.
+    """
+    return _fused_table(ctx, spike=False)
+
+
+@register("fused_spike")
+def _build_fused_spike(ctx: BackendContext) -> OpTable:
+    """The mega-step in its spike mode (K7): one launch a frame, with the
+    three spike-consuming products and the dense FC over lossless event
+    lists; bit-equal to ``fused`` on the same inputs."""
+    return _fused_table(ctx, spike=True)
+
+
+def _fused_table(ctx: BackendContext, *, spike: bool) -> OpTable:
+    name = "fused_spike" if spike else "fused"
+    cfg = ctx.cfg
+    if not cfg.merged_spike:
+        raise ValueError(
+            f"the {name!r} backend's mega-step kernel implements the "
+            "merged-spike readout (paper §II-D2); per-ts readout needs "
+            "another backend")
+    names = ("l0_wx", "l0_wh", "l1_wx", "l1_wh")
+    wargs = tuple(a for n in names
+                  for a in (ctx.quant[n].packed, ctx.quant[n].scale))
+    fct = ctx.sparse["fc_w"] if ctx.sparse_fc else ctx.quant["fc_w"]
+    fc_mode, fcargs, statics = layouts.layout_of(fct).megastep_fc(fct)
+
+    def megastep(state: RSNNState, x_chunk: torch.Tensor, lif: dict):
+        # the kernel's h0/h1 are the LIF carries' last spikes
+        s0, u0, s1, u1, logits, sp0, sp1, union, bits = ops.megastep(
+            x_chunk, state.h0, state.lif0.u, state.lif0.spike,
+            state.h1, state.lif1.u, state.lif1.spike,
+            lif["beta0"], lif["vth0"], lif["beta1"], lif["vth1"],
+            wargs, fcargs, fc_mode=fc_mode, input_bits=cfg.input_bits,
+            spike=spike, **statics)
+        new_state = RSNNState(h0=s0, h1=s1,
+                              lif0=LIFState(u=u0, spike=s0[-1]),
+                              lif1=LIFState(u=u1, spike=s1[-1]))
+        zero = torch.zeros_like(bits)  # no delta gating in the mega-step
+        aux = {"spikes_l0": sp0, "spikes_l1": sp1, "union_l1": union,
+               "input_one_bits": bits, "delta_propagated": zero,
+               "delta_skipped": zero}
+        return new_state, logits, aux
+
+    def _collapsed(op: str) -> Callable:
+        def call(*_a, **_k):
+            raise RuntimeError(
+                f"the {name!r} backend executes the whole frame step as "
+                f"one megastep launch; {op!r} is not separately callable")
+
+        return call
+
+    return OpTable(name=name, rsnn_cell=_collapsed("rsnn_cell"),
+                   ff_matmul=_collapsed("ff_matmul"), fc=_collapsed("fc"),
+                   megastep=megastep)

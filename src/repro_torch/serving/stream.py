@@ -16,13 +16,14 @@ over 10-ms audio frames from the pruned int4 model.
    input, cached L0 pre-activation) when the backend gates its input.
    Each frame is the L0 cell, the L1 cell and the FC readout, composed
    from the op table that the backend registry (``serving/backends.py``)
-   resolved at construction.
+   resolved at construction, or, for ``fused``/``fused_spike``, one
+   mega-step launch that does all three (``CompiledRSNN._chunk_step``
+   runs F frames in one).
 
 The port runs the reference's synchronous v1 contract (one logit fetch and
 one counter fetch per step) at one frame per step.  The pipelined v2
-contract (``pipeline_depth > 0``), frame chunking (``chunk_frames > 1``),
-the float engine and the ``fused``/``fused_spike`` backends are not ported
-yet (ROADMAP).
+contract (``pipeline_depth > 0``), the loop's frame chunking
+(``chunk_frames > 1``) and the float engine are not ported yet (ROADMAP).
 
 Entry points (``CompiledRSNN``, ``CompiledRSNN.from_artifact``,
 ``StreamLoop`` through its engine) run on ``device="cuda"`` unless the
@@ -290,10 +291,17 @@ class CompiledRSNN:
 
     def _frame_step(self, state, x_t: torch.Tensor):
         """One quantized frame x_t (B, input_dim) -> (state, logits, aux).
-        With a ``delta_gate`` the gate runs first: it propagates only the
+        A ``megastep`` table runs the frame as one launch.  With a
+        ``delta_gate`` the gate runs first: it propagates only the
         elements with ``|x_t - x_prev| > threshold``, holds the rest, and
         reuses the cached L0 pre-activation of a slot with no delta; the
         held ``x_hat`` also feeds the bit counters."""
+        if self.ops.megastep is not None:
+            # the whole frame in one mega-step launch: chunk-native, one
+            # frame is its F = 1 case
+            state, logits, aux = self.ops.megastep(state, x_t[None],
+                                                   self._lif)
+            return state, logits[0], {k: v[0] for k, v in aux.items()}
         if self.ops.delta_gate is None:
             return self._compose_step(state, x_t)
         x_hat, pre, mask = self.ops.delta_gate(x_t, state.x_prev, state.pre)
@@ -330,6 +338,23 @@ class CompiledRSNN:
         logits = fc(s1)
         aux = _frame_counters(x_t, s0, s1, self.cfg.input_bits)
         return RSNNState(h0=s0, h1=s1, lif0=lif0, lif1=lif1), logits, aux
+
+    def _chunk_step(self, state, x_chunk: torch.Tensor):
+        """Advance every slot by a chunk of F quantized frames: ``x_chunk``
+        (F, B, input_dim) -> (state, logits (F, B, fc_dim), aux with a
+        leading frame axis).  A ``megastep`` table runs the whole chunk as
+        one launch, the state held on chip across it; a per-op table steps
+        ``_frame_step`` frame by frame.  Frames are sequential either way,
+        so a chunk equals F single-frame steps bit for bit."""
+        if self.ops.megastep is not None:
+            return self.ops.megastep(state, x_chunk, self._lif)
+        logits, aux = [], []
+        for x_t in x_chunk:
+            state, lg, ax = self._frame_step(state, x_t)
+            logits.append(lg)
+            aux.append(ax)
+        return state, torch.stack(logits), {
+            k: torch.stack([a[k] for a in aux]) for k in aux[0]}
 
     # ------------------------------------------------------------ execution
 
