@@ -8,9 +8,10 @@ Phases, each printed on its own line:
 
   1. the card (``nvidia-smi`` name and power limit) and the kernel build;
   2. each kernel against its plain version on the card at the main path's
-     shapes, B = 256 and a ragged B = 200 (``check_call``): K2-K4
-     (int4_matmul, merged_spike_fc, sparse_fc) bit for bit
-     (``torch.equal``); K1 (rsnn_cell) and K10 (spike_cell) within
+     shapes, B = 256 and a ragged B = 200 (``check_call``): K2-K5
+     (int4_matmul, merged_spike_fc, sparse_fc, nm_fc over the 2:4 FC)
+     bit for bit (``torch.equal``), and K5 bit-equal to K4 over the same
+     mask stored as CSC; K1 (rsnn_cell) and K10 (spike_cell) within
      ``U_RTOL``/``U_ATOL`` on the membrane potential, with a spike allowed
      to differ only where the plain potential lies within that tolerance
      of the threshold; K9 (spike_broadcast: the 2-D L1 feed-forward and
@@ -19,27 +20,35 @@ Phases, each printed on its own line:
      K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row; K8 at
      ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
      row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
-     in both FC modes (``dense_int4``, ``csc``) over chunks of 1 and
+     in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
+     1 and
      ``MEGA_FRAMES`` frames (``check_megastep``): a slot may differ from
      the plain version only where the plain chain, replayed frame by
      frame, comes within ``U_RTOL``/``U_ATOL`` of a threshold; every other
      slot's spikes, counters and logits are bit-equal and its u within
      that tolerance; the input one-bits are bit-equal everywhere, and K7
-     is bit-equal to K6 on the same inputs;
-  3. a PRUNED int4 artifact (40 -> 128 -> 128 -> 1920, TS = 2, FC pruned
-     40% into padded CSC) made from ``--seed`` with numpy and written in
-     the reference's schema-v2 format;
+     is bit-equal to K6 on the same inputs.  The launch functions refuse
+     the shapes and N:M geometries they cannot take (``check_refusals``);
+  3. three PRUNED int4 artifacts (40 -> 128 -> 128 -> 1920, TS = 2) made
+     from ``--seed`` with numpy and written in the reference's schema-v2
+     format (``ARTIFACTS``): the FC pruned 40% at random into padded CSC,
+     and its 2 largest |w| of every 4 rows kept, as N:M (``nm_group``)
+     and as padded CSC;
   4. 512 seeded utterances of 40-100 frames served through
      ``StreamLoop(batch_slots=256, pipeline_depth=0)`` in every
      configuration of ``SERVED``: ``pallas``, ``sparse``, ``spike`` with
      the CSC readout (K4) and without it (K9's union), ``delta`` at
      threshold 0 and at ``DELTA_THRESHOLD``, ``fused`` and ``fused_spike``
-     (one K6 or K7 launch a frame) with and without the CSC readout.
-     Every kernel's launch count must equal steps x its launches per step
-     in that configuration (0 for a kernel it does not run); ``pallas`` and ``sparse`` logits must
+     (one K6 or K7 launch a frame) with and without the CSC readout; then
+     ``sparse``, ``spike``, ``fused`` and ``fused_spike`` over the N:M
+     artifact (K5, K6/K7's ``nm`` mode), once and unprofiled, and
+     ``sparse`` and ``fused`` over the same 2:4 mask as CSC, whose logits
+     must equal the N:M runs' bit for bit.  Every kernel's launch count
+     must equal steps x its launches per step in that configuration (0
+     for a kernel it does not run); ``pallas`` and ``sparse`` logits must
      be bit-equal (the dense and CSC readouts hold the same int4 matrix
      and sum integers), and so must ``fused`` and ``fused_spike`` (K7 is
-     bit-equal to K6).  Each is compared with the port's ``ref`` backend
+     bit-equal to K6), over both artifacts.  Each is compared with the port's ``ref`` backend
      on the card: argmax agreement and spike-flip rate are printed, and
      where the configuration computes ``ref``'s function (all but
      ``delta`` at a positive threshold) a teacher-forced run of frames is
@@ -60,11 +69,14 @@ Phases, each printed on its own line:
      over 3.35 TB/s and operations over the peak rate of their type
      (float32 outside the tensor cores, 67 TFLOP/s, for K1 and K8-K10,
      whose dequantized weights no tensor-core type holds exactly; int8,
-     1,979 TOP/s, for K2-K4, whose operands are 8-bit integers, spikes and
+     1,979 TOP/s, for K2-K5, whose operands are 8-bit integers, spikes and
      int4 weights; K6/K7 take their layer products at the float32 rate and
      their FC's integer sums at the int8 rate).  A gathered or gated
-     kernel counts what this run's data needs (``work``).  Every configuration is then served once more,
-     in reverse order, for the spread of frames/s between runs.
+     kernel counts what this run's data needs (``work``).  K6/K7 have a
+     row each for the ``csc`` and the ``nm`` FC, as served, and are timed
+     in every FC mode over chunks of 1 and ``MEGA_FRAMES`` frames.  Every
+     configuration over the ``csc`` artifact is then served once more, in
+     reverse order, for the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.  The script imports neither
@@ -102,16 +114,23 @@ SLOTS = 256  # StreamLoop batch slots
 TRUNC_CAPACITY = 16  # a truncating event list: rows hold ~38-65 events
 DELTA_THRESHOLD = 2.0  # LSB of the 8-bit input
 MEGA_FRAMES = 4  # the longer megastep chunk (frames a launch)
+NM = (2, 4)  # the N:M artifacts' FC mask: the 2 largest |w| of every 4 rows
+# the artifacts, name -> (prune, fc_layout) of write_artifact: the FC pruned
+# 40% at random into padded CSC, and its 2:4 mask as N:M and as CSC
+ARTIFACTS = {"csc": (0.4, "csc"), "nm": (NM, "nm_group"),
+             "nm as csc": (NM, "csc")}
+FC_MODES = ("dense_int4", "csc", "nm")  # megastep's FC modes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak operation rate of each kernel's operand type (H100 SXM data sheet,
 # dense): K1 and K8-K10 multiply float32 dequantized weights, which
 # neither TF32 nor int8 holds exactly; K2-K4 multiply 8-bit integer inputs
-# or spikes by int4 weights, exact on the int8 tensor cores.
+# or spikes by int4 weights, exact on the int8 tensor cores; so does K5.
 PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
                   "merged_spike_fc": 1979e12, "sparse_fc": 1979e12,
-                  "delta_step": 67e12, "spike_broadcast": 67e12,
+                  "nm_fc": 1979e12, "delta_step": 67e12, "spike_broadcast": 67e12,
                   "spike_cell": 67e12, "megastep": 67e12,
-                  "megastep_spike": 67e12}
+                  "megastep_spike": 67e12, "megastep_nm": 67e12,
+                  "megastep_spike_nm": 67e12}
 INT8_OPS_PER_S = 1979e12  # K6/K7's FC: integer sums of int4 weights
 # kernel -> (CUDA source in csrc/, the TPU kernel's pl.pallas_call)
 SOURCES = {
@@ -120,6 +139,7 @@ SOURCES = {
     "merged_spike_fc": ("merged_spike_fc.cu",
                         "src/repro/kernels/merged_spike_fc.py:43"),
     "sparse_fc": ("sparse_fc.cu", "src/repro/kernels/sparse_fc.py:69"),
+    "nm_fc": ("nm_fc.cu", "src/repro/kernels/nm_fc.py:77"),
     "delta_step": ("delta_step.cu", "src/repro/kernels/delta_step.py:57"),
     "spike_broadcast": ("spike_broadcast.cu",
                         "src/repro/kernels/spike_broadcast.py:132"),
@@ -127,7 +147,14 @@ SOURCES = {
                    "src/repro/kernels/spike_broadcast.py:183"),
     "megastep": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
     "megastep_spike": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
+    "megastep_nm": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
+    "megastep_spike_nm": ("megastep.cu",
+                          "src/repro/kernels/megastep.py:250"),
 }
+# K6/K7's rows of the kernel line: served with sparse_fc, the FC in
+# ``csc`` over the ``csc`` artifact and in ``nm`` over the ``nm`` one
+ROW_FC_MODE = {"megastep": "csc", "megastep_spike": "csc",
+               "megastep_nm": "nm", "megastep_spike_nm": "nm"}
 # megastep's nine outputs, and the slot axis of each
 MEGA_OUTS = {"s0": 1, "u0": 0, "s1": 1, "u1": 0, "logits": 1,
              "spikes_l0": 2, "spikes_l1": 2, "union_l1": 1,
@@ -170,29 +197,82 @@ def _csc(q: np.ndarray, keep: np.ndarray) -> dict[str, np.ndarray]:
             "count": keep.sum(axis=0).astype(np.int32)}
 
 
+def _nm_mask(w: np.ndarray, n: int, m: int) -> np.ndarray:
+    """Keep the ``n`` largest |w| of every ``m`` consecutive rows of each
+    column (a tail group of ``r < m`` rows keeps ``min(n, r)``)."""
+    rows, cols = w.shape
+    groups = -(-rows // m)
+    a = np.concatenate([np.abs(w), np.full((groups * m - rows, cols),
+                                           -np.inf, w.dtype)])
+    rank = np.argsort(np.argsort(-a.reshape(groups, m, cols), axis=1,
+                                 kind="stable"), axis=1, kind="stable")
+    return (rank < n).reshape(groups * m, cols)[:rows]
+
+
+def _nm_groups(q: np.ndarray, keep: np.ndarray, n: int,
+               m: int) -> dict[str, np.ndarray]:
+    """Group-packed N:M of the kept entries, byte for byte the reference's
+    ``pack_nm_groups``: per group of ``m`` rows the kept offsets first, in
+    ascending order, then pad slots (offset 0, value 0); one int8 byte per
+    slot, value in the low nibble and offset in the high one."""
+    rows, cols = q.shape
+    groups = -(-rows // m)
+    pad = groups * m - rows
+    qg = np.concatenate([q, np.zeros((pad, cols), q.dtype)]).reshape(
+        groups, m, cols)
+    kg = np.concatenate([keep, np.zeros((pad, cols), bool)]).reshape(
+        groups, m, cols)
+    if kg.sum(axis=1).max(initial=0) > n:
+        raise ValueError(f"the mask is not {n}:{m}-regular")
+    order = np.argsort(~kg, axis=1, kind="stable")[:, :n]
+    taken = np.take_along_axis(kg, order, axis=1)
+    vals = np.where(taken, np.take_along_axis(qg, order, axis=1), 0)
+    offs = np.where(taken, order, 0)
+    byte = (vals.astype(np.int64) & 0xF) | ((offs.astype(np.int64) & 0xF) << 4)
+    return {"packed": byte.reshape(groups * n, cols).astype(np.uint8)
+            .view(np.int8),
+            "count": keep.sum(axis=0).astype(np.int32),
+            "meta": np.asarray([n, m, rows], np.int32)}
+
+
 def write_artifact(path: Path, seed: int, features: list[np.ndarray],
-                   cfg: RSNNConfig = PRUNED, prune: float = 0.4) -> Path:
+                   cfg: RSNNConfig = PRUNED,
+                   prune: float | tuple[int, int] = 0.4,
+                   fc_layout: str = "csc") -> Path:
     """Write a seeded int4 artifact in the reference's schema-v2 format:
-    random weights quantized per channel to int4, ``fc_w`` pruned
-    ``prune`` at random and stored also as padded CSC, power-of-two LIF
-    constants, and the max-abs 8-bit input scale of ``features``."""
+    random weights quantized per channel to int4, ``fc_w`` pruned and
+    stored also in ``fc_layout`` (``csc`` or ``nm_group``), power-of-two
+    LIF constants, and the max-abs 8-bit input scale of ``features``.
+    ``prune`` is a fraction pruned at random, or ``(n, m)``: the ``n``
+    largest |w| of every ``m`` rows kept, an N:M spec in the manifest."""
+    nm = isinstance(prune, tuple)
+    if fc_layout not in ("csc", "nm_group") or (fc_layout == "nm_group"
+                                                and not nm):
+        raise ValueError(f"fc_layout {fc_layout!r} with prune {prune!r}")
     rng = np.random.default_rng(seed)
     flat: dict[str, np.ndarray] = {}
     report: dict = {}
-    for name, (k, n) in cfg.layer_shapes.items():
+    for name, (k, cols) in cfg.layer_shapes.items():
         a = WEIGHT_RANGE[name]
-        q, scale = _quantize(rng.uniform(-a, a, (k, n)).astype(np.float32))
-        entry = {"dense_int4": k * n * 4 / 8.0}
+        w = rng.uniform(-a, a, (k, cols)).astype(np.float32)
+        q, scale = _quantize(w)
+        entry = {"dense_int4": k * cols * 4 / 8.0}
         if name == "fc_w":
-            keep = rng.random((k, n)) >= prune
+            keep = _nm_mask(w, *prune) if nm else rng.random((k, cols)) >= prune
             q = np.where(keep, q, 0).astype(np.int8)
-            for field, arr in _csc(q, keep).items():
-                flat[f"csc.{name}.{field}"] = arr
-            flat[f"csc.{name}.scale"] = scale
-            index_bits = max(int(np.ceil(np.log2(max(k, 2)))), 1)
-            stored = float(keep.sum())
-            entry.update(layout="csc", csc_int4=stored * (4 + index_bits) / 8,
-                         nnz_int4=stored * 4 / 8)
+            if fc_layout == "nm_group":
+                fields = _nm_groups(q, keep, *prune)
+                stored = fields["packed"].size * (
+                    4 + max(int(np.ceil(np.log2(max(prune[1], 2)))), 1))
+            else:
+                fields = _csc(q, keep)
+                stored = float(keep.sum()) * (
+                    4 + max(int(np.ceil(np.log2(max(k, 2)))), 1))
+            for field, arr in fields.items():
+                flat[f"{fc_layout}.{name}.{field}"] = arr
+            flat[f"{fc_layout}.{name}.scale"] = scale
+            entry.update(layout=fc_layout, nnz_int4=float(keep.sum()) * 4 / 8)
+            entry[f"{fc_layout}_int4"] = stored / 8
         else:
             entry["nnz_int4"] = entry["dense_int4"]
         flat[f"quant.{name}.packed"] = _pack_int4(q)
@@ -206,24 +286,27 @@ def write_artifact(path: Path, seed: int, features: list[np.ndarray],
     amax = max(float(np.abs(f).max()) for f in features)
     flat["input_scale"] = np.asarray(np.float32(max(amax, 1e-8))
                                      / np.float32(127.0), np.float32)
-    report["total_bytes"] = sum(min(e["dense_int4"], e.get("csc_int4", 1e30))
-                                for e in report.values())
+    report["total_bytes"] = sum(
+        min(e["dense_int4"], e.get(f"{fc_layout}_int4", 1e30))
+        for e in report.values())
     report["broadcast_total_bytes"] = sum(e["nnz_int4"]
                                           for e in list(report.values())[:-1])
+    specs = ([["fc_w", {"kind": "nm", "frac": 0.0, "n": prune[0],
+                        "m": prune[1], "layout": fc_layout}]] if nm else [])
     manifest = {
         "schema_version": 2,
         "precision": "int4",
         "rsnn_config": {**dataclasses.asdict(cfg), "dtype": "float32"},
         "compression_config": {
-            "fc_prune_frac": prune, "prune_names": ["fc_w"],
-            "prune_specs": [], "weight_bits": 4,
+            "fc_prune_frac": 0.0 if nm else prune, "prune_names": ["fc_w"],
+            "prune_specs": specs, "weight_bits": 4,
             "quant_names": list(LAYERS),
             "quant_granularity": "per_channel"},
         "sparsity_profile": None,
         "size_report": report,
         "backend": "pallas",
         "sparse_fc": False,
-        "layouts": {"fc_w": "csc"},
+        "layouts": {"fc_w": fc_layout},
         "has_input_scale": True,
         "tensors": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                     for k, v in flat.items()},
@@ -298,15 +381,18 @@ def check_delta(got, want, x, x_prev, pre_prev, w, thr) -> float:
     return check_close("delta_step", pre_k[~held], pre_p[~held])
 
 
-def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
-    """Main-path operands for batch ``b``: int4 weights of the artifact,
-    8-bit integer inputs, random 0/1 spikes and membrane state, and for
-    K8 a previous frame whose rows repeat (every 4th), move by at most
-    ``DELTA_THRESHOLD`` LSB (every 4th, one further) or change."""
+def kernel_inputs(packs: dict, b: int, gen: torch.Generator, dev) -> dict:
+    """Main-path operands for batch ``b``: int4 weights of the ``csc``
+    artifact, the 2:4 FC of the N:M artifacts (``nm``, and ``csc_nm``: the
+    same mask as padded CSC), 8-bit integer inputs, random 0/1 spikes and membrane
+    state, and for K8 a previous frame whose rows repeat (every 4th), move
+    by at most ``DELTA_THRESHOLD`` LSB (every 4th, one further) or
+    change."""
     from repro_torch.core.sparse import dequantize
 
     cfg = PRUNED
     ts, h, d = cfg.num_ts, cfg.hidden_dim, cfg.input_dim
+    packed = packs["csc"]
 
     def spikes(*shape):
         return (torch.rand(shape, generator=gen) < 0.3).float().to(dev)
@@ -326,12 +412,16 @@ def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
         x[1::4].shape, generator=gen).float()
     ff0 = (torch.randn((b, h), generator=gen) * 0.8).to(dev)
     csc = packed.sparse["fc_w"]
+    nm, csc_nm = (packs[k].sparse["fc_w"] for k in ("nm", "nm as csc"))
     return {
         "x": x.to(dev), "x_prev": x_prev.to(dev),
         "pre_prev": torch.randn((b, h), generator=gen).to(dev),
         "l0": q("l0_wx"), "l1": q("l1_wx"), "fc": q("fc_w"),
         "csc": (csc.indices.to(dev), csc.values.to(dev),
                 csc.scale.reshape(-1).to(dev)),
+        "nm": (nm.packed.to(dev), nm.scale.reshape(-1).to(dev)),
+        "csc_nm": (csc_nm.indices.to(dev), csc_nm.values.to(dev),
+                   csc_nm.scale.reshape(-1).to(dev)),
         "stim0": ff0.unsqueeze(0).expand(ts, b, h),
         "stim1": (torch.randn((ts, b, h), generator=gen) * 0.8).to(dev),
         "s0": spikes(ts, b, h), "s1": spikes(ts, b, h),
@@ -355,8 +445,8 @@ def kernel_inputs(packed, b: int, gen: torch.Generator, dev) -> dict:
 
 def megastep_args(a: dict, frames: int, fc_mode: str) -> tuple:
     """megastep's operands from ``kernel_inputs``: the first ``frames``
-    frames, the FC as dense int4 nibbles or padded CSC."""
-    fc = a["fc"] if fc_mode == "dense_int4" else a["csc"]
+    frames, the FC as dense int4 nibbles, padded CSC or 2:4 N:M."""
+    fc = a[{"dense_int4": "fc", "csc": "csc", "nm": "nm"}[fc_mode]]
     return (a["xf"][:frames], a["s0"], a["u0"], a["h0"], a["s1"], a["u1"],
             a["h1"], *a["lif"], a["wq"], fc)
 
@@ -368,6 +458,8 @@ def megastep_pair(fc_mode: str, spike: bool):
 
     kw = {"fc_mode": fc_mode, "input_bits": PRUNED.input_bits,
           "spike": spike}
+    if fc_mode == "nm":
+        kw.update(nm_n=NM[0], nm_m=NM[1])
     return (functools.partial(megastep.megastep, **kw),
             functools.partial(ref.megastep_ref, **kw))
 
@@ -381,7 +473,7 @@ def kernel_calls(a: dict, capacity: int | None = None,
     FC union).  Imported late: the module needs the package on
     ``sys.path``."""
     from repro_torch.kernels import (delta_step, int4_matmul,
-                                     merged_spike_fc, ref, rsnn_cell,
+                                     merged_spike_fc, nm_fc, ref, rsnn_cell,
                                      sparse_fc, spike_broadcast)
 
     cell = (a["u0"], a["h0"], a["beta"], a["vth"])
@@ -407,6 +499,10 @@ def kernel_calls(a: dict, capacity: int | None = None,
              (a["s1"], *a["fc"]))],
         "sparse_fc": [
             (sparse_fc.sparse_fc, ref.sparse_fc_ref, (a["s1"], *a["csc"]))],
+        "nm_fc": [
+            (functools.partial(nm_fc.nm_fc, n=NM[0], m=NM[1]),
+             functools.partial(ref.nm_fc_ref, n=NM[0], m=NM[1]),
+             (a["s1"], *a["nm"]))],
         "delta_step": [
             (delta_step.delta_step, ref.delta_step_ref,
              (a["x"], a["x_prev"], a["pre_prev"], a["w0x"], threshold))],
@@ -416,11 +512,10 @@ def kernel_calls(a: dict, capacity: int | None = None,
         "spike_cell": [
             (sc, sc_ref, (a["stim0"], a["s0"], a["w0h"], *cell)),
             (sc, sc_ref, (a["stim1"], a["s1"], a["w1h"], *cell))],
-        # a frame of fused / fused_spike as served: the CSC readout
-        "megastep": [(*megastep_pair("csc", False),
-                      megastep_args(a, 1, "csc"))],
-        "megastep_spike": [(*megastep_pair("csc", True),
-                            megastep_args(a, 1, "csc"))],
+        # a frame of fused / fused_spike as served with sparse_fc
+        **{row: [(*megastep_pair(mode, row.startswith("megastep_spike")),
+                  megastep_args(a, 1, mode))]
+           for row, mode in ROW_FC_MODE.items()},
     }
 
 
@@ -497,10 +592,10 @@ def check_mega(name, got, want, near) -> dict[str, float]:
 
 
 def check_megastep(a: dict, b: int, errs: dict) -> None:
-    """Phase 2 for K6 and K7: both FC modes, chunks of 1 and
+    """Phase 2 for K6 and K7: the three FC modes, chunks of 1 and
     ``MEGA_FRAMES`` frames, each against its plain version, and K7
     against K6 bit for bit."""
-    for fc_mode in ("dense_int4", "csc"):
+    for fc_mode in FC_MODES:
         for frames in (1, MEGA_FRAMES):
             args = megastep_args(a, frames, fc_mode)
             near = megastep_near(args)
@@ -511,7 +606,8 @@ def check_megastep(a: dict, b: int, errs: dict) -> None:
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 e = check_mega(name, got, want, near)
-                errs[name] = max(errs.get(name, 0.0), *e.values())
+                row = f"{name}_nm" if fc_mode == "nm" else name
+                errs[row] = max(errs.get(row, 0.0), *e.values())
                 differs = torch.zeros_like(near)
                 for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
                     if out not in ("u0", "u1", "input_one_bits"):
@@ -530,44 +626,76 @@ def check_megastep(a: dict, b: int, errs: dict) -> None:
                   f"fc_mode={fc_mode} F={frames}: bit-equal")
 
 
-def check_megastep_refusals() -> None:
-    """The mega-step's launch function refuses, with its negative status
-    and before it reads an operand or launches, TS over kMaxTs (-1), a
-    shared-memory request over kMaxMegastepSharedBytes (-2: K7 at TS = 4,
-    H = 256), a hidden width over kMegaThreads (-4) and an FC mode it
-    does not serve (-5)."""
-    from repro_torch.kernels import _build, megastep
+def refused(fn, args: tuple, want: int, kernel: str, what: str) -> None:
+    """``fn(*args)``, a launch function given no operands, must return the
+    negative status ``want`` (it refuses before it reads an operand or
+    launches), and ``_build.check`` must raise on it."""
+    from repro_torch.kernels import _build
+
+    status = fn(*args)
+    if status != want:
+        raise AssertionError(f"{kernel}_launch({what}) returned {status}, "
+                             f"expected {want}")
+    try:
+        _build.check(status, kernel)
+    except RuntimeError as err:
+        text = str(err)
+    else:
+        raise AssertionError(f"status {status} did not raise")
+    print(f"check {kernel} refuses {what}: {text}")
+
+
+def check_refusals() -> None:
+    """The mega-step's launch function refuses, with its negative status,
+    TS over kMaxTs (-1), a shared-memory request over
+    kMaxMegastepSharedBytes (-2: K7 at TS = 4, H = 256), a hidden width
+    over kMegaThreads (-4), an FC mode it does not serve (-5) and an N:M
+    geometry it cannot take (-6: n > m; entries not a multiple of n); K5
+    refuses n < 1 and m > 16 (-6)."""
+    from repro_torch.kernels import _build, megastep, nm_fc
 
     fn = _build.function("megastep_launch", megastep._ARGS)
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
-    cases = {  # status -> (fc_mode, ts, h, spike)
-        -1: (1, 5, 128, 0), -2: (1, 4, 256, 1), -4: (1, 2, 258, 0),
-        -5: (7, 2, 128, 0)}
-    for want, (mode, ts, h, spike) in cases.items():
-        status = fn(*[None] * 19, mode, *[None] * 12, 1, ts, SLOTS, d, h,
-                    fc, nnz, PRUNED.input_bits, spike, None)
-        if status != want:
-            raise AssertionError(f"megastep_launch(fc_mode={mode}, ts={ts}, "
-                                 f"h={h}, spike={spike}) returned {status}, "
-                                 f"expected {want}")
-        try:
-            _build.check(status, "megastep")
-        except RuntimeError as err:
-            text = str(err)
-        else:
-            raise AssertionError(f"status {status} did not raise")
-        print(f"check megastep refuses status {status}: {text}")
+    cases = [  # (status, fc_mode, ts, h, spike, nm_n, nm_m)
+        (-1, 1, 5, 128, 0, 0, 0), (-2, 1, 4, 256, 1, 0, 0),
+        (-4, 1, 2, 258, 0, 0, 0), (-5, 7, 2, 128, 0, 0, 0),
+        (-6, 2, 2, 128, 0, 3, 2), (-6, 2, 2, 128, 1, *NM)]
+    for want, mode, ts, h, spike, nm_n, nm_m in cases:
+        refused(fn, (*[None] * 19, mode, *[None] * 12, 1, ts, SLOTS, d, h,
+                     fc, nnz, nm_n, nm_m, PRUNED.input_bits, spike, None),
+                want, "megastep", f"fc_mode={mode}, ts={ts}, h={h}, "
+                f"spike={spike}, nm={nm_n}:{nm_m}, entries={nnz}")
+    fn = _build.function("nm_fc_launch", nm_fc._ARGS)
+    for nm_n, nm_m in ((0, 4), (2, 17)):
+        refused(fn, (None, None, None, None, PRUNED.num_ts, SLOTS,
+                     PRUNED.hidden_dim, 64, fc, nm_n, nm_m, None), -6,
+                "nm_fc", f"nm={nm_n}:{nm_m}")
 
 
-def check_kernels(packed, dev, seed: int) -> dict[str, float]:
+def check_nm_against_csc(a: dict, b: int) -> None:
+    """K5 over the 2:4 FC against K4 over the same mask stored as padded
+    CSC: bit-equal."""
+    from repro_torch.kernels import nm_fc, sparse_fc
+
+    got = nm_fc.nm_fc(a["s1"], *a["nm"], n=NM[0], m=NM[1])
+    want = sparse_fc.sparse_fc(a["s1"], *a["csc_nm"])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nm_fc B={b}: differs from sparse_fc on the "
+                             f"same 2:4 mask by up to "
+                             f"{float((got - want).abs().max())}")
+    print(f"check nm_fc == sparse_fc on the same 2:4 mask B={b}: bit-equal")
+
+
+def check_kernels(packs: dict, dev, seed: int) -> dict[str, float]:
     """Phase 2: every kernel against its plain version on the card, at
     B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
     at threshold 0 (first on a repeated frame: every row cached) and
-    ``DELTA_THRESHOLD``."""
+    ``DELTA_THRESHOLD``; K5 also against K4 on the same mask."""
     errs: dict[str, float] = {}
     gen = torch.Generator().manual_seed(seed)
     for b in (256, 200):
-        a = kernel_inputs(packed, b, gen, dev)
+        a = kernel_inputs(packs, b, gen, dev)
         repeat = dict(a, x_prev=a["x"])
         variants = [
             (None, DELTA_THRESHOLD, kernel_calls(a)),
@@ -590,8 +718,9 @@ def check_kernels(packed, dev, seed: int) -> dict[str, float]:
                         "spike_cell": f" capacity={cap}"}.get(name, "")
                 print(f"check {name} B={b}{knob}: ok, max_abs_err "
                       f"{errs[name]!r}")
+        check_nm_against_csc(a, b)
         check_megastep(a, b, errs)
-    check_megastep_refusals()
+    check_refusals()
     return errs
 
 
@@ -727,65 +856,108 @@ def device_busy(engine, utts, name: str) -> None:
 
 
 # Served configurations: name -> (EngineConfig fields, launches per step of
-# each kernel, held against ref with teacher-forced frames, profiled).
+# each kernel, held against ref with teacher-forced frames, profiled,
+# artifact).  Those over the ``csc`` artifact are served again in reverse
+# order.
 SERVED = {
     "pallas": ({"backend": "pallas"}, {"rsnn_cell": 2, "int4_matmul": 2,
-                                       "merged_spike_fc": 1}, True, True),
+                                       "merged_spike_fc": 1}, True, True,
+               "csc"),
     "sparse": ({"backend": "sparse"}, {"rsnn_cell": 2, "int4_matmul": 2,
-                                       "sparse_fc": 1}, True, True),
+                                       "sparse_fc": 1}, True, True, "csc"),
     "spike": ({"backend": "spike", "sparse_fc": True},
               {"spike_cell": 2, "spike_broadcast": 1, "sparse_fc": 1},
-              True, True),
+              True, True, "csc"),
     "spike sparse_fc=False": ({"backend": "spike"},
                               {"spike_cell": 2, "spike_broadcast": 2},
-                              True, False),
+                              True, False, "csc"),
     "delta threshold=0": ({"backend": "delta"},
-                          {"spike_cell": 2, "delta_step": 1}, True, False),
+                          {"spike_cell": 2, "delta_step": 1}, True, False,
+                          "csc"),
     f"delta threshold={DELTA_THRESHOLD}": (
         {"backend": "delta", "delta_threshold": DELTA_THRESHOLD},
-        {"spike_cell": 2, "delta_step": 1}, False, True),
+        {"spike_cell": 2, "delta_step": 1}, False, True, "csc"),
     "fused": ({"backend": "fused", "sparse_fc": True}, {"megastep": 1},
-              True, True),
+              True, True, "csc"),
     "fused sparse_fc=False": ({"backend": "fused"}, {"megastep": 1}, True,
-                              False),
+                              False, "csc"),
     "fused_spike": ({"backend": "fused_spike", "sparse_fc": True},
-                    {"megastep_spike": 1}, True, True),
+                    {"megastep_spike": 1}, True, True, "csc"),
     "fused_spike sparse_fc=False": ({"backend": "fused_spike"},
-                                    {"megastep_spike": 1}, True, False),
+                                    {"megastep_spike": 1}, True, False,
+                                    "csc"),
+    # the 2:4 FC as N:M: served once, in this order, without the profiler
+    "sparse nm": ({"backend": "sparse"}, {"rsnn_cell": 2, "int4_matmul": 2,
+                                          "nm_fc": 1}, True, False, "nm"),
+    "spike nm": ({"backend": "spike", "sparse_fc": True},
+                 {"spike_cell": 2, "spike_broadcast": 1, "nm_fc": 1}, True,
+                 False, "nm"),
+    "fused nm": ({"backend": "fused", "sparse_fc": True}, {"megastep": 1},
+                 True, False, "nm"),
+    "fused_spike nm": ({"backend": "fused_spike", "sparse_fc": True},
+                       {"megastep_spike": 1}, True, False, "nm"),
+}
+# the same 2:4 mask as padded CSC: served once, for bit-equal logits
+# against the configuration over N:M that the key names
+LAYOUT_PARITY = {
+    "sparse nm": ({"backend": "sparse"}, {"rsnn_cell": 2, "int4_matmul": 2,
+                                          "sparse_fc": 1}),
+    "fused nm": ({"backend": "fused", "sparse_fc": True}, {"megastep": 1}),
 }
 
 
-def serve_all(path, art, utts) -> tuple[dict, dict]:
-    """Phase 4: every configuration of ``SERVED`` over the same streams,
-    against the port's ``ref`` backend; returns (launches of each kernel
-    over all runs, logits by configuration)."""
+def serve_counted(name: str, path, art, fields: dict, per_step: dict, utts,
+                  launches: dict):
+    """Serve ``utts`` once through an engine over ``path`` with ``fields``;
+    each kernel's launches must be steps x ``per_step`` (0 for a kernel
+    not named), and every request's logits finite and of its shape.
+    Adds the launches to ``launches``; returns (engine, loop, logits,
+    seconds, launches of this run)."""
+    from repro_torch.core.layouts.nm import NMGroupPacked
     from repro_torch.serving.stream import CompiledRSNN, EngineConfig
 
-    ref = CompiledRSNN.from_artifact(path, backend="ref")
-    _, ref_done, ref_s = serve(ref, utts)
-    ref_logits = [r.stacked_logits() for r in ref_done]
-    print(f"serve ref: {ref_s!r} s = {sum(map(len, utts)) / ref_s!r} "
-          f"frames/s")
-    launches = dict.fromkeys(kernel_modules(), 0)
+    eng = CompiledRSNN.from_artifact(path, EngineConfig(
+        **fields, input_scale=art.input_scale))
+    nm_mode = eng.engine.wants_sparse_fc and isinstance(
+        eng.packed.sparse["fc_w"], NMGroupPacked)
+    set_counts(0)
+    loop, done, secs = serve(eng, utts)
+    counts = read_counts()
+    for n, c in counts.items():
+        if c != loop.steps * per_step.get(n, 0):
+            raise AssertionError(
+                f"{name}: {n} launched {c} times, expected "
+                f"{loop.steps} steps x {per_step.get(n, 0)}")
+        launches[f"{n}_nm" if nm_mode and n in ROW_FC_MODE else n] += c
+    logits = [r.stacked_logits() for r in done]
+    for r, lg in zip(done, logits):
+        if lg.shape != (len(r.frames), PRUNED.fc_dim) \
+                or not np.isfinite(lg).all():
+            raise AssertionError(f"{name}: request {r.sid} logits "
+                                 f"{lg.shape} not finite")
+    return eng, loop, logits, secs, counts
+
+
+def serve_all(paths: dict, arts: dict, utts) -> tuple[dict, dict]:
+    """Phase 4: every configuration of ``SERVED`` over the same streams,
+    against the port's ``ref`` backend over the same artifact, then
+    ``LAYOUT_PARITY``; returns (launches of each kernel over all runs,
+    logits by configuration)."""
+    from repro_torch.serving.stream import CompiledRSNN
+
+    refs = {}
+    for key in dict.fromkeys(v[4] for v in SERVED.values()):
+        ref = CompiledRSNN.from_artifact(paths[key], backend="ref")
+        _, ref_done, ref_s = serve(ref, utts)
+        refs[key] = ref, [r.stacked_logits() for r in ref_done]
+        print(f"serve ref ({key} artifact): {ref_s!r} s = "
+              f"{sum(map(len, utts)) / ref_s!r} frames/s")
+    launches = dict.fromkeys([*kernel_modules(), *ROW_FC_MODE], 0)
     served = {}
-    for name, (fields, per_step, forced, profiled) in SERVED.items():
-        eng = CompiledRSNN.from_artifact(path, EngineConfig(
-            **fields, input_scale=art.input_scale))
-        set_counts(0)
-        loop, done, secs = serve(eng, utts)
-        counts = read_counts()
-        for n, c in counts.items():
-            if c != loop.steps * per_step.get(n, 0):
-                raise AssertionError(
-                    f"{name}: {n} launched {c} times, expected "
-                    f"{loop.steps} steps x {per_step.get(n, 0)}")
-            launches[n] += c
-        logits = [r.stacked_logits() for r in done]
-        for r, lg in zip(done, logits):
-            if lg.shape != (len(r.frames), PRUNED.fc_dim) \
-                    or not np.isfinite(lg).all():
-                raise AssertionError(f"{name}: request {r.sid} logits "
-                                     f"{lg.shape} not finite")
+    for name, (fields, per_step, forced, profiled, key) in SERVED.items():
+        ref, ref_logits = refs[key]
+        eng, loop, logits, secs, counts = serve_counted(
+            name, paths[key], arts[key], fields, per_step, utts, launches)
         agree = float(np.mean(np.concatenate(
             [a.argmax(1) == b.argmax(1) for a, b in zip(logits, ref_logits)])))
         flips = compare_free_running(eng, ref, utts[:SLOTS], 40)
@@ -795,7 +967,7 @@ def serve_all(path, art, utts) -> tuple[dict, dict]:
             forced_text = (f"max |dlogit| {tf!r}, slot-frames let through "
                            f"near the threshold {tf_near}")
         prof = loop.sparsity_profile()
-        print(f"serve {name}: {len(done)} streams, {loop.steps} steps, "
+        print(f"serve {name}: {len(utts)} streams, {loop.steps} steps, "
               f"{loop.frames_served} frames in {secs!r} s = "
               f"{loop.frames_served / secs!r} frames/s; launches "
               f"{ {n: c for n, c in counts.items() if c} }; argmax agreement "
@@ -808,9 +980,21 @@ def serve_all(path, art, utts) -> tuple[dict, dict]:
         served[name] = (eng, logits)
         if profiled:
             device_busy(eng, utts, name)
+    for name, (fields, per_step) in LAYOUT_PARITY.items():
+        _, _, logits, _, _ = serve_counted(
+            f"{name} as csc", paths["nm as csc"], arts["nm as csc"], fields,
+            per_step, utts, launches)
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(logits, served[name][1])):
+            raise AssertionError(f"{name}: logits over the 2:4 mask differ "
+                                 f"between the csc and nm_group artifacts")
+        print(f"serve {name}: logits bit-equal over the csc and the "
+              f"nm_group artifact of the same 2:4 mask")
     for name in reversed(SERVED):  # order effects: serve again, reversed
-        loop, _, secs = serve(served[name][0], utts)
-        print(f"serve again {name}: {loop.frames_served / secs!r} frames/s")
+        if SERVED[name][4] == "csc":
+            loop, _, secs = serve(served[name][0], utts)
+            print(f"serve again {name}: {loop.frames_served / secs!r} "
+                  f"frames/s")
     return launches, {name: lg for name, (_, lg) in served.items()}
 
 
@@ -907,16 +1091,16 @@ def events(x: torch.Tensor) -> tuple[float, int]:
     return float(live.sum()), int(live.any(dim=0).sum())
 
 
-def work(name: str, args) -> tuple[int, float]:
+def work(name: str, args, fc_mode: str = "csc") -> tuple[int, float]:
     """(bytes moved, operations) of one kernel call on ``args``: each
     input read once (a broadcast stimulus counts its one row), each output
     written once; a sparse or gated call counts what these inputs need:
-    the stored CSC entries, the events and the W rows they name, the
-    recomputed K8 rows and the cached rows read in their place.  For
-    K6/K7 the operations are a pair: (float32 layer products and LIF
-    chains, integer FC sums)."""
+    the stored CSC or N:M entries, the events and the W rows they name,
+    the recomputed K8 rows and the cached rows read in their place.  For
+    K6/K7 (in ``fc_mode``) the operations are a pair: (float32 layer
+    products and LIF chains, integer FC sums)."""
     if name.startswith("megastep"):
-        return megastep_work(name, args)
+        return megastep_work(name, args, fc_mode)
     if name in ("rsnn_cell", "spike_cell"):
         stim, s, w, u0, h0, beta, vth = args
         ts, b, h = s.shape
@@ -954,22 +1138,27 @@ def work(name: str, args) -> tuple[int, float]:
         ev, named = events(merged)
         return (nbytes(x) + named * n * 4 + r * n * 4,
                 2.0 * ev * n + (x.numel() - merged.numel()))
-    s, idx, val, sc = args
+    s, *fc, sc = args  # sparse_fc: indices, values; nm_fc: packed
     ts, b, h = s.shape
-    stored = float((val != 0).sum())
-    return (nbytes(s, idx, val, sc) + b * idx.shape[1] * 4,
+    stored = stored_entries(*fc)
+    return (nbytes(s, *fc, sc) + b * fc[0].shape[1] * 4,
             (ts - 1.0) * b * h + 2.0 * b * stored)
 
 
-def megastep_work(name: str, args) -> tuple[int, tuple[float, float]]:
+def stored_entries(*fc) -> float:
+    """Nonzero weights of a CSC (indices, values) or N:M (packed) FC."""
+    vals = fc[-1] & 0xF if fc[-1].dtype == torch.int8 else fc[-1]
+    return float((vals != 0).sum())
+
+
+def megastep_work(name: str, args,
+                  fc_mode: str) -> tuple[int, tuple[float, float]]:
     """``work`` of one K6/K7 call: every operand read once and every output
     written once; float32 operations of the L0 feed-forward, the three
     spike products (K7: 2 x H per event of the rows it compacts, which the
     plain version's spike trains of this call give) and both LIF chains;
-    integer operations of the merged-spike FC (the stored CSC entries; K7
-    with dense_int4: the merged union's events)."""
-    from repro_torch.kernels import ref
-
+    integer operations of the merged-spike FC (the stored CSC or N:M
+    entries; K7 with dense_int4: the merged union's events)."""
     x, s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, wq, fc = args
     frames, b, d = x.shape
     ts, _, h = s0.shape
@@ -979,32 +1168,33 @@ def megastep_work(name: str, args) -> tuple[int, tuple[float, float]]:
              + 2 * frames * ts * b * 4 + 2 * frames * b * 4)
     f32 = frames * (2.0 * b * d * h + 2 * 5.0 * ts * b * h)
     merge = frames * (ts - 1.0) * b * h
-    dense_fc = len(fc) == 2
-    if name == "megastep":
+    dense_fc = fc_mode == "dense_int4"
+    sparse_ops = 0.0 if dense_fc else 2.0 * b * stored_entries(*fc[:-1])
+    if not name.startswith("megastep_spike"):
         f32 += frames * 3 * 2.0 * ts * b * h * h
-        fc_ops = 2.0 * b * h * n if dense_fc else 2.0 * b * float(
-            (fc[1] != 0).sum())
+        fc_ops = 2.0 * b * h * n if dense_fc else sparse_ops
         return moved, (f32, merge + frames * fc_ops)
     fc_ops = 0.0
     st0, st1 = s0, s1
+    plain = megastep_pair(fc_mode, False)[1]
     for f in range(frames):  # the trains each frame compacts
-        out = ref.megastep_ref(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0,
-                               b1, v1, wq, fc, fc_mode="dense_int4"
-                               if dense_fc else "csc",
-                               input_bits=PRUNED.input_bits)
+        out = plain(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0, b1, v1,
+                    wq, fc)
         ev = sum(events(t.reshape(-1, h))[0] for t in (st0, out[0], st1))
         f32 += 2.0 * h * ev
         fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
-                   else 2.0 * b * float((fc[1] != 0).sum()))
+                   else sparse_ops)
         st0, u0, st1, u1 = out[:4]
         h0, h1 = st0[-1], st1[-1]
     return moved, (f32, merge + fc_ops)
 
 
-def bound_parts(name: str, args) -> tuple[float, float]:
+def bound_parts(name: str, args,
+                fc_mode: str = "csc") -> tuple[float, float]:
     """(seconds for the bytes at the memory rate, seconds for the
-    operations at the peak rate of their type) of one call on the H100."""
-    moved, ops = work(name, args)
+    operations at the peak rate of their type) of one call on the H100
+    (K6/K7 in ``fc_mode``)."""
+    moved, ops = work(name, args, fc_mode)
     if name.startswith("megastep"):
         f32, ints = ops
         return (moved / HBM_BYTES_PER_S,
@@ -1032,6 +1222,15 @@ def library_fn(name: str, args):
         if x.dim() == 3:
             return (lambda s_, w_: torch.einsum("tbk,kn->bn", s_, w_)), args
         return torch.matmul, args
+    if name == "nm_fc":  # the same matrix decoded, then as for sparse_fc
+        from repro_torch.core.layouts.nm import (NMGroupPacked, entry_rows,
+                                                 split_nibbles)
+
+        s, p, sc = args
+        t = NMGroupPacked(p, sc, None, NM[0], NM[1], p.shape[0] // NM[0]
+                          * NM[1])
+        return library_fn("sparse_fc", (s, entry_rows(t),
+                                        split_nibbles(p)[0], sc))
     if name == "sparse_fc":
         s, idx, val, sc = args
         h, n = s.shape[-1], idx.shape[1]
@@ -1047,23 +1246,27 @@ def library_fn(name: str, args):
     return None
 
 
-def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
+def time_kernels(packs: dict, dev, seed: int, launches: dict, errs: dict):
     """Phase 5: per-frame time of each kernel at B = 256 (K9/K10
-    lossless, K8 at ``DELTA_THRESHOLD``)."""
+    lossless, K8 at ``DELTA_THRESHOLD``, K5 over the 2:4 FC, K6/K7 as
+    served with ``sparse_fc`` over the ``csc`` artifact), then K6/K7 in
+    every FC mode over chunks of 1 and ``MEGA_FRAMES`` frames."""
     gen = torch.Generator().manual_seed(seed + 7)
-    calls = kernel_calls(kernel_inputs(packed, 256, gen, dev))
+    calls = kernel_calls(kernel_inputs(packs, 256, gen, dev))
     rows = []
     for name, items in calls.items():
         ms = plain_ms = bound = 0.0
         lib_ms: float | None = 0.0
         by_bytes = True
-        # the plain mega-step issues ~100-150 launches a call: few enough
-        # calls that they all queue behind the sleep
-        plain_reps = 4 if name.startswith("megastep") else 50
+        # the plain mega-step issues ~100-150 launches a call, the plain K5
+        # ~20: few enough calls that they all queue behind the sleep
+        plain_reps = 4 if name.startswith("megastep") else \
+            {"nm_fc": 10}.get(name, 50)
         for kern, plain, args in items:
             ms += cuda_ms(kern, args)
             plain_ms += cuda_ms(plain, args, plain_reps)
-            t_bytes, t_ops = bound_parts(name, args)
+            t_bytes, t_ops = bound_parts(name, args,
+                                         ROW_FC_MODE.get(name, "csc"))
             bound += max(t_bytes, t_ops) * 1e3
             by_bytes &= t_bytes >= t_ops
             lib = library_fn(name, args)
@@ -1079,14 +1282,14 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
         print(f"time {name} (per frame, B=256, {len(items)} call(s)): "
               f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, "
               f"bound {bound!r} ms")
-    a = kernel_inputs(packed, 256, gen, dev)
-    for fc_mode in ("dense_int4", "csc"):  # the other FC mode, and chunks
+    a = kernel_inputs(packs, 256, gen, dev)
+    for fc_mode in FC_MODES:  # every FC mode, and chunks
         for frames in (1, MEGA_FRAMES):
             for spike in (False, True):
                 name = "megastep_spike" if spike else "megastep"
                 args = megastep_args(a, frames, fc_mode)
                 ms = cuda_ms(megastep_pair(fc_mode, spike)[0], args)
-                bound = max(bound_parts(name, args)) * 1e3
+                bound = max(bound_parts(name, args, fc_mode)) * 1e3
                 print(f"time {name} fc_mode={fc_mode} F={frames} (B=256): "
                       f"{ms / frames!r} ms a frame, bound "
                       f"{bound / frames!r} ms a frame")
@@ -1099,13 +1302,14 @@ def time_kernels(packed, dev, seed: int, launches: dict, errs: dict):
 def kernel_modules() -> dict:
     """Kernel name -> (wrapper module, its launch counter's name)."""
     from repro_torch.kernels import (delta_step, int4_matmul, megastep,
-                                     merged_spike_fc, rsnn_cell, sparse_fc,
-                                     spike_broadcast)
+                                     merged_spike_fc, nm_fc, rsnn_cell,
+                                     sparse_fc, spike_broadcast)
 
     return {"rsnn_cell": (rsnn_cell, "launches"),
             "int4_matmul": (int4_matmul, "launches"),
             "merged_spike_fc": (merged_spike_fc, "launches"),
             "sparse_fc": (sparse_fc, "launches"),
+            "nm_fc": (nm_fc, "launches"),
             "delta_step": (delta_step, "launches"),
             "spike_broadcast": (spike_broadcast, "launches"),
             "spike_cell": (spike_broadcast, "cell_launches"),
@@ -1153,29 +1357,38 @@ def main(argv=None) -> int:
 
     utts = utterances(args.seed, STREAMS)
     with tempfile.TemporaryDirectory() as tmp:
-        path = write_artifact(Path(tmp) / "art", args.seed, utts)
-        art = load_artifact(path)
-        print(f"artifact: {path.name} cfg {art.cfg} fc nnz_max "
-              f"{art.packed.sparse['fc_w'].indices.shape[0]}")
-        errs = check_kernels(art.packed, dev, args.seed)
+        paths, arts = {}, {}
+        for i, (key, (prune, layout)) in enumerate(ARTIFACTS.items()):
+            paths[key] = write_artifact(Path(tmp) / f"art{i}", args.seed,
+                                        utts, prune=prune, fc_layout=layout)
+            arts[key] = load_artifact(paths[key])
+            fc = arts[key].packed.sparse["fc_w"]
+            print(f"artifact {key}: layouts {arts[key].layouts}, FC pruned "
+                  f"{arts[key].fc_prune_fraction}, entries a column "
+                  f"{fc[0].shape[0]}")
+        print(f"cfg {arts['csc'].cfg}")
+        path, art = paths["csc"], arts["csc"]
+        packs = {k: a.packed for k, a in arts.items()}
+        errs = check_kernels(packs, dev, args.seed)
         if args.kernels_only:
             return 0
-        launches, served = serve_all(path, art, utts)
+        launches, served = serve_all(paths, arts, utts)
         for a, b in zip(served["pallas"], served["sparse"]):
             if not np.array_equal(a, b):
                 raise AssertionError("pallas and sparse logits differ")
         print("serve: pallas and sparse logits bit-equal")
         for k6, k7 in (("fused", "fused_spike"),
                        ("fused sparse_fc=False",
-                        "fused_spike sparse_fc=False")):
+                        "fused_spike sparse_fc=False"),
+                       ("fused nm", "fused_spike nm")):
             if not all(np.array_equal(a, b)
                        for a, b in zip(served[k6], served[k7])):
                 raise AssertionError(f"{k6} and {k7} logits differ")
         print("serve: fused and fused_spike logits bit-equal, with and "
-              "without sparse_fc")
+              "without sparse_fc, and over the N:M artifact")
         for backend in ("fused", "fused_spike"):
             check_chunk(path, art, utts, backend)
-        rows = time_kernels(art.packed, dev, args.seed, launches, errs)
+        rows = time_kernels(packs, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -16,9 +16,11 @@ as implicit padded CSC.  Any other version, a tensor missing from
 ``tensors.npz``, or a shape or dtype that disagrees with the manifest
 raises ``ArtifactError``.
 
-Only the int4 payload is served by the port so far.  A float payload or an
-``nm_group`` tensor raises ``NotImplementedError`` naming its ROADMAP
-item; the write side is not ported.
+Only the int4 payload is served by the port so far: every registered
+layout loads (``dense``, ``csc`` and ``nm_group``, for ``fc_w`` and for any
+recurrent tensor a mixed-level spec pruned).  A float payload raises
+``NotImplementedError`` naming its ROADMAP item; the write side is not
+ported.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from repro_torch.core.sparse import PackedRSNN, QuantTensor
 SUPPORTED_VERSIONS = (1, 2)
 MANIFEST = "manifest.json"
 TENSORS = "tensors.npz"
-_NOT_PORTED_LAYOUTS = {"nm_group": "ROADMAP queue 2, K5 (nm_fc)"}
 
 
 class ArtifactError(ValueError):
@@ -136,10 +137,6 @@ def packed_from_arrays(arrays: dict[str, np.ndarray]) -> PackedRSNN:
     known = set(layouts.available_layouts())
     for key, arr in arrays.items():
         kind, _, rest = key.partition(".")
-        if kind in _NOT_PORTED_LAYOUTS:
-            raise NotImplementedError(
-                f"tensor {key!r} uses the {kind!r} weight layout, which is "
-                f"not yet ported to repro_torch ({_NOT_PORTED_LAYOUTS[kind]})")
         if kind == "quant":
             name, field = rest.rsplit(".", 1)
             quant.setdefault(name, {})[field] = torch.from_numpy(

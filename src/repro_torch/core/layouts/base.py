@@ -15,8 +15,9 @@ interface:
 
 Layouts register by name; ``layout_of`` maps a packed tensor back to its
 layout by type, so the serving op table resolves the readout from whatever
-the artifact holds.  The packing half (``pack``, size accounting,
-``flatten``) is not ported yet.
+the artifact holds.  Three layouts are registered: ``dense``, ``csc`` and
+``nm_group``.  The packing half (``pack``, size accounting, ``flatten``)
+is not ported yet.
 """
 
 from __future__ import annotations

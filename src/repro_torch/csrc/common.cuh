@@ -37,6 +37,8 @@ constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve
+constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
+                                      // m > 16, or entries not a multiple of n
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {

@@ -11,7 +11,8 @@
 //        h = (u >= vth), t = 0..TS-1 (K1's chain exactly)
 //   FC:  logits[f] = (sum_k merged[k] * q_fc[k]) * scale_fc, merged =
 //        sum_t s1'[t] (dense_int4, K3's order), or the padded-CSC gather
-//        of merged (csc, K4's order): integer sums, one scale at the end
+//        of merged (csc, K4's order), or the N:M group-packed gather (nm,
+//        K5's order): integer sums, one scale at the end
 //   counters: spikes_l0/l1[f][t] = sum_k s'[t][k], union_l1[f] = the
 //        columns where some s1'[t] spiked, input_one_bits[f] = sum_d
 //        popc(int(|x|) & (2^input_bits - 1))
@@ -20,26 +21,28 @@
 // the F frames and is written once at the end.  Shapes: x (F, B, D), s0/s1
 // (TS, B, H), u0/h0/u1/h1 (B, H), beta/vth (H,), all float32; the four
 // layer weights (K/2, H) int8 nibbles + (H,) float32 scales; FC dense_int4
-// packed (H/2, N) int8 + scale (N,), or csc indices (nnz, N) int32 +
-// values (nnz, N) float32 + scale (N,).  Outputs: s0/s1 (TS, B, H), u0/u1
-// (B, H), logits (F, B, N), spikes_l0/l1 (F, TS, B), union_l1 and
-// input_one_bits (F, B).
+// packed (H/2, N) int8 + scale (N,), csc indices (nnz, N) int32 +
+// values (nnz, N) float32 + scale (N,), or nm packed (E, N) int8 (value |
+// offset << 4, nm_n entries of every nm_m rows) + scale (N,).  Outputs:
+// s0/s1 (TS, B, H), u0/u1 (B, H), logits (F, B, N), spikes_l0/l1
+// (F, TS, B), union_l1 and input_one_bits (F, B).
 //
 // K7 (kSpike) runs the three spike-consuming products (L0 recurrent, L1
 // feed-forward, L1 recurrent) over lossless event lists of each spike row,
 // built by compact_row into shared memory, and the dense_int4 FC over the
 // merged union's events (values in {0..TS}, gathered, never assumed 1);
-// only the W rows the events name are read.  The csc FC keeps its own
-// gather in both modes, as the reference does.  Both modes sum in
+// only the W rows the events name are read.  The csc and nm FCs keep their
+// own gather in both modes, as the reference does.  Both modes sum in
 // ascending k and a skipped term is an exact zero (fmaf(0, w, a) == a, and
 // no partial sum is -0), so K7 is bit-equal to K6 on the same inputs.
 //
 // Bound on the H100, at B = 256, F = 1, TS = 2, H = 128, N = 1920 (nnz 95):
 // the call moves 5.35 MB with csc (the 1.97 MB logits and 1.46 MB of CSC
-// index + value dominate; 4.01 MB with dense_int4): 1.60 us (1.20 us) at
-// 3.35 TB/s.  Its float32 products over dequantized weights (no tensor-core
-// type holds them exactly) are 53 MFLOP: 0.79 us at 67 TFLOP/s; the FC's
-// integer sums are exact on the int8 tensor cores.  Bytes bound it.
+// index + value dominate; 4.01 MB with dense_int4 and 2:4 nm, whose FC
+// operands are 0.13 MB): 1.60 us (1.20 us) at 3.35 TB/s.  Its float32
+// products over dequantized weights (no tensor-core type holds them
+// exactly) are 53 MFLOP: 0.79 us at 67 TFLOP/s; the FC's integer sums are
+// exact on the int8 tensor cores.  Bytes bound it.
 //
 // Design: a grid over slot tiles of kRows slots (32 blocks at B = 256, on
 // 132 SMs), kMegaThreads threads a block: thread n owns hidden column n
@@ -52,8 +55,9 @@
 // dynamic shared memory (cudaFuncSetAttribute), up to the per-kernel limit
 // kMaxMegastepSharedBytes in common.cuh.  __syncthreads() separates the
 // layers: L1 reads every column of L0's new spikes for its slots.  The FC
-// operands stream from global memory / L2 (122,880 B dense, 1.46 MB CSC:
-// not staged).  A simple design: making it fast is later work.
+// operands stream from global memory / L2 (122,880 B of packed bytes for
+// dense or 2:4 nm, 1.46 MB CSC: not staged).  A simple design: making it
+// fast is later work.
 #include "common.cuh"
 
 namespace {
@@ -65,6 +69,7 @@ using reprotorch::nibble;
 
 constexpr int kFcDenseInt4 = 0;
 constexpr int kFcCsc = 1;
+constexpr int kFcNm = 2;
 constexpr int kWarps = kMegaThreads / 32;
 
 struct Operands {
@@ -80,8 +85,9 @@ struct Operands {
   const int8_t* q[4];  // l0_wx, l0_wh, l1_wx, l1_wh: (K/2, H) nibbles
   const float* scale[4];
   int fc_mode;
-  const void* fc_a;  // dense_int4: packed (H/2, N) int8; csc: indices
-  const float* fc_values;  // csc values (nnz, N); unused for dense_int4
+  const void* fc_a;  // dense_int4: packed (H/2, N) int8; csc: indices;
+                     // nm: packed (nnz, N) int8, value | offset << 4
+  const float* fc_values;  // csc values (nnz, N); unused otherwise
   const float* fc_scale;   // (N,)
   float* s0_out;
   float* u0_out;
@@ -92,7 +98,7 @@ struct Operands {
   float* spikes_l1;
   float* union_l1;
   float* one_bits;
-  int frames, ts, b, d, h, fc, nnz, input_bits;
+  int frames, ts, b, d, h, fc, nnz, nm_n, nm_m, input_bits;
 };
 
 // Byte offsets of the shared-memory regions, for the host's size check
@@ -437,6 +443,22 @@ __global__ void __launch_bounds__(kMegaThreads)
         } else {
           reprotorch::int4_column_dot(m_sh, rows, h, packed, fc, col, acc);
         }
+      } else if (o.fc_mode == kFcNm) {  // K5's walk: one byte an entry
+        const int8_t* packed = static_cast<const int8_t*>(o.fc_a);
+        int group_row = 0;  // (e / nm_n) * nm_m
+        int slot = 0;       // e % nm_n
+        for (int e = 0; e < o.nnz; ++e) {
+          const int byte = packed[static_cast<long long>(e) * fc + col];
+          const int row = group_row + ((byte >> 4) & 0xF);
+          if (++slot == o.nm_n) {
+            slot = 0;
+            group_row += o.nm_m;
+          }
+          if (row >= h) continue;
+          const float v = nibble(byte);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) acc[r] = fmaf(m_sh[r * h + row], v, acc[r]);
+        }
       } else {
         const int* indices = static_cast<const int*>(o.fc_a);
         for (int e = 0; e < o.nnz; ++e) {
@@ -494,11 +516,17 @@ extern "C" int megastep_launch(
     const void* fc_a, const void* fc_values, const void* fc_scale,
     void* s0_out, void* u0_out, void* s1_out, void* u1_out, void* logits,
     void* spikes_l0, void* spikes_l1, void* union_l1, void* one_bits,
-    int frames, int ts, int b, int d, int h, int fc, int nnz, int input_bits,
-    int spike, void* stream) {
+    int frames, int ts, int b, int d, int h, int fc, int nnz, int nm_n,
+    int nm_m, int input_bits, int spike, void* stream) {
   if (ts > kMaxTs) return reprotorch::kErrTooManySteps;
   if (h > kMegaThreads) return reprotorch::kErrTooWide;
-  if (fc_mode != kFcDenseInt4 && fc_mode != kFcCsc) return reprotorch::kErrFcMode;
+  if (fc_mode != kFcDenseInt4 && fc_mode != kFcCsc && fc_mode != kFcNm) {
+    return reprotorch::kErrFcMode;
+  }
+  if (fc_mode == kFcNm &&
+      (nm_n < 1 || nm_n > nm_m || nm_m > 16 || nnz % nm_n != 0)) {
+    return reprotorch::kErrNmGeometry;
+  }
   const size_t smem = shared_layout(ts, d, h, spike != 0).total;
   if (smem > reprotorch::kMaxMegastepSharedBytes) return reprotorch::kErrSharedMemory;
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
@@ -543,6 +571,8 @@ extern "C" int megastep_launch(
   o.h = h;
   o.fc = fc;
   o.nnz = nnz;
+  o.nm_n = nm_n;
+  o.nm_m = nm_m;
   o.input_bits = input_bits;
   void (*kernel)(const Operands) =
       spike ? megastep_kernel<true> : megastep_kernel<false>;

@@ -13,7 +13,11 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrTooWide:
       return "hidden width over the megastep block's threads (kMegaThreads)";
     case reprotorch::kErrFcMode:
-      return "an FC mode the megastep kernel does not serve (dense_int4, csc)";
+      return "an FC mode the megastep kernel does not serve (dense_int4, "
+             "csc, nm)";
+    case reprotorch::kErrNmGeometry:
+      return "an N:M geometry the kernel does not take (needs 1 <= n <= m "
+             "<= 16 and entries a multiple of n)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

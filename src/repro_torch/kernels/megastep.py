@@ -22,14 +22,18 @@ from repro_torch.kernels import _build
 launches = 0  # K6 megastep(spike=False)
 spike_launches = 0  # K7 megastep(spike=True)
 
-FC_MODES = {"dense_int4": 0, "csc": 1}  # the kernel's fc_mode codes
+FC_MODES = {"dense_int4": 0, "csc": 1, "nm": 2}  # the kernel's fc_mode codes
+# megastep_launch's C signature: 19 state/weight pointers, fc_mode, 3 FC
+# and 9 output pointers, then frames, ts, b, d, h, fc, nnz, nm_n, nm_m,
+# input_bits, spike, and the stream
 _ARGS = ([ctypes.c_void_p] * 19 + [ctypes.c_int] + [ctypes.c_void_p] * 12
-         + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def _fc_operands(fc_mode: str, fcargs: tuple, h: int) -> tuple:
     """The FC operands as the kernel takes them, after checking their
-    dtypes and shapes: (a, values or None, scale (N,), N, nnz)."""
+    dtypes and shapes: (a, values or None, scale (N,), N, nnz), where
+    ``nnz`` counts the CSC entries or the N:M entry slots of a column."""
     if fc_mode not in FC_MODES:
         raise ValueError(f"megastep: unknown fc_mode {fc_mode!r}; the kernel "
                          f"serves {sorted(FC_MODES)}")
@@ -41,6 +45,13 @@ def _fc_operands(fc_mode: str, fcargs: tuple, h: int) -> tuple:
                              f"({h // 2}, N), got {packed.dtype} "
                              f"{tuple(packed.shape)}")
         a, values, nnz = packed, None, 0
+    elif fc_mode == "nm":
+        packed, scale = fcargs
+        nnz, n = packed.shape
+        if packed.dtype != torch.int8:
+            raise ValueError(f"megastep: nm FC packed must be int8, got "
+                             f"{packed.dtype}")
+        a, values = packed, None
     else:
         indices, values, scale = fcargs
         nnz, n = indices.shape
@@ -59,14 +70,16 @@ def _fc_operands(fc_mode: str, fcargs: tuple, h: int) -> tuple:
 
 def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
              wargs: tuple, fcargs: tuple, *, fc_mode: str, input_bits: int,
+             nm_n: int = 0, nm_m: int = 0,
              spike: bool = False) -> tuple[torch.Tensor, ...]:
     """Launch K6 (``spike=False``) or K7 on CUDA tensors, the operands of
     ``ref.megastep_ref``: ``x`` (F, B, D); ``s0``/``s1`` (TS, B, H);
     ``u0``/``h0``/``u1``/``h1`` (B, H); ``beta*``/``vth*`` (H,), all
     float32; ``wargs`` four (int8 (K/2, H), float32 (H,) or (1, H)) pairs;
-    ``fcargs`` per ``fc_mode``.  Returns ``(s0, u0, s1, u1, logits
-    (F, B, N), spikes_l0 (F, TS, B), spikes_l1 (F, TS, B), union_l1
-    (F, B), input_one_bits (F, B))``, float32."""
+    ``fcargs`` per ``fc_mode`` (``nm``: ``nm_n`` of every ``nm_m`` rows,
+    a geometry the kernel refuses unless 1 <= n <= m <= 16).  Returns
+    ``(s0, u0, s1, u1, logits (F, B, N), spikes_l0 (F, TS, B), spikes_l1
+    (F, TS, B), union_l1 (F, B), input_one_bits (F, B))``, float32."""
     global launches, spike_launches
     f32 = torch.float32
     state = dict(x=x, s0=s0, u0=u0, h0=h0, s1=s1, u1=u1, h1=h1, beta0=beta0,
@@ -119,8 +132,8 @@ def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
         status = fn(*ptr, FC_MODES[fc_mode], fc_a.data_ptr(),
                     None if fc_values is None else fc_values.data_ptr(),
                     fc_scale.data_ptr(), *(t.data_ptr() for t in outs),
-                    frames, ts, b, d, h, n, nnz, int(input_bits), int(spike),
-                    _build.stream(dev))
+                    frames, ts, b, d, h, n, nnz, int(nm_n), int(nm_m),
+                    int(input_bits), int(spike), _build.stream(dev))
     _build.check(status, "megastep")
     if spike:
         spike_launches += 1

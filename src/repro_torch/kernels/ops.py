@@ -14,6 +14,7 @@ from repro_torch.kernels import delta_step as _delta
 from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import megastep as _mega
 from repro_torch.kernels import merged_spike_fc as _mfc
+from repro_torch.kernels import nm_fc as _nfc
 from repro_torch.kernels import ref
 from repro_torch.kernels import rsnn_cell as _cell
 from repro_torch.kernels import sparse_fc as _sfc
@@ -54,6 +55,12 @@ def sparse_fc(spikes_ts, indices, values, scale):
     return _sfc.sparse_fc(spikes_ts, indices, values, scale)
 
 
+def nm_fc(spikes_ts, packed, scale, *, n, m):
+    if _plain("nm_fc", spikes_ts):
+        return ref.nm_fc_ref(spikes_ts, packed, scale, n=n, m=m)
+    return _nfc.nm_fc(spikes_ts, packed, scale, n=n, m=m)
+
+
 def delta_step(x, x_prev, pre_prev, w, threshold):
     if _plain("delta_step", x):
         return ref.delta_step_ref(x, x_prev, pre_prev, w, threshold)
@@ -77,11 +84,13 @@ def spike_cell(stim_base, s_prev, w, u0, h0, beta, vth, *, capacity=None):
 
 
 def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wargs,
-             fcargs, *, fc_mode, input_bits, spike=False):
+             fcargs, *, fc_mode, input_bits, nm_n=0, nm_m=0, spike=False):
     if _plain("megastep", x):
         return ref.megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0,
                                 beta1, vth1, wargs, fcargs, fc_mode=fc_mode,
-                                input_bits=input_bits, spike=spike)
+                                input_bits=input_bits, nm_n=nm_n, nm_m=nm_m,
+                                spike=spike)
     return _mega.megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1,
                           vth1, wargs, fcargs, fc_mode=fc_mode,
-                          input_bits=input_bits, spike=spike)
+                          input_bits=input_bits, nm_n=nm_n, nm_m=nm_m,
+                          spike=spike)

@@ -9,13 +9,13 @@ the float operations that are not exact, so that:
     in interpret mode.
 
 The int4 products (``int4_matmul_ref``, ``merged_spike_fc_ref``,
-``sparse_fc_ref``) accumulate integer-valued products and apply the
-per-channel scale once at the end, as the Pallas kernels do: with 8-bit
-inputs or spikes in {0..TS} every partial sum is an integer below 2**24,
-so any summation order gives the same float and the results agree bit for
-bit.  ``rsnn_cell_ref`` sums float32 dequantized weights, whose result
-depends on the order; it agrees within a stated tolerance, as do
-``delta_step_ref``'s recomputed rows, ``spike_broadcast_ref`` and
+``sparse_fc_ref``, ``nm_fc_ref``) accumulate integer-valued products and
+apply the per-channel scale once at the end, as the Pallas kernels do:
+with 8-bit inputs or spikes in {0..TS} every partial sum is an integer
+below 2**24, so any summation order gives the same float and the results
+agree bit for bit.  ``rsnn_cell_ref`` sums float32 dequantized weights,
+whose result depends on the order; it agrees within a stated tolerance, as
+do ``delta_step_ref``'s recomputed rows, ``spike_broadcast_ref`` and
 ``spike_cell_ref``.  ``compact_spikes`` (the event lists of K9/K10) and
 ``delta_step_ref``'s mask, held input and cached rows are exact.
 ``megastep_ref`` (K6/K7) composes these: its potentials agree within the
@@ -181,9 +181,28 @@ def sparse_fc_ref(spikes_ts: torch.Tensor, indices: torch.Tensor,
     return sparse_matmul(merged, sc)
 
 
+def nm_fc_ref(spikes_ts: torch.Tensor, packed: torch.Tensor,
+              scale: torch.Tensor, *, n: int, m: int) -> torch.Tensor:
+    """Zero-skip FC over the group-packed N:M layout: the merged spikes
+    gathered at each entry's row ``(e // n) * m + offset``, times its int4
+    value, summed over the entry axis, then scaled
+    (``core.layouts.nm.nm_matmul``).
+
+    spikes_ts: (TS, B, H) (or pre-merged (B, H)); packed: (groups * n, N)
+    int8 value | offset << 4; scale: (N,) or (1, N).
+    """
+    from repro_torch.core.layouts.nm import NMGroupPacked, nm_matmul
+
+    merged = spikes_ts.sum(dim=0) if spikes_ts.dim() == 3 else spikes_ts
+    t = NMGroupPacked(packed=packed, scale=scale.reshape(1, -1), count=None,
+                      n=n, m=m, rows=packed.shape[0] // n * m)
+    return nm_matmul(merged, t)
+
+
 def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
                  wargs: tuple, fcargs: tuple, *, fc_mode: str,
-                 input_bits: int, spike: bool = False):
+                 input_bits: int, nm_n: int = 0, nm_m: int = 0,
+                 spike: bool = False):
     """The whole frame step over an F-frame chunk (K6; K7 at
     ``spike=True``), composed from the plain versions above in the
     reference oracle's order.
@@ -192,19 +211,23 @@ def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
     frame's spike trains; ``u*``/``h*`` (B, H) the LIF carries (``h*`` the
     last spike, ``lif*.spike``); ``beta*``/``vth*`` (H,); ``wargs`` the
     packed ``(q, scale)`` pairs of ``l0_wx, l0_wh, l1_wx, l1_wh``;
-    ``fcargs`` ``(packed, scale)`` for ``fc_mode="dense_int4"`` or
-    ``(indices, values, scale)`` for ``"csc"``.  ``spike=True`` runs the
-    three spike-consuming products (L0 recurrent, L1 feed-forward, L1
-    recurrent) and the dense FC through ``gather_matmul`` at lossless
-    capacity; the dense FC gathers the int4 values and scales once, as K3
-    does, so its integer sums equal the dense readout's bit for bit.
+    ``fcargs`` ``(packed, scale)`` for ``fc_mode="dense_int4"``,
+    ``(indices, values, scale)`` for ``"csc"`` or the group-packed
+    ``(packed, scale)`` for ``"nm"`` with ``nm_n`` of every ``nm_m`` rows.
+    ``spike=True`` runs the three spike-consuming products (L0 recurrent,
+    L1 feed-forward, L1 recurrent) and the dense FC through
+    ``gather_matmul`` at lossless capacity; the dense FC gathers the int4
+    values and scales once, as K3 does, so its integer sums equal the dense
+    readout's bit for bit.  The ``csc`` and ``nm`` readouts skip on the
+    weight side and keep their own gather in both modes, as the reference
+    does.
 
     Returns ``(s0, u0, s1, u1, logits (F, B, N), spikes_l0 (F, TS, B),
     spikes_l1 (F, TS, B), union_l1 (F, B), input_one_bits (F, B))``.
     """
-    if fc_mode not in ("dense_int4", "csc"):
+    if fc_mode not in ("dense_int4", "csc", "nm"):
         raise ValueError(f"unknown fc_mode {fc_mode!r}; megastep serves "
-                         f"'dense_int4' and 'csc'")
+                         f"'dense_int4', 'csc' and 'nm'")
     w0x, w0h, w1x, w1h = (unpack_int4_ref(q).to(torch.float32) * sc
                           for q, sc in zip(wargs[0::2], wargs[1::2]))
     ts, b, h = s0.shape
@@ -218,6 +241,8 @@ def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
     def readout(s):
         if fc_mode == "csc":
             return sparse_fc_ref(s, *fcargs)
+        if fc_mode == "nm":
+            return nm_fc_ref(s, *fcargs, n=nm_n, m=nm_m)
         packed, scale = fcargs
         if not spike:
             return merged_spike_fc_ref(s, packed, scale.reshape(-1))

@@ -31,7 +31,8 @@ Built-in backends:
       version on CPU tensors.  The alias keeps the backend name stored in
       the reference's artifacts resolvable.
   ``sparse``                 — ``cuda`` plus the packed FC layout's
-      zero-skip kernel (``kernels/sparse_fc.py`` for padded CSC).
+      zero-skip kernel (K4 ``kernels/sparse_fc.py`` for padded CSC, K5
+      ``kernels/nm_fc.py`` for the group-packed N:M layout).
   ``spike``                  — activation-side zero skip: both recurrent
       cells through K10 ``spike_cell`` and the L1 feedforward through K9
       ``spike_broadcast``, over ascending event lists of
@@ -74,7 +75,7 @@ class BackendContext:
     sparse_fc: bool  # zero-skip layout readout instead of the dense FC
     dense: dict  # name -> (K, N) float32
     quant: dict  # name -> layouts.dense.QuantTensor
-    sparse: dict  # name -> layout tensor (SparseColumns)
+    sparse: dict  # name -> layout tensor (SparseColumns, NMGroupPacked)
     delta_threshold: float = 0.0  # delta backend's |x_t - x_prev| gate
     spike_capacity: int | None = None  # event-list slots (None = lossless)
 
@@ -202,7 +203,7 @@ def _build_spike(ctx: BackendContext) -> OpTable:
     input, not spikes, and stays a dense ``x @ W`` over the dequantized
     weights, as in the reference (outside any Pallas kernel there too).
     The readout is the packed layout's zero-skip kernel with
-    ``sparse_fc`` (K4 for CSC); otherwise K9's merged-spike-union path
+    ``sparse_fc`` (K4 for CSC, K5 for N:M); otherwise K9's merged-spike-union path
     (a 3-D input) over the dequantized FC weights, built once, or one K9
     call per time step for a config without merged spikes.
     """
@@ -264,7 +265,8 @@ def _build_fused(ctx: BackendContext) -> OpTable:
     run inside one K6 ``megastep`` launch a frame (or a chunk of frames)
     with the packed weights and the recurrent state held on chip; the
     per-op entries raise.  The FC operands come from the packed tensor's
-    ``WeightLayout.megastep_fc`` binding.
+    ``WeightLayout.megastep_fc`` binding (``dense_int4``, ``csc``, or
+    ``nm`` with its ``nm_n``/``nm_m`` statics).
     """
     return _fused_table(ctx, spike=False)
 

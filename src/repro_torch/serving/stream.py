@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import complexity, rsnn, spike_ops
+from repro_torch.core.layouts.nm import NMGroupPacked, entry_rows
 from repro_torch.core.lif import LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
 from repro_torch.core.sparse import PackedRSNN, SparseColumns, dequantize
@@ -150,8 +151,8 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def _check_packed(cfg: RSNNConfig, packed: PackedRSNN) -> None:
     """Shapes of the packed weights against the config, and every CSC row
-    index inside its matrix (the gather kernel reads them unchecked by the
-    host; padding is index 0)."""
+    index and decoded N:M row inside its matrix (the gather kernels read
+    them unchecked by the host; padding is index or offset 0)."""
     for name, (k, n) in cfg.layer_shapes.items():
         qt = packed.quant[name]
         if tuple(qt.packed.shape) != (k // 2, n) or qt.scale.numel() != n:
@@ -165,6 +166,18 @@ def _check_packed(cfg: RSNNConfig, packed: PackedRSNN) -> None:
             if t.indices.numel() and not (
                     0 <= int(t.indices.min()) and int(t.indices.max()) < k):
                 raise ValueError(f"CSC indices of {name} leave [0, {k})")
+        elif isinstance(t, NMGroupPacked):
+            k = cfg.layer_shapes[name][0]
+            entries = t.packed.shape[0]
+            if not 1 <= t.n <= t.m <= 16 or t.rows != k \
+                    or entries != -(-k // t.m) * t.n:
+                raise ValueError(
+                    f"N:M tensor {name} has n={t.n} m={t.m} rows={t.rows} "
+                    f"and {entries} entries a column; the layer needs "
+                    f"1 <= n <= m <= 16, rows {k} and ceil({k} / m) * n "
+                    f"entries")
+            if entries and int(entry_rows(t).max()) >= k:
+                raise ValueError(f"N:M rows of {name} leave [0, {k})")
 
 
 def _to(tree, device: torch.device):

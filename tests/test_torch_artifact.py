@@ -1,10 +1,11 @@
 """repro_torch's artifact reader vs the reference's.
 
-Artifacts are written by the reference's ``save_artifact`` (dense and CSC
-payloads, schema v2 and a rewritten v1) and read by both readers; every
-array must be equal bit for bit.  Unported payloads (N:M layout, float)
-and broken artifacts raise.  The artifact ``chip_smoke.py`` writes with
-numpy loads in the reference reader as well as the port's.
+Artifacts are written by the reference's ``save_artifact`` (dense, CSC and
+N:M-group payloads, mixed-level pruning, schema v2 and a rewritten v1) and
+read by both readers; every array must be equal bit for bit.  A float
+payload (not ported) and broken artifacts raise.  The artifacts
+``chip_smoke.py`` writes with numpy load in the reference reader as well as
+the port's.
 """
 
 import importlib.util
@@ -18,10 +19,11 @@ import pytest
 from repro.core import artifact as j_artifact
 from repro.core import rsnn, sparse
 from repro.core.compression import (CompressionConfig, PruneSpec,
-                                    init_compression)
+                                    init_compression, pruning)
 from repro.serving import stream as S
 from repro_torch.core import artifact
 from repro_torch.core.layouts.csc import SparseColumns
+from repro_torch.core.layouts.nm import NMGroupPacked
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -66,8 +68,16 @@ def _assert_same(port, ref):
     assert port.packed.sparse.keys() == ref.packed.sparse.keys()
     for name, t in ref.packed.sparse.items():
         got = port.packed.sparse[name]
-        assert isinstance(got, SparseColumns)
-        for a, b in zip(got, t):
+        if port.layouts[name] == "nm_group":
+            assert isinstance(got, NMGroupPacked)
+            assert (got.n, got.m, got.rows) == (t.n, t.m, t.rows)
+            pairs = [(getattr(got, f), getattr(t, f))
+                     for f in ("packed", "scale", "count")]
+        else:
+            assert isinstance(got, SparseColumns)
+            pairs = zip(got, t)
+        for a, b in pairs:
+            assert a.numpy().dtype == np.asarray(b).dtype
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert port.packed.lif.keys() == ref.packed.lif.keys()
     for name, v in ref.packed.lif.items():
@@ -158,15 +168,25 @@ def test_rejects_missing_tensor_shape_mismatch_and_tag_mismatch(
         artifact.load_artifact(path)
 
 
-def test_unported_payloads_raise(tmp_path, small_cfg, rng_key):
-    """An N:M-group tensor and a float payload say they are not ported."""
-    nm = CompressionConfig(weight_bits=4, prune_specs=(
-        ("fc_w", PruneSpec(kind="nm", n=2, m=4)),))
+@pytest.mark.parametrize("pruned", [("fc_w",), ("l0_wh", "fc_w")],
+                         ids=["fc", "mixed"])
+def test_nm_group_artifact_loads_equal_to_reference(tmp_path, small_cfg,
+                                                     rng_key, pruned):
+    """An N:M-group payload loads, for the FC alone and under mixed-level
+    pruning (a recurrent tensor 2:4 as well), with every array equal to
+    the reference reader's."""
+    nm = CompressionConfig(weight_bits=4, prune_specs=tuple(
+        (name, PruneSpec(kind="nm", n=2, m=4)) for name in pruned))
     path = _write(tmp_path, small_cfg, rng_key, nm)
-    assert j_artifact.load_artifact(path).layouts == {"fc_w": "nm_group"}
-    with pytest.raises(NotImplementedError, match="nm_group.*not yet ported"):
-        artifact.load_artifact(path)
+    port, ref = artifact.load_artifact(path), j_artifact.load_artifact(path)
+    assert port.layouts == dict.fromkeys(pruned, "nm_group")
+    assert port.fc_prune_fraction == ref.ccfg.fc_prune_fraction == 0.5
+    _assert_same(port, ref)
 
+
+def test_unported_payloads_raise(tmp_path, small_cfg, rng_key):
+    """A float payload says it is not ported (an N:M-group tensor loads:
+    ``test_nm_group_artifact_loads_equal_to_reference``)."""
     params = rsnn.init_params(rng_key, small_cfg)
     fpath = j_artifact.save_artifact(tmp_path / "float", cfg=small_cfg,
                                      params=params)
@@ -175,19 +195,48 @@ def test_unported_payloads_raise(tmp_path, small_cfg, rng_key):
 
 
 def test_chip_smoke_artifact_loads_in_both_readers(tmp_path):
-    """chip_smoke.py's numpy writer produces a schema-v2 artifact the
-    reference reads, at the PRUNED widths, with equal arrays."""
+    """chip_smoke.py's numpy writer produces schema-v2 artifacts the
+    reference reads, at the PRUNED widths, with equal arrays: the FC
+    pruned 40% as CSC, and its 2:4 magnitude mask as N:M and as CSC.  Its
+    N:M packer is the reference's ``pack_nm_groups`` byte for byte, its
+    mask ``nm_prune_mask``."""
+    from repro.core.layouts import get_layout
+    from repro.core.layouts.nm import pack_nm_groups
+
     cs = _chip_smoke()
     utts = cs.utterances(0, 4)
-    path = cs.write_artifact(tmp_path / "art", 0, utts)
-    ref = j_artifact.load_artifact(path)
-    assert ref.cfg.hidden_dim == 128 and ref.cfg.fc_dim == 1920
-    assert ref.layouts == {"fc_w": "csc"}
-    assert ref.ccfg.fc_prune_fraction == 0.4
-    _assert_same(artifact.load_artifact(path), ref)
-    # the dense and CSC copies of fc_w hold the same matrix
-    sc = ref.packed.sparse["fc_w"]
-    dense = np.asarray(sparse.dequantize(ref.packed.quant["fc_w"]))
-    from repro.core.layouts import get_layout
+    refs = {}
+    for key, (prune, layout) in cs.ARTIFACTS.items():
+        path = cs.write_artifact(tmp_path / layout / str(prune), 0, utts,
+                                 prune=prune, fc_layout=layout)
+        ref = j_artifact.load_artifact(path)
+        assert ref.cfg.hidden_dim == 128 and ref.cfg.fc_dim == 1920
+        assert ref.layouts == {"fc_w": layout}
+        assert ref.ccfg.fc_prune_fraction == (0.4 if key == "csc" else 0.5)
+        port = artifact.load_artifact(path)
+        assert port.fc_prune_fraction == ref.ccfg.fc_prune_fraction
+        _assert_same(port, ref)
+        # the dense and sparse copies of fc_w hold the same matrix
+        t = ref.packed.sparse["fc_w"]
+        dense = np.asarray(sparse.dequantize(ref.packed.quant["fc_w"]))
+        np.testing.assert_array_equal(
+            np.asarray(get_layout(layout).unpack(t, 128)), dense)
+        refs[key] = ref
+    # one seed, one 2:4 mask: the two N:M artifacts hold the same weights
+    nm_q = np.asarray(refs["nm"].packed.quant["fc_w"].packed)
     np.testing.assert_array_equal(
-        np.asarray(get_layout("csc").unpack(sc, 128)), dense)
+        nm_q, np.asarray(refs["nm as csc"].packed.quant["fc_w"].packed))
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(18, 7)).astype(np.float32)
+    q, scale = cs._quantize(w)
+    for n, m in ((1, 4), (2, 4), (3, 8)):
+        keep = cs._nm_mask(w, n, m)
+        np.testing.assert_array_equal(keep, np.asarray(
+            pruning.nm_prune_mask(jnp.asarray(w), n, m)).astype(bool))
+        mine = cs._nm_groups(np.where(keep, q, 0).astype(np.int8), keep,
+                             n, m)
+        want = pack_nm_groups(q, scale, keep, n, m)
+        for field in ("packed", "count"):
+            np.testing.assert_array_equal(mine[field],
+                                          np.asarray(getattr(want, field)))
+        np.testing.assert_array_equal(mine["meta"], [n, m, 18])
