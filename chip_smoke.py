@@ -27,56 +27,75 @@ Phases, each printed on its own line:
      frame, comes within ``U_RTOL``/``U_ATOL`` of a threshold; every other
      slot's spikes, counters and logits are bit-equal and its u within
      that tolerance; the input one-bits are bit-equal everywhere, and K7
-     is bit-equal to K6 on the same inputs.  The launch functions refuse
-     the shapes and N:M geometries they cannot take (``check_refusals``);
+     is bit-equal to K6 on the same inputs.  Then the float engine's
+     kernels with the float weights of ``float_params``: K6/K7 with float
+     layer weights and the ``dense_float`` FC at ``BASELINE`` and
+     ``PRUNED`` widths by the same rule, the logits within ``TOL``
+     (float32 sums in another order), K7 bit-equal to K6; and K1, K8-K10
+     at H = 256 (``BASELINE``), a width no int4 path reaches.  The launch
+     functions refuse the shapes, N:M geometries and pairs of weight
+     precision and FC mode they cannot take (``check_refusals``);
   3. three PRUNED int4 artifacts (40 -> 128 -> 128 -> 1920, TS = 2) made
      from ``--seed`` with numpy and written in the reference's schema-v2
      format (``ARTIFACTS``): the FC pruned 40% at random into padded CSC,
      and its 2 largest |w| of every 4 rows kept, as N:M (``nm_group``)
-     and as padded CSC;
+     and as padded CSC; and a float ``BASELINE`` artifact (40 -> 256 ->
+     256 -> 1920, 2,793,472 B of float32 weights, the paper's
+     uncompressed model) as ``save_artifact(params=...)`` writes it
+     (``write_float_artifact``);
   4. 512 seeded utterances of 40-100 frames served through
      ``StreamLoop(batch_slots=256, pipeline_depth=0)`` in every
      configuration of ``SERVED``: ``pallas``, ``sparse``, ``spike`` with
      the CSC readout (K4) and without it (K9's union), ``delta`` at
      threshold 0 and at ``DELTA_THRESHOLD``, ``fused`` and ``fused_spike``
-     (one K6 or K7 launch a frame) with and without the CSC readout; then
-     ``sparse``, ``spike``, ``fused`` and ``fused_spike`` over the N:M
-     artifact (K5, K6/K7's ``nm`` mode), once and unprofiled, and
-     ``sparse`` and ``fused`` over the same 2:4 mask as CSC, whose logits
-     must equal the N:M runs' bit for bit.  Every kernel's launch count
-     must equal steps x its launches per step in that configuration (0
-     for a kernel it does not run); ``pallas`` and ``sparse`` logits must
-     be bit-equal (the dense and CSC readouts hold the same int4 matrix
-     and sum integers), and so must ``fused`` and ``fused_spike`` (K7 is
-     bit-equal to K6), over both artifacts.  Each is compared with the port's ``ref`` backend
-     on the card: argmax agreement and spike-flip rate are printed, and
-     where the configuration computes ``ref``'s function (all but
-     ``delta`` at a positive threshold) a teacher-forced run of frames is
-     asserted: a slot's spikes may differ only where the ``ref`` engine's
-     potential lies within ``U_RTOL``/``U_ATOL`` of the threshold (those
-     slots are counted and printed), and the other slots' logits and
-     potentials must agree within ``LOGIT_ATOL``.  Frames/s, the measured
-     densities, ``delta_input_density`` and ``mmac_per_second()`` are
-     printed.  The chunk axis: ``CompiledRSNN._chunk_step`` over
-     ``MEGA_FRAMES`` frames of ``fused`` and ``fused_spike`` equals as
-     many ``step`` calls bit for bit, in one launch against one a frame;
+     (one K6 or K7 launch a frame) with and without the CSC readout; the
+     float engine over the float artifact, once: ``pallas`` (K1),
+     ``spike`` (K10, K9), ``delta`` at threshold 0 (K8, K10), ``fused``
+     and ``fused_spike`` (K6/K7 in ``dense_float``); then ``sparse``,
+     ``spike``, ``fused`` and ``fused_spike`` over the N:M artifact (K5,
+     K6/K7's ``nm`` mode), once and unprofiled, and ``sparse`` and
+     ``fused`` over the same 2:4 mask as CSC, whose logits must equal the
+     N:M runs' bit for bit.  Every kernel's launch count must equal steps
+     x its launches per step in that configuration (0 for a kernel it
+     does not run); ``pallas`` and ``sparse`` logits must be bit-equal
+     (the dense and CSC readouts hold the same int4 matrix and sum
+     integers), and so must ``fused`` and ``fused_spike`` (K7 is
+     bit-equal to K6), over all three artifacts served.  Each is compared
+     with the port's ``ref`` backend over the same artifact on the card:
+     argmax agreement and spike-flip rate are printed, and where the
+     configuration computes ``ref``'s function (all but ``delta`` at a
+     positive threshold) a teacher-forced run of frames is asserted: a
+     slot's spikes may differ only where the ``ref`` engine's potential
+     lies within ``U_RTOL``/``U_ATOL`` of the threshold (those slots are
+     counted and printed), and the other slots' logits and potentials
+     must agree within ``LOGIT_ATOL``.  Frames/s, the measured densities,
+     ``delta_input_density`` and ``mmac_per_second()`` are printed.  The
+     chunk axis: ``CompiledRSNN._chunk_step`` over ``MEGA_FRAMES`` frames
+     of ``fused`` and ``fused_spike`` equals as many ``step`` calls bit
+     for bit, in one launch against one a frame, over the ``csc`` and the
+     float artifact.  ``core.rsnn.forward``, the float golden model,
+     equals the ``ref`` engine on 8 streams (``check_forward``);
   5. the device busy share of one more run of ``pallas``, ``sparse``,
      ``spike``, ``delta`` at ``DELTA_THRESHOLD``, ``fused`` and
-     ``fused_spike`` under ``torch.profiler``, with the device operations
-     that took most of it; each kernel's mean time per frame at B = 256 from CUDA events beside
-     its plain version, a PyTorch library yardstick where one call
-     computes the same function, and the H100 bound: the larger of bytes
-     over 3.35 TB/s and operations over the peak rate of their type
-     (float32 outside the tensor cores, 67 TFLOP/s, for K1 and K8-K10,
-     whose dequantized weights no tensor-core type holds exactly; int8,
-     1,979 TOP/s, for K2-K5, whose operands are 8-bit integers, spikes and
-     int4 weights; K6/K7 take their layer products at the float32 rate and
-     their FC's integer sums at the int8 rate).  A gathered or gated
-     kernel counts what this run's data needs (``work``).  K6/K7 have a
-     row each for the ``csc`` and the ``nm`` FC, as served, and are timed
-     in every FC mode over chunks of 1 and ``MEGA_FRAMES`` frames.  Every
-     configuration over the ``csc`` artifact is then served once more, in
-     reverse order, for the spread of frames/s between runs.
+     ``fused_spike``, and of ``pallas``, ``fused`` and ``fused_spike`` at
+     float, under ``torch.profiler``, with the device operations that took
+     most of it; each kernel's mean time per frame at B = 256 from CUDA
+     events beside its plain version, a PyTorch library yardstick where
+     one call computes the same function, and the H100 bound: the larger
+     of bytes over 3.35 TB/s and operations over the peak rate of their
+     type (float32 outside the tensor cores, 67 TFLOP/s, for K1 and
+     K8-K10, whose dequantized weights no tensor-core type holds exactly;
+     int8, 1,979 TOP/s, for K2-K5, whose operands are 8-bit integers,
+     spikes and int4 weights; K6/K7 take their layer products at the
+     float32 rate, their int4 FC's integer sums at the int8 rate and the
+     float FC at the float32 rate).  A gathered or gated kernel counts
+     what this run's data needs (``work``).  K6/K7 have a row each for
+     the ``csc`` and the ``nm`` FC, as served, and one for ``dense_float``
+     at ``BASELINE``; they are timed in every FC mode over chunks of 1 and
+     ``MEGA_FRAMES`` frames, ``dense_float`` at both widths, and K1,
+     K8-K10 again with float weights at H = 256.  Every configuration over
+     the ``csc`` artifact is then served once more, in reverse order, for
+     the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.  The script imports neither
@@ -94,6 +113,7 @@ import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
@@ -102,7 +122,7 @@ import warnings  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.rsnn_timit import PRUNED  # noqa: E402
+from repro_torch.configs.rsnn_timit import BASELINE, PRUNED  # noqa: E402
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
 
 U_RTOL = 1e-5  # K1/K10: order-dependent float32 recurrent sum
@@ -119,7 +139,7 @@ NM = (2, 4)  # the N:M artifacts' FC mask: the 2 largest |w| of every 4 rows
 # 40% at random into padded CSC, and its 2:4 mask as N:M and as CSC
 ARTIFACTS = {"csc": (0.4, "csc"), "nm": (NM, "nm_group"),
              "nm as csc": (NM, "csc")}
-FC_MODES = ("dense_int4", "csc", "nm")  # megastep's FC modes
+FC_MODES = ("dense_int4", "csc", "nm")  # megastep's FC modes at int4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak operation rate of each kernel's operand type (H100 SXM data sheet,
 # dense): K1 and K8-K10 multiply float32 dequantized weights, which
@@ -130,8 +150,9 @@ PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
                   "nm_fc": 1979e12, "delta_step": 67e12, "spike_broadcast": 67e12,
                   "spike_cell": 67e12, "megastep": 67e12,
                   "megastep_spike": 67e12, "megastep_nm": 67e12,
-                  "megastep_spike_nm": 67e12}
-INT8_OPS_PER_S = 1979e12  # K6/K7's FC: integer sums of int4 weights
+                  "megastep_spike_nm": 67e12, "megastep_float": 67e12,
+                  "megastep_spike_float": 67e12}
+INT8_OPS_PER_S = 1979e12  # K6/K7's int4 FC: integer sums of int4 weights
 # kernel -> (CUDA source in csrc/, the TPU kernel's pl.pallas_call)
 SOURCES = {
     "rsnn_cell": ("rsnn_cell.cu", "src/repro/kernels/rsnn_cell.py:53"),
@@ -150,11 +171,18 @@ SOURCES = {
     "megastep_nm": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
     "megastep_spike_nm": ("megastep.cu",
                           "src/repro/kernels/megastep.py:250"),
+    "megastep_float": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
+    "megastep_spike_float": ("megastep.cu",
+                             "src/repro/kernels/megastep.py:250"),
 }
 # K6/K7's rows of the kernel line: served with sparse_fc, the FC in
-# ``csc`` over the ``csc`` artifact and in ``nm`` over the ``nm`` one
+# ``csc`` over the ``csc`` artifact and in ``nm`` over the ``nm`` one; and
+# with float weights and the ``dense_float`` FC over the float artifact
 ROW_FC_MODE = {"megastep": "csc", "megastep_spike": "csc",
-               "megastep_nm": "nm", "megastep_spike_nm": "nm"}
+               "megastep_nm": "nm", "megastep_spike_nm": "nm",
+               "megastep_float": "dense_float",
+               "megastep_spike_float": "dense_float"}
+FLOAT_ROWS = ("megastep_float", "megastep_spike_float")
 # megastep's nine outputs, and the slot axis of each
 MEGA_OUTS = {"s0": 1, "u0": 0, "s1": 1, "u1": 0, "logits": 1,
              "spikes_l0": 2, "spikes_l1": 2, "union_l1": 1,
@@ -165,6 +193,12 @@ LAYERS = ("l0_wx", "l0_wh", "l1_wx", "l1_wh", "fc_w")
 # features quantized to 8 bits
 WEIGHT_RANGE = {"l0_wx": 0.02, "l0_wh": 0.15, "l1_wx": 0.3,
                 "l1_wh": 0.15, "fc_w": 0.1}
+# the same for the float artifact at BASELINE width (twice the recurrent
+# fan-in, beta 0.9), and its LIF parameters at the reference's init_lif
+# values: raw_beta = logit(0.9), raw_vth = softplus^-1(1.0)
+FLOAT_WEIGHT_RANGE = {"l0_wx": 0.02, "l0_wh": 0.1, "l1_wx": 0.3,
+                      "l1_wh": 0.1, "fc_w": 0.1}
+BETA_INIT, VTH_INIT = 0.9, 1.0
 
 
 # ------------------------------------------------------------- the artifact
@@ -283,9 +317,7 @@ def write_artifact(path: Path, seed: int, features: list[np.ndarray],
         flat[f"lif.beta{i}"] = rng.choice(
             np.float32([0.5, 0.75, 0.875]), h).astype(np.float32)
         flat[f"lif.vth{i}"] = np.full((h,), 1.0, np.float32)
-    amax = max(float(np.abs(f).max()) for f in features)
-    flat["input_scale"] = np.asarray(np.float32(max(amax, 1e-8))
-                                     / np.float32(127.0), np.float32)
+    flat["input_scale"] = input_scale(features)
     report["total_bytes"] = sum(
         min(e["dense_int4"], e.get(f"{fc_layout}_int4", 1e30))
         for e in report.values())
@@ -308,14 +340,72 @@ def write_artifact(path: Path, seed: int, features: list[np.ndarray],
         "sparse_fc": False,
         "layouts": {"fc_w": fc_layout},
         "has_input_scale": True,
-        "tensors": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                    for k, v in flat.items()},
     }
+    return _save(path, flat, manifest)
+
+
+def input_scale(features: list[np.ndarray]) -> np.ndarray:
+    """The max-abs 8-bit input scale of ``features``, as the reference's
+    ``calibrate_input_scale`` computes it in float32."""
+    amax = max(float(np.abs(f).max()) for f in features)
+    return np.asarray(np.float32(max(amax, 1e-8)) / np.float32(127.0),
+                      np.float32)
+
+
+def _save(path: Path, flat: dict[str, np.ndarray], manifest: dict) -> Path:
+    """``tensors.npz`` and ``manifest.json``, with the manifest's index of
+    every tensor's shape and dtype last, as ``save_artifact`` writes it."""
+    manifest["tensors"] = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                           for k, v in flat.items()}
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     np.savez(path / "tensors.npz", **flat)
     (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
     return path
+
+
+def float_params(seed: int, cfg: RSNNConfig = BASELINE
+                 ) -> dict[str, np.ndarray]:
+    """Seeded float parameters, keyed and ordered as the reference's
+    ``_flatten_params`` keys a parameter tree (sorted names, then
+    ``raw_beta``, ``raw_vth``): uniform weights of half-width
+    ``FLOAT_WEIGHT_RANGE`` and the LIF parameters of ``init_lif``."""
+    rng = np.random.default_rng(seed + 2)
+    flat: dict[str, np.ndarray] = {}
+    for name in sorted(cfg.layer_shapes):
+        a = FLOAT_WEIGHT_RANGE[name]
+        flat[f"params['{name}']"] = rng.uniform(
+            -a, a, cfg.layer_shapes[name]).astype(np.float32)
+    h = cfg.hidden_dim
+    for i in (0, 1):
+        flat[f"params['lif{i}'].raw_beta"] = np.full(
+            (h,), math.log(BETA_INIT / (1.0 - BETA_INIT)), np.float32)
+        flat[f"params['lif{i}'].raw_vth"] = np.full(
+            (h,), math.log(math.expm1(VTH_INIT)), np.float32)
+    return flat
+
+
+def write_float_artifact(path: Path, seed: int, features: list[np.ndarray],
+                         cfg: RSNNConfig = BASELINE) -> Path:
+    """Write a seeded float artifact in the reference's schema-v2 format,
+    as ``save_artifact(params=..., input_scale=..., backend="pallas")``
+    writes it: ``float_params`` and the max-abs 8-bit input scale of
+    ``features``."""
+    flat = float_params(seed, cfg)
+    flat["input_scale"] = input_scale(features)
+    manifest = {
+        "schema_version": 2,
+        "precision": "float",
+        "rsnn_config": {**dataclasses.asdict(cfg), "dtype": "float32"},
+        "compression_config": None,
+        "sparsity_profile": None,
+        "size_report": None,
+        "backend": "pallas",
+        "sparse_fc": False,
+        "layouts": {},
+        "has_input_scale": True,
+    }
+    return _save(path, flat, manifest)
 
 
 def utterances(seed: int, count: int, cfg: RSNNConfig = PRUNED
@@ -443,25 +533,86 @@ def kernel_inputs(packs: dict, b: int, gen: torch.Generator, dev) -> dict:
     }
 
 
+def float_kernel_inputs(params: dict, b: int, gen: torch.Generator,
+                        dev) -> dict:
+    """The float engine's operands for batch ``b`` at the width of
+    ``params`` (a ``float_params`` dict): its float32 weights and the LIF
+    constants of its raw parameters, 8-bit integer inputs, random 0/1
+    spikes and membrane state, and for K8 a previous frame as in
+    ``kernel_inputs``.  Holds the keys that K1, K8-K10 (``float_calls``)
+    and K6/K7 (``megastep_args`` in ``dense_float``) read."""
+    from repro_torch.core.lif import LIFParams, inference_constants
+
+    def w(name):
+        return torch.from_numpy(params[f"params['{name}']"]).to(dev)
+
+    d, h = w("l0_wx").shape
+    ts = PRUNED.num_ts
+
+    def spikes(*shape):
+        return (torch.rand(shape, generator=gen) < 0.3).float().to(dev)
+
+    lif = []
+    for i in (0, 1):
+        lp = LIFParams(*(torch.from_numpy(params[f"params['lif{i}'].{f}"])
+                         .to(dev) for f in LIFParams._fields))
+        lif += inference_constants(lp)
+    x = torch.randint(-128, 128, (b, d), generator=gen).float()
+    x_prev = torch.randint(-128, 128, (b, d), generator=gen).float()
+    x_prev[0::4] = x[0::4]
+    x_prev[1::4] = x[1::4] + torch.randint(
+        -int(DELTA_THRESHOLD), int(DELTA_THRESHOLD) + 1,
+        x[1::4].shape, generator=gen).float()
+    ff0 = (torch.randn((b, h), generator=gen) * 0.8).to(dev)
+    return {
+        "x": x.to(dev), "x_prev": x_prev.to(dev),
+        "pre_prev": torch.randn((b, h), generator=gen).to(dev),
+        "stim0": ff0.unsqueeze(0).expand(ts, b, h),
+        "stim1": (torch.randn((ts, b, h), generator=gen) * 0.8).to(dev),
+        "s0": spikes(ts, b, h), "s1": spikes(ts, b, h),
+        "w0x": w("l0_wx"), "w1x": w("l1_wx"), "wfc": w("fc_w"),
+        "w0h": w("l0_wh"), "w1h": w("l1_wh"),
+        "u0": torch.randn((b, h), generator=gen).to(dev),
+        "h0": spikes(b, h), "beta": lif[0], "vth": lif[1],
+        "xf": torch.randint(-128, 128, (MEGA_FRAMES, b, d),
+                            generator=gen).float().to(dev),
+        "u1": torch.randn((b, h), generator=gen).to(dev),
+        "h1": spikes(b, h), "lif": tuple(lif),
+        "wq": tuple(w(n) for n in ("l0_wx", "l0_wh", "l1_wx", "l1_wh")),
+        "fc_float": (w("fc_w"),),
+    }
+
+
 def megastep_args(a: dict, frames: int, fc_mode: str) -> tuple:
-    """megastep's operands from ``kernel_inputs``: the first ``frames``
-    frames, the FC as dense int4 nibbles, padded CSC or 2:4 N:M."""
-    fc = a[{"dense_int4": "fc", "csc": "csc", "nm": "nm"}[fc_mode]]
+    """megastep's operands from ``kernel_inputs`` (the FC as dense int4
+    nibbles, padded CSC or 2:4 N:M) or ``float_kernel_inputs`` (float
+    layer weights, the FC as ``dense_float``): the first ``frames``
+    frames."""
+    fc = a[{"dense_int4": "fc", "csc": "csc", "nm": "nm",
+            "dense_float": "fc_float"}[fc_mode]]
     return (a["xf"][:frames], a["s0"], a["u0"], a["h0"], a["s1"], a["u1"],
             a["h1"], *a["lif"], a["wq"], fc)
 
 
 def megastep_pair(fc_mode: str, spike: bool):
     """(kernel, plain version) of K6 (``spike=False``) or K7 in one FC
-    mode.  Imported late, as ``kernel_calls``."""
+    mode (``dense_float`` with float weights, the others with int4).
+    Imported late, as ``kernel_calls``."""
     from repro_torch.kernels import megastep, ref
 
     kw = {"fc_mode": fc_mode, "input_bits": PRUNED.input_bits,
-          "spike": spike}
+          "spike": spike,
+          "precision": "float" if fc_mode == "dense_float" else "int4"}
     if fc_mode == "nm":
         kw.update(nm_n=NM[0], nm_m=NM[1])
     return (functools.partial(megastep.megastep, **kw),
             functools.partial(ref.megastep_ref, **kw))
+
+
+def mega_row(name: str, fc_mode: str) -> str:
+    """The kernel line's row of K6/K7 (``name``) in ``fc_mode``."""
+    return {"nm": f"{name}_nm", "dense_float": f"{name}_float"}.get(fc_mode,
+                                                                   name)
 
 
 def kernel_calls(a: dict, capacity: int | None = None,
@@ -470,12 +621,15 @@ def kernel_calls(a: dict, capacity: int | None = None,
     list of (kernel, plain, args).  K9/K10 run at event-list ``capacity``
     (``None``: lossless, as served), K8 at ``threshold``; K9's two calls
     are those of a ``spike`` frame without ``sparse_fc`` (L1 feedforward,
-    FC union).  Imported late: the module needs the package on
-    ``sys.path``."""
+    FC union).  Over ``kernel_inputs`` every kernel, K6/K7 as served with
+    int4 weights; over ``float_kernel_inputs`` the kernels the float
+    engine runs: K1, K8-K10 and K6/K7 in ``dense_float``.  Imported late:
+    the module needs the package on ``sys.path``."""
     from repro_torch.kernels import (delta_step, int4_matmul,
                                      merged_spike_fc, nm_fc, ref, rsnn_cell,
                                      sparse_fc, spike_broadcast)
 
+    int4 = "l0" in a
     cell = (a["u0"], a["h0"], a["beta"], a["vth"])
     cap = {"capacity": capacity}
     sb = functools.partial(spike_broadcast.spike_broadcast, **cap)
@@ -483,26 +637,30 @@ def kernel_calls(a: dict, capacity: int | None = None,
     sc = functools.partial(spike_broadcast.spike_cell, **cap)
     sc_ref = functools.partial(ref.spike_cell_ref, **cap)
     s0_rows = a["s0"].reshape(-1, a["s0"].shape[-1])
-    return {
+    calls = {
         "rsnn_cell": [
             (rsnn_cell.rsnn_cell, ref.rsnn_cell_ref,
              (a["stim0"], a["s0"], a["w0h"], *cell)),
             (rsnn_cell.rsnn_cell, ref.rsnn_cell_ref,
-             (a["stim1"], a["s1"], a["w1h"], *cell))],
-        "int4_matmul": [
-            (int4_matmul.int4_matmul, ref.int4_matmul_ref,
-             (a["x"], *a["l0"])),
-            (int4_matmul.int4_matmul, ref.int4_matmul_ref,
-             (s0_rows, *a["l1"]))],
-        "merged_spike_fc": [
-            (merged_spike_fc.merged_spike_fc, ref.merged_spike_fc_ref,
-             (a["s1"], *a["fc"]))],
-        "sparse_fc": [
-            (sparse_fc.sparse_fc, ref.sparse_fc_ref, (a["s1"], *a["csc"]))],
-        "nm_fc": [
-            (functools.partial(nm_fc.nm_fc, n=NM[0], m=NM[1]),
-             functools.partial(ref.nm_fc_ref, n=NM[0], m=NM[1]),
-             (a["s1"], *a["nm"]))],
+             (a["stim1"], a["s1"], a["w1h"], *cell))]}
+    if int4:
+        calls.update({
+            "int4_matmul": [
+                (int4_matmul.int4_matmul, ref.int4_matmul_ref,
+                 (a["x"], *a["l0"])),
+                (int4_matmul.int4_matmul, ref.int4_matmul_ref,
+                 (s0_rows, *a["l1"]))],
+            "merged_spike_fc": [
+                (merged_spike_fc.merged_spike_fc, ref.merged_spike_fc_ref,
+                 (a["s1"], *a["fc"]))],
+            "sparse_fc": [
+                (sparse_fc.sparse_fc, ref.sparse_fc_ref,
+                 (a["s1"], *a["csc"]))],
+            "nm_fc": [
+                (functools.partial(nm_fc.nm_fc, n=NM[0], m=NM[1]),
+                 functools.partial(ref.nm_fc_ref, n=NM[0], m=NM[1]),
+                 (a["s1"], *a["nm"]))]})
+    calls.update({
         "delta_step": [
             (delta_step.delta_step, ref.delta_step_ref,
              (a["x"], a["x_prev"], a["pre_prev"], a["w0x"], threshold))],
@@ -511,12 +669,13 @@ def kernel_calls(a: dict, capacity: int | None = None,
             (sb, sb_ref, (a["s1"], a["wfc"]))],
         "spike_cell": [
             (sc, sc_ref, (a["stim0"], a["s0"], a["w0h"], *cell)),
-            (sc, sc_ref, (a["stim1"], a["s1"], a["w1h"], *cell))],
-        # a frame of fused / fused_spike as served with sparse_fc
-        **{row: [(*megastep_pair(mode, row.startswith("megastep_spike")),
-                  megastep_args(a, 1, mode))]
-           for row, mode in ROW_FC_MODE.items()},
-    }
+            (sc, sc_ref, (a["stim1"], a["s1"], a["w1h"], *cell))]})
+    # a frame of fused / fused_spike as served (int4: with sparse_fc)
+    calls.update({
+        row: [(*megastep_pair(mode, row.startswith("megastep_spike")),
+               megastep_args(a, 1, mode))]
+        for row, mode in ROW_FC_MODE.items() if (row in FLOAT_ROWS) != int4})
+    return calls
 
 
 def check_call(name, got, want, args, capacity) -> float:
@@ -549,8 +708,8 @@ def megastep_near(args) -> torch.Tensor:
     from repro_torch.kernels.ref import unpack_int4_ref
 
     x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wq, _ = args
-    w0x, w0h, w1x, w1h = (unpack_int4_ref(q).float() * sc
-                          for q, sc in zip(wq[0::2], wq[1::2]))
+    w0x, w0h, w1x, w1h = wq if len(wq) == 4 else (  # float or int4
+        unpack_int4_ref(q).float() * sc for q, sc in zip(wq[0::2], wq[1::2]))
     ts, b, h = s0.shape
     near = torch.zeros(b, dtype=torch.bool, device=x.device)
     for xf in x:
@@ -568,9 +727,11 @@ def megastep_near(args) -> torch.Tensor:
     return near
 
 
-def check_mega(name, got, want, near) -> dict[str, float]:
+def check_mega(name, got, want, near, float_fc: bool = False
+               ) -> dict[str, float]:
     """K6/K7 against their plain version over a chunk: on the slots away
     from the threshold (``~near``) spikes, counters and logits bit-equal
+    (``float_fc``: logits within ``TOL``, float32 sums in another order)
     and u within ``U_RTOL``/``U_ATOL``; the input one-bits bit-equal on
     every slot.  Returns each output's largest |difference| there."""
     keep = ~near
@@ -585,17 +746,21 @@ def check_mega(name, got, want, near) -> dict[str, float]:
         if out in ("u0", "u1"):
             if bool((d > U_ATOL + U_RTOL * wk.abs()).any()):
                 raise AssertionError(f"{name}: |d{out}| up to {errs[out]}")
+        elif out == "logits" and float_fc:
+            check_close(f"{name} logits", gk, wk)
         elif not torch.equal(gk, wk):
             raise AssertionError(f"{name}: {out} differs away from the "
                                  f"threshold by up to {errs[out]}")
     return errs
 
 
-def check_megastep(a: dict, b: int, errs: dict) -> None:
-    """Phase 2 for K6 and K7: the three FC modes, chunks of 1 and
+def check_megastep(a: dict, b: int, errs: dict,
+                   fc_modes: tuple = FC_MODES, width: str = "") -> None:
+    """Phase 2 for K6 and K7: the FC modes ``fc_modes`` (the three int4
+    ones, or ``dense_float`` with float weights), chunks of 1 and
     ``MEGA_FRAMES`` frames, each against its plain version, and K7
     against K6 bit for bit."""
-    for fc_mode in FC_MODES:
+    for fc_mode in fc_modes:
         for frames in (1, MEGA_FRAMES):
             args = megastep_args(a, frames, fc_mode)
             near = megastep_near(args)
@@ -605,24 +770,27 @@ def check_megastep(a: dict, b: int, errs: dict) -> None:
                 kern, plain = megastep_pair(fc_mode, spike)
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
-                e = check_mega(name, got, want, near)
-                row = f"{name}_nm" if fc_mode == "nm" else name
+                e = check_mega(name, got, want, near,
+                               fc_mode == "dense_float")
+                row = mega_row(name, fc_mode)
                 errs[row] = max(errs.get(row, 0.0), *e.values())
                 differs = torch.zeros_like(near)
                 for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
                     if out not in ("u0", "u1", "input_one_bits"):
                         differs |= (g != w).transpose(0, axis).reshape(
                             b, -1).any(dim=1)
-                print(f"check {name} B={b} fc_mode={fc_mode} F={frames}: "
+                print(f"check {name}{width} B={b} fc_mode={fc_mode} "
+                      f"F={frames}: "
                       f"ok, slots near the threshold {int(near.sum())} "
                       f"(differing {int(differs.sum())}), max_abs_err "
                       f"{e!r}")
                 outs[spike] = got
             if not all(torch.equal(p, q) for p, q in zip(outs[True],
                                                           outs[False])):
-                raise AssertionError(f"megastep B={b} fc_mode={fc_mode} "
-                                     f"F={frames}: K7 differs from K6")
-            print(f"check megastep_spike == megastep B={b} "
+                raise AssertionError(f"megastep{width} B={b} fc_mode="
+                                     f"{fc_mode} F={frames}: K7 differs "
+                                     f"from K6")
+            print(f"check megastep_spike == megastep{width} B={b} "
                   f"fc_mode={fc_mode} F={frames}: bit-equal")
 
 
@@ -648,23 +816,33 @@ def refused(fn, args: tuple, want: int, kernel: str, what: str) -> None:
 def check_refusals() -> None:
     """The mega-step's launch function refuses, with its negative status,
     TS over kMaxTs (-1), a shared-memory request over
-    kMaxMegastepSharedBytes (-2: K7 at TS = 4, H = 256), a hidden width
-    over kMegaThreads (-4), an FC mode it does not serve (-5) and an N:M
-    geometry it cannot take (-6: n > m; entries not a multiple of n); K5
-    refuses n < 1 and m > 16 (-6)."""
+    kMaxMegastepSharedBytes (-2: K7 at TS = 4, H = 256 with int4 weights),
+    a hidden width over kMegaThreads (-4), an FC mode it does not serve or
+    not at the weights' precision (-5: an unknown mode; float weights with
+    an int4 layout's FC; int4 weights with dense_float; an unknown
+    precision) and an N:M geometry it cannot take (-6: n > m; entries not
+    a multiple of n); K5 refuses n < 1 and m > 16 (-6)."""
     from repro_torch.kernels import _build, megastep, nm_fc
 
     fn = _build.function("megastep_launch", megastep._ARGS)
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
-    cases = [  # (status, fc_mode, ts, h, spike, nm_n, nm_m)
-        (-1, 1, 5, 128, 0, 0, 0), (-2, 1, 4, 256, 1, 0, 0),
-        (-4, 1, 2, 258, 0, 0, 0), (-5, 7, 2, 128, 0, 0, 0),
-        (-6, 2, 2, 128, 0, 3, 2), (-6, 2, 2, 128, 1, *NM)]
-    for want, mode, ts, h, spike, nm_n, nm_m in cases:
-        refused(fn, (*[None] * 19, mode, *[None] * 12, 1, ts, SLOTS, d, h,
-                     fc, nnz, nm_n, nm_m, PRUNED.input_bits, spike, None),
-                want, "megastep", f"fc_mode={mode}, ts={ts}, h={h}, "
-                f"spike={spike}, nm={nm_n}:{nm_m}, entries={nnz}")
+    i4, f32 = megastep.PRECISIONS["int4"], megastep.PRECISIONS["float"]
+    modes = megastep.FC_MODES
+    cases = [  # (status, precision, fc_mode, ts, h, spike, nm_n, nm_m)
+        (-1, i4, 1, 5, 128, 0, 0, 0), (-2, i4, 1, 4, 256, 1, 0, 0),
+        (-4, i4, 1, 2, 258, 0, 0, 0), (-5, i4, 7, 2, 128, 0, 0, 0),
+        (-5, f32, modes["csc"], 2, 256, 0, 0, 0),
+        (-5, f32, modes["dense_int4"], 2, 256, 1, 0, 0),
+        (-5, i4, modes["dense_float"], 2, 128, 0, 0, 0),
+        (-5, 2, modes["dense_float"], 2, 256, 0, 0, 0),
+        (-6, i4, 2, 2, 128, 0, 3, 2), (-6, i4, 2, 2, 128, 1, *NM)]
+    for want, prec, mode, ts, h, spike, nm_n, nm_m in cases:
+        refused(fn, (*[None] * 19, prec, mode, *[None] * 12, 1, ts, SLOTS,
+                     d, h, fc, nnz, nm_n, nm_m, PRUNED.input_bits, spike,
+                     None),
+                want, "megastep", f"precision={prec}, fc_mode={mode}, "
+                f"ts={ts}, h={h}, spike={spike}, nm={nm_n}:{nm_m}, "
+                f"entries={nnz}")
     fn = _build.function("nm_fc_launch", nm_fc._ARGS)
     for nm_n, nm_m in ((0, 4), (2, 17)):
         refused(fn, (None, None, None, None, PRUNED.num_ts, SLOTS,
@@ -687,39 +865,60 @@ def check_nm_against_csc(a: dict, b: int) -> None:
     print(f"check nm_fc == sparse_fc on the same 2:4 mask B={b}: bit-equal")
 
 
-def check_kernels(packs: dict, dev, seed: int) -> dict[str, float]:
+def check_variants(a: dict, b: int, errs: dict, names=None,
+                   width: str = "") -> None:
+    """Each kernel of ``kernel_calls(a)`` (those in ``names``, but not
+    K6/K7) against its plain version: lossless with K8 at
+    ``DELTA_THRESHOLD``; K8 at threshold 0 on a repeated frame (every row
+    cached); K8-K10 at ``TRUNC_CAPACITY`` events a row and threshold 0."""
+    repeat = dict(a, x_prev=a["x"])
+    variants = [
+        (None, DELTA_THRESHOLD, kernel_calls(a)),
+        (None, 0.0, {"delta_step": kernel_calls(
+            repeat, threshold=0.0)["delta_step"]}),
+        (TRUNC_CAPACITY, 0.0, {
+            k: v for k, v in kernel_calls(a, TRUNC_CAPACITY, 0.0).items()
+            if k in ("spike_broadcast", "spike_cell", "delta_step")})]
+    for cap, thr, calls in variants:
+        for name, items in calls.items():
+            if name.startswith("megastep") or (names and name not in names):
+                continue  # check_megastep sweeps its modes
+            for kern, plain, args in items:
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                err = check_call(name, got, want, args, cap)
+                errs[name] = max(errs.get(name, 0.0), err)
+            knob = {"delta_step": f" threshold={thr}",
+                    "spike_broadcast": f" capacity={cap}",
+                    "spike_cell": f" capacity={cap}"}.get(name, "")
+            print(f"check {name}{width} B={b}{knob}: ok, max_abs_err "
+                  f"{errs[name]!r}")
+
+
+def check_kernels(packs: dict, floats: dict, dev,
+                  seed: int) -> dict[str, float]:
     """Phase 2: every kernel against its plain version on the card, at
     B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
     at threshold 0 (first on a repeated frame: every row cached) and
-    ``DELTA_THRESHOLD``; K5 also against K4 on the same mask."""
+    ``DELTA_THRESHOLD``; K5 also against K4 on the same mask.  Then the
+    float engine's kernels with the float weights of ``floats`` (width
+    name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
+    K1, K8-K10 at ``BASELINE`` (H = 256)."""
     errs: dict[str, float] = {}
     gen = torch.Generator().manual_seed(seed)
     for b in (256, 200):
         a = kernel_inputs(packs, b, gen, dev)
-        repeat = dict(a, x_prev=a["x"])
-        variants = [
-            (None, DELTA_THRESHOLD, kernel_calls(a)),
-            (None, 0.0, {"delta_step": kernel_calls(
-                repeat, threshold=0.0)["delta_step"]}),
-            (TRUNC_CAPACITY, 0.0, {
-                k: v for k, v in kernel_calls(a, TRUNC_CAPACITY, 0.0).items()
-                if k in ("spike_broadcast", "spike_cell", "delta_step")})]
-        for cap, thr, calls in variants:
-            for name, items in calls.items():
-                if name.startswith("megastep"):
-                    continue  # check_megastep sweeps its modes below
-                for kern, plain, args in items:
-                    got, want = kern(*args), plain(*args)
-                    torch.cuda.synchronize()
-                    err = check_call(name, got, want, args, cap)
-                    errs[name] = max(errs.get(name, 0.0), err)
-                knob = {"delta_step": f" threshold={thr}",
-                        "spike_broadcast": f" capacity={cap}",
-                        "spike_cell": f" capacity={cap}"}.get(name, "")
-                print(f"check {name} B={b}{knob}: ok, max_abs_err "
-                      f"{errs[name]!r}")
+        check_variants(a, b, errs)
         check_nm_against_csc(a, b)
         check_megastep(a, b, errs)
+    for b in (256, 200):
+        for width, params in floats.items():
+            a = float_kernel_inputs(params, b, gen, dev)
+            if width == "BASELINE":
+                check_variants(a, b, errs, ("rsnn_cell", "delta_step",
+                                            "spike_broadcast", "spike_cell"),
+                               " BASELINE float")
+            check_megastep(a, b, errs, ("dense_float",), f" {width}")
     check_refusals()
     return errs
 
@@ -886,6 +1085,20 @@ SERVED = {
     "fused_spike sparse_fc=False": ({"backend": "fused_spike"},
                                     {"megastep_spike": 1}, True, False,
                                     "csc"),
+    # the float BASELINE artifact (40 -> 256 -> 256 -> 1920): the float
+    # engine, once, in this order
+    "pallas float": ({"backend": "pallas"}, {"rsnn_cell": 2}, True, True,
+                     "float"),
+    "spike float": ({"backend": "spike"},
+                    {"spike_cell": 2, "spike_broadcast": 2}, True, False,
+                    "float"),
+    "delta float threshold=0": ({"backend": "delta"},
+                                {"spike_cell": 2, "delta_step": 1}, True,
+                                False, "float"),
+    "fused float": ({"backend": "fused"}, {"megastep": 1}, True, True,
+                    "float"),
+    "fused_spike float": ({"backend": "fused_spike"}, {"megastep_spike": 1},
+                          True, True, "float"),
     # the 2:4 FC as N:M: served once, in this order, without the profiler
     "sparse nm": ({"backend": "sparse"}, {"rsnn_cell": 2, "int4_matmul": 2,
                                           "nm_fc": 1}, True, False, "nm"),
@@ -917,9 +1130,10 @@ def serve_counted(name: str, path, art, fields: dict, per_step: dict, utts,
     from repro_torch.serving.stream import CompiledRSNN, EngineConfig
 
     eng = CompiledRSNN.from_artifact(path, EngineConfig(
-        **fields, input_scale=art.input_scale))
+        **fields, precision=art.precision, input_scale=art.input_scale))
     nm_mode = eng.engine.wants_sparse_fc and isinstance(
         eng.packed.sparse["fc_w"], NMGroupPacked)
+    row = "_float" if art.precision == "float" else "_nm" if nm_mode else ""
     set_counts(0)
     loop, done, secs = serve(eng, utts)
     counts = read_counts()
@@ -928,10 +1142,10 @@ def serve_counted(name: str, path, art, fields: dict, per_step: dict, utts,
             raise AssertionError(
                 f"{name}: {n} launched {c} times, expected "
                 f"{loop.steps} steps x {per_step.get(n, 0)}")
-        launches[f"{n}_nm" if nm_mode and n in ROW_FC_MODE else n] += c
+        launches[f"{n}{row}" if n in ROW_FC_MODE else n] += c
     logits = [r.stacked_logits() for r in done]
     for r, lg in zip(done, logits):
-        if lg.shape != (len(r.frames), PRUNED.fc_dim) \
+        if lg.shape != (len(r.frames), eng.cfg.fc_dim) \
                 or not np.isfinite(lg).all():
             raise AssertionError(f"{name}: request {r.sid} logits "
                                  f"{lg.shape} not finite")
@@ -1002,11 +1216,13 @@ def check_chunk(path, art, utts, backend: str) -> None:
     """The chunk axis on the card: ``_chunk_step`` over ``MEGA_FRAMES``
     frames (after as many single steps from zero) equals as many ``step``
     calls bit for bit, state, logits and counters, in one launch of the
-    backend's kernel against one a frame and none of any other."""
+    backend's kernel against one a frame and none of any other.  An int4
+    artifact is served with ``sparse_fc``."""
     from repro_torch.serving.stream import CompiledRSNN, EngineConfig
 
     eng = CompiledRSNN.from_artifact(path, EngineConfig(
-        backend=backend, sparse_fc=True, input_scale=art.input_scale))
+        backend=backend, precision=art.precision,
+        sparse_fc=art.precision == "int4", input_scale=art.input_scale))
     kernel = "megastep_spike" if backend == "fused_spike" else "megastep"
     x = torch.from_numpy(np.stack([u[:2 * MEGA_FRAMES]
                                    for u in utts[:SLOTS]], 1))
@@ -1042,9 +1258,45 @@ def check_chunk(path, art, utts, backend: str) -> None:
     if not same:
         raise AssertionError(f"chunk {backend}: {MEGA_FRAMES}-frame chunk "
                              f"differs from {MEGA_FRAMES} steps")
-    print(f"chunk {backend}: _chunk_step over {MEGA_FRAMES} frames == "
+    print(f"chunk {backend} {art.precision}: _chunk_step over "
+          f"{MEGA_FRAMES} frames == "
           f"{MEGA_FRAMES} steps bit for bit; {kernel} launches "
           f"{n_chunk[kernel]} against {n_steps[kernel]}")
+
+
+def check_forward(path, art, utts, streams: int = 8,
+                  frames: int = 40) -> None:
+    """The float golden model on the card: ``core.rsnn.forward`` over
+    ``streams`` windows of ``frames`` frames, the first around the largest
+    |feature| of ``utts`` (so that forward's own max-abs input scale is
+    the artifact's), against the ``ref`` engine stepping the same frames
+    from zero state: the same plain operations in the same order, so
+    logits within ``LOGIT_ATOL`` and the last spike trains equal."""
+    from repro_torch.core import rsnn
+    from repro_torch.serving.stream import CompiledRSNN, _to
+
+    eng = CompiledRSNN.from_artifact(path, backend="ref")
+    k = int(np.argmax([np.abs(u).max() for u in utts]))
+    top = int(np.abs(utts[k]).max(axis=1).argmax())
+    t0 = min(max(top - frames // 2, 0), len(utts[k]) - frames)
+    rest = [u[:frames] for i, u in enumerate(utts) if i != k]
+    x = torch.from_numpy(np.stack([utts[k][t0:t0 + frames]]
+                                  + rest[:streams - 1])).to(eng.device)
+    logits, state, aux = rsnn.forward(_to(art.params, eng.device), x,
+                                      art.cfg)
+    xq = eng.quantize_features(x.transpose(0, 1))
+    st, steps = eng.init_state(streams), []
+    for x_t in xq:
+        st, lg, _ = eng.step(st, x_t)
+        steps.append(lg)
+    d = float((logits - torch.stack(steps, dim=1)).abs().max())
+    if d > LOGIT_ATOL or not (torch.equal(state.h0, st.h0)
+                              and torch.equal(state.h1, st.h1)):
+        raise AssertionError(f"rsnn.forward differs from the ref engine: "
+                             f"|dlogit| {d}")
+    print(f"forward: core.rsnn.forward == ref engine over {streams} "
+          f"streams x {frames} frames, max |dlogit| {d!r}; rates "
+          f"{ {n: v.tolist() for n, v in aux.items()} }")
 
 
 # ----------------------------------------------------------------- timing
@@ -1158,7 +1410,9 @@ def megastep_work(name: str, args,
     spike products (K7: 2 x H per event of the rows it compacts, which the
     plain version's spike trains of this call give) and both LIF chains;
     integer operations of the merged-spike FC (the stored CSC or N:M
-    entries; K7 with dense_int4: the merged union's events)."""
+    entries; K7 with dense_int4: the merged union's events), or, with
+    float weights (``dense_float``), its float32 operations (K7: the
+    merged union's events)."""
     x, s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, wq, fc = args
     frames, b, d = x.shape
     ts, _, h = s0.shape
@@ -1168,24 +1422,26 @@ def megastep_work(name: str, args,
              + 2 * frames * ts * b * 4 + 2 * frames * b * 4)
     f32 = frames * (2.0 * b * d * h + 2 * 5.0 * ts * b * h)
     merge = frames * (ts - 1.0) * b * h
-    dense_fc = fc_mode == "dense_int4"
+    dense_fc = fc_mode in ("dense_int4", "dense_float")
     sparse_ops = 0.0 if dense_fc else 2.0 * b * stored_entries(*fc[:-1])
     if not name.startswith("megastep_spike"):
         f32 += frames * 3 * 2.0 * ts * b * h * h
-        fc_ops = 2.0 * b * h * n if dense_fc else sparse_ops
-        return moved, (f32, merge + frames * fc_ops)
-    fc_ops = 0.0
-    st0, st1 = s0, s1
-    plain = megastep_pair(fc_mode, False)[1]
-    for f in range(frames):  # the trains each frame compacts
-        out = plain(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0, b1, v1,
-                    wq, fc)
-        ev = sum(events(t.reshape(-1, h))[0] for t in (st0, out[0], st1))
-        f32 += 2.0 * h * ev
-        fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
-                   else sparse_ops)
-        st0, u0, st1, u1 = out[:4]
-        h0, h1 = st0[-1], st1[-1]
+        fc_ops = frames * (2.0 * b * h * n if dense_fc else sparse_ops)
+    else:
+        fc_ops = 0.0
+        st0, st1 = s0, s1
+        plain = megastep_pair(fc_mode, False)[1]
+        for f in range(frames):  # the trains each frame compacts
+            out = plain(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0, b1,
+                        v1, wq, fc)
+            ev = sum(events(t.reshape(-1, h))[0] for t in (st0, out[0], st1))
+            f32 += 2.0 * h * ev
+            fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
+                       else sparse_ops)
+            st0, u0, st1, u1 = out[:4]
+            h0, h1 = st0[-1], st1[-1]
+    if fc_mode == "dense_float":
+        return moved, (f32 + merge + fc_ops, 0.0)
     return moved, (f32, merge + fc_ops)
 
 
@@ -1246,13 +1502,20 @@ def library_fn(name: str, args):
     return None
 
 
-def time_kernels(packs: dict, dev, seed: int, launches: dict, errs: dict):
+def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
+                 errs: dict):
     """Phase 5: per-frame time of each kernel at B = 256 (K9/K10
     lossless, K8 at ``DELTA_THRESHOLD``, K5 over the 2:4 FC, K6/K7 as
-    served with ``sparse_fc`` over the ``csc`` artifact), then K6/K7 in
-    every FC mode over chunks of 1 and ``MEGA_FRAMES`` frames."""
+    served with ``sparse_fc`` over the ``csc`` artifact, and with float
+    weights at ``BASELINE``); K1, K8-K10 with float weights at
+    ``BASELINE``; then K6/K7 in every FC mode over chunks of 1 and
+    ``MEGA_FRAMES`` frames, the float ones at both widths of
+    ``floats``."""
     gen = torch.Generator().manual_seed(seed + 7)
     calls = kernel_calls(kernel_inputs(packs, 256, gen, dev))
+    float_calls = kernel_calls(float_kernel_inputs(floats["BASELINE"], 256,
+                                                   gen, dev))
+    calls.update({row: float_calls.pop(row) for row in FLOAT_ROWS})
     rows = []
     for name, items in calls.items():
         ms = plain_ms = bound = 0.0
@@ -1282,17 +1545,27 @@ def time_kernels(packs: dict, dev, seed: int, launches: dict, errs: dict):
         print(f"time {name} (per frame, B=256, {len(items)} call(s)): "
               f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, "
               f"bound {bound!r} ms")
-    a = kernel_inputs(packs, 256, gen, dev)
-    for fc_mode in FC_MODES:  # every FC mode, and chunks
-        for frames in (1, MEGA_FRAMES):
-            for spike in (False, True):
-                name = "megastep_spike" if spike else "megastep"
-                args = megastep_args(a, frames, fc_mode)
-                ms = cuda_ms(megastep_pair(fc_mode, spike)[0], args)
-                bound = max(bound_parts(name, args, fc_mode)) * 1e3
-                print(f"time {name} fc_mode={fc_mode} F={frames} (B=256): "
-                      f"{ms / frames!r} ms a frame, bound "
-                      f"{bound / frames!r} ms a frame")
+    for name, items in float_calls.items():  # K1, K8-K10 at H = 256
+        ms = sum(cuda_ms(kern, args) for kern, _, args in items)
+        plain_ms = sum(cuda_ms(plain, args) for _, plain, args in items)
+        bound = sum(max(bound_parts(name, args)) for _, _, args in items)
+        print(f"time {name} BASELINE float (per frame, B=256, {len(items)} "
+              f"call(s)): {ms!r} ms, plain {plain_ms!r} ms, bound "
+              f"{bound * 1e3!r} ms")
+    sweeps = [(kernel_inputs(packs, 256, gen, dev), FC_MODES, "")] + [
+        (float_kernel_inputs(params, 256, gen, dev), ("dense_float",),
+         f" {width}") for width, params in floats.items()]
+    for a, fc_modes, width in sweeps:  # every FC mode, and chunks
+        for fc_mode in fc_modes:
+            for frames in (1, MEGA_FRAMES):
+                for spike in (False, True):
+                    name = "megastep_spike" if spike else "megastep"
+                    args = megastep_args(a, frames, fc_mode)
+                    ms = cuda_ms(megastep_pair(fc_mode, spike)[0], args)
+                    bound = max(bound_parts(name, args, fc_mode)) * 1e3
+                    print(f"time {name}{width} fc_mode={fc_mode} "
+                          f"F={frames} (B=256): {ms / frames!r} ms a frame, "
+                          f"bound {bound / frames!r} ms a frame")
     return rows
 
 
@@ -1367,9 +1640,18 @@ def main(argv=None) -> int:
                   f"{arts[key].fc_prune_fraction}, entries a column "
                   f"{fc[0].shape[0]}")
         print(f"cfg {arts['csc'].cfg}")
+        paths["float"] = write_float_artifact(Path(tmp) / "float", args.seed,
+                                              utts)
+        arts["float"] = load_artifact(paths["float"])
+        n_params = sum(t.numel() for n, t in arts["float"].params.items()
+                       if n in BASELINE.layer_shapes)
+        print(f"artifact float: cfg {arts['float'].cfg}, {n_params} float32 "
+              f"weights = {n_params * 4} B")
         path, art = paths["csc"], arts["csc"]
-        packs = {k: a.packed for k, a in arts.items()}
-        errs = check_kernels(packs, dev, args.seed)
+        packs = {k: a.packed for k, a in arts.items() if a.packed is not None}
+        floats = {"BASELINE": float_params(args.seed, BASELINE),
+                  "PRUNED": float_params(args.seed, PRUNED)}
+        errs = check_kernels(packs, floats, dev, args.seed)
         if args.kernels_only:
             return 0
         launches, served = serve_all(paths, arts, utts)
@@ -1380,15 +1662,19 @@ def main(argv=None) -> int:
         for k6, k7 in (("fused", "fused_spike"),
                        ("fused sparse_fc=False",
                         "fused_spike sparse_fc=False"),
-                       ("fused nm", "fused_spike nm")):
+                       ("fused nm", "fused_spike nm"),
+                       ("fused float", "fused_spike float")):
             if not all(np.array_equal(a, b)
                        for a, b in zip(served[k6], served[k7])):
                 raise AssertionError(f"{k6} and {k7} logits differ")
         print("serve: fused and fused_spike logits bit-equal, with and "
-              "without sparse_fc, and over the N:M artifact")
-        for backend in ("fused", "fused_spike"):
-            check_chunk(path, art, utts, backend)
-        rows = time_kernels(packs, dev, args.seed, launches, errs)
+              "without sparse_fc, over the N:M artifact and over the float "
+              "one")
+        for key in ("csc", "float"):
+            for backend in ("fused", "fused_spike"):
+                check_chunk(paths[key], arts[key], utts, backend)
+        check_forward(paths["float"], arts["float"], utts)
+        rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"

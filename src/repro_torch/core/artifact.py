@@ -1,4 +1,4 @@
-"""Reader of the versioned on-disk deployment artifact (int4 payload).
+"""Reader of the versioned on-disk deployment artifact (int4 or float).
 
 An artifact is a directory
 
@@ -16,11 +16,13 @@ as implicit padded CSC.  Any other version, a tensor missing from
 ``tensors.npz``, or a shape or dtype that disagrees with the manifest
 raises ``ArtifactError``.
 
-Only the int4 payload is served by the port so far: every registered
-layout loads (``dense``, ``csc`` and ``nm_group``, for ``fc_w`` and for any
-recurrent tensor a mixed-level spec pruned).  A float payload raises
-``NotImplementedError`` naming its ROADMAP item; the write side is not
-ported.
+Both payloads load.  The int4 payload (``PackedRSNN``: nibble-packed
+``QuantTensor``s, a layout-resolved tensor for every pruned weight,
+inference LIF constants) in every registered layout (``dense``, ``csc``
+and ``nm_group``, for ``fc_w`` and for any recurrent tensor a mixed-level
+spec pruned); the float payload (the raw parameter dict, keyed as the
+reference's ``_flatten_params`` keys it) through ``params_from_arrays``.
+The write side is not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core import layouts
 from repro_torch.core.complexity import SparsityProfile
+from repro_torch.core.lif import LIFParams
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.core.sparse import PackedRSNN, QuantTensor
 
@@ -48,12 +51,13 @@ class ArtifactError(ValueError):
 
 
 class RSNNArtifact(NamedTuple):
-    """A loaded int4 artifact: the manifest plus the packed weights (CPU
-    tensors; ``CompiledRSNN`` moves them to its device)."""
+    """A loaded artifact: the manifest plus exactly one weight payload
+    (CPU tensors; ``CompiledRSNN`` moves them to its device)."""
 
     manifest: dict
     cfg: RSNNConfig
-    packed: PackedRSNN
+    packed: PackedRSNN | None  # int4 payload
+    params: dict | None  # float payload
     sparsity: SparsityProfile | None
     input_scale: torch.Tensor | None
 
@@ -98,6 +102,8 @@ class RSNNArtifact(NamedTuple):
         """Per-tensor layout tags (v1 manifests: derived from the payload)."""
         if "layouts" in self.manifest:
             return self.manifest["layouts"]
+        if self.packed is None:  # a float payload has no layouts
+            return {}
         return {n: layouts.layout_of(t).name
                 for n, t in self.packed.sparse.items()}
 
@@ -155,8 +161,35 @@ def packed_from_arrays(arrays: dict[str, np.ndarray]) -> PackedRSNN:
         lif=lif)
 
 
+def params_from_arrays(arrays: dict[str, np.ndarray],
+                       cfg: RSNNConfig) -> dict:
+    """The float parameter dict from the flat key/array dict the
+    reference's ``_flatten_params`` produces: ``params['<layer>']`` for
+    each matrix of ``cfg.layer_shapes`` and ``params['lif<i>'].raw_beta``
+    / ``.raw_vth`` of (hidden_dim,).  Arrays become float32 CPU tensors,
+    bit for bit; a missing or misshapen tensor raises ``ArtifactError``."""
+
+    def take(key: str, shape: tuple[int, ...]) -> torch.Tensor:
+        if key not in arrays:
+            raise ArtifactError(f"float artifact is missing tensor {key!r}")
+        arr = np.asarray(arrays[key]).astype(np.float32)
+        if arr.shape != shape:
+            raise ArtifactError(f"float tensor {key!r} is {arr.shape}, the "
+                                f"config needs {shape}")
+        return torch.from_numpy(arr)
+
+    params: dict = {name: take(f"params['{name}']", shape)
+                    for name, shape in cfg.layer_shapes.items()}
+    h = (cfg.hidden_dim,)
+    for i in (0, 1):
+        params[f"lif{i}"] = LIFParams(
+            raw_beta=take(f"params['lif{i}'].raw_beta", h),
+            raw_vth=take(f"params['lif{i}'].raw_vth", h))
+    return params
+
+
 def load_artifact(path: str | Path) -> RSNNArtifact:
-    """Read an int4 artifact directory written by the reference writer."""
+    """Read an artifact directory written by the reference writer."""
     path = Path(path)
     mf = path / MANIFEST
     if not mf.exists():
@@ -183,25 +216,25 @@ def load_artifact(path: str | Path) -> RSNNArtifact:
                 f"declares {tuple(meta['shape'])}/{meta['dtype']}")
 
     precision = manifest["precision"]
-    if precision == "float":
-        raise NotImplementedError(
-            "float-precision artifacts are not yet served by repro_torch "
-            "(ROADMAP queue 1, the float engine)")
-    if precision != "int4":
+    if precision not in ("int4", "float"):
         raise ArtifactError(f"unknown artifact precision {precision!r}")
     cfg = _decode_rsnn_config(manifest["rsnn_config"])
     scale = (torch.from_numpy(np.array(arrays["input_scale"]))
              if manifest.get("has_input_scale") else None)
-    packed = packed_from_arrays(arrays)
-    declared_tags = manifest.get("layouts")
-    if declared_tags is not None:  # v2: manifest tags must match payload
-        actual = {n: layouts.layout_of(t).name
-                  for n, t in packed.sparse.items()}
-        if actual != declared_tags:
-            raise ArtifactError(
-                f"manifest layout tags {declared_tags} disagree with the "
-                f"tensor payload {actual}")
+    packed = params = None
+    if precision == "float":
+        params = params_from_arrays(arrays, cfg)
+    else:
+        packed = packed_from_arrays(arrays)
+        declared_tags = manifest.get("layouts")
+        if declared_tags is not None:  # v2: manifest tags must match payload
+            actual = {n: layouts.layout_of(t).name
+                      for n, t in packed.sparse.items()}
+            if actual != declared_tags:
+                raise ArtifactError(
+                    f"manifest layout tags {declared_tags} disagree with "
+                    f"the tensor payload {actual}")
     return RSNNArtifact(
-        manifest=manifest, cfg=cfg, packed=packed,
+        manifest=manifest, cfg=cfg, packed=packed, params=params,
         sparsity=_decode_sparsity(manifest.get("sparsity_profile")),
         input_scale=scale)

@@ -1,7 +1,17 @@
-"""Leaky integrate-and-fire state (paper Eq. 2-3), inference side only.
+"""Leaky integrate-and-fire neuron (paper Eq. 2-3), inference side.
+
+    U[t][ts] = stimulus + beta * U[t][ts-1] * (1 - h[t][ts-1])
+    h[t][ts] = 1  if U[t][ts] >= V_th else 0
 
 An int4 deployment artifact carries the inference constants (beta, vth)
-already resolved, so the serving path needs only the carried state.
+already resolved.  A float artifact carries the learnable parameters in
+their unconstrained form (``LIFParams``); ``inference_constants`` turns
+them into (beta, vth), rounded to powers of two on the hardware path
+(paper Fig. 6), with the reference's formulas in the reference's order.
+Transcendentals (sigmoid, log-add-exp, log2) may round an ulp apart from
+the reference's, so the constants agree within a few ulp, not bit for bit.
+The surrogate gradient, ``lif_step`` and the straight-through gradients
+belong to training and are not here.
 """
 
 from __future__ import annotations
@@ -11,8 +21,57 @@ from typing import NamedTuple
 import torch
 
 
+class LIFParams(NamedTuple):
+    """Per-neuron learnable LIF parameters (unconstrained space)."""
+
+    raw_beta: torch.Tensor  # beta = sigmoid(raw_beta) in (0, 1)
+    raw_vth: torch.Tensor  # vth = softplus(raw_vth) > 0
+
+
 class LIFState(NamedTuple):
     """Carried LIF state: membrane potential and previous spike."""
 
     u: torch.Tensor  # (B, H)
     spike: torch.Tensor  # (B, H)
+
+
+def beta_of(params: LIFParams) -> torch.Tensor:
+    return torch.sigmoid(params.raw_beta)
+
+
+def vth_of(params: LIFParams) -> torch.Tensor:
+    """softplus as the reference writes it, ``logaddexp(x, 0)`` (not
+    ``F.softplus``, whose large-input branch returns x itself)."""
+    x = params.raw_vth
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def inference_constants(params: LIFParams, hw_rounded: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Concrete (beta, vth) for inference; pow-2-rounded on the hw path."""
+    beta, vth = beta_of(params), vth_of(params)
+    if hw_rounded:
+        beta, vth = round_beta_pow2(beta), round_vth_pow2(vth)
+    return beta, vth
+
+
+def round_beta_pow2(beta: torch.Tensor, max_shift: int = 5) -> torch.Tensor:
+    """Round beta in (0, 1) to the nearest of {2^-k} U {1 - 2^-k},
+    k = 1..max_shift (a shift, or a shift and a subtract); a tie takes the
+    first candidate in that order.  The value is the reference's
+    straight-through form ``beta + (rounded - beta)``."""
+    ks = torch.arange(1, max_shift + 1, dtype=beta.dtype, device=beta.device)
+    cands = torch.cat([torch.exp2(-ks), 1.0 - torch.exp2(-ks)])
+    idx = torch.argmin((beta.unsqueeze(-1) - cands).abs(), dim=-1)
+    rounded = cands[idx]
+    return beta + (rounded - beta)
+
+
+def round_vth_pow2(vth: torch.Tensor, min_exp: int = -4,
+                   max_exp: int = 4) -> torch.Tensor:
+    """Round vth to the nearest power of two in [2^min_exp, 2^max_exp]
+    (``round`` is half to even, as in the reference)."""
+    exps = torch.clamp(torch.round(torch.log2(torch.clamp(vth, min=1e-8))),
+                       min_exp, max_exp)
+    rounded = torch.exp2(exps)
+    return vth + (rounded - vth)

@@ -1,8 +1,13 @@
-"""The paper's recurrent spiking network: configuration and carried state.
+"""The paper's recurrent spiking network: configuration, carried state and
+the float golden model.
 
 Two recurrent spiking layers and a merged-spike FC readout (paper Fig. 1,
-Table I).  The frame step itself lives in ``serving/stream.py``, composed
-from the op table of ``serving/backends.py``.
+Table I).  ``frame_step`` and ``forward`` run the float model over a
+parameter dict (``l0_wx``, ``l0_wh``, ``l1_wx``, ``l1_wh``, ``fc_w`` and
+``lif0``/``lif1`` as ``LIFParams``) with plain PyTorch, on the device the
+tensors lie on; they are the reference's golden model, operation for
+operation.  The served frame step lives in ``serving/stream.py``,
+composed from the op table of ``serving/backends.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.lif import LIFState
+from repro_torch.core import lif as lif_lib
+from repro_torch.core import spike_ops
+from repro_torch.core.lif import LIFParams, LIFState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +69,64 @@ def init_state(cfg: RSNNConfig, batch: int, num_ts: int | None = None, *,
     return RSNNState(h0=z(ts, batch, h), h1=z(ts, batch, h),
                      lif0=LIFState(u=z(batch, h), spike=z(batch, h)),
                      lif1=LIFState(u=z(batch, h), spike=z(batch, h)))
+
+
+def _lif_chain(lif_params: LIFParams, state: LIFState, stim_ts: torch.Tensor,
+               cfg: RSNNConfig) -> tuple[LIFState, torch.Tensor]:
+    """Sequential membrane chain over the TS axis (paper Eq. 2-3).
+    stim_ts: (TS, B, H)."""
+    beta, vth = lif_lib.inference_constants(lif_params, cfg.hw_rounded_lif)
+    spikes = []
+    for ts in range(stim_ts.shape[0]):
+        u = stim_ts[ts] + beta * state.u * (1.0 - state.spike)
+        h = (u >= vth).to(u.dtype)
+        state = LIFState(u=u, spike=h)
+        spikes.append(h)
+    return state, torch.stack(spikes)
+
+
+def frame_step(params: dict, state: RSNNState, x_t: torch.Tensor,
+               cfg: RSNNConfig) -> tuple[RSNNState, tuple[torch.Tensor, dict]]:
+    """One 10-ms frame through the float RSNN.  x_t: (B, input_dim),
+    already 8-bit quantized.  Returns (state, (logits (B, fc_dim), aux))."""
+    # L0: feed-forward stimulus once, shared across time steps; the
+    # recurrent product over all TS at once
+    ff0 = x_t @ params["l0_wx"]
+    rec0 = state.h0 @ params["l0_wh"]
+    lif0, s0 = _lif_chain(params["lif0"], state.lif0, ff0.unsqueeze(0) + rec0,
+                          cfg)
+    # L1: feed-forward from the per-ts L0 spikes
+    stim1 = s0 @ params["l1_wx"] + state.h1 @ params["l1_wh"]
+    lif1, s1 = _lif_chain(params["lif1"], state.lif1, stim1, cfg)
+    if cfg.merged_spike:
+        logits = spike_ops.merged_spike_fc(s1, params["fc_w"])
+    else:
+        logits = (s1 @ params["fc_w"]).sum(dim=0)
+    aux = {
+        "spike_rate_l0": s0.mean(dim=(1, 2)),  # per-ts firing rate
+        "spike_rate_l1": s1.mean(dim=(1, 2)),
+        "union_rate_l1": s1.amax(dim=0).mean(),
+    }
+    return RSNNState(h0=s0, h1=s1, lif0=lif0, lif1=lif1), (logits, aux)
+
+
+def forward(params: dict, x: torch.Tensor, cfg: RSNNConfig,
+            state: RSNNState | None = None, num_ts: int | None = None
+            ) -> tuple[torch.Tensor, RSNNState, dict]:
+    """The float RSNN over a frame sequence on ``x``'s device.  x: (B, T,
+    input_dim) raw features, quantized to ``cfg.input_bits`` with their
+    own max-abs scale.  Returns (logits (B, T, fc_dim), state, aux: the
+    per-frame rates averaged over frames, and ``input_bit_sparsity``)."""
+    b = x.shape[0]
+    if state is None:
+        state = init_state(cfg, b, num_ts, device=x.device)
+    xq, _ = spike_ops.quantize_input(x, cfg.input_bits)
+    logits, auxes = [], []
+    for t in range(xq.shape[1]):
+        state, (lg, aux) = frame_step(params, state, xq[:, t], cfg)
+        logits.append(lg)
+        auxes.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxes]).mean(dim=0) for k in auxes[0]}
+    aux["input_bit_sparsity"] = spike_ops.input_bit_sparsity(xq,
+                                                             cfg.input_bits)
+    return torch.stack(logits, dim=1), state, aux

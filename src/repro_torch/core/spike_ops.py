@@ -1,4 +1,5 @@
-"""Spike-domain helper ops: merged spikes, input quantization, bit-planes.
+"""Spike-domain helper ops: merged spikes, input quantization, bit-planes,
+sparsity statistics.
 
 Each function computes what its namesake in the reference computes, in the
 same order of float operations, so that results agree bit for bit.
@@ -44,3 +45,14 @@ def bitplanes(q: torch.Tensor, bits: int = 8) -> torch.Tensor:
     mag = q.abs().to(torch.int32)
     shifts = torch.arange(bits, dtype=torch.int32, device=q.device)
     return (mag.unsqueeze(-1) >> shifts) & 1
+
+
+def input_bit_sparsity(q: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Fraction of zero bits in the magnitude of ``q`` (the bit-serial
+    input layer's type-A zero skipping, paper Fig. 5a)."""
+    return 1.0 - bitplanes(q, bits).to(torch.float32).mean()
+
+
+def spike_sparsity(spikes: torch.Tensor) -> torch.Tensor:
+    """Fraction of zero spikes (paper Fig. 18 reports 60-71%)."""
+    return 1.0 - spikes.mean()

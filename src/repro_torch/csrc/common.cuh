@@ -36,7 +36,8 @@ constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
                                       // (kMaxMegastepSharedBytes for megastep)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
-constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve
+constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
+                                      // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
 

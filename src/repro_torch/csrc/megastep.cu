@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/megastep.py `megastep`
 // (pl.pallas_call at line 250, body `_megastep_kernel`): K6 is its
-// spike=False mode, K7 its spike=True mode, one template on kSpike here.
-// For each frame f, with W = nibble(q) * scale dequantized next to the MAC:
+// spike=False mode, K7 its spike=True mode, one template on kSpike here,
+// and each at both precisions of the layer weights (a template on kFloat):
+// int4 (W = nibble(q) * scale, dequantized next to the MAC) or float32
+// (W read as stored).  For each frame f:
 //
 //   L0:  ff0 = x[f] @ W0x;  rec0[t] = s0[t] @ W0h;  stim = ff0 + rec0[t]
 //   L1:  ff1[t] = s0'[t] @ W1x;  rec1[t] = s1[t] @ W1h;  stim = ff1 + rec1
@@ -12,7 +14,9 @@
 //   FC:  logits[f] = (sum_k merged[k] * q_fc[k]) * scale_fc, merged =
 //        sum_t s1'[t] (dense_int4, K3's order), or the padded-CSC gather
 //        of merged (csc, K4's order), or the N:M group-packed gather (nm,
-//        K5's order): integer sums, one scale at the end
+//        K5's order): integer sums, one scale at the end; or, with float
+//        weights, sum_k merged[k] * w_fc[k] in float32, k ascending, no
+//        scale (dense_float)
 //   counters: spikes_l0/l1[f][t] = sum_k s'[t][k], union_l1[f] = the
 //        columns where some s1'[t] spiked, input_one_bits[f] = sum_d
 //        popc(int(|x|) & (2^input_bits - 1))
@@ -20,7 +24,9 @@
 // The state (s0/s1 spike trains, u/h of each layer) stays on chip across
 // the F frames and is written once at the end.  Shapes: x (F, B, D), s0/s1
 // (TS, B, H), u0/h0/u1/h1 (B, H), beta/vth (H,), all float32; the four
-// layer weights (K/2, H) int8 nibbles + (H,) float32 scales; FC dense_int4
+// layer weights (K/2, H) int8 nibbles + (H,) float32 scales, or (K, H)
+// float32 (precision float, whose only FC is dense_float: w_fc (H, N)
+// float32); FC dense_int4
 // packed (H/2, N) int8 + scale (N,), csc indices (nnz, N) int32 +
 // values (nnz, N) float32 + scale (N,), or nm packed (E, N) int8 (value |
 // offset << 4, nm_n entries of every nm_m rows) + scale (N,).  Outputs:
@@ -29,8 +35,9 @@
 //
 // K7 (kSpike) runs the three spike-consuming products (L0 recurrent, L1
 // feed-forward, L1 recurrent) over lossless event lists of each spike row,
-// built by compact_row into shared memory, and the dense_int4 FC over the
-// merged union's events (values in {0..TS}, gathered, never assumed 1);
+// built by compact_row into shared memory, and the dense FCs (dense_int4,
+// dense_float) over the merged union's events (values in {0..TS},
+// gathered, never assumed 1);
 // only the W rows the events name are read.  The csc and nm FCs keep their
 // own gather in both modes, as the reference does.  Both modes sum in
 // ascending k and a skipped term is an exact zero (fmaf(0, w, a) == a, and
@@ -51,13 +58,25 @@
 // PRUNED) are staged into shared memory once per launch, beside the tile's
 // spike trains (float32), merged spikes, input rows and, for K7, two sets
 // of event lists.  That is 48,896 B (K6) and 81,792 B (K7) at PRUNED,
-// over the 48 KB a block gets by default: the launch opts in to the larger
+// over the 48 KB a block gets by default.  Float layer weights are not
+// staged: at BASELINE they are 827,392 B, far over a block's shared
+// memory; thread n reads W[k][n] from global memory through the read-only
+// path (__ldg), neighbouring threads on neighbouring addresses, and the
+// four matrices stay in the 50 MB L2 for all the blocks.  Those loads are
+// the float mode's latency: K6's loops over k are unrolled so that later
+// loads are in flight, and K7, whose addresses come from its event lists,
+// issues kLoadBatch loads ahead of their multiply-adds (event_dot), which
+// keeps the order of the sum and so K7 == K6.  K6 then needs 42,240 B and
+// K7 107,904 B of shared memory at BASELINE (21,760 B and 54,656 B at
+// PRUNED).  Over 48 KB the launch opts in to the larger
 // dynamic shared memory (cudaFuncSetAttribute), up to the per-kernel limit
 // kMaxMegastepSharedBytes in common.cuh.  __syncthreads() separates the
 // layers: L1 reads every column of L0's new spikes for its slots.  The FC
 // operands stream from global memory / L2 (122,880 B of packed bytes for
-// dense or 2:4 nm, 1.46 MB CSC: not staged).  A simple design: making it
-// fast is later work.
+// dense or 2:4 nm, 1.46 MB CSC, 1.97 MB float32 at BASELINE: not staged).
+// A simple design: making it fast is later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -70,6 +89,9 @@ using reprotorch::nibble;
 constexpr int kFcDenseInt4 = 0;
 constexpr int kFcCsc = 1;
 constexpr int kFcNm = 2;
+constexpr int kFcDenseFloat = 3;  // float32 w_fc (H, N); float precision only
+constexpr int kPrecisionInt4 = 0;
+constexpr int kPrecisionFloat = 1;
 constexpr int kWarps = kMegaThreads / 32;
 
 struct Operands {
@@ -82,13 +104,17 @@ struct Operands {
   const float* h1;
   const float* beta[2];
   const float* vth[2];
-  const int8_t* q[4];  // l0_wx, l0_wh, l1_wx, l1_wh: (K/2, H) nibbles
+  // l0_wx, l0_wh, l1_wx, l1_wh: int4 (K/2, H) nibbles + (H,) scales, read
+  // only at int4; or float32 (K, H), read only at float
+  const int8_t* q[4];
   const float* scale[4];
+  const float* w[4];
   int fc_mode;
   const void* fc_a;  // dense_int4: packed (H/2, N) int8; csc: indices;
-                     // nm: packed (nnz, N) int8, value | offset << 4
+                     // nm: packed (nnz, N) int8, value | offset << 4;
+                     // dense_float: w_fc (H, N) float32
   const float* fc_values;  // csc values (nnz, N); unused otherwise
-  const float* fc_scale;   // (N,)
+  const float* fc_scale;   // (N,); unused by dense_float
   float* s0_out;
   float* u0_out;
   float* s1_out;
@@ -103,13 +129,14 @@ struct Operands {
 
 // Byte offsets of the shared-memory regions, for the host's size check
 // and the kernel's pointers alike.  Floats first (4-byte aligned), the
-// packed weight bytes last.
+// packed int4 weight bytes last (none with float weights: those are read
+// from global memory).
 struct Layout {
   size_t s0, s1, merged, x, ev_idx, ev_val, ev_cnt, wq, total;
 };
 
 __host__ __device__ inline Layout shared_layout(int ts, int d, int h,
-                                                bool spike) {
+                                                bool spike, bool packed) {
   const size_t train = static_cast<size_t>(ts) * kRows * h;  // one (TS, kRows, H)
   Layout l;
   size_t off = 0;
@@ -128,7 +155,7 @@ __host__ __device__ inline Layout shared_layout(int ts, int d, int h,
   l.ev_cnt = off;
   if (spike) off += 2 * static_cast<size_t>(ts) * kRows * sizeof(int);
   l.wq = off;
-  off += static_cast<size_t>(d / 2 + 3 * (h / 2)) * h;
+  if (packed) off += static_cast<size_t>(d / 2 + 3 * (h / 2)) * h;
   l.total = (off + 15) & ~static_cast<size_t>(15);
   return l;
 }
@@ -146,16 +173,33 @@ __device__ __forceinline__ float weight(const int8_t* q, int k, int n, int h,
   return __fmul_rn(nibble((k & 1) ? (byte >> 4) : byte), scale);
 }
 
+// One layer's weights as thread n reads them: int4 nibbles staged in
+// shared memory with the column's scale, or a float32 (K, H) row-major
+// matrix in global memory, through the read-only path.
+struct PackedLayer {
+  const int8_t* q;
+  float scale;
+  __device__ __forceinline__ float at(int k, int n, int h) const {
+    return weight(q, k, n, h, scale);
+  }
+};
+
+struct FloatLayer {
+  const float* w;
+  __device__ __forceinline__ float at(int k, int n, int h) const {
+    return __ldg(w + static_cast<long long>(k) * h + n);
+  }
+};
+
 // acc[r][t] += sum_k s[t][r][k] * W[k][n], k ascending; s is a (TS, kRows,
 // H) spike train in shared memory, W's packed column n in shared memory.
 __device__ __forceinline__ void dense_product(const float* s, int ts, int h,
-                                              const int8_t* q, float scale,
-                                              int n,
+                                              PackedLayer l, int n,
                                               float (&acc)[kRows][kMaxTs]) {
   for (int p = 0; p < h / 2; ++p) {
-    const int byte = q[p * h + n];
-    const float w_lo = __fmul_rn(nibble(byte), scale);
-    const float w_hi = __fmul_rn(nibble(byte >> 4), scale);
+    const int byte = l.q[p * h + n];
+    const float w_lo = __fmul_rn(nibble(byte), l.scale);
+    const float w_hi = __fmul_rn(nibble(byte >> 4), l.scale);
 #pragma unroll
     for (int t = 0; t < kMaxTs; ++t) {
       if (t >= ts) continue;
@@ -169,25 +213,70 @@ __device__ __forceinline__ void dense_product(const float* s, int ts, int h,
   }
 }
 
+// The same sum with float weights: W[k][n] from global memory, k ascending
+// (unrolled, so that loads of later k are in flight during the
+// multiply-adds of earlier ones).
+__device__ __forceinline__ void dense_product(const float* s, int ts, int h,
+                                              FloatLayer l, int n,
+                                              float (&acc)[kRows][kMaxTs]) {
+#pragma unroll 4
+  for (int k = 0; k < h; ++k) {
+    const float w = l.at(k, n, h);
+#pragma unroll
+    for (int t = 0; t < kMaxTs; ++t) {
+      if (t >= ts) continue;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        acc[r][t] = fmaf(s[(t * kRows + r) * h + k], w, acc[r][t]);
+      }
+    }
+  }
+}
+
+// a + sum_e vx[e] * W[ix[e]][n] over c events, e ascending.  With float
+// weights each term is a load from L2 at an address an event names:
+// kLoadBatch of them are issued before their multiply-adds, which still
+// run in e order, so the sum is the same float.
+constexpr int kLoadBatch = 8;
+
+__device__ __forceinline__ float event_dot(const int* ix, const float* vx,
+                                           int c, PackedLayer l, int n, int h,
+                                           float a) {
+  for (int e = 0; e < c; ++e) a = fmaf(vx[e], l.at(ix[e], n, h), a);
+  return a;
+}
+
+__device__ __forceinline__ float event_dot(const int* ix, const float* vx,
+                                           int c, FloatLayer l, int n, int h,
+                                           float a) {
+  int e = 0;
+  for (; e + kLoadBatch <= c; e += kLoadBatch) {
+    float w[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) w[j] = l.at(ix[e + j], n, h);
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) a = fmaf(vx[e + j], w[j], a);
+  }
+  for (; e < c; ++e) a = fmaf(vx[e], l.at(ix[e], n, h), a);
+  return a;
+}
+
 // The same sum over each row's event list (list t * kRows + r, ascending
 // index, lossless): only the rows of W that the events name are read.
+template <class Layer>
 __device__ __forceinline__ void gather_product(const int* idx,
                                                const float* val,
                                                const int* cnt, int ts, int h,
-                                               const int8_t* q, float scale,
-                                               int n,
+                                               Layer l, int n,
                                                float (&acc)[kRows][kMaxTs]) {
 #pragma unroll
   for (int t = 0; t < kMaxTs; ++t) {
     if (t >= ts) continue;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int l = t * kRows + r;
-      float a = acc[r][t];
-      for (int e = 0; e < cnt[l]; ++e) {
-        a = fmaf(val[l * h + e], weight(q, idx[l * h + e], n, h, scale), a);
-      }
-      acc[r][t] = a;
+      const int li = t * kRows + r;
+      acc[r][t] = event_dot(idx + li * h, val + li * h, cnt[li], l, n, h,
+                            acc[r][t]);
     }
   }
 }
@@ -227,12 +316,13 @@ __device__ __forceinline__ void lif_chain(const float (&ff)[kRows][kMaxTs],
   }
 }
 
-template <bool kSpike>
+template <bool kSpike, bool kFloat>
 __global__ void __launch_bounds__(kMegaThreads)
     megastep_kernel(const Operands o) {
+  using Layer = std::conditional_t<kFloat, FloatLayer, PackedLayer>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ts = o.ts, b = o.b, d = o.d, h = o.h, fc = o.fc;
-  const Layout lay = shared_layout(ts, d, h, kSpike);
+  const Layout lay = shared_layout(ts, d, h, kSpike, !kFloat);
   float* s0_sh = reinterpret_cast<float*>(smem + lay.s0);  // [t][r][k]
   float* s1_sh = reinterpret_cast<float*>(smem + lay.s1);
   float* m_sh = reinterpret_cast<float*>(smem + lay.merged);  // [r][k]
@@ -254,15 +344,19 @@ __global__ void __launch_bounds__(kMegaThreads)
   const int n = tid;  // this thread's hidden column
   const bool owns = n < h;
 
-  // the packed layer weights, once for the whole chunk
-  const int8_t* q_sh[4];
-  {
+  // the layer weights: int4 nibbles staged once for the whole chunk, with
+  // this column's scales; float32 matrices read in place
+  Layer wl[4];
+  if constexpr (kFloat) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) wl[m] = FloatLayer{o.w[m]};
+  } else {
     int off = 0;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int count = ((m == 0 ? d : h) / 2) * h;
       for (int i = tid; i < count; i += kMegaThreads) wq_sh[off + i] = o.q[m][i];
-      q_sh[m] = wq_sh + off;
+      wl[m] = PackedLayer{wq_sh + off, owns ? o.scale[m][n] : 0.0f};
       off += count;
     }
   }
@@ -276,7 +370,7 @@ __global__ void __launch_bounds__(kMegaThreads)
     s0_sh[i] = r < rows ? o.s0[at] : 0.0f;
     s1_sh[i] = r < rows ? o.s1[at] : 0.0f;
   }
-  float u0[kRows], h0[kRows], u1[kRows], h1[kRows], sc[4];
+  float u0[kRows], h0[kRows], u1[kRows], h1[kRows];
   float beta0 = 0.0f, vth0 = 0.0f, beta1 = 0.0f, vth1 = 0.0f;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -287,8 +381,6 @@ __global__ void __launch_bounds__(kMegaThreads)
     u1[r] = live ? o.u1[at] : 0.0f;
     h1[r] = live ? o.h1[at] : 0.0f;
   }
-#pragma unroll
-  for (int m = 0; m < 4; ++m) sc[m] = owns ? o.scale[m][n] : 0.0f;
   if (owns) {
     beta0 = o.beta[0][n];
     vth0 = o.vth[0][n];
@@ -327,14 +419,23 @@ __global__ void __launch_bounds__(kMegaThreads)
       for (int t = 0; t < kMaxTs; ++t) ff[r][t] = rec[r][t] = 0.0f;
     }
     if (owns) {
-      for (int p = 0; p < d / 2; ++p) {
-        const int byte = q_sh[0][p * h + n];
-        const float w_lo = __fmul_rn(nibble(byte), sc[0]);
-        const float w_hi = __fmul_rn(nibble(byte >> 4), sc[0]);
+      if constexpr (kFloat) {
+#pragma unroll 4
+        for (int k = 0; k < d; ++k) {
+          const float w = wl[0].at(k, n, h);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          ff[r][0] = fmaf(x_sh[r * d + 2 * p], w_lo, ff[r][0]);
-          ff[r][0] = fmaf(x_sh[r * d + 2 * p + 1], w_hi, ff[r][0]);
+          for (int r = 0; r < kRows; ++r) ff[r][0] = fmaf(x_sh[r * d + k], w, ff[r][0]);
+        }
+      } else {
+        for (int p = 0; p < d / 2; ++p) {
+          const int byte = wl[0].q[p * h + n];
+          const float w_lo = __fmul_rn(nibble(byte), wl[0].scale);
+          const float w_hi = __fmul_rn(nibble(byte >> 4), wl[0].scale);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            ff[r][0] = fmaf(x_sh[r * d + 2 * p], w_lo, ff[r][0]);
+            ff[r][0] = fmaf(x_sh[r * d + 2 * p + 1], w_hi, ff[r][0]);
+          }
         }
       }
 #pragma unroll
@@ -343,9 +444,9 @@ __global__ void __launch_bounds__(kMegaThreads)
         for (int t = 1; t < kMaxTs; ++t) ff[r][t] = ff[r][0];  // broadcast over TS
       }
       if (kSpike) {
-        gather_product(idx_sh, val_sh, cnt_sh, ts, h, q_sh[1], sc[1], n, rec);
+        gather_product(idx_sh, val_sh, cnt_sh, ts, h, wl[1], n, rec);
       } else {
-        dense_product(s0_sh, ts, h, q_sh[1], sc[1], n, rec);
+        dense_product(s0_sh, ts, h, wl[1], n, rec);
       }
     }
     __syncthreads();  // every read of the previous L0 train is done
@@ -365,11 +466,11 @@ __global__ void __launch_bounds__(kMegaThreads)
     }
     if (owns) {
       if (kSpike) {
-        gather_product(idx_sh, val_sh, cnt_sh, ts, h, q_sh[2], sc[2], n, ff);
-        gather_product(idx_b, val_b, cnt_b, ts, h, q_sh[3], sc[3], n, rec);
+        gather_product(idx_sh, val_sh, cnt_sh, ts, h, wl[2], n, ff);
+        gather_product(idx_b, val_b, cnt_b, ts, h, wl[3], n, rec);
       } else {
-        dense_product(s0_sh, ts, h, q_sh[2], sc[2], n, ff);
-        dense_product(s1_sh, ts, h, q_sh[3], sc[3], n, rec);
+        dense_product(s0_sh, ts, h, wl[2], n, ff);
+        dense_product(s1_sh, ts, h, wl[3], n, rec);
       }
     }
     __syncthreads();  // every read of the previous L1 train is done
@@ -412,7 +513,8 @@ __global__ void __launch_bounds__(kMegaThreads)
       if (lane == 0) o.union_l1[static_cast<long long>(f) * b + row0 + r] = c;
     }
     __syncthreads();  // merged spikes complete
-    const bool dense_fc = o.fc_mode == kFcDenseInt4;
+    const bool float_fc = o.fc_mode == kFcDenseFloat;
+    const bool dense_fc = float_fc || o.fc_mode == kFcDenseInt4;
     if (kSpike && dense_fc) {  // the merged union's events, values in {0..TS}
       for (int r = warp; r < kRows; r += kWarps) {
         const int c = reprotorch::compact_row(m_sh + r * h, 0, 1, h, h,
@@ -422,12 +524,29 @@ __global__ void __launch_bounds__(kMegaThreads)
       __syncthreads();
     }
 
-    // FC readout: integer sums, one scale per column
+    // FC readout: integer sums, one scale per column; float32 sums of the
+    // float FC, no scale
     for (int col = tid; col < fc; col += kMegaThreads) {
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      if (dense_fc) {
+      if (float_fc) {
+        const float* w_fc = static_cast<const float*>(o.fc_a);
+        if (kSpike) {  // (H, N) row-major: W_fc[k][col] is at(k, col, N)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            acc[r] = event_dot(idx_sh + r * h, val_sh + r * h, cnt_sh[r],
+                               FloatLayer{w_fc}, col, fc, 0.0f);
+          }
+        } else {
+#pragma unroll 4
+          for (int k = 0; k < h; ++k) {
+            const float w = __ldg(w_fc + static_cast<long long>(k) * fc + col);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) acc[r] = fmaf(m_sh[r * h + k], w, acc[r]);
+          }
+        }
+      } else if (dense_fc) {
         const int8_t* packed = static_cast<const int8_t*>(o.fc_a);
         if (kSpike) {
 #pragma unroll
@@ -470,12 +589,12 @@ __global__ void __launch_bounds__(kMegaThreads)
           for (int r = 0; r < kRows; ++r) acc[r] = fmaf(m_sh[r * h + row], v, acc[r]);
         }
       }
-      const float s = o.fc_scale[col];
+      const float s = float_fc ? 1.0f : o.fc_scale[col];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < rows) {
           o.logits[(static_cast<long long>(f) * b + row0 + r) * fc + col] =
-              __fmul_rn(acc[r], s);
+              float_fc ? acc[r] : __fmul_rn(acc[r], s);
         }
       }
     }
@@ -510,28 +629,33 @@ __global__ void __launch_bounds__(kMegaThreads)
 extern "C" int megastep_launch(
     const void* x, const void* s0, const void* u0, const void* h0,
     const void* s1, const void* u1, const void* h1, const void* beta0,
-    const void* vth0, const void* beta1, const void* vth1, const void* q0x,
-    const void* sc0x, const void* q0h, const void* sc0h, const void* q1x,
-    const void* sc1x, const void* q1h, const void* sc1h, int fc_mode,
-    const void* fc_a, const void* fc_values, const void* fc_scale,
-    void* s0_out, void* u0_out, void* s1_out, void* u1_out, void* logits,
-    void* spikes_l0, void* spikes_l1, void* union_l1, void* one_bits,
-    int frames, int ts, int b, int d, int h, int fc, int nnz, int nm_n,
-    int nm_m, int input_bits, int spike, void* stream) {
+    const void* vth0, const void* beta1, const void* vth1, const void* w0x,
+    const void* sc0x, const void* w0h, const void* sc0h, const void* w1x,
+    const void* sc1x, const void* w1h, const void* sc1h, int precision,
+    int fc_mode, const void* fc_a, const void* fc_values,
+    const void* fc_scale, void* s0_out, void* u0_out, void* s1_out,
+    void* u1_out, void* logits, void* spikes_l0, void* spikes_l1,
+    void* union_l1, void* one_bits, int frames, int ts, int b, int d, int h,
+    int fc, int nnz, int nm_n, int nm_m, int input_bits, int spike,
+    void* stream) {
   if (ts > kMaxTs) return reprotorch::kErrTooManySteps;
   if (h > kMegaThreads) return reprotorch::kErrTooWide;
-  if (fc_mode != kFcDenseInt4 && fc_mode != kFcCsc && fc_mode != kFcNm) {
+  // float weights come with the float FC only, int4 ones with the int4
+  // layouts' FCs only
+  const bool float_w = precision == kPrecisionFloat;
+  if ((precision != kPrecisionInt4 && !float_w) || fc_mode < kFcDenseInt4 ||
+      fc_mode > kFcDenseFloat || (fc_mode == kFcDenseFloat) != float_w) {
     return reprotorch::kErrFcMode;
   }
   if (fc_mode == kFcNm &&
       (nm_n < 1 || nm_n > nm_m || nm_m > 16 || nnz % nm_n != 0)) {
     return reprotorch::kErrNmGeometry;
   }
-  const size_t smem = shared_layout(ts, d, h, spike != 0).total;
+  const size_t smem = shared_layout(ts, d, h, spike != 0, !float_w).total;
   if (smem > reprotorch::kMaxMegastepSharedBytes) return reprotorch::kErrSharedMemory;
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
-  Operands o;
+  Operands o = {};
   o.x = f32(x);
   o.s0 = f32(s0);
   o.u0 = f32(u0);
@@ -543,14 +667,16 @@ extern "C" int megastep_launch(
   o.vth[0] = f32(vth0);
   o.beta[1] = f32(beta1);
   o.vth[1] = f32(vth1);
-  o.q[0] = i8(q0x);
-  o.q[1] = i8(q0h);
-  o.q[2] = i8(q1x);
-  o.q[3] = i8(q1h);
-  o.scale[0] = f32(sc0x);
-  o.scale[1] = f32(sc0h);
-  o.scale[2] = f32(sc1x);
-  o.scale[3] = f32(sc1h);
+  const void* wp[4] = {w0x, w0h, w1x, w1h};
+  const void* sp[4] = {sc0x, sc0h, sc1x, sc1h};
+  for (int m = 0; m < 4; ++m) {
+    if (float_w) {
+      o.w[m] = f32(wp[m]);
+    } else {
+      o.q[m] = i8(wp[m]);
+      o.scale[m] = f32(sp[m]);
+    }
+  }
   o.fc_mode = fc_mode;
   o.fc_a = fc_a;
   o.fc_values = f32(fc_values);
@@ -575,7 +701,8 @@ extern "C" int megastep_launch(
   o.nm_m = nm_m;
   o.input_bits = input_bits;
   void (*kernel)(const Operands) =
-      spike ? megastep_kernel<true> : megastep_kernel<false>;
+      spike ? (float_w ? megastep_kernel<true, true> : megastep_kernel<true, false>)
+            : (float_w ? megastep_kernel<false, true> : megastep_kernel<false, false>);
   if (smem > reprotorch::kMaxSharedBytes) {  // opt in beyond 48 KB
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

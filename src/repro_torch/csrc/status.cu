@@ -13,8 +13,9 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrTooWide:
       return "hidden width over the megastep block's threads (kMegaThreads)";
     case reprotorch::kErrFcMode:
-      return "an FC mode the megastep kernel does not serve (dense_int4, "
-             "csc, nm)";
+      return "an FC mode or weight precision the megastep kernel does not "
+             "serve (int4 weights: dense_int4, csc, nm; float weights: "
+             "dense_float)";
     case reprotorch::kErrNmGeometry:
       return "an N:M geometry the kernel does not take (needs 1 <= n <= m "
              "<= 16 and entries a multiple of n)";

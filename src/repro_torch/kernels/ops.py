@@ -84,13 +84,12 @@ def spike_cell(stim_base, s_prev, w, u0, h0, beta, vth, *, capacity=None):
 
 
 def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wargs,
-             fcargs, *, fc_mode, input_bits, nm_n=0, nm_m=0, spike=False):
+             fcargs, *, fc_mode, input_bits, precision="int4", nm_n=0,
+             nm_m=0, spike=False):
+    kw = dict(fc_mode=fc_mode, input_bits=input_bits, precision=precision,
+              nm_n=nm_n, nm_m=nm_m, spike=spike)
+    args = (x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wargs,
+            fcargs)
     if _plain("megastep", x):
-        return ref.megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0,
-                                beta1, vth1, wargs, fcargs, fc_mode=fc_mode,
-                                input_bits=input_bits, nm_n=nm_n, nm_m=nm_m,
-                                spike=spike)
-    return _mega.megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1,
-                          vth1, wargs, fcargs, fc_mode=fc_mode,
-                          input_bits=input_bits, nm_n=nm_n, nm_m=nm_m,
-                          spike=spike)
+        return ref.megastep_ref(*args, **kw)
+    return _mega.megastep(*args, **kw)

@@ -19,8 +19,9 @@ do ``delta_step_ref``'s recomputed rows, ``spike_broadcast_ref`` and
 ``spike_cell_ref``.  ``compact_spikes`` (the event lists of K9/K10) and
 ``delta_step_ref``'s mask, held input and cached rows are exact.
 ``megastep_ref`` (K6/K7) composes these: its potentials agree within the
-stated tolerance, its counters exactly, and its logits bit for bit given
-equal merged spikes.
+stated tolerance, its counters exactly, and its int4 logits bit for bit
+given equal merged spikes; its float logits (``dense_float``, float32
+sums) within the stated tolerance.
 """
 
 from __future__ import annotations
@@ -199,10 +200,28 @@ def nm_fc_ref(spikes_ts: torch.Tensor, packed: torch.Tensor,
     return nm_matmul(merged, t)
 
 
+# the mega-step's FC modes at each precision of its layer weights
+MEGASTEP_FC_MODES = {"int4": ("dense_int4", "csc", "nm"),
+                     "float": ("dense_float",)}
+
+
+def check_megastep_modes(precision: str, fc_mode: str) -> None:
+    """Raise unless ``fc_mode`` is an FC mode of the mega-step at
+    ``precision``: the float layer weights come with the float FC
+    (``dense_float``), the int4 ones with an int4 layout's FC."""
+    if precision not in MEGASTEP_FC_MODES:
+        raise ValueError(f"megastep: unknown precision {precision!r}; it "
+                         f"serves {sorted(MEGASTEP_FC_MODES)}")
+    if fc_mode not in MEGASTEP_FC_MODES[precision]:
+        raise ValueError(f"megastep: fc_mode {fc_mode!r} at precision "
+                         f"{precision!r}; that precision serves "
+                         f"{MEGASTEP_FC_MODES[precision]}")
+
+
 def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
                  wargs: tuple, fcargs: tuple, *, fc_mode: str,
-                 input_bits: int, nm_n: int = 0, nm_m: int = 0,
-                 spike: bool = False):
+                 input_bits: int, precision: str = "int4", nm_n: int = 0,
+                 nm_m: int = 0, spike: bool = False):
     """The whole frame step over an F-frame chunk (K6; K7 at
     ``spike=True``), composed from the plain versions above in the
     reference oracle's order.
@@ -210,26 +229,31 @@ def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
     ``x`` (F, B, D) quantized frames; ``s0``/``s1`` (TS, B, H) the previous
     frame's spike trains; ``u*``/``h*`` (B, H) the LIF carries (``h*`` the
     last spike, ``lif*.spike``); ``beta*``/``vth*`` (H,); ``wargs`` the
-    packed ``(q, scale)`` pairs of ``l0_wx, l0_wh, l1_wx, l1_wh``;
-    ``fcargs`` ``(packed, scale)`` for ``fc_mode="dense_int4"``,
-    ``(indices, values, scale)`` for ``"csc"`` or the group-packed
-    ``(packed, scale)`` for ``"nm"`` with ``nm_n`` of every ``nm_m`` rows.
+    layer weights ``l0_wx, l0_wh, l1_wx, l1_wh``: at ``precision="int4"``
+    their packed ``(q, scale)`` pairs, at ``"float"`` the four dense
+    float32 (K, H) matrices.  ``fcargs`` per ``fc_mode``: ``(w_fc,)``
+    (H, N) float32 for ``"dense_float"`` (float only), ``(packed, scale)``
+    for ``"dense_int4"``, ``(indices, values, scale)`` for ``"csc"`` or the
+    group-packed ``(packed, scale)`` for ``"nm"`` with ``nm_n`` of every
+    ``nm_m`` rows (int4 only).
     ``spike=True`` runs the three spike-consuming products (L0 recurrent,
     L1 feed-forward, L1 recurrent) and the dense FC through
-    ``gather_matmul`` at lossless capacity; the dense FC gathers the int4
-    values and scales once, as K3 does, so its integer sums equal the dense
-    readout's bit for bit.  The ``csc`` and ``nm`` readouts skip on the
-    weight side and keep their own gather in both modes, as the reference
-    does.
+    ``gather_matmul`` at lossless capacity; the ``dense_int4`` FC gathers
+    the int4 values and scales once, as K3 does, so its integer sums equal
+    the dense readout's bit for bit; ``dense_float`` gathers the float
+    rows of ``w_fc``, as the reference's spike mode does.  The ``csc`` and
+    ``nm`` readouts skip on the weight side and keep their own gather in
+    both modes, as the reference does.
 
     Returns ``(s0, u0, s1, u1, logits (F, B, N), spikes_l0 (F, TS, B),
     spikes_l1 (F, TS, B), union_l1 (F, B), input_one_bits (F, B))``.
     """
-    if fc_mode not in ("dense_int4", "csc", "nm"):
-        raise ValueError(f"unknown fc_mode {fc_mode!r}; megastep serves "
-                         f"'dense_int4', 'csc' and 'nm'")
-    w0x, w0h, w1x, w1h = (unpack_int4_ref(q).to(torch.float32) * sc
-                          for q, sc in zip(wargs[0::2], wargs[1::2]))
+    check_megastep_modes(precision, fc_mode)
+    if precision == "float":
+        w0x, w0h, w1x, w1h = wargs
+    else:
+        w0x, w0h, w1x, w1h = (unpack_int4_ref(q).to(torch.float32) * sc
+                              for q, sc in zip(wargs[0::2], wargs[1::2]))
     ts, b, h = s0.shape
 
     def cell(stim, s_prev, w, u, hh, beta, vth):
@@ -243,6 +267,10 @@ def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
             return sparse_fc_ref(s, *fcargs)
         if fc_mode == "nm":
             return nm_fc_ref(s, *fcargs, n=nm_n, m=nm_m)
+        if fc_mode == "dense_float":
+            (w_fc,) = fcargs
+            merged = s.sum(dim=0)
+            return gather_matmul(merged, w_fc, h) if spike else merged @ w_fc
         packed, scale = fcargs
         if not spike:
             return merged_spike_fc_ref(s, packed, scale.reshape(-1))

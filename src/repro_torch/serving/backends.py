@@ -5,9 +5,11 @@ A backend is a named recipe that, given the deployed weight bundle
 
   * ``rsnn_cell`` — fused recurrent spiking layer step (TS parallel);
   * ``ff_matmul`` — per-layer feedforward stimulus ``x @ W`` (dense
-    dequantized weights, or the int4 kernel on the packed nibbles);
+    float or dequantized weights, or the int4 kernel on the packed
+    nibbles);
   * ``fc``        — the readout over the TS spike trains (merged-spike
-    int4, per-ts int4, or the packed layout's zero-skip path);
+    int4, per-ts int4, the packed layout's zero-skip path, or the dense
+    float32 FC);
   * ``delta_gate`` — set by ``delta`` only: ``(x_t, x_prev, pre_prev) ->
     (x_hat, pre, mask)``, run before the cells; ``pre`` replaces the L0
     feedforward stimulus and the engine carries ``x_hat``/``pre`` per slot
@@ -21,10 +23,18 @@ The zero-skip readout is layout-dispatched: the packed FC tensor's type
 resolves its ``core/layouts`` ``WeightLayout`` and the backend binds the
 layout's plain oracle (``ref``) or its kernel (``cuda``/``sparse``).
 
+Every backend but ``sparse`` serves both precisions.  At ``float`` the
+weights are the raw float32 matrices: the feed-forward stimuli and the
+readout are dense ``torch.matmul`` products (the reference computes them
+outside any Pallas kernel too), the cells keep their kernels (K1, K10),
+``spike`` gathers the float FC through K9, ``delta`` gates through K8, and
+``fused``/``fused_spike`` launch K6/K7 with float weights and the
+``dense_float`` FC.
+
 Built-in backends:
 
   ``ref`` (alias ``jnp``)    — the plain PyTorch versions in
-      ``kernels/ref.py`` over dense dequantized weights; with
+      ``kernels/ref.py`` over dense (dequantized) weights; with
       ``sparse_fc`` the readout is the packed layout's plain oracle.
   ``cuda`` (alias ``pallas``) — the hand-written kernels through
       ``kernels/ops.py``: a CUDA kernel on CUDA tensors, the plain
@@ -55,7 +65,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core import layouts
+from repro_torch.core import layouts, spike_ops
 from repro_torch.core.layouts.dense import dequantize
 from repro_torch.core.lif import LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
@@ -64,14 +74,17 @@ from repro_torch.kernels import ops, ref
 
 @dataclasses.dataclass(frozen=True)
 class BackendContext:
-    """The deployed int4 weight bundle an OpTable is resolved against.
+    """The deployed weight bundle an OpTable is resolved against.
 
-    ``dense`` holds the dequantized float32 matrices of the ops that
-    consume dense weights; ``quant`` the packed int4 tensors and
-    ``sparse`` each pruned tensor's layout-resolved packed form.
+    At ``precision="int4"``, ``dense`` holds the dequantized float32
+    matrices of the ops that consume dense weights, ``quant`` the packed
+    int4 tensors and ``sparse`` each pruned tensor's layout-resolved
+    packed form.  At ``"float"``, ``dense`` holds every float32 matrix of
+    the model (``fc_w`` included) and ``quant``/``sparse`` are empty.
     """
 
     cfg: RSNNConfig
+    precision: str  # "float" | "int4"
     sparse_fc: bool  # zero-skip layout readout instead of the dense FC
     dense: dict  # name -> (K, N) float32
     quant: dict  # name -> layouts.dense.QuantTensor
@@ -141,24 +154,38 @@ def resolve(name: str, ctx: BackendContext) -> OpTable:
 # ------------------------------------------------------------ op resolution
 
 
+def _dense_ff(ctx: BackendContext) -> Callable:
+    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
+        return x2d @ ctx.dense[name]
+
+    return ff
+
+
 def _fc_op(ctx: BackendContext, *, mfc: Callable, i4mm: Callable,
            fused: bool) -> Callable:
-    """Resolve the readout: layout zero-skip > packed int4.
+    """Resolve the readout: layout zero-skip > packed int4 > dense float.
 
     The zero-skip path dispatches on the packed FC tensor's layout.
     ``fused=True`` binds the layout's kernel, ``False`` its plain oracle.
+    The float readout is a dense ``torch.matmul`` product, as the
+    reference's (no Pallas kernel there either).
     """
     if ctx.sparse_fc:
         t = ctx.sparse["fc_w"]
         layout = layouts.layout_of(t)
         fc_fn = layout.fc_kernel if fused else layout.fc_oracle
         return lambda s1: fc_fn(s1, t)
-    qt = ctx.quant["fc_w"]
-    scale = qt.scale.reshape(-1)
+    if ctx.precision == "int4":
+        qt = ctx.quant["fc_w"]
+        scale = qt.scale.reshape(-1)
+        if ctx.cfg.merged_spike:
+            return lambda s1: mfc(s1, qt.packed, scale)
+        return lambda s1: sum(i4mm(s1[t], qt.packed, scale)
+                              for t in range(ctx.cfg.num_ts))
+    w = ctx.dense["fc_w"]
     if ctx.cfg.merged_spike:
-        return lambda s1: mfc(s1, qt.packed, scale)
-    return lambda s1: sum(i4mm(s1[t], qt.packed, scale)
-                          for t in range(ctx.cfg.num_ts))
+        return lambda s1: spike_ops.merged_spike_fc(s1, w)
+    return lambda s1: (s1 @ w).sum(dim=0)
 
 
 # ------------------------------------------------------- built-in backends
@@ -166,20 +193,20 @@ def _fc_op(ctx: BackendContext, *, mfc: Callable, i4mm: Callable,
 
 @register("ref", "jnp", dense_stimulus=True)
 def _build_ref(ctx: BackendContext) -> OpTable:
-    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
-        return x2d @ ctx.dense[name]
-
     fc = _fc_op(ctx, mfc=ref.merged_spike_fc_ref, i4mm=ref.int4_matmul_ref,
                 fused=False)
-    return OpTable(name="ref", rsnn_cell=ref.rsnn_cell_ref, ff_matmul=ff,
-                   fc=fc)
+    return OpTable(name="ref", rsnn_cell=ref.rsnn_cell_ref,
+                   ff_matmul=_dense_ff(ctx), fc=fc)
 
 
 @register("cuda", "pallas")
 def _build_cuda(ctx: BackendContext) -> OpTable:
-    def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
-        qt = ctx.quant[name]
-        return ops.int4_matmul(x2d, qt.packed, qt.scale.reshape(-1))
+    if ctx.precision == "int4":
+        def ff(x2d: torch.Tensor, name: str) -> torch.Tensor:
+            qt = ctx.quant[name]
+            return ops.int4_matmul(x2d, qt.packed, qt.scale.reshape(-1))
+    else:
+        ff = _dense_ff(ctx)
 
     fc = _fc_op(ctx, mfc=ops.merged_spike_fc, i4mm=ops.int4_matmul,
                 fused=True)
@@ -200,12 +227,13 @@ def _build_spike(ctx: BackendContext) -> OpTable:
     Every spike-consuming matmul runs over ascending-index event lists:
     both recurrent cells through K10 ``spike_cell``, the L1 feedforward
     through K9 ``spike_broadcast``.  The L0 stimulus consumes the analog
-    input, not spikes, and stays a dense ``x @ W`` over the dequantized
-    weights, as in the reference (outside any Pallas kernel there too).
+    input, not spikes, and stays a dense ``x @ W`` over the dense
+    (dequantized at int4) weights, as in the reference (outside any Pallas kernel there too).
     The readout is the packed layout's zero-skip kernel with
     ``sparse_fc`` (K4 for CSC, K5 for N:M); otherwise K9's merged-spike-union path
-    (a 3-D input) over the dequantized FC weights, built once, or one K9
-    call per time step for a config without merged spikes.
+    (a 3-D input) over the dense FC weights (dequantized once at int4), or
+    one K9 call per time step for a config without merged spikes (summed
+    as the reference sums them at each precision).
     """
     cfg, cap, dense = ctx.cfg, ctx.spike_capacity, ctx.dense
     cell = functools.partial(ops.spike_cell, capacity=cap)
@@ -220,14 +248,19 @@ def _build_spike(ctx: BackendContext) -> OpTable:
         fc_fn = layouts.layout_of(t).fc_kernel
         fc = lambda s1: fc_fn(s1, t)  # noqa: E731
     else:
-        w_fc = dequantize(ctx.quant["fc_w"])
+        w_fc = (dequantize(ctx.quant["fc_w"]) if ctx.precision == "int4"
+                else dense["fc_w"])
         if cfg.merged_spike:
             fc = lambda s1: ops.spike_broadcast(  # noqa: E731
                 s1, w_fc, capacity=cap)
-        else:
+        elif ctx.precision == "int4":
             fc = lambda s1: sum(  # noqa: E731
                 ops.spike_broadcast(s1[t], w_fc, capacity=cap)
                 for t in range(cfg.num_ts))
+        else:
+            fc = lambda s1: torch.stack([  # noqa: E731
+                ops.spike_broadcast(s1[t], w_fc, capacity=cap)
+                for t in range(cfg.num_ts)]).sum(dim=0)
     return OpTable(name="spike", rsnn_cell=cell, ff_matmul=ff, fc=fc)
 
 
@@ -235,8 +268,8 @@ def _build_spike(ctx: BackendContext) -> OpTable:
 def _build_delta(ctx: BackendContext) -> OpTable:
     """EdgeDRNN-style delta-temporal zero skipping over the ``ref`` table.
 
-    ``delta_gate`` is K8 ``delta_step`` over the dequantized L0
-    feedforward weights: the engine carries each slot's held input and
+    ``delta_gate`` is K8 ``delta_step`` over the dense (dequantized at
+    int4) L0 feedforward weights: the engine carries each slot's held input and
     cached L0 pre-activation (``stream.DeltaRSNNState``), and only a slot
     with a propagated element (``|x_t - x_prev| > ctx.delta_threshold``)
     recomputes its row.  Both cells run through K10 ``spike_cell``, the
@@ -263,10 +296,11 @@ def _build_fused(ctx: BackendContext) -> OpTable:
 
     Both cells, the layout-resolved zero-skip FC and the sparsity counters
     run inside one K6 ``megastep`` launch a frame (or a chunk of frames)
-    with the packed weights and the recurrent state held on chip; the
-    per-op entries raise.  The FC operands come from the packed tensor's
-    ``WeightLayout.megastep_fc`` binding (``dense_int4``, ``csc``, or
-    ``nm`` with its ``nm_n``/``nm_m`` statics).
+    with the recurrent state held on chip; the per-op entries raise.  At
+    int4 the layer weights go in packed and the FC operands come from the
+    packed tensor's ``WeightLayout.megastep_fc`` binding (``dense_int4``,
+    ``csc``, or ``nm`` with its ``nm_n``/``nm_m`` statics); at float the
+    four float32 layer matrices and the ``dense_float`` FC.
     """
     return _fused_table(ctx, spike=False)
 
@@ -288,10 +322,14 @@ def _fused_table(ctx: BackendContext, *, spike: bool) -> OpTable:
             "merged-spike readout (paper §II-D2); per-ts readout needs "
             "another backend")
     names = ("l0_wx", "l0_wh", "l1_wx", "l1_wh")
-    wargs = tuple(a for n in names
-                  for a in (ctx.quant[n].packed, ctx.quant[n].scale))
-    fct = ctx.sparse["fc_w"] if ctx.sparse_fc else ctx.quant["fc_w"]
-    fc_mode, fcargs, statics = layouts.layout_of(fct).megastep_fc(fct)
+    if ctx.precision == "int4":
+        wargs = tuple(a for n in names
+                      for a in (ctx.quant[n].packed, ctx.quant[n].scale))
+        fct = ctx.sparse["fc_w"] if ctx.sparse_fc else ctx.quant["fc_w"]
+        fc_mode, fcargs, statics = layouts.layout_of(fct).megastep_fc(fct)
+    else:
+        wargs = tuple(ctx.dense[n] for n in names)
+        fc_mode, fcargs, statics = "dense_float", (ctx.dense["fc_w"],), {}
 
     def megastep(state: RSNNState, x_chunk: torch.Tensor, lif: dict):
         # the kernel's h0/h1 are the LIF carries' last spikes
@@ -300,7 +338,7 @@ def _fused_table(ctx: BackendContext, *, spike: bool) -> OpTable:
             state.h1, state.lif1.u, state.lif1.spike,
             lif["beta0"], lif["vth0"], lif["beta1"], lif["vth1"],
             wargs, fcargs, fc_mode=fc_mode, input_bits=cfg.input_bits,
-            spike=spike, **statics)
+            precision=ctx.precision, spike=spike, **statics)
         new_state = RSNNState(h0=s0, h1=s1,
                               lif0=LIFState(u=u0, spike=s0[-1]),
                               lif1=LIFState(u=u1, spike=s1[-1]))

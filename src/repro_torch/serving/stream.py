@@ -1,7 +1,8 @@
 """Streaming compressed-RSNN inference engine (frames -> slots -> state).
 
 The serving path for the paper's workload: always-on speech recognition
-over 10-ms audio frames from the pruned int4 model.
+over 10-ms audio frames, from the pruned int4 model or the float one
+(``EngineConfig.precision``, ``"float"`` by default as in the reference).
 
 1. **Frames.** Audio arrives as per-utterance feature sequences
    ``(T, input_dim)``, quantized to the 8-bit fixed-point input format with
@@ -22,8 +23,8 @@ over 10-ms audio frames from the pruned int4 model.
 
 The port runs the reference's synchronous v1 contract (one logit fetch and
 one counter fetch per step) at one frame per step.  The pipelined v2
-contract (``pipeline_depth > 0``), the loop's frame chunking
-(``chunk_frames > 1``) and the float engine are not ported yet (ROADMAP).
+contract (``pipeline_depth > 0``) and the loop's frame chunking
+(``chunk_frames > 1``) are not ported yet (ROADMAP).
 
 Entry points (``CompiledRSNN``, ``CompiledRSNN.from_artifact``,
 ``StreamLoop`` through its engine) run on ``device="cuda"`` unless the
@@ -39,9 +40,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import complexity, rsnn, spike_ops
+from repro_torch.core import complexity
+from repro_torch.core import lif as lif_lib
+from repro_torch.core import rsnn, spike_ops
 from repro_torch.core.layouts.nm import NMGroupPacked, entry_rows
-from repro_torch.core.lif import LIFState
+from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
 from repro_torch.core.sparse import PackedRSNN, SparseColumns, dequantize
 from repro_torch.serving import backends
@@ -52,11 +55,10 @@ _V2 = "ROADMAP queue 1, P7 (slot loop v2, chunking)"
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Execution-path selection for CompiledRSNN.  The port serves the
-    packed int4 model only: the float engine is not ported yet (ROADMAP
-    queue 1, P1), so there is no ``precision`` field."""
+    """Execution-path selection for CompiledRSNN."""
 
     backend: str = "jnp"  # registered name in serving/backends.py
+    precision: str = "float"  # "float" (raw params) | "int4" (packed model)
     sparse_fc: bool = False  # zero-skip layout path for the pruned FC
     input_scale: float | torch.Tensor | None = None  # static 8-bit calibration
     delta_threshold: float = 0.0  # delta backend: |x_t - x_prev| gate (LSBs)
@@ -69,6 +71,11 @@ class EngineConfig:
         if self.backend not in backends.available():
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"available: {backends.available()}")
+        if self.precision not in ("float", "int4"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if self.wants_sparse_fc and self.precision != "int4":
+            raise ValueError("the zero-skip layout FC runs over the packed "
+                             "int4 model (set precision='int4')")
         if self.delta_threshold < 0.0:
             raise ValueError(
                 f"delta_threshold must be >= 0, got {self.delta_threshold}")
@@ -191,23 +198,94 @@ def _to(tree, device: torch.device):
     return tree
 
 
-class CompiledRSNN:
-    """One int4 RSNN ready for streaming inference on one device.
+def _check_params(cfg: RSNNConfig, params: dict) -> None:
+    """Names, shapes and dtypes of the float parameters against the config
+    (the mirror of ``_check_packed``)."""
+    h = (cfg.hidden_dim,)
+    tensors, shapes = {}, dict(cfg.layer_shapes)
+    for name in cfg.layer_shapes:
+        tensors[name] = params.get(name)
+    for i in (0, 1):
+        for field in LIFParams._fields:
+            key = f"lif{i}.{field}"
+            tensors[key] = getattr(params.get(f"lif{i}"), field, None)
+            shapes[key] = h
+    for name, shape in shapes.items():
+        t = tensors[name]
+        if t is None:
+            raise ValueError(f"float engine needs every parameter; missing: "
+                             f"{name}")
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"float parameter {name} is {t.dtype} "
+                             f"{tuple(t.shape)}; the config needs float32 "
+                             f"{shape}")
 
-    Owns the packed weights (moved to ``device``), the static input scale
-    and the op table of its backend; state threads through explicitly so
-    callers control the frame/slot lifecycle.
+
+class CompiledRSNN:
+    """One RSNN ready for streaming inference on one device.
+
+    Owns the weights (moved to ``device``): the raw float32 parameters at
+    ``engine.precision="float"``, the packed int4 model at ``"int4"``; the
+    static input scale and the op table of its backend.  State threads
+    through explicitly so callers control the frame/slot lifecycle.
     """
 
-    def __init__(self, cfg: RSNNConfig, packed: PackedRSNN,
+    def __init__(self, cfg: RSNNConfig, params: dict | None,
                  engine: EngineConfig = EngineConfig(), *,
+                 packed: PackedRSNN | None = None,
                  device: torch.device | str = "cuda",
                  fc_prune_frac: float = 0.0):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine = engine
+        if (params is None) == (packed is None):
+            raise ValueError("CompiledRSNN needs exactly one payload: float "
+                             "params or a packed int4 model (packed=)")
+        if engine.precision == "int4":
+            if packed is None:
+                raise ValueError(
+                    "int4 precision needs the packed model (packed=); "
+                    "packing float params is not ported (ROADMAP queue 1 "
+                    "item 6)")
+            dense, quant, sparse = self._load_int4(cfg, packed, engine)
+        else:
+            if params is None:
+                raise ValueError("float precision needs the parameter dict "
+                                 "(params), not a packed model")
+            if fc_prune_frac:
+                raise ValueError("a float model has no pruned FC; "
+                                 f"fc_prune_frac must be 0, got "
+                                 f"{fc_prune_frac}")
+            _check_params(cfg, params)
+            self.packed = None
+            params = _to(params, self.device)
+            # beta/vth from the raw parameters on the engine's device, as
+            # the golden model (core.rsnn.forward) computes them there
+            self._lif = {}
+            for i in (0, 1):
+                beta, vth = lif_lib.inference_constants(params[f"lif{i}"],
+                                                        cfg.hw_rounded_lif)
+                self._lif[f"beta{i}"] = beta
+                self._lif[f"vth{i}"] = vth
+            dense = {n: params[n] for n in cfg.layer_shapes}
+            quant, sparse = {}, {}
         # deployed FC pruning fraction, for the measured MMAC/s accounting
         self.fc_prune_frac = fc_prune_frac
+        self._ctx = backends.BackendContext(
+            cfg=cfg, precision=engine.precision,
+            sparse_fc=engine.wants_sparse_fc, dense=dense, quant=quant,
+            sparse=sparse, delta_threshold=engine.delta_threshold,
+            spike_capacity=engine.spike_capacity)
+        self.ops = backends.resolve(engine.backend, self._ctx)
+        self._w = self._ctx.dense
+        scale = engine.input_scale
+        self._input_scale = (None if scale is None else torch.as_tensor(
+            scale, dtype=torch.float32).to(self.device))
+
+    def _load_int4(self, cfg: RSNNConfig, packed: PackedRSNN,
+                   engine: EngineConfig) -> tuple[dict, dict, dict]:
+        """Check the packed model, move it to the device and return the
+        backend's (dense, quant, sparse) bundles."""
         missing = set(cfg.layer_shapes) - set(packed.quant)
         if missing:
             raise ValueError(f"int4 engine needs every layer weight "
@@ -226,29 +304,21 @@ class CompiledRSNN:
         dense = {n: dequantize(self.packed.quant[n]) for n in dense_needed}
         self._lif = {k: v.to(torch.float32)
                      for k, v in self.packed.lif.items()}
-        self._ctx = backends.BackendContext(
-            cfg=cfg, sparse_fc=engine.wants_sparse_fc, dense=dense,
-            quant=dict(self.packed.quant), sparse=dict(self.packed.sparse),
-            delta_threshold=engine.delta_threshold,
-            spike_capacity=engine.spike_capacity)
-        self.ops = backends.resolve(engine.backend, self._ctx)
-        self._w = self._ctx.dense
-        scale = engine.input_scale
-        self._input_scale = (None if scale is None else torch.as_tensor(
-            scale, dtype=torch.float32).to(self.device))
+        return dense, dict(self.packed.quant), dict(self.packed.sparse)
 
     @classmethod
     def from_artifact(cls, path, engine: EngineConfig | None = None, *,
                       backend: str | None = None,
                       device: torch.device | str = "cuda") -> "CompiledRSNN":
-        """Build an engine from an on-disk int4 deployment artifact
-        (``core/artifact.py``).
+        """Build an engine from an on-disk deployment artifact
+        (``core/artifact.py``), int4 or float.
 
-        ``engine=None`` derives the execution path from the manifest: its
-        preferred backend (overridable via ``backend=``), its zero-skip FC
-        preference and its stored static input scale.  An explicit
-        ``engine`` is used verbatim, ``delta_threshold`` and
-        ``spike_capacity`` included.  The manifest's compression config
+        ``engine=None`` derives the execution path from the manifest: the
+        artifact's precision, its preferred backend (overridable via
+        ``backend=``), its zero-skip FC preference and its stored static
+        input scale.  An explicit ``engine`` is used verbatim,
+        ``delta_threshold`` and ``spike_capacity`` included, and must
+        match the artifact's precision.  The manifest's compression config
         gives ``fc_prune_frac``.
         """
         from repro_torch.core import artifact as artifact_lib
@@ -257,10 +327,17 @@ class CompiledRSNN:
         art = artifact_lib.load_artifact(path)
         if engine is None:
             engine = EngineConfig(backend=backend or art.backend or "jnp",
+                                  precision=art.precision,
                                   sparse_fc=art.sparse_fc,
                                   input_scale=art.input_scale)
-        return cls(art.cfg, art.packed, engine, device=device,
-                   fc_prune_frac=art.fc_prune_fraction)
+        elif engine.precision != art.precision:
+            raise ValueError(
+                f"engine precision {engine.precision!r} does not match the "
+                f"artifact's {art.precision!r} payload")
+        if art.precision == "int4":
+            return cls(art.cfg, None, engine, packed=art.packed,
+                       device=device, fc_prune_frac=art.fc_prune_fraction)
+        return cls(art.cfg, art.params, engine, device=device)
 
     # ------------------------------------------------------------ frontend
 

@@ -3,11 +3,12 @@
 Artifacts are written by the reference's ``save_artifact`` (dense, CSC and
 N:M-group payloads, mixed-level pruning, schema v2 and a rewritten v1) and
 read by both readers; every array must be equal bit for bit.  A float
-payload (not ported) and broken artifacts raise.  The artifacts
-``chip_smoke.py`` writes with numpy load in the reference reader as well as
-the port's.
+payload loads as the reference reads it; broken artifacts raise.  The
+artifacts ``chip_smoke.py`` writes with numpy load in the reference reader
+as well as the port's.
 """
 
+import dataclasses
 import importlib.util
 import json
 from pathlib import Path
@@ -15,6 +16,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import artifact as j_artifact
 from repro.core import rsnn, sparse
@@ -185,13 +187,43 @@ def test_nm_group_artifact_loads_equal_to_reference(tmp_path, small_cfg,
 
 
 def test_unported_payloads_raise(tmp_path, small_cfg, rng_key):
-    """A float payload says it is not ported (an N:M-group tensor loads:
-    ``test_nm_group_artifact_loads_equal_to_reference``)."""
+    """A float payload written by the reference's ``save_artifact(params=
+    ...)`` loads: config, input scale and every parameter equal to the
+    reference reader's, bit for bit (it was refused before the float
+    engine was ported).  A payload of a precision neither package writes,
+    and a float payload with a tensor missing, raise ``ArtifactError``."""
     params = rsnn.init_params(rng_key, small_cfg)
-    fpath = j_artifact.save_artifact(tmp_path / "float", cfg=small_cfg,
-                                     params=params)
-    with pytest.raises(NotImplementedError, match="float"):
+    x = jnp.asarray(np.random.default_rng(3).normal(
+        size=(2, 10, small_cfg.input_dim)), jnp.float32)
+    fpath = j_artifact.save_artifact(
+        tmp_path / "float", cfg=small_cfg, params=params, backend="fused",
+        input_scale=S.calibrate_input_scale(x, small_cfg.input_bits))
+    port, ref = artifact.load_artifact(fpath), j_artifact.load_artifact(fpath)
+    assert port.precision == ref.precision == "float"
+    assert port.packed is None and port.layouts == {}
+    assert (port.backend, port.sparse_fc, port.fc_prune_fraction) == \
+        ("fused", False, 0.0)
+    assert dataclasses.asdict(port.cfg) == {
+        k: v for k, v in dataclasses.asdict(ref.cfg).items() if k != "dtype"}
+    np.testing.assert_array_equal(port.input_scale.numpy(),
+                                  np.asarray(ref.input_scale))
+    for name in small_cfg.layer_shapes:
+        assert port.params[name].dtype == torch.float32
+        np.testing.assert_array_equal(port.params[name].numpy(),
+                                      np.asarray(ref.params[name]))
+    for i in (0, 1):
+        for a, b in zip(port.params[f"lif{i}"], ref.params[f"lif{i}"]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    manifest = json.loads((fpath / "manifest.json").read_text())
+    (fpath / "manifest.json").write_text(json.dumps(
+        dict(manifest, precision="int8")))
+    with pytest.raises(artifact.ArtifactError, match="precision"):
         artifact.load_artifact(fpath)
+    with np.load(fpath / "tensors.npz") as data:
+        arrays = {k: data[k] for k in data.files}
+    del arrays["params['lif1'].raw_vth"]
+    with pytest.raises(artifact.ArtifactError, match="raw_vth"):
+        artifact.params_from_arrays(arrays, small_cfg)
 
 
 def test_chip_smoke_artifact_loads_in_both_readers(tmp_path):

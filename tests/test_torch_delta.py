@@ -145,7 +145,9 @@ def test_reset_slot_zeroes_delta_state():
 
 def test_engine_config_threshold_validation():
     with pytest.raises(ValueError, match="delta"):
-        TS.EngineConfig(backend="jnp", delta_threshold=1.0)
+        TS.EngineConfig(backend="jnp", precision="int4", delta_threshold=1.0)
     with pytest.raises(ValueError, match=">= 0"):
-        TS.EngineConfig(backend="delta", delta_threshold=-0.5)
-    TS.EngineConfig(backend="delta", delta_threshold=2.0)  # ok
+        TS.EngineConfig(backend="delta", precision="int4",
+                        delta_threshold=-0.5)
+    TS.EngineConfig(backend="delta", precision="int4",
+                    delta_threshold=2.0)  # ok

@@ -144,15 +144,17 @@ def test_megastep_ref_matches_reference(width, ts, fc_mode, spike):
 
 
 def test_megastep_ref_refuses_other_fc_modes():
-    """``dense_float`` comes with the float engine; ``nm`` is served
-    (``tests/test_torch_nm.py``)."""
+    """An FC mode no layout binds is refused by the plain version, the
+    dispatch and the wrapper's operand check (``nm`` is served,
+    ``tests/test_torch_nm.py``; ``dense_float`` with float weights,
+    ``tests/test_torch_float.py``)."""
     args = _to_port(_operands("small", 2, "dense_int4"))
     with pytest.raises(ValueError, match="fc_mode"):
-        ref.megastep_ref(*args, fc_mode="dense_float", input_bits=8)
+        ref.megastep_ref(*args, fc_mode="bogus", input_bits=8)
     with pytest.raises(ValueError, match="fc_mode"):
         ops.megastep(*args, fc_mode="sparse", input_bits=8)
     with pytest.raises(ValueError, match="fc_mode"):
-        mega_kernel._fc_operands("dense_float", args[-1], 16)
+        mega_kernel._fc_operands("bogus", args[-1], 16)
 
 
 def test_cpu_tensor_runs_plain_version_without_launching():

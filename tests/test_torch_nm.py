@@ -310,5 +310,5 @@ def test_check_packed_refuses_malformed_geometry(nm_path, case):
     with pytest.raises(ValueError, match="N:M"):
         TS._check_packed(art.cfg, packed)
     with pytest.raises(ValueError, match="N:M"):
-        TS.CompiledRSNN(art.cfg, packed, TS.EngineConfig(backend="sparse"),
-                        device="cpu")
+        TS.CompiledRSNN(art.cfg, None, TS.EngineConfig(
+            backend="sparse", precision="int4"), packed=packed, device="cpu")

@@ -203,7 +203,8 @@ def _engines(path, backend, **kw):
         backend=backend, precision="int4", input_scale=art_j.input_scale,
         **kw))
     port = TS.CompiledRSNN.from_artifact(path, TS.EngineConfig(
-        backend=backend, input_scale=art_t.input_scale, **kw), device="cpu")
+        backend=backend, precision="int4", input_scale=art_t.input_scale,
+        **kw), device="cpu")
     return ref_eng, port
 
 
@@ -289,11 +290,11 @@ def test_spike_streamloop_matches_reference_loop(small_path, small_cfg):
 
 def test_engine_config_capacity_validation():
     with pytest.raises(ValueError, match="spike_capacity must be >= 1"):
-        TS.EngineConfig(backend="spike", spike_capacity=0)
+        TS.EngineConfig(backend="spike", precision="int4", spike_capacity=0)
     with pytest.raises(ValueError, match="event-queue knob"):
-        TS.EngineConfig(backend="jnp", spike_capacity=8)
-    TS.EngineConfig(backend="spike", spike_capacity=8)  # ok
-    TS.EngineConfig(backend="delta", spike_capacity=8)  # ok
+        TS.EngineConfig(backend="jnp", precision="int4", spike_capacity=8)
+    TS.EngineConfig(backend="spike", precision="int4", spike_capacity=8)  # ok
+    TS.EngineConfig(backend="delta", precision="int4", spike_capacity=8)  # ok
 
 
 @pytest.mark.parametrize("merged", [True, False])

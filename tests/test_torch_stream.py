@@ -186,7 +186,7 @@ def test_import_leaves_jax_and_reference_out():
 def test_config_and_loop_validation(small_path, small_cfg):
     with pytest.raises(ValueError, match="unknown backend"):
         TS.EngineConfig(backend="no_such_backend")
-    assert TS.EngineConfig(backend="sparse").wants_sparse_fc
+    assert TS.EngineConfig(backend="sparse", precision="int4").wants_sparse_fc
     eng = TS.CompiledRSNN.from_artifact(small_path,
                                         backend="cuda", device="cpu")
     with pytest.raises(NotImplementedError, match="P7"):
