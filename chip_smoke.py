@@ -2,7 +2,7 @@
 """Drive the repro_torch serving path on one GPU and hold its CUDA kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py [--seed 0] [--kernels-only]
+    python3 chip_smoke.py [--seed 0] [--kernels-only [--sweep-tiles]]
 
 Phases, each printed on its own line:
 
@@ -17,7 +17,9 @@ Phases, each printed on its own line:
      of the threshold; K9 (spike_broadcast: the 2-D L1 feed-forward and
      the 3-D FC union) within ``TOL``; K8 (delta_step) with mask, held
      input and cached rows exact and recomputed rows within ``TOL``.
-     K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row; K8 at
+     K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row, and K9
+     and K4 also at their tiles' edges (``check_tile_edges``: an all-zero
+     and a full row, N = 200 and 203, K9 at capacity 1); K8 at
      ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
      row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
      in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
@@ -77,8 +79,8 @@ Phases, each printed on its own line:
      equals the ``ref`` engine on 8 streams (``check_forward``);
   5. the device busy share of one more run of ``pallas``, ``sparse``,
      ``spike``, ``delta`` at ``DELTA_THRESHOLD``, ``fused`` and
-     ``fused_spike``, and of ``pallas``, ``fused`` and ``fused_spike`` at
-     float, under ``torch.profiler``, with the device operations that took
+     ``fused_spike``, and of ``pallas``, ``spike``, ``fused`` and
+     ``fused_spike`` at float, under ``torch.profiler``, with the device operations that took
      most of it; each kernel's mean time per frame at B = 256 from CUDA
      events beside its plain version, a PyTorch library yardstick where
      one call computes the same function, and the H100 bound: the larger
@@ -98,6 +100,9 @@ Phases, each printed on its own line:
      the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
+``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
+times every tile plan of K9 and K4 at the main path's shapes
+(``sweep_tiles``), the measurements their ``tile_plan`` rests on.
 Any failure exits non-zero before that line.  The script imports neither
 JAX nor the JAX package: the machine with the card has no JAX.
 """
@@ -821,8 +826,11 @@ def check_refusals() -> None:
     not at the weights' precision (-5: an unknown mode; float weights with
     an int4 layout's FC; int4 weights with dense_float; an unknown
     precision) and an N:M geometry it cannot take (-6: n > m; entries not
-    a multiple of n); K5 refuses n < 1 and m > 16 (-6)."""
-    from repro_torch.kernels import _build, megastep, nm_fc
+    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K9 and K4 refuse a
+    tile plan they do not take (-7) and one whose tiles pass 227 KB of
+    shared memory (-2)."""
+    from repro_torch.kernels import (_build, megastep, nm_fc, sparse_fc,
+                                     spike_broadcast)
 
     fn = _build.function("megastep_launch", megastep._ARGS)
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
@@ -848,6 +856,19 @@ def check_refusals() -> None:
         refused(fn, (None, None, None, None, PRUNED.num_ts, SLOTS,
                      PRUNED.hidden_dim, 64, fc, nm_n, nm_m, None), -6,
                 "nm_fc", f"nm={nm_n}:{nm_m}")
+    h = PRUNED.hidden_dim
+    fn = _build.function("spike_broadcast_launch", spike_broadcast._SB_ARGS)
+    for want, k, rows, cols in ((-7, h, 8, 48), (-7, h, 6, 32),
+                                (-2, 2048, 4, 32)):
+        refused(fn, (None, None, None, 1, 2 * SLOTS, k, h, k, rows, cols,
+                     None), want, "spike_broadcast",
+                f"k={k}, rows={rows}, cols={cols}")
+    fn = _build.function("sparse_fc_launch", sparse_fc._ARGS)
+    for want, entries, rows, cols in ((-7, nnz, 16, 64), (-7, nnz, 32, 48),
+                                      (-2, 4096, 32, 32)):
+        refused(fn, (None, None, None, None, None, PRUNED.num_ts, SLOTS, h,
+                     entries, fc, rows, cols, None), want, "sparse_fc",
+                f"entries={entries}, rows={rows}, cols={cols}")
 
 
 def check_nm_against_csc(a: dict, b: int) -> None:
@@ -863,6 +884,56 @@ def check_nm_against_csc(a: dict, b: int) -> None:
                              f"same 2:4 mask by up to "
                              f"{float((got - want).abs().max())}")
     print(f"check nm_fc == sparse_fc on the same 2:4 mask B={b}: bit-equal")
+
+
+def edge_rows(x: torch.Tensor) -> torch.Tensor:
+    """A copy of spike rows ``x`` ((R, K), or (TS, B, K) trains) whose
+    first row is all zeros and whose second has every entry active."""
+    x = x.clone()
+    x[..., 0, :] = 0.0
+    x[..., 1, :] = 1.0
+    return x
+
+
+def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
+    """K9 and K4 at the edges of their tiles, against their plain versions
+    on inputs whose first row is all zeros and second full (``edge_rows``):
+    K9 on the L1 feed-forward and the FC union, and with the FC cut to
+    N = 200 (not a multiple of a column tile) and 203 (nor of 4: the
+    4-byte copies and stores), at capacity 1, ``TRUNC_CAPACITY`` and
+    lossless; K4 (over the ``csc`` FC of ``a``, when it has one) at
+    N = 1920, 200 and 203, bit for bit."""
+    from repro_torch.kernels import ref, sparse_fc, spike_broadcast
+
+    s0 = edge_rows(a["s0"].reshape(-1, a["s0"].shape[-1]))
+    s1 = edge_rows(a["s1"])
+    wfc = a["wfc"]
+    cases = [(s0, a["w1x"]), (s1, wfc)] + [
+        (x, wfc[:, :n].contiguous()) for n in (200, 203) for x in (s0, s1)]
+    for cap in (1, TRUNC_CAPACITY, None):
+        for x, w in cases:
+            got = spike_broadcast.spike_broadcast(x, w, capacity=cap)
+            want = ref.spike_broadcast_ref(x, w, cap)
+            torch.cuda.synchronize()
+            errs["spike_broadcast"] = max(errs["spike_broadcast"],
+                                          check_close("spike_broadcast",
+                                                      got, want))
+    print(f"check spike_broadcast{width} tile edges B={b} (zero and full "
+          f"rows; N = {wfc.shape[1]}, 200, 203; capacity 1, "
+          f"{TRUNC_CAPACITY}, lossless): ok, max_abs_err "
+          f"{errs['spike_broadcast']!r}")
+    if "csc" not in a:
+        return
+    idx, val, sc = a["csc"]
+    for n in (idx.shape[1], 200, 203):
+        args = (s1, idx[:, :n].contiguous(), val[:, :n].contiguous(),
+                sc[:n].contiguous())
+        got = sparse_fc.sparse_fc(*args)
+        want = ref.sparse_fc_ref(*args)
+        torch.cuda.synchronize()
+        check_call("sparse_fc", got, want, args, None)
+    print(f"check sparse_fc tile edges B={b} (zero and full rows; N = "
+          f"{idx.shape[1]}, 200, 203): bit-equal")
 
 
 def check_variants(a: dict, b: int, errs: dict, names=None,
@@ -900,15 +971,17 @@ def check_kernels(packs: dict, floats: dict, dev,
     """Phase 2: every kernel against its plain version on the card, at
     B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
     at threshold 0 (first on a repeated frame: every row cached) and
-    ``DELTA_THRESHOLD``; K5 also against K4 on the same mask.  Then the
+    ``DELTA_THRESHOLD``; K9 and K4 at their tiles' edges
+    (``check_tile_edges``); K5 also against K4 on the same mask.  Then the
     float engine's kernels with the float weights of ``floats`` (width
     name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
-    K1, K8-K10 at ``BASELINE`` (H = 256)."""
+    K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too."""
     errs: dict[str, float] = {}
     gen = torch.Generator().manual_seed(seed)
     for b in (256, 200):
         a = kernel_inputs(packs, b, gen, dev)
         check_variants(a, b, errs)
+        check_tile_edges(a, b, errs)
         check_nm_against_csc(a, b)
         check_megastep(a, b, errs)
     for b in (256, 200):
@@ -918,6 +991,7 @@ def check_kernels(packs: dict, floats: dict, dev,
                 check_variants(a, b, errs, ("rsnn_cell", "delta_step",
                                             "spike_broadcast", "spike_cell"),
                                " BASELINE float")
+                check_tile_edges(a, b, errs, " BASELINE float")
             check_megastep(a, b, errs, ("dense_float",), f" {width}")
     check_refusals()
     return errs
@@ -1090,7 +1164,7 @@ SERVED = {
     "pallas float": ({"backend": "pallas"}, {"rsnn_cell": 2}, True, True,
                      "float"),
     "spike float": ({"backend": "spike"},
-                    {"spike_cell": 2, "spike_broadcast": 2}, True, False,
+                    {"spike_cell": 2, "spike_broadcast": 2}, True, True,
                     "float"),
     "delta float threshold=0": ({"backend": "delta"},
                                 {"spike_cell": 2, "delta_step": 1}, True,
@@ -1549,9 +1623,11 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
         ms = sum(cuda_ms(kern, args) for kern, _, args in items)
         plain_ms = sum(cuda_ms(plain, args) for _, plain, args in items)
         bound = sum(max(bound_parts(name, args)) for _, _, args in items)
+        libs = [library_fn(name, args) for _, _, args in items]
+        lib_ms = None if None in libs else sum(cuda_ms(*lib) for lib in libs)
         print(f"time {name} BASELINE float (per frame, B=256, {len(items)} "
-              f"call(s)): {ms!r} ms, plain {plain_ms!r} ms, bound "
-              f"{bound * 1e3!r} ms")
+              f"call(s)): {ms!r} ms, plain {plain_ms!r} ms, library "
+              f"{lib_ms!r} ms, bound {bound * 1e3!r} ms")
     sweeps = [(kernel_inputs(packs, 256, gen, dev), FC_MODES, "")] + [
         (float_kernel_inputs(params, 256, gen, dev), ("dense_float",),
          f" {width}") for width, params in floats.items()]
@@ -1567,6 +1643,68 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
                           f"F={frames} (B=256): {ms / frames!r} ms a frame, "
                           f"bound {bound / frames!r} ms a frame")
     return rows
+
+
+def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
+    """Every tile plan K9 and K4 take at the main path's shapes (B = 256,
+    phase 5's inputs; K9 also with float weights at ``BASELINE``), each
+    launched through its launch function, held against the plain version
+    and timed as phase 5 times a kernel; the plan the wrapper picks is
+    marked.  What ``tile_plan``'s choice rests on."""
+    from repro_torch.kernels import _build, ref, sparse_fc, spike_broadcast
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    a = kernel_inputs(packs, 256, gen, dev)
+    fa = float_kernel_inputs(floats["BASELINE"], 256, gen, dev)
+    sb_fn = _build.function("spike_broadcast_launch",
+                            spike_broadcast._SB_ARGS)
+    sf_fn = _build.function("sparse_fc_launch", sparse_fc._ARGS)
+
+    def k9(x3, w, rows, cols):
+        ts, r, k = x3.shape
+        out = torch.empty((r, w.shape[1]), device=dev)
+        _build.check(sb_fn(x3.data_ptr(), w.data_ptr(), out.data_ptr(), ts,
+                           r, k, w.shape[1], k, rows, cols,
+                           _build.stream(dev)), "spike_broadcast")
+        return out
+
+    def k4(s, idx, val, sc, rows, cols):
+        ts, b, h = s.shape
+        out = torch.empty((b, idx.shape[1]), device=dev)
+        _build.check(sf_fn(s.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                           sc.data_ptr(), out.data_ptr(), ts, b, h,
+                           idx.shape[0], idx.shape[1], rows, cols,
+                           _build.stream(dev)), "sparse_fc")
+        return out
+
+    def k9_case(what, x, w):
+        x3 = x.unsqueeze(0) if x.dim() == 2 else x
+        return (f"spike_broadcast {what}", k9, (x3, w),
+                spike_broadcast.tile_plans(*x3.shape, w.shape[1]),
+                ref.spike_broadcast_ref(x3, w))
+
+    s1, (idx, val, sc) = a["s1"], a["csc"]
+    cases = [k9_case("L1 feed-forward", a["s0"].reshape(-1, 128), a["w1x"]),
+             k9_case("FC union", a["s1"], a["wfc"]),
+             k9_case("L1 feed-forward BASELINE float",
+                     fa["s0"].reshape(-1, 256), fa["w1x"]),
+             k9_case("FC union BASELINE float", fa["s1"], fa["wfc"]),
+             ("sparse_fc", k4, (s1, idx, val, sc),
+              sparse_fc.tile_plans(*s1.shape, *idx.shape),
+              ref.sparse_fc_ref(s1, idx, val, sc))]
+    for name, fn, args, plans, want in cases:
+        picked = _build.pick_tiles(plans)
+        for p in plans:
+            if p.shared_bytes > _build.MAX_SHARED_BYTES:
+                continue
+            got = fn(*args, p.rows, p.cols)
+            torch.cuda.synchronize()
+            check_call(name.split()[0], got, want, args, None)
+            ms = cuda_ms(fn, (*args, p.rows, p.cols))
+            mark = ", picked" if p == picked else ""
+            print(f"sweep {name} {p.rows}x{p.cols} ({p.blocks} blocks, "
+                  f"{p.shared_bytes} B shared, cost {p.cost}{mark}): "
+                  f"{ms!r} ms")
 
 
 # ------------------------------------------------------------------- main
@@ -1604,6 +1742,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks)")
+    ap.add_argument("--sweep-tiles", action="store_true",
+                    help="with --kernels-only: time every tile plan of "
+                         "spike_broadcast and sparse_fc before stopping")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1653,6 +1794,8 @@ def main(argv=None) -> int:
                   "PRUNED": float_params(args.seed, PRUNED)}
         errs = check_kernels(packs, floats, dev, args.seed)
         if args.kernels_only:
+            if args.sweep_tiles:
+                sweep_tiles(packs, floats, dev, args.seed)
             return 0
         launches, served = serve_all(paths, arts, utts)
         for a, b in zip(served["pallas"], served["sparse"]):

@@ -12,6 +12,9 @@
 // so each weight element loaded from global memory serves kRows rows.  The
 // rows' operand vectors sit in shared memory.  Ragged edges (B not a
 // multiple of kRows, N not a multiple of kCols) are masked, not asserted.
+// K9 (spike_broadcast) and K4 (sparse_fc) take their tiles from a plan
+// their wrappers choose, stage them with cp.async (stage_column_tile) and
+// say how in their sources.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,22 +27,27 @@ constexpr int kRows = 8;    // batch rows per block
 constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
 // megastep (K6/K7): threads a block (one per hidden column, all of them on
-// the FC columns), and the dynamic shared memory it opts in to, up to the
-// H100's per-block maximum of 227 KB
+// the FC columns); the dynamic shared memory a kernel may opt in to, the
+// H100's per-block maximum of 227 KB (megastep, spike_broadcast, sparse_fc)
 constexpr int kMegaThreads = 256;
-constexpr size_t kMaxMegastepSharedBytes = 227 * 1024;
+constexpr size_t kMaxOptInSharedBytes = 227 * 1024;
+constexpr size_t kMaxMegastepSharedBytes = kMaxOptInSharedBytes;
 
 // Status codes a launch function returns, besides the cudaError_t values
 // (>= 0), for a shape its kernel cannot take; status.cu gives their text.
 constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
 constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
-                                      // (kMaxMegastepSharedBytes for megastep)
+                                      // (kMaxOptInSharedBytes for the kernels
+                                      // that opt in: megastep, spike_broadcast,
+                                      // sparse_fc)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
                                       // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
+constexpr int kErrTilePlan = -7;      // spike_broadcast, sparse_fc: a tile plan
+                                      // (rows, columns a block) they do not take
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
@@ -116,6 +124,62 @@ __device__ __forceinline__ int compact_row(const float* __restrict__ row,
     base += __popc(live);
   }
   return base < cap ? base : cap;
+}
+
+// Asynchronous global -> shared copies (cp.async, sm_80 and later).  A copy
+// of src_bytes < size bytes fills the rest of its size with zeros (0: all
+// zeros, nothing read).  A thread's copies land once it waits for them;
+// others see them after the following __syncthreads().
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying columns [c0, c0 + cols) of the row-major (rows, n) matrix
+// src into sh[rows][cols] with cp.async, all threads of the block taking
+// part; columns at or past n are zero-filled.  vec16 (block-uniform): n is a
+// multiple of 4 and src 16-byte aligned, so each thread copies 16 bytes at
+// a time; else 4.  cols is a multiple of 4 and sh 16-byte aligned.  Then
+// cp_async_wait_all() and __syncthreads() before sh is read.
+template <typename T>
+__device__ __forceinline__ void stage_column_tile(const T* __restrict__ src,
+                                                  int rows, int n, int c0,
+                                                  int cols, bool vec16,
+                                                  T* sh) {
+  static_assert(sizeof(T) == 4, "4-byte elements");
+  if (vec16) {
+    const int quads = cols >> 2;
+    for (int i = threadIdx.x; i < rows * quads; i += blockDim.x) {
+      const int row = i / quads;
+      const int c = c0 + 4 * (i - row * quads);
+      const bool in = c < n;
+      cp_async16(sh + 4 * i, src + (in ? static_cast<long long>(row) * n + c : 0),
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int row = i / cols;
+      const int c = c0 + (i - row * cols);
+      const bool in = c < n;
+      cp_async4(sh + i, src + (in ? static_cast<long long>(row) * n + c : 0),
+                in ? 4 : 0);
+    }
+  }
 }
 
 }  // namespace reprotorch

@@ -7,7 +7,8 @@ extern "C" const char* reprotorch_error_string(int code) {
       return "more time steps than the kernel keeps in registers (kMaxTs)";
     case reprotorch::kErrSharedMemory:
       return "the block's operand rows exceed its shared memory "
-             "(kMaxSharedBytes; kMaxMegastepSharedBytes for megastep)";
+             "(kMaxSharedBytes; kMaxOptInSharedBytes for megastep, "
+             "spike_broadcast and sparse_fc)";
     case reprotorch::kErrCapacity:
       return "event-list capacity outside [1, k]";
     case reprotorch::kErrTooWide:
@@ -19,6 +20,10 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrNmGeometry:
       return "an N:M geometry the kernel does not take (needs 1 <= n <= m "
              "<= 16 and entries a multiple of n)";
+    case reprotorch::kErrTilePlan:
+      return "a tile plan the kernel does not take (spike_broadcast: rows "
+             ">= 1, 32, 64 or 128 columns; sparse_fc: 32 or 64 rows, columns "
+             "a multiple of 32)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

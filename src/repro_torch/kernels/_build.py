@@ -25,6 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +34,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "libreprotorch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+SM_COUNT = 132  # streaming multiprocessors of the H100 SXM
+MAX_SHARED_BYTES = 227 * 1024  # a block's dynamic shared memory, opted in
+# at most this much a block leaves room for a second block on the SM
+# (228 KB an SM, 1 KB of it reserved per block)
+TWO_BLOCK_SHARED_BYTES = 113 * 1024
+# L2 bytes that take as long as one shared-memory wavefront (128 bytes an
+# SM a cycle): about 5.5 TB/s of L2 against 132 SMs x 1.755 GHz
+WAVEFRONT_BYTES = 24
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -151,3 +161,43 @@ def stream(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``, for a launch."""
     return torch.cuda.current_stream(device).cuda_stream
 
+
+
+class TilePlan(NamedTuple):
+    """One launch's tiles: ``rows`` x ``cols`` outputs a block, the grid's
+    ``blocks``, a block's ``shared_bytes`` (as its launch function computes
+    them), the operand bytes the grid stages from L2 (``l2_bytes``) and
+    the shared-memory wavefronts its products read at most
+    (``wavefronts``)."""
+
+    rows: int
+    cols: int
+    blocks: int
+    shared_bytes: int
+    l2_bytes: int
+    wavefronts: int
+
+    @property
+    def cost(self) -> int:
+        """Staged bytes plus wavefronts, in L2 bytes of the same time."""
+        return self.l2_bytes + WAVEFRONT_BYTES * self.wavefronts
+
+
+def pick_tiles(plans: list[TilePlan]) -> TilePlan:
+    """The plan a launch takes: among those whose shared memory fits, one
+    with a block for every SM (else the most blocks), then one that leaves
+    room for two blocks an SM, then the least ``cost``, then the least
+    shared memory, then the first listed.  When none fits, the smallest,
+    which its launch function refuses (status -2)."""
+    fits = [p for p in plans if p.shared_bytes <= MAX_SHARED_BYTES]
+    if not fits:
+        return min(plans, key=lambda p: p.shared_bytes)
+
+    def key(item):
+        i, p = item
+        few = p.blocks < SM_COUNT
+        return (few, -p.blocks if few else 0,
+                p.shared_bytes > TWO_BLOCK_SHARED_BYTES, p.cost,
+                p.shared_bytes, i)
+
+    return min(enumerate(fits), key=key)[1]

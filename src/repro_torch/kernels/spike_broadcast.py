@@ -10,20 +10,23 @@ float32 sum of dequantized weights, in event order here).  The event
 lists follow ``ref.compact_spikes``: ascending index, the first
 ``capacity`` nonzeros of a row kept (``None``: all K).  ``launches``
 counts K9's launches of this process, ``cell_launches`` K10's.
+``tile_plan`` chooses K9's tiles for each shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
+GROUP = 4  # K9's rows that share one union event list (kGroup)
 launches = 0  # K9 spike_broadcast
 cell_launches = 0  # K10 spike_cell
 
-_SB_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SB_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CELL_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
               + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
               + [ctypes.c_void_p])
@@ -37,6 +40,41 @@ def event_capacity(capacity: int | None, k: int) -> int:
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     return min(capacity, k)
+
+
+def tile_plans(ts: int, r: int, k: int, n: int) -> list[_build.TilePlan]:
+    """Every tile plan K9's launch takes for ``ts`` trains of ``r`` rows of
+    ``k`` by a (k, n) W, at any event capacity: ``rows`` (a multiple of
+    ``GROUP``: each group of rows shares one union event list) by ``cols``
+    (32, 64 or 128) columns a block.  A block stages its W column tile
+    (k x cols float32) and per group a union list of up to k entries
+    (padded to a multiple of 4), each an offset and ``GROUP`` values, and
+    the lists' lengths, as ``spike_broadcast_launch`` computes them.  The
+    grid stages W once per row tile and compacts the rows once per column
+    tile; per union entry (at most k) a warp reads cols / 32 wavefronts of
+    W, GROUP / 4 of values and a quarter of an offset quad."""
+    slots = -(-k // 4) * 4
+    plans = []
+    for cols in (128, 64, 32):
+        col_tiles = -(-n // cols)
+        for rows in (64, 32, 16, 8, 4):
+            if rows % GROUP:
+                continue
+            row_tiles = -(-r // rows)
+            groups = rows // GROUP
+            entry_quarters = 4 * (cols // 32 + GROUP // 4) + 1
+            plans.append(_build.TilePlan(
+                rows, cols, row_tiles * col_tiles,
+                4 * k * cols + (4 * GROUP + 4) * groups * slots + 4 * groups,
+                4 * k * (row_tiles * col_tiles * cols + col_tiles * r * ts),
+                -(-r // GROUP) * col_tiles * k * entry_quarters // 4))
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(ts: int, r: int, k: int, n: int) -> _build.TilePlan:
+    """K9's tiles for this shape: ``_build.pick_tiles`` of ``tile_plans``."""
+    return _build.pick_tiles(tile_plans(ts, r, k, n))
 
 
 def spike_broadcast(x: torch.Tensor, w: torch.Tensor, *,
@@ -59,10 +97,11 @@ def spike_broadcast(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    plan = tile_plan(ts, r, k, n)
     fn = _build.function("spike_broadcast_launch", _SB_ARGS)
     with torch.cuda.device(dev):
         status = fn(x3.data_ptr(), w.data_ptr(), out.data_ptr(), ts, r, k, n,
-                    cap, _build.stream(dev))
+                    cap, plan.rows, plan.cols, _build.stream(dev))
     _build.check(status, "spike_broadcast")
     launches += 1
     return out

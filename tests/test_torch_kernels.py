@@ -10,6 +10,11 @@ potential is within ``U_TOL`` of the threshold.  Widths: ``small_cfg``'s
 and the paper's PRUNED model's.
 """
 
+import ctypes
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +26,9 @@ from repro_torch.kernels import rsnn_cell as cell_kernel
 from repro_torch.kernels import sparse_fc as sfc_kernel
 
 U_TOL = 1e-5  # K1: |du| <= U_TOL * (1 + |u|)
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "long long": ctypes.c_longlong}
 
 # (input_dim, hidden, fc_dim, batch): small_cfg's widths and PRUNED's
 WIDTHS = {"small": (8, 16, 12, 4), "pruned": (40, 128, 1920, 8)}
@@ -43,6 +51,17 @@ def _csc(rng, k, n, prune=0.4):
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def c_signature(source: str, name: str) -> list:
+    """The ctypes of the parameters of ``extern "C" int name(...)`` in
+    ``csrc/source``, in order: nothing else checks a wrapper's ctypes
+    signature against the C one."""
+    src = (CSRC / source).read_text()
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
+                    re.S).group(1)
+    return [C_TYPES[" ".join(p.split()).rsplit(" ", 1)[0]]
+            for p in sig.split(",")]
 
 
 def _j(a):
@@ -104,6 +123,68 @@ def test_sparse_fc_bitwise(width, merged):
     want = np.asarray(jops.sparse_fc(_j(spikes), _j(idx), _j(vals),
                                      _j(scale)))
     np.testing.assert_array_equal(got, want)
+
+
+def test_sparse_fc_launch_signature_matches_the_kernel_source():
+    assert c_signature("sparse_fc.cu", "sparse_fc_launch") == \
+        sfc_kernel._ARGS
+
+
+@pytest.mark.parametrize("h", [40, 128, 256])
+@pytest.mark.parametrize("density", [0.6, 1.0])
+@pytest.mark.parametrize("b,n", [(256, 1920), (200, 200), (1, 1920)])
+def test_sparse_fc_tile_plan_fits(h, density, b, n):
+    """K4's plan at hidden width ``h`` with ``density`` x h entries a
+    column: tiles the launch takes, their shared memory as
+    ``sparse_fc_launch`` computes it and under 227 KB, and the grid."""
+    nnz = int(h * density)
+    plan = sfc_kernel.tile_plan(2, b, h, nnz, n)
+    assert plan.rows in (32, 64) and plan.cols in (32, 64, 128)
+    assert plan.shared_bytes == 8 * nnz * plan.cols + 4 * h * (plan.rows + 1)
+    assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+    assert plan.blocks == math.ceil(n / plan.cols) * math.ceil(b / plan.rows)
+
+
+@pytest.mark.parametrize("h,nnz", [(128, 95), (128, 128), (256, 154),
+                                   (256, 256)])
+def test_sparse_fc_tile_plan_fills_the_card(h, nnz):
+    """At B = 256 and N = 1920 (PRUNED's FC at 40% pruning, lossless, and
+    BASELINE's width) K4's grid puts a block on each of the 132 SMs and
+    leaves room for a second."""
+    plan = sfc_kernel.tile_plan(2, 256, h, nnz, 1920)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
+
+
+def test_tile_plan_over_shared_memory_goes_to_the_launch_to_refuse():
+    """No plan fits: the smallest goes to the launch function, which refuses
+    it (status -2); there is no fallback."""
+    plan = sfc_kernel.tile_plan(2, 256, 128, 4096, 1920)
+    assert (plan.rows, plan.cols) == (32, 32)
+    assert plan.shared_bytes > _build.MAX_SHARED_BYTES
+
+
+def test_pick_tiles_order():
+    """A block for every SM first, then two blocks an SM, then the fewest
+    staged bytes, then the least shared memory, then the first listed."""
+    P = _build.TilePlan
+    few = P(1, 32, 100, 1024, 1, 0)
+    full_big = P(2, 32, 200, 150 * 1024, 5, 0)
+    full = P(3, 32, 200, 100 * 1024, 9, 0)
+    lean = P(4, 32, 300, 100 * 1024, 7, 0)
+    small = P(5, 32, 300, 50 * 1024, 7, 0)
+    assert _build.pick_tiles([few, full_big]) is full_big
+    assert _build.pick_tiles([few, full_big, full]) is full
+    assert _build.pick_tiles([full, lean]) is lean
+    assert _build.pick_tiles([lean, small]) is small
+    assert _build.pick_tiles([small, P(6, 32, 300, 50 * 1024, 7, 0)]) is small
+    assert _build.pick_tiles([few, P(7, 32, 120, 1024, 9, 0)]).rows == 7
+    # a wavefront weighs WAVEFRONT_BYTES staged bytes
+    w = _build.WAVEFRONT_BYTES
+    assert _build.pick_tiles([P(8, 32, 200, 1024, 10 * w, 0),
+                              P(9, 32, 200, 1024, 0, 9)]).rows == 9
+    assert _build.pick_tiles([P(8, 32, 200, 1024, 10 * w, 0),
+                              P(9, 32, 200, 1024, 0, 11)]).rows == 8
 
 
 def _near_threshold(stim, s_prev, w, u0, h0, beta, vth):

@@ -19,6 +19,8 @@ kernels are held against on the card).  Tolerances:
 """
 
 import dataclasses
+import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,7 @@ from repro_torch.core import complexity
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import spike_broadcast as sb_kernel
 from repro_torch.serving import stream as TS
+from test_torch_kernels import CSRC, c_signature
 from test_torch_stream import _to_torch, pruned_path, small_path  # noqa: F401
 
 TOL = 1e-5  # |d| <= TOL * (1 + |y|)
@@ -133,6 +136,64 @@ def test_cpu_tensor_runs_plain_version_without_launching():
     assert _build._lib is None  # nothing was built
     with pytest.raises(ValueError, match="CUDA"):
         sb_kernel.spike_broadcast(z, torch.ones((16, 12)))
+
+
+def test_launch_signatures_match_the_kernel_sources():
+    """The ctypes signatures of K9 and K10, and K9's row group, match the C
+    sources."""
+    assert c_signature("spike_broadcast.cu", "spike_broadcast_launch") == \
+        sb_kernel._SB_ARGS
+    src = (CSRC / "spike_broadcast.cu").read_text()
+    assert re.search(r"constexpr int kGroup = (\d+);", src).group(1) == \
+        str(sb_kernel.GROUP)
+    assert c_signature("spike_cell.cu", "spike_cell_launch") == \
+        sb_kernel._CELL_ARGS
+
+
+# K9's main-path shapes (ts, R, K, N): the L1 feed-forward over TS * B
+# spike rows and the FC union, at PRUNED's and BASELINE's widths, B = 256
+K9_SHAPES = {"l1 pruned": (1, 512, 128, 128), "fc pruned": (2, 256, 128, 1920),
+             "l1 baseline": (1, 512, 256, 256),
+             "fc baseline": (2, 256, 256, 1920)}
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES)
+def test_spike_broadcast_tile_plan_fills_the_card(shape):
+    """At the main path's shapes K9's grid puts a block on each of the 132
+    SMs, in tiles the launch takes (rows in groups of four), with the
+    shared memory ``spike_broadcast_launch`` computes, room for two blocks
+    an SM."""
+    ts, r, k, n = K9_SHAPES[shape]
+    plan = sb_kernel.tile_plan(ts, r, k, n)
+    g = sb_kernel.GROUP
+    assert plan.cols in (32, 64, 128) and plan.rows in (4, 8, 16, 32, 64)
+    assert plan.rows % g == 0
+    slots = -(-k // 4) * 4
+    assert plan.shared_bytes == (4 * k * plan.cols
+                                 + (4 * g + 4) * (plan.rows // g) * slots
+                                 + 4 * (plan.rows // g))
+    assert plan.blocks == math.ceil(n / plan.cols) * math.ceil(r / plan.rows)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
+
+
+@pytest.mark.parametrize("k", [40, 128, 256])
+@pytest.mark.parametrize("r,n", [(512, 128), (256, 1920), (400, 200),
+                                 (1, 1920), (3, 5)])
+def test_spike_broadcast_tile_plan_fits(k, r, n):
+    """K in {40, 128, 256}, ragged and tiny shapes included: the plan's
+    shared memory stays under 227 KB."""
+    plan = sb_kernel.tile_plan(2, r, k, n)
+    assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+    assert plan.blocks == math.ceil(n / plan.cols) * math.ceil(r / plan.rows)
+
+
+def test_spike_broadcast_tile_plan_over_shared_memory():
+    """A K whose W column tile alone passes 227 KB has no plan that fits:
+    the smallest goes to the launch, which refuses it (status -2)."""
+    plan = sb_kernel.tile_plan(1, 512, 2048, 128)
+    assert (plan.rows, plan.cols) == (sb_kernel.GROUP, 32)
+    assert plan.shared_bytes > _build.MAX_SHARED_BYTES
 
 
 # ------------------------------------------------------------- spike_cell
