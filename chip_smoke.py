@@ -17,9 +17,13 @@ Phases, each printed on its own line:
      of the threshold; K9 (spike_broadcast: the 2-D L1 feed-forward and
      the 3-D FC union) within ``TOL``; K8 (delta_step) with mask, held
      input and cached rows exact and recomputed rows within ``TOL``.
-     K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row, and K9
-     and K4 also at their tiles' edges (``check_tile_edges``: an all-zero
-     and a full row, N = 200 and 203, K9 at capacity 1); K8 at
+     K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row, and K9,
+     K4, K2 and K3 also at their tiles' edges (``check_tile_edges``: an
+     all-zero and a full row, N = 200 and 203, K9 at capacity 1; K2 at
+     K = 40 and 128 and K3 at TS = 1, 2 and 4, both again at B = 1, bit
+     for bit), and K2/K3 within ``TOL`` on non-integer inputs and on
+     integers outside [-128, 127] in one row, which take their fp32 path
+     (``check_int4_edges``); K8 at
      ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
      row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
      in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
@@ -92,16 +96,16 @@ Phases, each printed on its own line:
      float32 rate, their int4 FC's integer sums at the int8 rate and the
      float FC at the float32 rate).  A gathered or gated kernel counts
      what this run's data needs (``work``).  K6/K7 have a row each for
-     the ``csc`` and the ``nm`` FC, as served, and one for ``dense_float``
-     at ``BASELINE``; they are timed in every FC mode over chunks of 1 and
-     ``MEGA_FRAMES`` frames, ``dense_float`` at both widths, and K1,
-     K8-K10 again with float weights at H = 256.  Every configuration over
-     the ``csc`` artifact is then served once more, in reverse order, for
-     the spread of frames/s between runs.
+     the ``csc``, ``nm`` and ``dense_int4`` FC, as served, and one for
+     ``dense_float`` at ``BASELINE``; they are timed in every FC mode over
+     chunks of 1 and ``MEGA_FRAMES`` frames, ``dense_float`` at both
+     widths, and K1, K8-K10 again with float weights at H = 256.  Every
+     configuration over the ``csc`` artifact is then served once more, in
+     reverse order, for the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
-times every tile plan of K9 and K4 at the main path's shapes
+times every tile plan of K9, K4, K2 and K3 at the main path's shapes
 (``sweep_tiles``), the measurements their ``tile_plan`` rests on.
 Any failure exits non-zero before that line.  The script imports neither
 JAX nor the JAX package: the machine with the card has no JAX.
@@ -156,7 +160,9 @@ PEAK_OPS_PER_S = {"rsnn_cell": 67e12, "int4_matmul": 1979e12,
                   "spike_cell": 67e12, "megastep": 67e12,
                   "megastep_spike": 67e12, "megastep_nm": 67e12,
                   "megastep_spike_nm": 67e12, "megastep_float": 67e12,
-                  "megastep_spike_float": 67e12}
+                  "megastep_spike_float": 67e12,
+                  "megastep_dense_int4": 67e12,
+                  "megastep_spike_dense_int4": 67e12}
 INT8_OPS_PER_S = 1979e12  # K6/K7's int4 FC: integer sums of int4 weights
 # kernel -> (CUDA source in csrc/, the TPU kernel's pl.pallas_call)
 SOURCES = {
@@ -179,12 +185,19 @@ SOURCES = {
     "megastep_float": ("megastep.cu", "src/repro/kernels/megastep.py:250"),
     "megastep_spike_float": ("megastep.cu",
                              "src/repro/kernels/megastep.py:250"),
+    "megastep_dense_int4": ("megastep.cu",
+                            "src/repro/kernels/megastep.py:250"),
+    "megastep_spike_dense_int4": ("megastep.cu",
+                                  "src/repro/kernels/megastep.py:250"),
 }
 # K6/K7's rows of the kernel line: served with sparse_fc, the FC in
-# ``csc`` over the ``csc`` artifact and in ``nm`` over the ``nm`` one; and
-# with float weights and the ``dense_float`` FC over the float artifact
+# ``csc`` over the ``csc`` artifact and in ``nm`` over the ``nm`` one;
+# without it, in ``dense_int4`` over the ``csc`` artifact; and with float
+# weights and the ``dense_float`` FC over the float artifact
 ROW_FC_MODE = {"megastep": "csc", "megastep_spike": "csc",
                "megastep_nm": "nm", "megastep_spike_nm": "nm",
+               "megastep_dense_int4": "dense_int4",
+               "megastep_spike_dense_int4": "dense_int4",
                "megastep_float": "dense_float",
                "megastep_spike_float": "dense_float"}
 FLOAT_ROWS = ("megastep_float", "megastep_spike_float")
@@ -616,8 +629,8 @@ def megastep_pair(fc_mode: str, spike: bool):
 
 def mega_row(name: str, fc_mode: str) -> str:
     """The kernel line's row of K6/K7 (``name``) in ``fc_mode``."""
-    return {"nm": f"{name}_nm", "dense_float": f"{name}_float"}.get(fc_mode,
-                                                                   name)
+    return {"nm": f"{name}_nm", "dense_int4": f"{name}_dense_int4",
+            "dense_float": f"{name}_float"}.get(fc_mode, name)
 
 
 def kernel_calls(a: dict, capacity: int | None = None,
@@ -826,10 +839,11 @@ def check_refusals() -> None:
     not at the weights' precision (-5: an unknown mode; float weights with
     an int4 layout's FC; int4 weights with dense_float; an unknown
     precision) and an N:M geometry it cannot take (-6: n > m; entries not
-    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K9 and K4 refuse a
-    tile plan they do not take (-7) and one whose tiles pass 227 KB of
-    shared memory (-2)."""
-    from repro_torch.kernels import (_build, megastep, nm_fc, sparse_fc,
+    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K9, K4, K2 and K3
+    refuse a tile plan they do not take (-7) and one whose tiles pass 227
+    KB of shared memory (-2)."""
+    from repro_torch.kernels import (_build, int4_matmul, megastep,
+                                     merged_spike_fc, nm_fc, sparse_fc,
                                      spike_broadcast)
 
     fn = _build.function("megastep_launch", megastep._ARGS)
@@ -869,6 +883,18 @@ def check_refusals() -> None:
         refused(fn, (None, None, None, None, None, PRUNED.num_ts, SLOTS, h,
                      entries, fc, rows, cols, None), want, "sparse_fc",
                 f"entries={entries}, rows={rows}, cols={cols}")
+    fn = _build.function("int4_matmul_launch", int4_matmul._ARGS)
+    for want, k, rows, cols in ((-7, h, 8, 16), (-7, h, 16, 24),
+                                (-2, 8192, 64, 128)):
+        refused(fn, (None, None, None, None, SLOTS, k, fc, rows, cols, None),
+                want, "int4_matmul", f"k={k}, rows={rows}, cols={cols}")
+    fn = _build.function("merged_spike_fc_launch", merged_spike_fc._ARGS)
+    for want, ts, rows, cols in ((-7, PRUNED.num_ts, 48, 16),
+                                 (-7, PRUNED.num_ts, 16, 256),
+                                 (-2, 64, 64, 128)):
+        refused(fn, (None, None, None, None, ts, SLOTS, h, fc, rows, cols,
+                     None), want, "merged_spike_fc",
+                f"ts={ts}, rows={rows}, cols={cols}")
 
 
 def check_nm_against_csc(a: dict, b: int) -> None:
@@ -924,6 +950,7 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
           f"{errs['spike_broadcast']!r}")
     if "csc" not in a:
         return
+    check_int4_edges(a, b, errs)
     idx, val, sc = a["csc"]
     for n in (idx.shape[1], 200, 203):
         args = (s1, idx[:, :n].contiguous(), val[:, :n].contiguous(),
@@ -934,6 +961,75 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
         check_call("sparse_fc", got, want, args, None)
     print(f"check sparse_fc tile edges B={b} (zero and full rows; N = "
           f"{idx.shape[1]}, 200, 203): bit-equal")
+
+
+def int4_edge_calls(a: dict) -> list:
+    """K2 and K3 at the edges of their tiles on the operands of
+    ``kernel_inputs`` ``a``, as (kernel name, args): rows all zero and
+    full (the L0 input's second and third rows at 127 and -128, the spike
+    rows' second all ones: ``edge_rows``); K2 at K = 40 (L0) and 128 (L1;
+    one train of the FC's input, ``merged_spike=False``'s shape), K3 at
+    TS = 1, 2 and 4; the FC cut to N = 200 (not a multiple of a column
+    tile nor of 16: the weights' byte copies) and 203 (odd: the scalar
+    stores); then each call again at B = 1 on the full row."""
+    cut = {n: tuple(t[..., :n].contiguous() for t in a["fc"])
+           for n in (1920, 200, 203)}
+    x = a["x"].clone()
+    x[0], x[1], x[2] = 0.0, 127.0, -128.0
+    s0 = edge_rows(a["s0"].reshape(-1, a["s0"].shape[-1]))
+    s1 = edge_rows(a["s1"])
+    trains = {1: s1[:1], 2: s1, 4: torch.cat([s1, edge_rows(a["s0"])])}
+    calls = [("int4_matmul", (x, *a["l0"])), ("int4_matmul", (s0, *a["l1"]))]
+    for n, (p, sc) in cut.items():
+        calls += [("int4_matmul", (s1[0], p, sc)),
+                  ("int4_matmul", (x, p[:PRUNED.input_dim // 2], sc))]
+        calls += [("merged_spike_fc", (t, p, sc)) for t in trains.values()]
+    one = [(name, (args[0][..., 1:2, :], *args[1:])) for name, args in calls]
+    return calls + one
+
+
+def int4_float_calls(a: dict) -> list:
+    """K2 and K3 on inputs their int8 path cannot take exactly, so that
+    the blocks vote for the fp32 path: non-integer L0 inputs and spikes
+    (x 0.37, spikes x 0.5), and integers outside [-128, 127] in one row
+    (the L0 input's fourth row at +-300, merged spikes x 100, up to 200)."""
+    big = a["x"].clone()
+    big[3] = 300.0 * (1.0 - 2.0 * (torch.arange(big.shape[1],
+                                                 device=big.device) % 2))
+    s0 = a["s0"].reshape(-1, a["s0"].shape[-1])
+    return [("int4_matmul", (a["x"] * 0.37, *a["l0"])),
+            ("int4_matmul", (big, *a["l0"])),
+            ("int4_matmul", (s0 * 0.5, *a["l1"])),
+            ("merged_spike_fc", (a["s1"] * 0.5, *a["fc"])),
+            ("merged_spike_fc", (a["s1"] * 100.0, *a["fc"]))]
+
+
+def check_int4_edges(a: dict, b: int, errs: dict) -> None:
+    """K2 and K3 bit-equal to their plain versions at their tiles' edges
+    (``int4_edge_calls``), and within ``TOL`` on the inputs that take the
+    fp32 path (``int4_float_calls``)."""
+    from repro_torch.kernels import int4_matmul, merged_spike_fc, ref
+
+    fns = {"int4_matmul": (int4_matmul.int4_matmul, ref.int4_matmul_ref),
+           "merged_spike_fc": (merged_spike_fc.merged_spike_fc,
+                               ref.merged_spike_fc_ref)}
+    for name, args in int4_edge_calls(a):
+        kern, plain = fns[name]
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        check_call(name, got, want, args, None)
+    print(f"check int4_matmul, merged_spike_fc tile edges B={b} and 1 "
+          f"(zero and full rows; K = 40, 128; TS = 1, 2, 4; N = "
+          f"{a['fc'][0].shape[1]}, 200, 203): bit-equal")
+    for name, args in int4_float_calls(a):
+        kern, plain = fns[name]
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs[name] = max(errs.get(name, 0.0), check_close(name, got, want))
+    print(f"check int4_matmul, merged_spike_fc fp32 path B={b} (non-integer "
+          f"inputs, +-300 in one row, merged spikes up to 200): ok, "
+          f"max_abs_err {errs['int4_matmul']!r}, "
+          f"{errs['merged_spike_fc']!r}")
 
 
 def check_variants(a: dict, b: int, errs: dict, names=None,
@@ -971,8 +1067,9 @@ def check_kernels(packs: dict, floats: dict, dev,
     """Phase 2: every kernel against its plain version on the card, at
     B = 256 and 200; K9/K10 also at ``TRUNC_CAPACITY`` events a row, K8
     at threshold 0 (first on a repeated frame: every row cached) and
-    ``DELTA_THRESHOLD``; K9 and K4 at their tiles' edges
-    (``check_tile_edges``); K5 also against K4 on the same mask.  Then the
+    ``DELTA_THRESHOLD``; K9, K4, K2 and K3 at their tiles' edges
+    (``check_tile_edges``), K2 and K3 also on their fp32 path; K5 also
+    against K4 on the same mask.  Then the
     float engine's kernels with the float weights of ``floats`` (width
     name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
     K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too."""
@@ -1207,7 +1304,8 @@ def serve_counted(name: str, path, art, fields: dict, per_step: dict, utts,
         **fields, precision=art.precision, input_scale=art.input_scale))
     nm_mode = eng.engine.wants_sparse_fc and isinstance(
         eng.packed.sparse["fc_w"], NMGroupPacked)
-    row = "_float" if art.precision == "float" else "_nm" if nm_mode else ""
+    row = ("_float" if art.precision == "float" else "_nm" if nm_mode
+           else "" if eng.engine.wants_sparse_fc else "_dense_int4")
     set_counts(0)
     loop, done, secs = serve(eng, utts)
     counts = read_counts()
@@ -1646,12 +1744,15 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
 
 
 def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
-    """Every tile plan K9 and K4 take at the main path's shapes (B = 256,
-    phase 5's inputs; K9 also with float weights at ``BASELINE``), each
-    launched through its launch function, held against the plain version
-    and timed as phase 5 times a kernel; the plan the wrapper picks is
-    marked.  What ``tile_plan``'s choice rests on."""
-    from repro_torch.kernels import _build, ref, sparse_fc, spike_broadcast
+    """Every tile plan K9, K4, K2 and K3 take at the main path's shapes
+    (B = 256, phase 5's inputs; K9 also with float weights at
+    ``BASELINE``; K2 on the L0 and L1 feed-forward), each launched through
+    its launch function, held against the plain version and timed as
+    phase 5 times a kernel; the plan the wrapper picks is marked.  What
+    ``tile_plan``'s choice rests on.  First the time of a one-element
+    ``zero_`` timed the same way: the floor of a launch."""
+    from repro_torch.kernels import (_build, int4_matmul, merged_spike_fc,
+                                     ref, sparse_fc, spike_broadcast)
 
     gen = torch.Generator().manual_seed(seed + 7)
     a = kernel_inputs(packs, 256, gen, dev)
@@ -1677,6 +1778,30 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
                            _build.stream(dev)), "sparse_fc")
         return out
 
+    i4_fn = _build.function("int4_matmul_launch", int4_matmul._ARGS)
+    mfc_fn = _build.function("merged_spike_fc_launch", merged_spike_fc._ARGS)
+
+    def k2(x, p, sc, rows, cols):
+        m, k = x.shape
+        out = torch.empty((m, p.shape[1]), device=dev)
+        _build.check(i4_fn(x.data_ptr(), p.data_ptr(), sc.data_ptr(),
+                           out.data_ptr(), m, k, p.shape[1], rows, cols,
+                           _build.stream(dev)), "int4_matmul")
+        return out
+
+    def k3(s, p, sc, rows, cols):
+        ts, b, h = s.shape
+        out = torch.empty((b, p.shape[1]), device=dev)
+        _build.check(mfc_fn(s.data_ptr(), p.data_ptr(), sc.data_ptr(),
+                            out.data_ptr(), ts, b, h, p.shape[1], rows, cols,
+                            _build.stream(dev)), "merged_spike_fc")
+        return out
+
+    def k2_case(what, x, p, sc):
+        return (f"int4_matmul {what}", k2, (x, p, sc),
+                int4_matmul.tile_plans(*x.shape, p.shape[1]),
+                ref.int4_matmul_ref(x, p, sc))
+
     def k9_case(what, x, w):
         x3 = x.unsqueeze(0) if x.dim() == 2 else x
         return (f"spike_broadcast {what}", k9, (x3, w),
@@ -1691,7 +1816,15 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
              k9_case("FC union BASELINE float", fa["s1"], fa["wfc"]),
              ("sparse_fc", k4, (s1, idx, val, sc),
               sparse_fc.tile_plans(*s1.shape, *idx.shape),
-              ref.sparse_fc_ref(s1, idx, val, sc))]
+              ref.sparse_fc_ref(s1, idx, val, sc)),
+             k2_case("L0 feed-forward", a["x"], *a["l0"]),
+             k2_case("L1 feed-forward", a["s0"].reshape(-1, 128), *a["l1"]),
+             ("merged_spike_fc", k3, (s1, *a["fc"]),
+              merged_spike_fc.tile_plans(*s1.shape, a["fc"][0].shape[1]),
+              ref.merged_spike_fc_ref(s1, *a["fc"]))]
+    one = torch.zeros(1, device=dev)
+    print(f"sweep launch floor (one-element zero_, timed alike): "
+          f"{cuda_ms(torch.Tensor.zero_, (one,))!r} ms")
     for name, fn, args, plans, want in cases:
         picked = _build.pick_tiles(plans)
         for p in plans:
@@ -1744,7 +1877,8 @@ def main(argv=None) -> int:
                     help="stop after phase 2 (build and kernel checks)")
     ap.add_argument("--sweep-tiles", action="store_true",
                     help="with --kernels-only: time every tile plan of "
-                         "spike_broadcast and sparse_fc before stopping")
+                         "spike_broadcast, sparse_fc, int4_matmul and "
+                         "merged_spike_fc before stopping")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "

@@ -6,15 +6,17 @@
 // below, without launching) so that the Python wrapper raises on a refused
 // launch.  No kernel allocates or synchronises.
 //
-// Tiling shared by the kernels: one thread per output column (kCols
-// columns per block, neighbouring threads on neighbouring addresses, so
-// every weight row is one coalesced load) and kRows batch rows per block,
-// so each weight element loaded from global memory serves kRows rows.  The
-// rows' operand vectors sit in shared memory.  Ragged edges (B not a
-// multiple of kRows, N not a multiple of kCols) are masked, not asserted.
-// K9 (spike_broadcast) and K4 (sparse_fc) take their tiles from a plan
-// their wrappers choose, stage them with cp.async (stage_column_tile) and
-// say how in their sources.
+// Tiling: K1, K5, K8, K10 and K6/K7 put one thread on each output column
+// (kCols columns a block, neighbouring threads on neighbouring addresses,
+// so every weight row is one coalesced load) and kRows batch rows in a
+// block, so each weight element loaded from global memory serves kRows
+// rows; the rows' operand vectors sit in shared memory.  K9
+// (spike_broadcast), K4 (sparse_fc), K2 (int4_matmul) and K3
+// (merged_spike_fc) take their tiles from a plan their wrappers choose
+// (tile_plan), stage them with cp.async and say how in their sources; K2
+// and K3 share int4_tile_kernel below, on the int8 tensor cores.  Ragged
+// edges (B not a multiple of the rows a block, N not one of its columns)
+// are masked, not asserted.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +30,8 @@ constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
 // megastep (K6/K7): threads a block (one per hidden column, all of them on
 // the FC columns); the dynamic shared memory a kernel may opt in to, the
-// H100's per-block maximum of 227 KB (megastep, spike_broadcast, sparse_fc)
+// H100's per-block maximum of 227 KB (megastep, spike_broadcast, sparse_fc,
+// int4_matmul, merged_spike_fc)
 constexpr int kMegaThreads = 256;
 constexpr size_t kMaxOptInSharedBytes = 227 * 1024;
 constexpr size_t kMaxMegastepSharedBytes = kMaxOptInSharedBytes;
@@ -39,15 +42,17 @@ constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
 constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
                                       // (kMaxOptInSharedBytes for the kernels
                                       // that opt in: megastep, spike_broadcast,
-                                      // sparse_fc)
+                                      // sparse_fc, int4_matmul,
+                                      // merged_spike_fc)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
                                       // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
-constexpr int kErrTilePlan = -7;      // spike_broadcast, sparse_fc: a tile plan
-                                      // (rows, columns a block) they do not take
+constexpr int kErrTilePlan = -7;      // spike_broadcast, sparse_fc, int4_matmul,
+                                      // merged_spike_fc: a tile plan (rows,
+                                      // columns a block) they do not take
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
@@ -150,6 +155,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Close the thread's cp.async copies issued so far into one group; wait
+// until at most `pending` of its groups are still in flight (groups land in
+// the order they were committed).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
 // Start copying columns [c0, c0 + cols) of the row-major (rows, n) matrix
 // src into sh[rows][cols] with cp.async, all threads of the block taking
 // part; columns at or past n are zero-filled.  vec16 (block-uniform): n is a
@@ -181,5 +206,310 @@ __device__ __forceinline__ void stage_column_tile(const T* __restrict__ src,
     }
   }
 }
+
+// ------------------------------------------- int8 tensor-core tiles (K2, K3)
+//
+// out[m][n] = (sum_k a[m][k] * unpack(packed)[k][n]) * scale[n], where
+// a[m][k] = sum_t src[t][m][k] (t = 0, 1, ..., ts - 1; K2 has ts = 1).  A
+// block owns kRowsB rows by kCols columns (the wrapper's tile plan).  It
+// stages the packed weight tile (k/2 x kCols bytes) and the rows' ts
+// float32 trains with cp.async, unpacks the nibbles once into int8 laid out
+// as mma's B operand (k-contiguous per column), merges the trains and
+// converts the rows to int8 (mma's A operand, k-contiguous per row), and
+// votes: when every staged value is an integer in [-128, 127] (s8_exact)
+// the warps run mma.sync m16n8k32 s8 x s8 -> s32 and scale each exact
+// integer sum once (bit-equal to the plain version wherever its float32
+// sums stay exact, |sum| < 2^24); otherwise the whole block runs an fp32
+// fmaf chain over the same staged tile, k ascending, as one float
+// multiply-add a term.
+
+constexpr int kMmaK = 32;     // depth of one m16n8k32 step, int8 elements
+constexpr int kTilePad = 16;  // bytes after each int8 row: a fragment
+                              // load's eight rows fall on distinct banks
+
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Whether v is exactly an s8 operand: an integer in [-128, 127] (NaN and
+// infinities are not).
+__device__ __forceinline__ bool s8_exact(float v) {
+  return v == rintf(v) && v >= -128.0f && v <= 127.0f;
+}
+
+// A nibble in the low 4 bits of v, sign-extended: [0, 15] -> [-8, 7].
+__device__ __forceinline__ unsigned nibble_s8(int v) {
+  return static_cast<unsigned>((((v & 0xF) ^ 8) - 8) & 0xFF);
+}
+
+// Byte offsets of one block's tiles in its dynamic shared memory:
+//   raw  float [max(ts, 1)][rows][kp]  the trains as staged; t = 0 then
+//                                      holds the merged rows (fp32 path)
+//   a8   int8  [rows][ld]              the merged rows as s8
+//   b8   int8  [cols][ld]              the unpacked weights
+//   wp   int8  [k/2][cols]             the packed weight tile as staged
+// kp is k rounded up to kMmaK (the pad is zero in a8 and b8), ld = kp +
+// kTilePad.  The wrappers' tile_plans compute the same bytes.
+struct Int4TileLayout {
+  int kp, ld;
+  size_t a8, b8, wp, bytes;
+  __host__ __device__ Int4TileLayout(int ts, int rows, int cols, int k)
+      : kp((k + kMmaK - 1) / kMmaK * kMmaK), ld(kp + kTilePad) {
+    a8 = sizeof(float) * static_cast<size_t>(ts > 1 ? ts : 1) * rows * kp;
+    b8 = a8 + static_cast<size_t>(rows) * ld;
+    wp = b8 + static_cast<size_t>(cols) * ld;
+    bytes = wp + static_cast<size_t>(k / 2) * cols;
+  }
+};
+
+// n8 tiles a warp's tile spans, and threads a block, at kCols columns by
+// kRowsB rows: a warp owns 16 rows by 8 * sub columns.
+__host__ __device__ constexpr int int4_tile_sub(int cols) {
+  return cols >= 16 ? 2 : 1;
+}
+__host__ __device__ constexpr int int4_tile_threads(int rows, int cols) {
+  const int tiles = (rows / 16) * (cols / (8 * int4_tile_sub(cols)));
+  return 32 * (tiles < 4 ? 4 : tiles > 8 ? 8 : tiles);
+}
+
+namespace {
+
+template <int kRowsB, int kCols>
+__global__ void __launch_bounds__(int4_tile_threads(kRowsB, kCols))
+    int4_tile_kernel(const float* __restrict__ src,
+                     const int8_t* __restrict__ packed,
+                     const float* __restrict__ scale, float* __restrict__ out,
+                     int ts, int m, int k, int n, bool rows16, bool w_vec,
+                     bool out8) {
+  constexpr int kThreads = int4_tile_threads(kRowsB, kCols);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSub = int4_tile_sub(kCols);
+  constexpr int kTilesN = kCols / (8 * kSub);
+  constexpr int kTiles = kRowsB / 16 * kTilesN;
+  constexpr int kChunk = kCols >= 16 ? 16 : kCols;  // bytes a weight copy
+  extern __shared__ __align__(16) unsigned char sh[];
+  const Int4TileLayout lay(ts, kRowsB, kCols, k);
+  const int kp = lay.kp, ld = lay.ld, k2 = k / 2;
+  const int tsa = ts > 1 ? ts : 1;
+  float* raw = reinterpret_cast<float*>(sh);
+  int8_t* a8 = reinterpret_cast<int8_t*>(sh + lay.a8);
+  int8_t* b8 = reinterpret_cast<int8_t*>(sh + lay.b8);
+  int8_t* wp = reinterpret_cast<int8_t*>(sh + lay.wp);
+  const int row0 = blockIdx.y * kRowsB;
+  const int c0 = blockIdx.x * kCols;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // group 0: the packed weight tile, kChunk bytes a copy (columns past n
+  // zero-filled); byte loads where n is not a multiple of kChunk
+  if (w_vec) {
+    constexpr int kPerRow = kCols / kChunk;
+    for (int i = threadIdx.x; i < k2 * kPerRow; i += kThreads) {
+      const int p = i / kPerRow;
+      const int c = c0 + (i % kPerRow) * kChunk;
+      const bool in = c < n;
+      const int8_t* s = packed + (in ? static_cast<long long>(p) * n + c : 0);
+      if (kChunk == 16) {
+        cp_async16(wp + i * kChunk, s, in ? 16 : 0);
+      } else {
+        cp_async8(wp + i * kChunk, s, in ? 8 : 0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < k2 * kCols; i += kThreads) {
+      const int p = i / kCols;
+      const int c = c0 + i % kCols;
+      wp[i] = c < n ? packed[static_cast<long long>(p) * n + c] : 0;
+    }
+  }
+  cp_async_commit();
+  // group 1: the rows' trains, a warp a row (rows past m, and every row
+  // when ts = 0, zeros)
+  for (int tr = warp; tr < tsa * kRowsB; tr += kWarps) {
+    const int t = tr / kRowsB;
+    const int row = row0 + tr % kRowsB;
+    float* d = raw + static_cast<size_t>(tr) * kp;
+    if (t >= ts || row >= m) {
+      for (int q = lane; q < k; q += 32) d[q] = 0.0f;
+      continue;
+    }
+    const float* s = src + (static_cast<long long>(t) * m + row) * k;
+    if (rows16) {
+      for (int q = 4 * lane; q < k; q += 128) cp_async16(d + q, s + q, 16);
+    } else {
+      for (int q = lane; q < k; q += 32) cp_async4(d + q, s + q, 4);
+    }
+  }
+  cp_async_commit();
+
+  // the weights land first: unpack them while the rows are in flight,
+  // b8[c][8q .. 8q + 7] from packed rows 4q .. 4q + 3 of column c
+  cp_async_wait_group<1>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < kCols * (kp / 8); i += kThreads) {
+    const int c = i % kCols;
+    const int q = i / kCols;
+    unsigned word[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = 4 * q + j;
+      const int byte = p < k2 ? wp[p * kCols + c] : 0;
+      word[j >> 1] |= (nibble_s8(byte) | nibble_s8(byte >> 4) << 8) << (16 * (j & 1));
+    }
+    *reinterpret_cast<uint2*>(b8 + c * ld + 8 * q) = make_uint2(word[0], word[1]);
+  }
+  // then the rows: merge t = 0, 1, ... (zero past k), keep the float sum in
+  // raw's t = 0 for the fp32 path, write the s8 copy, and vote
+  cp_async_wait_group<0>();
+  __syncthreads();
+  bool exact = true;
+  for (int r = warp; r < kRowsB; r += kWarps) {
+    float* d0 = raw + r * kp;
+    for (int q = 4 * lane; q < kp; q += 128) {
+      float4 v = *reinterpret_cast<const float4*>(d0 + q);
+      for (int t = 1; t < ts; ++t) {
+        const float4 w = *reinterpret_cast<const float4*>(raw + (static_cast<size_t>(t) * kRowsB + r) * kp + q);
+        v = make_float4(__fadd_rn(v.x, w.x), __fadd_rn(v.y, w.y),
+                        __fadd_rn(v.z, w.z), __fadd_rn(v.w, w.w));
+      }
+      float e[4] = {v.x, v.y, v.z, v.w};
+      unsigned word = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (q + j >= k) e[j] = 0.0f;
+        const bool ok = s8_exact(e[j]);
+        exact &= ok;
+        word |= static_cast<unsigned>((ok ? static_cast<int>(e[j]) : 0) & 0xFF) << (8 * j);
+      }
+      *reinterpret_cast<float4*>(d0 + q) = make_float4(e[0], e[1], e[2], e[3]);
+      *reinterpret_cast<unsigned*>(a8 + r * ld + q) = word;
+    }
+  }
+  const bool s8 = __syncthreads_and(exact);
+
+  if (s8) {
+    // warp tile: 16 rows by kSub n8 tiles; lane (g, tq) loads 4 bytes of
+    // rows g and g + 8 of A and of column g of each B (mma's fragments),
+    // and its sums land at rows g, g + 8, columns 2tq, 2tq + 1 of each
+    // n8 tile: four lanes write 32 contiguous bytes of a row
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    for (int tile = warp; tile < kTiles; tile += kWarps) {
+      const int mt = tile / kTilesN;
+      const int nt = tile % kTilesN;
+      const int8_t* ap = a8 + (16 * mt + g) * ld + 4 * tq;
+      const int8_t* bp = b8 + (8 * kSub * nt + g) * ld + 4 * tq;
+      int acc[kSub][4] = {};
+      for (int k0 = 0; k0 < kp; k0 += kMmaK) {
+        const unsigned a[4] = {
+            *reinterpret_cast<const unsigned*>(ap + k0),
+            *reinterpret_cast<const unsigned*>(ap + 8 * ld + k0),
+            *reinterpret_cast<const unsigned*>(ap + k0 + 16),
+            *reinterpret_cast<const unsigned*>(ap + 8 * ld + k0 + 16)};
+#pragma unroll
+        for (int s = 0; s < kSub; ++s) {
+          const int8_t* b = bp + 8 * s * ld + k0;
+          mma_s8_16832(acc[s], a, *reinterpret_cast<const unsigned*>(b),
+                       *reinterpret_cast<const unsigned*>(b + 16));
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kSub; ++s) {
+        const int col = c0 + 8 * (kSub * nt + s) + 2 * tq;
+        const float s0 = col < n ? scale[col] : 0.0f;
+        const float s1 = col + 1 < n ? scale[col + 1] : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 16 * mt + g + 8 * h;
+          if (row >= m) continue;
+          const float v0 = __fmul_rn(__int2float_rn(acc[s][2 * h]), s0);
+          const float v1 = __fmul_rn(__int2float_rn(acc[s][2 * h + 1]), s1);
+          float* o = out + static_cast<long long>(row) * n + col;
+          if (out8 && col + 1 < n) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            if (col < n) o[0] = v0;
+            if (col + 1 < n) o[1] = v1;
+          }
+        }
+      }
+    }
+  } else {
+    // fp32 path: a thread an output, k ascending, over the merged floats
+    for (int i = threadIdx.x; i < kRowsB * kCols; i += kThreads) {
+      const int r = i / kCols;
+      const int c = i % kCols;
+      const int row = row0 + r;
+      const int col = c0 + c;
+      if (row >= m || col >= n) continue;
+      const float* x = raw + r * kp;
+      const int8_t* w = b8 + c * ld;
+      float acc = 0.0f;
+      for (int kk = 0; kk < k; ++kk) acc = fmaf(x[kk], static_cast<float>(w[kk]), acc);
+      out[static_cast<long long>(row) * n + col] = __fmul_rn(acc, scale[col]);
+    }
+  }
+}
+
+using Int4TileKernel = void (*)(const float*, const int8_t*, const float*,
+                                float*, int, int, int, int, bool, bool, bool);
+
+template <int kRowsB>
+Int4TileKernel int4_tile_kernel_for_cols(int cols) {
+  switch (cols) {
+    case 8: return int4_tile_kernel<kRowsB, 8>;
+    case 16: return int4_tile_kernel<kRowsB, 16>;
+    case 32: return int4_tile_kernel<kRowsB, 32>;
+    case 64: return int4_tile_kernel<kRowsB, 64>;
+    case 128: return int4_tile_kernel<kRowsB, 128>;
+    default: return nullptr;
+  }
+}
+
+inline bool aligned_to(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
+}
+
+// Launch int4_tile_kernel on the plan (rows, cols): rows 16, 32 or 64 and
+// cols 8, 16, 32, 64 or 128 a block, else kErrTilePlan; a block's tiles
+// over kMaxOptInSharedBytes, kErrSharedMemory.  src is (ts, m, k) float32
+// (K2: ts = 1), packed (k/2, n) int8 (k even), scale (n,), out (m, n).
+inline int launch_int4_tiles(const void* src, const void* packed,
+                             const void* scale, void* out, int ts, int m,
+                             int k, int n, int rows, int cols,
+                             void* stream) {
+  Int4TileKernel kernel = rows == 16   ? int4_tile_kernel_for_cols<16>(cols)
+                          : rows == 32 ? int4_tile_kernel_for_cols<32>(cols)
+                          : rows == 64 ? int4_tile_kernel_for_cols<64>(cols)
+                                       : nullptr;
+  if (kernel == nullptr) return kErrTilePlan;
+  const Int4TileLayout lay(ts, rows, cols, k);
+  if (lay.bytes > kMaxOptInSharedBytes) return kErrSharedMemory;
+  if (lay.bytes > kMaxSharedBytes) {  // opt in beyond 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(lay.bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned chunk = cols >= 16 ? 16u : static_cast<unsigned>(cols);
+  const bool rows16 = k % 4 == 0 && aligned_to(src, 16);
+  const bool w_vec = n % chunk == 0 && aligned_to(packed, chunk);
+  const bool out8 = n % 2 == 0 && aligned_to(out, 8);
+  const dim3 grid((n + cols - 1) / cols, (m + rows - 1) / rows);
+  kernel<<<grid, int4_tile_threads(rows, cols), lay.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<const int8_t*>(packed),
+      static_cast<const float*>(scale), static_cast<float*>(out), ts, m, k, n,
+      rows16, w_vec, out8);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 }  // namespace reprotorch

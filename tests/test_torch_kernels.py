@@ -22,10 +22,15 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import int4_matmul as i4_kernel
+from repro_torch.kernels import merged_spike_fc as mfc_kernel
 from repro_torch.kernels import rsnn_cell as cell_kernel
 from repro_torch.kernels import sparse_fc as sfc_kernel
 
 U_TOL = 1e-5  # K1: |du| <= U_TOL * (1 + |u|)
+# K2/K3 off the int8 domain (their fp32 path): |d| <= FP32_TOL * (1 + |y|),
+# float32 sums in another order
+FP32_TOL = 1e-5
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "int": ctypes.c_int, "long long": ctypes.c_longlong}
@@ -185,6 +190,97 @@ def test_pick_tiles_order():
                               P(9, 32, 200, 1024, 0, 9)]).rows == 9
     assert _build.pick_tiles([P(8, 32, 200, 1024, 10 * w, 0),
                               P(9, 32, 200, 1024, 0, 11)]).rows == 8
+
+
+@pytest.mark.parametrize("source,name,module", [
+    ("int4_matmul.cu", "int4_matmul_launch", i4_kernel),
+    ("merged_spike_fc.cu", "merged_spike_fc_launch", mfc_kernel)])
+def test_int4_launch_signatures_match_the_kernel_sources(source, name,
+                                                         module):
+    assert c_signature(source, name) == module._ARGS
+
+
+# K2's and K3's served shapes: (TS, rows, K, N) of the L0 and L1
+# feed-forward, the FC at merged_spike=False (one train, K2) and the
+# merged FC (K3, TS = 2)
+INT4_SERVED = {"l0": (1, 256, 40, 128), "l1": (1, 512, 128, 128),
+               "fc unmerged": (1, 256, 128, 1920),
+               "fc merged": (2, 256, 128, 1920)}
+
+
+def _int4_plans(ts, m, k, n):
+    if ts == 1:
+        return i4_kernel.tile_plans(m, k, n), i4_kernel.tile_plan(m, k, n)
+    return (mfc_kernel.tile_plans(ts, m, k, n),
+            mfc_kernel.tile_plan(ts, m, k, n))
+
+
+@pytest.mark.parametrize("ts", [1, 2, 4])
+@pytest.mark.parametrize("m,k,n", [(256, 40, 128), (512, 128, 128),
+                                   (256, 128, 1920), (200, 128, 203),
+                                   (1, 40, 1920)])
+def test_int4_tile_plans_fit(ts, m, k, n):
+    """Every K2/K3 plan at these shapes (up to TS = 4): tiles the launch
+    takes, shared memory as ``Int4TileLayout`` computes it (float32
+    trains, int8 rows and columns with K padded to 32 and 16 bytes a row,
+    the packed tile) and under 227 KB, and the grid."""
+    plans, picked = _int4_plans(ts, m, k, n)
+    assert len(plans) == 15 and picked in plans
+    kp = -(-k // 32) * 32
+    for p in plans:
+        assert p.rows in (16, 32, 64) and p.cols in (8, 16, 32, 64, 128)
+        assert p.shared_bytes == (4 * ts * p.rows * kp
+                                  + (p.rows + p.cols) * (kp + 16)
+                                  + k // 2 * p.cols)
+        assert p.shared_bytes <= _build.MAX_SHARED_BYTES
+        assert p.blocks == math.ceil(m / p.rows) * math.ceil(n / p.cols)
+
+
+@pytest.mark.parametrize("shape", INT4_SERVED)
+def test_int4_tile_plan_fills_the_card(shape):
+    """At every served shape the picked K2/K3 plan puts a block on each of
+    the 132 SMs and leaves room for a second."""
+    _, plan = _int4_plans(*INT4_SERVED[shape])
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("domain", ["fraction", "out of range"])
+def test_int4_matmul_off_the_int8_domain(width, domain):
+    """The plain K2 against the reference's Pallas kernel on inputs the
+    int8 tensor cores cannot take exactly, the domain of the CUDA kernel's
+    fp32 path: non-integers, and integers outside [-128, 127] in one row
+    (+-300), within ``FP32_TOL``."""
+    d, h, _, b = WIDTHS[width]
+    rng = np.random.default_rng(21)
+    x = rng.integers(-128, 128, size=(b, d)).astype(np.float32)
+    if domain == "fraction":
+        x = x * np.float32(0.37) + rng.standard_normal((b, d)).astype(
+            np.float32)
+    else:
+        x[1] = np.where(np.arange(d) % 2, -300.0, 300.0)
+    packed = _packed(rng, d, h)
+    scale = rng.uniform(0.001, 0.1, h).astype(np.float32)
+    got = ops.int4_matmul(_t(x), _t(packed), _t(scale)).numpy()
+    want = np.asarray(jops.int4_matmul(_j(x), _j(packed), _j(scale)))
+    assert np.all(np.abs(got - want) <= FP32_TOL * (1.0 + np.abs(want)))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_merged_spike_fc_off_the_int8_domain(width):
+    """The plain K3 against the reference's Pallas kernel on trains that
+    are not spikes (N(0, 1) values, merged far from integers), within
+    ``FP32_TOL``."""
+    _, h, n, b = WIDTHS[width]
+    rng = np.random.default_rng(22)
+    trains = rng.standard_normal((2, b, h)).astype(np.float32)
+    packed = _packed(rng, h, n)
+    scale = rng.uniform(0.001, 0.1, n).astype(np.float32)
+    got = ops.merged_spike_fc(_t(trains), _t(packed), _t(scale)).numpy()
+    want = np.asarray(jops.merged_spike_fc(_j(trains), _j(packed),
+                                           _j(scale)))
+    assert np.all(np.abs(got - want) <= FP32_TOL * (1.0 + np.abs(want)))
 
 
 def _near_threshold(stim, s_prev, w, u0, h0, beta, vth):
