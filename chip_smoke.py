@@ -18,12 +18,16 @@ Phases, each printed on its own line:
      the 3-D FC union) within ``TOL``; K8 (delta_step) with mask, held
      input and cached rows exact and recomputed rows within ``TOL``.
      K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row, and K9,
-     K4, K2 and K3 also at their tiles' edges (``check_tile_edges``: an
-     all-zero and a full row, N = 200 and 203, K9 at capacity 1; K2 at
-     K = 40 and 128 and K3 at TS = 1, 2 and 4, both again at B = 1, bit
-     for bit), and K2/K3 within ``TOL`` on non-integer inputs and on
-     integers outside [-128, 127] in one row, which take their fp32 path
-     (``check_int4_edges``); K8 at
+     K4, K5, K2 and K3 also at their tiles' edges (``check_tile_edges``:
+     an all-zero and a full row, N = 200 and 203, K9 at capacity 1; K5
+     over 1:4, 2:4 and 3:8 masks, bit-equal to its plain version and to
+     K4 on the same mask (``check_nm_edges``); K2 at K = 40 and 128 and K3
+     at TS = 1, 2 and 4, both again at B = 1, bit for bit), and K2/K3
+     within ``TOL`` on non-integer inputs and on integers outside
+     [-128, 127] in one row, which take their fp32 path
+     (``check_int4_edges``); K1 at B = 256, 200 and 1, H = 128, 256 and
+     100, TS = 1, 2 and 4, with the stride-0 and the dense stimulus
+     (``check_cell_edges``); K8 at
      ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
      row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
      in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
@@ -105,8 +109,12 @@ Phases, each printed on its own line:
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
-times every tile plan of K9, K4, K2 and K3 at the main path's shapes
-(``sweep_tiles``), the measurements their ``tile_plan`` rests on.
+times every tile plan of K1, K5, K9, K4, K2 and K3 at the main path's
+shapes (``sweep_tiles``), the measurements their ``tile_plan`` rests on.
+Phase 1 also prints ptxas's registers, stack and spills of each kernel
+(``_build.ptxas_report``) when this process built the library, and phase
+5 each kernel's time call by call (K1's L0 call, with its stride-0
+stimulus, and its L1 call apart).
 Any failure exits non-zero before that line.  The script imports neither
 JAX nor the JAX package: the machine with the card has no JAX.
 """
@@ -839,12 +847,12 @@ def check_refusals() -> None:
     not at the weights' precision (-5: an unknown mode; float weights with
     an int4 layout's FC; int4 weights with dense_float; an unknown
     precision) and an N:M geometry it cannot take (-6: n > m; entries not
-    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K9, K4, K2 and K3
-    refuse a tile plan they do not take (-7) and one whose tiles pass 227
-    KB of shared memory (-2)."""
+    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K1 refuses TS over
+    kMaxTs (-1); K1, K9, K4, K5, K2 and K3 refuse a tile plan they do not
+    take (-7) and one whose tiles pass 227 KB of shared memory (-2)."""
     from repro_torch.kernels import (_build, int4_matmul, megastep,
-                                     merged_spike_fc, nm_fc, sparse_fc,
-                                     spike_broadcast)
+                                     merged_spike_fc, nm_fc, rsnn_cell,
+                                     sparse_fc, spike_broadcast)
 
     fn = _build.function("megastep_launch", megastep._ARGS)
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
@@ -866,11 +874,23 @@ def check_refusals() -> None:
                 f"ts={ts}, h={h}, spike={spike}, nm={nm_n}:{nm_m}, "
                 f"entries={nnz}")
     fn = _build.function("nm_fc_launch", nm_fc._ARGS)
-    for nm_n, nm_m in ((0, 4), (2, 17)):
+    for want, nm_n, nm_m, entries, rows, cols in (
+            (-6, 0, 4, 64, 32, 64), (-6, 2, 17, 64, 32, 64),
+            (-7, *NM, 64, 16, 64), (-7, *NM, 64, 32, 48),
+            (-2, *NM, 8192, 64, 128)):
         refused(fn, (None, None, None, None, PRUNED.num_ts, SLOTS,
-                     PRUNED.hidden_dim, 64, fc, nm_n, nm_m, None), -6,
-                "nm_fc", f"nm={nm_n}:{nm_m}")
+                     PRUNED.hidden_dim, entries, fc, nm_n, nm_m, rows, cols,
+                     None), want, "nm_fc",
+                f"nm={nm_n}:{nm_m}, entries={entries}, rows={rows}, "
+                f"cols={cols}")
     h = PRUNED.hidden_dim
+    fn = _build.function("rsnn_cell_launch", rsnn_cell._ARGS)
+    for want, ts, hh, rows, cols in ((-1, 5, h, 8, 16), (-7, 2, h, 8, 8),
+                                     (-7, 2, h, 2, 64), (-7, 2, h, 8, 48),
+                                     (-2, 4, 8192, 32, 64)):
+        refused(fn, (None, 0, 0, *[None] * 8, ts, SLOTS, hh, rows, cols,
+                     None), want, "rsnn_cell",
+                f"ts={ts}, h={hh}, rows={rows}, cols={cols}")
     fn = _build.function("spike_broadcast_launch", spike_broadcast._SB_ARGS)
     for want, k, rows, cols in ((-7, h, 8, 48), (-7, h, 6, 32),
                                 (-2, 2048, 4, 32)):
@@ -928,7 +948,8 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
     N = 200 (not a multiple of a column tile) and 203 (nor of 4: the
     4-byte copies and stores), at capacity 1, ``TRUNC_CAPACITY`` and
     lossless; K4 (over the ``csc`` FC of ``a``, when it has one) at
-    N = 1920, 200 and 203, bit for bit."""
+    N = 1920, 200 and 203, bit for bit; with it K2/K3
+    (``check_int4_edges``) and K5 (``check_nm_edges``)."""
     from repro_torch.kernels import ref, sparse_fc, spike_broadcast
 
     s0 = edge_rows(a["s0"].reshape(-1, a["s0"].shape[-1]))
@@ -951,6 +972,7 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
     if "csc" not in a:
         return
     check_int4_edges(a, b, errs)
+    check_nm_edges(a["s1"], a["wfc"])
     idx, val, sc = a["csc"]
     for n in (idx.shape[1], 200, 203):
         args = (s1, idx[:, :n].contiguous(), val[:, :n].contiguous(),
@@ -961,6 +983,99 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
         check_call("sparse_fc", got, want, args, None)
     print(f"check sparse_fc tile edges B={b} (zero and full rows; N = "
           f"{idx.shape[1]}, 200, 203): bit-equal")
+
+
+def cell_edge_args(w: torch.Tensor, ts: int, b: int, h: int,
+                   broadcast: bool, gen: torch.Generator) -> tuple:
+    """K1's operands at ``ts`` x ``b`` x ``h`` with the recurrent weights
+    ``w`` cut to (h, h): 0/1 trains whose first row is all zeros and whose
+    second is full (``edge_rows``, where b > 1), a stimulus that is one
+    (B, H) row broadcast over TS (stride 0, the L0 call) or dense (L1),
+    random u0 and h0, beta in [0.5, 0.95] and vth in [0.5, 1.5]."""
+    dev = w.device
+    s = (torch.rand((ts, b, h), generator=gen) < 0.3).float()
+    if b > 1:
+        s = edge_rows(s)
+    stim = torch.randn((1 if broadcast else ts, b, h), generator=gen) * 0.8
+    return (stim.to(dev).expand(ts, b, h), s.to(dev),
+            w[:h, :h].contiguous(), torch.randn((b, h), generator=gen).to(dev),
+            (torch.rand((b, h), generator=gen) < 0.3).float().to(dev),
+            (0.5 + 0.45 * torch.rand(h, generator=gen)).to(dev),
+            (0.5 + torch.rand(h, generator=gen)).to(dev))
+
+
+def check_cell_edges(w128: torch.Tensor, w256: torch.Tensor,
+                     gen: torch.Generator, errs: dict) -> None:
+    """K1 at the edges of its tiles, within ``check_cell``'s rule: B = 256,
+    200 and 1; H = 128 (the int4 engine's dequantized recurrent weights
+    ``w128``), 256 (the float ``BASELINE`` ones, ``w256``) and a ragged 100
+    (``w128`` cut: not a multiple of 4, so the 4-byte copies); TS = 1, 2
+    and 4; with the stride-0 and the dense stimulus (``cell_edge_args``)."""
+    from repro_torch.kernels import ref, rsnn_cell
+
+    for b in (256, 200, 1):
+        for h, w in ((128, w128), (256, w256), (100, w128)):
+            for ts in (1, 2, 4):
+                for broadcast in (True, False):
+                    args = cell_edge_args(w, ts, b, h, broadcast, gen)
+                    got = rsnn_cell.rsnn_cell(*args)
+                    want = ref.rsnn_cell_ref(*args)
+                    torch.cuda.synchronize()
+                    errs["rsnn_cell"] = max(errs["rsnn_cell"], check_call(
+                        "rsnn_cell", got, want, args, None))
+    print(f"check rsnn_cell tile edges (B = 256, 200, 1; H = 128, 256, 100; "
+          f"TS = 1, 2, 4; stride-0 and dense stimulus; zero and full rows): "
+          f"ok, max_abs_err {errs['rsnn_cell']!r}")
+
+
+def nm_edge_fcs(w: np.ndarray, geometries=((1, 4), NM, (3, 8))) -> list:
+    """The FC weights ``w`` (H, N) quantized to int4 and masked N:M for each
+    (n, m) of ``geometries`` (the ``n`` largest |w| of every ``m`` rows),
+    as (n, m, packed, scale, indices, values): the group-packed N:M and the
+    same mask as padded CSC, numpy, as ``write_artifact`` writes them."""
+    q, scale = _quantize(w)
+    out = []
+    for n, m in geometries:
+        keep = _nm_mask(w, n, m)
+        qk = np.where(keep, q, 0).astype(np.int8)
+        csc = _csc(qk, keep)
+        out.append((n, m, _nm_groups(qk, keep, n, m)["packed"], scale,
+                    csc["indices"], csc["values"]))
+    return out
+
+
+def check_nm_edges(s: torch.Tensor, wfc: torch.Tensor) -> None:
+    """K5 at the edges of its tiles, bit-equal to its plain version and to
+    K4 over the same mask stored as padded CSC: trains ``s`` with an
+    all-zero and a full row (``edge_rows``), the FC weights ``wfc`` masked
+    1:4, 2:4 and 3:8 (``nm_edge_fcs``), the FC cut to N = 1920, 200 and
+    203; 3:8 also over H = 126, whose last group of rows is a tail of 6."""
+    from repro_torch.kernels import nm_fc, ref, sparse_fc
+
+    dev = s.device
+    w = wfc.cpu().numpy()
+    s = edge_rows(s)
+    cases = [(s, fc) for fc in nm_edge_fcs(w)]
+    cases += [(s[..., :126].contiguous(), fc)
+              for fc in nm_edge_fcs(w[:126], ((3, 8),))]
+    for x, (n, m, packed, scale, idx, val) in cases:
+        for cols in (packed.shape[1], 200, 203):
+            p, sc, i, v = (torch.from_numpy(
+                np.ascontiguousarray(t[:, :cols])).to(dev)
+                for t in (packed, scale, idx, val))
+            got = nm_fc.nm_fc(x, p, sc, n=n, m=m)
+            want = ref.nm_fc_ref(x, p, sc, n=n, m=m)
+            csc = sparse_fc.sparse_fc(x, i, v, sc)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, csc)):
+                raise AssertionError(
+                    f"nm_fc {n}:{m} H={x.shape[-1]} N={cols}: differs from "
+                    f"its plain version by {float((got - want).abs().max())}"
+                    f" and from sparse_fc on the same mask by "
+                    f"{float((got - csc).abs().max())}")
+    print(f"check nm_fc tile edges B={s.shape[1]} (zero and full rows; 1:4, "
+          f"2:4, 3:8, 3:8 over H = 126; N = 1920, 200, 203): bit-equal to "
+          f"its plain version and to sparse_fc on the same mask")
 
 
 def int4_edge_calls(a: dict) -> list:
@@ -1069,7 +1184,8 @@ def check_kernels(packs: dict, floats: dict, dev,
     at threshold 0 (first on a repeated frame: every row cached) and
     ``DELTA_THRESHOLD``; K9, K4, K2 and K3 at their tiles' edges
     (``check_tile_edges``), K2 and K3 also on their fp32 path; K5 also
-    against K4 on the same mask.  Then the
+    against K4 on the same mask, at the served shape and at its tiles'
+    edges; K1 at its tiles' edges (``check_cell_edges``).  Then the
     float engine's kernels with the float weights of ``floats`` (width
     name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
     K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too."""
@@ -1081,6 +1197,8 @@ def check_kernels(packs: dict, floats: dict, dev,
         check_tile_edges(a, b, errs)
         check_nm_against_csc(a, b)
         check_megastep(a, b, errs)
+    check_cell_edges(a["w0h"], float_kernel_inputs(
+        floats["BASELINE"], 1, gen, dev)["w0h"], gen, errs)
     for b in (256, 200):
         for width, params in floats.items():
             a = float_kernel_inputs(params, b, gen, dev)
@@ -1697,8 +1815,10 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
         # ~20: few enough calls that they all queue behind the sleep
         plain_reps = 4 if name.startswith("megastep") else \
             {"nm_fc": 10}.get(name, 50)
+        per_call = []
         for kern, plain, args in items:
-            ms += cuda_ms(kern, args)
+            per_call.append(cuda_ms(kern, args))
+            ms += per_call[-1]
             plain_ms += cuda_ms(plain, args, plain_reps)
             t_bytes, t_ops = bound_parts(name, args,
                                          ROW_FC_MODE.get(name, "csc"))
@@ -1716,16 +1836,18 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
             "operations", "library_ms": lib_ms})
         print(f"time {name} (per frame, B=256, {len(items)} call(s)): "
               f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, "
-              f"bound {bound!r} ms")
+              f"bound {bound!r} ms; by call {per_call!r}")
     for name, items in float_calls.items():  # K1, K8-K10 at H = 256
-        ms = sum(cuda_ms(kern, args) for kern, _, args in items)
+        per_call = [cuda_ms(kern, args) for kern, _, args in items]
+        ms = sum(per_call)
         plain_ms = sum(cuda_ms(plain, args) for _, plain, args in items)
         bound = sum(max(bound_parts(name, args)) for _, _, args in items)
         libs = [library_fn(name, args) for _, _, args in items]
         lib_ms = None if None in libs else sum(cuda_ms(*lib) for lib in libs)
         print(f"time {name} BASELINE float (per frame, B=256, {len(items)} "
               f"call(s)): {ms!r} ms, plain {plain_ms!r} ms, library "
-              f"{lib_ms!r} ms, bound {bound * 1e3!r} ms")
+              f"{lib_ms!r} ms, bound {bound * 1e3!r} ms; by call "
+              f"{per_call!r}")
     sweeps = [(kernel_inputs(packs, 256, gen, dev), FC_MODES, "")] + [
         (float_kernel_inputs(params, 256, gen, dev), ("dense_float",),
          f" {width}") for width, params in floats.items()]
@@ -1744,15 +1866,18 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
 
 
 def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
-    """Every tile plan K9, K4, K2 and K3 take at the main path's shapes
-    (B = 256, phase 5's inputs; K9 also with float weights at
-    ``BASELINE``; K2 on the L0 and L1 feed-forward), each launched through
-    its launch function, held against the plain version and timed as
-    phase 5 times a kernel; the plan the wrapper picks is marked.  What
-    ``tile_plan``'s choice rests on.  First the time of a one-element
-    ``zero_`` timed the same way: the floor of a launch."""
+    """Every tile plan K1, K5, K9, K4, K2 and K3 take at the main path's
+    shapes (B = 256, phase 5's inputs; K1 on its L0 and L1 calls and K9 on
+    both of its calls, at H = 128 and again with float weights at
+    ``BASELINE``; K5 over the 2:4 FC; K2 on the L0 and L1 feed-forward),
+    each launched through its launch function, held against the plain
+    version and timed as phase 5 times a kernel; the plan the wrapper
+    picks is marked.  What ``tile_plan``'s choice rests on.  First the
+    time of a one-element ``zero_`` timed the same way: the floor of a
+    launch."""
     from repro_torch.kernels import (_build, int4_matmul, merged_spike_fc,
-                                     ref, sparse_fc, spike_broadcast)
+                                     nm_fc, ref, rsnn_cell, sparse_fc,
+                                     spike_broadcast)
 
     gen = torch.Generator().manual_seed(seed + 7)
     a = kernel_inputs(packs, 256, gen, dev)
@@ -1777,6 +1902,33 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
                            idx.shape[0], idx.shape[1], rows, cols,
                            _build.stream(dev)), "sparse_fc")
         return out
+
+    k1_fn = _build.function("rsnn_cell_launch", rsnn_cell._ARGS)
+    k5_fn = _build.function("nm_fc_launch", nm_fc._ARGS)
+
+    def k1(stim, s, w, u0, h0, beta, vth, rows, cols):
+        ts, b, h = s.shape
+        spikes = torch.empty_like(s)
+        u = torch.empty_like(u0)
+        _build.check(k1_fn(stim.data_ptr(), stim.stride(0), stim.stride(1),
+                           s.data_ptr(), w.data_ptr(), u0.data_ptr(),
+                           h0.data_ptr(), beta.data_ptr(), vth.data_ptr(),
+                           spikes.data_ptr(), u.data_ptr(), ts, b, h, rows,
+                           cols, _build.stream(dev)), "rsnn_cell")
+        return spikes, u
+
+    def k5(s, p, sc, rows, cols):
+        ts, b, h = s.shape
+        out = torch.empty((b, p.shape[1]), device=dev)
+        _build.check(k5_fn(s.data_ptr(), p.data_ptr(), sc.data_ptr(),
+                           out.data_ptr(), ts, b, h, p.shape[0], p.shape[1],
+                           *NM, rows, cols, _build.stream(dev)), "nm_fc")
+        return out
+
+    def k1_case(what, stim, s, w, u0, h0, beta, vth):
+        args = (stim, s, w, u0, h0, beta, vth)
+        return (f"rsnn_cell {what}", k1, args, rsnn_cell.tile_plans(*s.shape),
+                ref.rsnn_cell_ref(*args))
 
     i4_fn = _build.function("int4_matmul_launch", int4_matmul._ARGS)
     mfc_fn = _build.function("merged_spike_fc_launch", merged_spike_fc._ARGS)
@@ -1809,7 +1961,15 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
                 ref.spike_broadcast_ref(x3, w))
 
     s1, (idx, val, sc) = a["s1"], a["csc"]
-    cases = [k9_case("L1 feed-forward", a["s0"].reshape(-1, 128), a["w1x"]),
+    cells = [k1_case(f"{layer}{width}", x[f"stim{i}"], x[f"s{i}"],
+                     x[f"w{i}h"], x["u0"], x["h0"], x["beta"], x["vth"])
+             for x, width in ((a, ""), (fa, " BASELINE float"))
+             for i, layer in enumerate(("L0 (stride-0 stimulus)", "L1"))]
+    cases = cells + [
+             ("nm_fc", k5, (s1, *a["nm"]),
+              nm_fc.tile_plans(*s1.shape, *a["nm"][0].shape),
+              ref.nm_fc_ref(s1, *a["nm"], n=NM[0], m=NM[1])),
+             k9_case("L1 feed-forward", a["s0"].reshape(-1, 128), a["w1x"]),
              k9_case("FC union", a["s1"], a["wfc"]),
              k9_case("L1 feed-forward BASELINE float",
                      fa["s0"].reshape(-1, 256), fa["w1x"]),
@@ -1877,8 +2037,8 @@ def main(argv=None) -> int:
                     help="stop after phase 2 (build and kernel checks)")
     ap.add_argument("--sweep-tiles", action="store_true",
                     help="with --kernels-only: time every tile plan of "
-                         "spike_broadcast, sparse_fc, int4_matmul and "
-                         "merged_spike_fc before stopping")
+                         "rsnn_cell, nm_fc, spike_broadcast, sparse_fc, "
+                         "int4_matmul and merged_spike_fc before stopping")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1902,6 +2062,14 @@ def main(argv=None) -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0!r} s (nvcc "
           f"{_build.build_seconds!r} s)")
+    for src, out in sorted(_build.compiler_output.items()):
+        for kernel, regs, stack, spill_st, spill_ld in \
+                _build.ptxas_report(out):
+            if "int4_tile_kernel" in kernel and src not in (
+                    "int4_matmul.cu", "merged_spike_fc.cu"):
+                continue  # common.cuh's, instantiated in every source
+            print(f"ptxas {src} {kernel}: {regs} registers, {stack} B "
+                  f"stack, spills {spill_st} B stored / {spill_ld} B loaded")
 
     utts = utterances(args.seed, STREAMS)
     with tempfile.TemporaryDirectory() as tmp:

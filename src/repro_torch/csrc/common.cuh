@@ -6,17 +6,18 @@
 // below, without launching) so that the Python wrapper raises on a refused
 // launch.  No kernel allocates or synchronises.
 //
-// Tiling: K1, K5, K8, K10 and K6/K7 put one thread on each output column
-// (kCols columns a block, neighbouring threads on neighbouring addresses,
-// so every weight row is one coalesced load) and kRows batch rows in a
-// block, so each weight element loaded from global memory serves kRows
-// rows; the rows' operand vectors sit in shared memory.  K9
-// (spike_broadcast), K4 (sparse_fc), K2 (int4_matmul) and K3
+// Tiling: K8, K10 and K6/K7 put one thread on each output column (kCols
+// columns a block, neighbouring threads on neighbouring addresses, so every
+// weight row is one coalesced load) and kRows batch rows in a block, so
+// each weight element loaded from global memory serves kRows rows; the
+// rows' operand vectors sit in shared memory.  K1 (rsnn_cell), K9
+// (spike_broadcast), K4 (sparse_fc), K5 (nm_fc), K2 (int4_matmul) and K3
 // (merged_spike_fc) take their tiles from a plan their wrappers choose
-// (tile_plan), stage them with cp.async and say how in their sources; K2
-// and K3 share int4_tile_kernel below, on the int8 tensor cores.  Ragged
-// edges (B not a multiple of the rows a block, N not one of its columns)
-// are masked, not asserted.
+// (tile_plan), stage them with cp.async and say how in their sources; K4
+// and K5 share the gather tile below (stage_merged_transposed,
+// gather_tile), K2 and K3 int4_tile_kernel, on the int8 tensor cores.
+// Ragged edges (B not a multiple of the rows a block, N not one of its
+// columns) are masked, not asserted.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,8 +31,8 @@ constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
 // megastep (K6/K7): threads a block (one per hidden column, all of them on
 // the FC columns); the dynamic shared memory a kernel may opt in to, the
-// H100's per-block maximum of 227 KB (megastep, spike_broadcast, sparse_fc,
-// int4_matmul, merged_spike_fc)
+// H100's per-block maximum of 227 KB (megastep, rsnn_cell, spike_broadcast,
+// sparse_fc, nm_fc, int4_matmul, merged_spike_fc)
 constexpr int kMegaThreads = 256;
 constexpr size_t kMaxOptInSharedBytes = 227 * 1024;
 constexpr size_t kMaxMegastepSharedBytes = kMaxOptInSharedBytes;
@@ -41,39 +42,23 @@ constexpr size_t kMaxMegastepSharedBytes = kMaxOptInSharedBytes;
 constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
 constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
                                       // (kMaxOptInSharedBytes for the kernels
-                                      // that opt in: megastep, spike_broadcast,
-                                      // sparse_fc, int4_matmul,
-                                      // merged_spike_fc)
+                                      // that opt in: megastep, rsnn_cell,
+                                      // spike_broadcast, sparse_fc, nm_fc,
+                                      // int4_matmul, merged_spike_fc)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
                                       // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
-constexpr int kErrTilePlan = -7;      // spike_broadcast, sparse_fc, int4_matmul,
-                                      // merged_spike_fc: a tile plan (rows,
-                                      // columns a block) they do not take
+constexpr int kErrTilePlan = -7;      // rsnn_cell, spike_broadcast, sparse_fc,
+                                      // nm_fc, int4_matmul, merged_spike_fc: a
+                                      // tile plan (rows, columns a block) they
+                                      // do not take
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
   return static_cast<float>(((v & 0xF) ^ 8) - 8);
-}
-
-// Stage rows [row0, row0 + rows) of sum_t spikes[t] into sh[rows][h].
-// spikes is (ts, b, h) contiguous.  The sum runs t = 0, 1, ... as the
-// reference's sum over the time axis; spikes are 0/1, so it is exact.
-__device__ __forceinline__ void stage_merged_rows(
-    const float* __restrict__ spikes, int ts, int b, int h, int row0,
-    int rows, float* sh) {
-  for (int i = threadIdx.x; i < rows * h; i += blockDim.x) {
-    const int r = i / h;
-    const int k = i - r * h;
-    float m = 0.0f;
-    for (int t = 0; t < ts; ++t) {
-      m = __fadd_rn(m, spikes[(static_cast<long long>(t) * b + row0 + r) * h + k]);
-    }
-    sh[i] = m;
-  }
 }
 
 // acc[r] += sum_k rows_sh[r][k] * unpack(packed)[k][col] for one column.
@@ -205,6 +190,179 @@ __device__ __forceinline__ void stage_column_tile(const T* __restrict__ src,
                 in ? 4 : 0);
     }
   }
+}
+
+// ------------------------------------------- zero-skip gather tiles (K4, K5)
+//
+// out[b][c] = (sum_e merged[b][row(e, c)] * value(e, c)) * scale[c], where
+// merged = sum_t spikes[t].  A block owns 32 x kRt batch rows by `cols`
+// output columns.  Its kernel stages the rows' merged spikes transposed
+// (stage_merged_transposed) and its columns' entries as (offset in m,
+// float value) tiles, entries x cols each (K4 from padded CSC, K5 decoded
+// from the one-byte N:M entries); gather_tile then runs the products.
+
+constexpr int kGatherWarps = 8;
+constexpr int kGatherThreads = 32 * kGatherWarps;
+
+// Stage rows [row0, row0 + kRowsB) of sum_t spikes[t] transposed into
+// m_sh[h][kRowsB + 1] (rows past b are zeros).  Warp w takes rows 4w..4w+3,
+// 4w+32.., lanes run along h, so the reads are coalesced; the loads of four
+// rows, four 32-column chunks and two trains go ahead of their adds (t = 0,
+// 1, ..., as the reference sums over the time axis; spikes are 0/1, so the
+// sum is exact); the pad column keeps the transposed writes free of bank
+// conflicts.  spikes is (ts, b, h) contiguous.
+template <int kRowsB>
+__device__ __forceinline__ void stage_merged_transposed(
+    const float* __restrict__ spikes, int ts, int b, int h, int row0,
+    float* m_sh) {
+  constexpr int kLd = kRowsB + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r0 = 4 * warp; r0 < kRowsB; r0 += 4 * kGatherWarps) {
+    for (int k0 = 0; k0 < h; k0 += 32 * 4) {
+      float m[4][4] = {};
+      for (int t0 = 0; t0 < ts; t0 += 2) {
+        float a[2][4][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int k = k0 + 32 * c + lane;
+              const int row = row0 + r0 + r;
+              a[t][r][c] = (t0 + t < ts && row < b && k < h)
+                               ? spikes[(static_cast<long long>(t0 + t) * b + row) * h + k]
+                               : 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (t0 + t < ts) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) m[r][c] = __fadd_rn(m[r][c], a[t][r][c]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = k0 + 32 * c + lane;
+          if (k < h) m_sh[k * kLd + r0 + r] = m[r][c];
+        }
+      }
+    }
+  }
+}
+
+// The products of one block's tile, all kGatherThreads threads taking
+// part: idx_sh and val_sh are [entries][cols], each an entry's offset in
+// m_sh (row x (kRowsB + 1)) and its value (an entry that adds nothing holds
+// offset 0 and value 0); m_sh as stage_merged_transposed leaves it.  Each
+// warp takes four columns at a time: lane l owns rows l, l + 32, ..., so an
+// entry's (offset, value) quad is one shared broadcast for the whole warp,
+// and the warp's gathers m[row][l + 32 t] are 32 adjacent words, free of
+// bank conflicts; four entries' loads go ahead of their multiply-adds, with
+// no branch between them.  Entries run in ascending order, each an fmaf
+// into a float sum, then one __fmul_rn by the scale.  out16: n a multiple
+// of 4 and out 16-byte aligned (float4 stores).
+template <int kRt>
+__device__ __forceinline__ void gather_tile(
+    const int* idx_sh, const float* val_sh, const float* m_sh, int entries,
+    int cols, int c0, int row0, int b, int n,
+    const float* __restrict__ scale, float* __restrict__ out, bool out16) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quads = cols >> 2;
+  const float* m_lane = m_sh + lane;
+  for (int q = warp; q < quads; q += kGatherWarps) {
+    const int c = c0 + 4 * q;
+    if (c >= n) break;  // warp-uniform: later quads lie further right
+    const int4* iq = reinterpret_cast<const int4*>(idx_sh) + q;
+    const float4* vq = reinterpret_cast<const float4*>(val_sh) + q;
+    float acc[4][kRt];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int t = 0; t < kRt; ++t) acc[j][t] = 0.0f;
+    }
+    // four entries' (offset, value) quads, then their 16 x kRt gathers,
+    // are in flight before the multiply-adds, which run in entry order
+    int e = 0;
+    for (; e + 4 <= entries; e += 4) {
+      int4 at[4];
+      float4 val[4];
+      float m[4][4][kRt];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        at[u] = iq[(e + u) * quads];
+        val[u] = vq[(e + u) * quads];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int a4[4] = {at[u].x, at[u].y, at[u].z, at[u].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int t = 0; t < kRt; ++t) m[u][j][t] = m_lane[a4[j] + 32 * t];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float v4[4] = {val[u].x, val[u].y, val[u].z, val[u].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int t = 0; t < kRt; ++t) acc[j][t] = fmaf(m[u][j][t], v4[j], acc[j][t]);
+        }
+      }
+    }
+    for (; e < entries; ++e) {
+      const int4 at = iq[e * quads];
+      const float4 val = vq[e * quads];
+      const int a4[4] = {at.x, at.y, at.z, at.w};
+      const float v4[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int t = 0; t < kRt; ++t) acc[j][t] = fmaf(m_lane[a4[j] + 32 * t], v4[j], acc[j][t]);
+      }
+    }
+    float s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = c + j < n ? scale[c + j] : 0.0f;
+#pragma unroll
+    for (int t = 0; t < kRt; ++t) {
+      const int row = row0 + lane + 32 * t;
+      if (row >= b) continue;
+      float* o = out + static_cast<long long>(row) * n + c;
+      if (out16 && c + 4 <= n) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(__fmul_rn(acc[0][t], s[0]), __fmul_rn(acc[1][t], s[1]),
+                        __fmul_rn(acc[2][t], s[2]), __fmul_rn(acc[3][t], s[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c + j < n) o[j] = __fmul_rn(acc[j][t], s[j]);
+        }
+      }
+    }
+  }
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory when that is more
+// than kMaxSharedBytes; a CUDA error as a status, else 0.
+template <typename Kernel>
+inline int opt_in_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= kMaxSharedBytes) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 // ------------------------------------------- int8 tensor-core tiles (K2, K3)
@@ -491,12 +649,8 @@ inline int launch_int4_tiles(const void* src, const void* packed,
   if (kernel == nullptr) return kErrTilePlan;
   const Int4TileLayout lay(ts, rows, cols, k);
   if (lay.bytes > kMaxOptInSharedBytes) return kErrSharedMemory;
-  if (lay.bytes > kMaxSharedBytes) {  // opt in beyond 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(lay.bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int opt = opt_in_shared(kernel, lay.bytes);
+  if (opt != 0) return opt;
   const unsigned chunk = cols >= 16 ? 16u : static_cast<unsigned>(cols);
   const bool rows16 = k % 4 == 0 && aligned_to(src, 16);
   const bool w_vec = n % chunk == 0 && aligned_to(packed, chunk);

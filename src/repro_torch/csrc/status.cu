@@ -8,7 +8,8 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrSharedMemory:
       return "the block's operand rows exceed its shared memory "
              "(kMaxSharedBytes; kMaxOptInSharedBytes for megastep, "
-             "spike_broadcast, sparse_fc, int4_matmul and merged_spike_fc)";
+             "rsnn_cell, spike_broadcast, sparse_fc, nm_fc, int4_matmul and "
+             "merged_spike_fc)";
     case reprotorch::kErrCapacity:
       return "event-list capacity outside [1, k]";
     case reprotorch::kErrTooWide:
@@ -21,10 +22,12 @@ extern "C" const char* reprotorch_error_string(int code) {
       return "an N:M geometry the kernel does not take (needs 1 <= n <= m "
              "<= 16 and entries a multiple of n)";
     case reprotorch::kErrTilePlan:
-      return "a tile plan the kernel does not take (spike_broadcast: rows "
-             ">= 1, 32, 64 or 128 columns; sparse_fc: 32 or 64 rows, columns "
-             "a multiple of 32; int4_matmul, merged_spike_fc: 16, 32 or 64 rows, "
-             "8, 16, 32, 64 or 128 columns)";
+      return "a tile plan the kernel does not take (rsnn_cell: 4, 8, 16 or "
+             "32 rows, 16, 32 or 64 neurons, a warp at least; spike_broadcast: "
+             "rows >= 1, 32, 64 or 128 columns; sparse_fc: 32 or 64 rows, "
+             "columns a multiple of 32; nm_fc: 32 or 64 rows, 32, 64 or 128 "
+             "columns; int4_matmul, merged_spike_fc: 16, 32 or 64 rows, 8, 16, "
+             "32, 64 or 128 columns)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

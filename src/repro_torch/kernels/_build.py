@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +34,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "libreprotorch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: ptxas reports each kernel's registers, stack and spills
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 SM_COUNT = 132  # streaming multiprocessors of the H100 SXM
 MAX_SHARED_BYTES = 227 * 1024  # a block's dynamic shared memory, opted in
@@ -48,6 +51,8 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
 build_seconds: float | None = None  # wall time of this process's build
+# source name -> nvcc's output when this process built the library
+compiler_output: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -84,8 +89,9 @@ def _compile(sources: list[Path], lib_path: Path) -> None:
         failed = []
         for src, proc in zip(sources, procs):
             out, _ = proc.communicate()
+            compiler_output[src.name] = out.decode(errors="replace")
             if proc.returncode != 0:
-                failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
+                failed.append(f"{src.name}:\n{compiler_output[src.name]}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / LIB_NAME
@@ -120,6 +126,26 @@ def library() -> ctypes.CDLL:
             lib.reprotorch_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def ptxas_report(output: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, stack bytes, spill store bytes, spill load
+    bytes) of each entry function in one source's ``-Xptxas -v`` output,
+    kernels by their mangled names."""
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *frame))
+            name, frame = None, (0, 0, 0)
+    return rows
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:

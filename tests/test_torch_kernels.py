@@ -24,6 +24,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import int4_matmul as i4_kernel
 from repro_torch.kernels import merged_spike_fc as mfc_kernel
+from repro_torch.kernels import nm_fc as nm_kernel
 from repro_torch.kernels import rsnn_cell as cell_kernel
 from repro_torch.kernels import sparse_fc as sfc_kernel
 
@@ -198,6 +199,44 @@ def test_pick_tiles_order():
 def test_int4_launch_signatures_match_the_kernel_sources(source, name,
                                                          module):
     assert c_signature(source, name) == module._ARGS
+
+
+@pytest.mark.parametrize("source,name,module", [
+    ("rsnn_cell.cu", "rsnn_cell_launch", cell_kernel),
+    ("nm_fc.cu", "nm_fc_launch", nm_kernel)])
+def test_tiled_launch_signatures_match_the_kernel_sources(source, name,
+                                                          module):
+    assert c_signature(source, name) == module._ARGS
+
+
+@pytest.mark.parametrize("ts", [1, 2, 4])
+@pytest.mark.parametrize("b", [256, 200, 1])
+@pytest.mark.parametrize("h", [40, 128, 256])
+def test_rsnn_cell_tile_plans_fit(ts, b, h):
+    """Every K1 plan at these shapes: tiles the launch takes (4-32 rows by
+    16-64 neurons, at least one warp of 1 x 2 accumulator tiles), shared
+    memory as ``CellLayout`` computes it (W's column tile and the rows'
+    trains, k padded to 4, each train row 4 floats longer) and under 227
+    KB, and the grid; the picked plan is one of them."""
+    plans = cell_kernel.tile_plans(ts, b, h)
+    assert cell_kernel.tile_plan(ts, b, h) in plans
+    kp = -(-h // 4) * 4
+    for p in plans:
+        assert p.rows in (4, 8, 16, 32) and p.cols in (16, 32, 64)
+        assert p.rows * p.cols // 2 >= 32
+        assert p.shared_bytes == 4 * (kp * p.cols + ts * p.rows * (kp + 4))
+        assert p.shared_bytes <= _build.MAX_SHARED_BYTES
+        assert p.blocks == math.ceil(h / p.cols) * math.ceil(b / p.rows)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_rsnn_cell_tile_plan_fills_the_card(h):
+    """At the served shapes (B = 256, TS = 2; PRUNED's H = 128 and
+    BASELINE's 256) K1's grid puts a block on each of the 132 SMs and
+    leaves room for a second."""
+    plan = cell_kernel.tile_plan(2, 256, h)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
 
 
 # K2's and K3's served shapes: (TS, rows, K, N) of the L0 and L1

@@ -180,6 +180,53 @@ def test_cpu_tensor_runs_plain_version_without_launching():
         nm_kernel.nm_fc(*args, n=2, m=4)
 
 
+def _entries(h, n, m):
+    return -(-h // m) * n
+
+
+@pytest.mark.parametrize("nm", NMS, ids=lambda v: f"{v[0]}of{v[1]}")
+@pytest.mark.parametrize("ts", [1, 2, 4])
+@pytest.mark.parametrize("b", [256, 200, 1])
+@pytest.mark.parametrize("h", [40, 128, 256])
+def test_nm_fc_tile_plans_fit(nm, ts, b, h):
+    """Every K5 plan for ``h`` rows packed N:M (2:4 gives 64 entries a
+    column at h = 128; 3:8 has a tail group at h = 40 and, over the rows,
+    wherever h is not a multiple of 8) and N = 1920: K4's tiles (32 or 64
+    rows by 32, 64 or 128 columns), shared memory as ``NmTileLayout``
+    computes it (the packed tile, its decoded offsets and values, the
+    merged rows transposed with one pad column) and under 227 KB, and the
+    grid; the picked plan is one of them."""
+    entries = _entries(h, *nm)
+    plans = nm_kernel.tile_plans(ts, b, h, entries, 1920)
+    assert nm_kernel.tile_plan(ts, b, h, entries, 1920) in plans
+    assert len(plans) == 6
+    for p in plans:
+        assert p.rows in (32, 64) and p.cols in (32, 64, 128)
+        assert p.shared_bytes == (9 * entries * p.cols
+                                  + 4 * h * (p.rows + 1))
+        assert p.shared_bytes <= _build.MAX_SHARED_BYTES
+        assert p.blocks == -(-1920 // p.cols) * -(-b // p.rows)
+
+
+@pytest.mark.parametrize("nm", NMS, ids=lambda v: f"{v[0]}of{v[1]}")
+def test_nm_fc_tile_plan_fills_the_card(nm):
+    """At the served shape (B = 256, TS = 2, PRUNED's H = 128, N = 1920)
+    K5's grid puts a block on each of the 132 SMs and leaves room for a
+    second, at every geometry."""
+    plan = nm_kernel.tile_plan(2, 256, 128, _entries(128, *nm), 1920)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
+
+
+def test_nm_fc_entries_of_a_tail_group():
+    """3:8 over 18 rows: two full groups and a tail of 2 rows, 9 entries a
+    column, as the reference packs them and K5's plans count them."""
+    t, _ = _packed(18, 12, 3, 8, seed=1)
+    assert np.asarray(t.packed).shape[0] == _entries(18, 3, 8) == 9
+    plan = nm_kernel.tile_plan(2, 4, 18, 9, 12)
+    assert plan.shared_bytes == 9 * 9 * plan.cols + 4 * 18 * (plan.rows + 1)
+
+
 # ------------------------------------------------------------- megastep
 
 
