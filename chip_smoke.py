@@ -42,9 +42,13 @@ Phases, each printed on its own line:
      layer weights and the ``dense_float`` FC at ``BASELINE`` and
      ``PRUNED`` widths by the same rule, the logits within ``TOL``
      (float32 sums in another order), K7 bit-equal to K6; and K1, K8-K10
-     at H = 256 (``BASELINE``), a width no int4 path reaches.  The launch
-     functions refuse the shapes, N:M geometries and pairs of weight
-     precision and FC mode they cannot take (``check_refusals``);
+     at H = 256 (``BASELINE``), a width no int4 path reaches.  K6/K7 again
+     at the edges of their plans in all four FC modes
+     (``check_megastep_edges``: B = 256, 200 and 1; H = 128, 256 and 100;
+     TS = 1, 2 and 4; N = 1920 and 203; F = 1 and ``MEGA_FRAMES``).  The
+     launch functions refuse the shapes, N:M geometries, plans and pairs
+     of weight precision and FC mode they cannot take
+     (``check_refusals``);
   3. three PRUNED int4 artifacts (40 -> 128 -> 128 -> 1920, TS = 2) made
      from ``--seed`` with numpy and written in the reference's schema-v2
      format (``ARTIFACTS``): the FC pruned 40% at random into padded CSC,
@@ -101,16 +105,20 @@ Phases, each printed on its own line:
      float FC at the float32 rate).  A gathered or gated kernel counts
      what this run's data needs (``work``).  K6/K7 have a row each for
      the ``csc``, ``nm`` and ``dense_int4`` FC, as served, and one for
-     ``dense_float`` at ``BASELINE``; they are timed in every FC mode over
-     chunks of 1 and ``MEGA_FRAMES`` frames, ``dense_float`` at both
-     widths, and K1, K8-K10 again with float weights at H = 256.  Every
+     ``dense_float`` at ``BASELINE``, each with the plan it ran (slots x
+     CTAs a cluster x FC columns a sub-tile, the grid's CTAs, shared
+     bytes a CTA, clusters the card holds at once); they are timed in
+     every FC mode over chunks of 1 and ``MEGA_FRAMES`` frames,
+     ``dense_float`` at both widths, and K1, K8-K10 again with float
+     weights at H = 256.  Every
      configuration over the ``csc`` artifact is then served once more, in
      reverse order, for the spread of frames/s between runs.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
-times every tile plan of K1, K5, K9, K4, K2 and K3 at the main path's
-shapes (``sweep_tiles``), the measurements their ``tile_plan`` rests on.
+times every tile plan of K6/K7 (``sweep_megastep``), K1, K5, K9, K4, K2
+and K3 at the main path's shapes (``sweep_tiles``), the measurements
+their ``tile_plan`` rests on.
 Phase 1 also prints ptxas's registers, stack and spills of each kernel
 (``_build.ptxas_report``) when this process built the library, and phase
 5 each kernel's time call by call (K1's L0 call, with its stride-0
@@ -129,6 +137,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
@@ -635,6 +644,37 @@ def megastep_pair(fc_mode: str, spike: bool):
             functools.partial(ref.megastep_ref, **kw))
 
 
+def mega_shape(args, fc_mode: str, spike: bool) -> tuple:
+    """The shape ``megastep.resident_plan`` and ``plan_info`` take for a
+    call on ``args``: (ts, b, d, h, precision, fc_mode, entries, nm_n,
+    nm_m, spike)."""
+    x, s0, *_, fc = args
+    ts, b, h = s0.shape
+    entries = fc[0].shape[0] if fc_mode in ("csc", "nm") else 0
+    nm = NM if fc_mode == "nm" else (0, 0)
+    return (ts, b, x.shape[2], h,
+            "float" if fc_mode == "dense_float" else "int4", fc_mode,
+            entries, *nm, spike)
+
+
+def plan_text(plan, args, fc_mode: str, spike: bool) -> str:
+    """A K6/K7 plan as phase 5 and the sweep print it: slots x CTAs a
+    cluster x FC columns a sub-tile, the grid's CTAs, a CTA's shared
+    bytes and the clusters the card holds at once.  Raises unless the
+    launch's shared bytes are the ones ``tile_plans`` computed."""
+    from repro_torch.kernels import megastep
+
+    ts, b, d, h, prec, mode, entries, nm_n, nm_m, sp = mega_shape(
+        args, fc_mode, spike)
+    smem, clusters = megastep.plan_info(plan, ts, b, d, h, prec, mode,
+                                        entries, nm_n, nm_m, sp)
+    if smem != plan.shared_bytes:
+        raise AssertionError(f"megastep plan {plan}: the launch takes "
+                             f"{smem} B of shared memory a CTA")
+    return (f"{plan.rows}x{plan.cluster}x{plan.cols} ({plan.ctas} CTAs, "
+            f"{smem} B shared, {clusters} clusters resident)")
+
+
 def mega_row(name: str, fc_mode: str) -> str:
     """The kernel line's row of K6/K7 (``name``) in ``fc_mode``."""
     return {"nm": f"{name}_nm", "dense_int4": f"{name}_dense_int4",
@@ -820,6 +860,105 @@ def check_megastep(a: dict, b: int, errs: dict,
                   f"fc_mode={fc_mode} F={frames}: bit-equal")
 
 
+EDGE_B = (256, 200, 1)  # megastep edges: slots (32-slot tiles, ragged)
+EDGE_H = (128, 256, 100)  # hidden widths (100: not a multiple of a cluster)
+EDGE_TS = (1, 2, 4)
+
+
+def megastep_edge_args(params: dict, fc_mode: str, b: int, h: int, ts: int,
+                       n: int, frames: int, rng: np.random.Generator,
+                       dev) -> tuple:
+    """megastep's operands at an edge shape: the float weights of
+    ``params`` (``float_params`` at ``BASELINE``) cut to ``h`` hidden and
+    ``n`` FC columns, as float32 (``dense_float``) or quantized to int4
+    (the FC as dense nibbles, padded CSC of a random 75% prune, or N:M
+    ``NM`` of its largest |w|); 8-bit integer frames, random 0/1 trains
+    and last spikes whose first slot row is all zeros and second full
+    (where b > 1), random potentials, beta in [0.5, 0.95] and vth in
+    [0.5, 1.5]."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def spikes(*shape):
+        s = (rng.random(shape) < 0.3).astype(np.float32)
+        if b > 1:
+            s[..., 0, :], s[..., 1, :] = 0.0, 1.0
+        return s
+
+    ws = [params[f"params['{name}']"] for name in LAYERS]
+    d = ws[0].shape[0]
+    ws = [ws[0][:, :h]] + [w[:h, :h] for w in ws[1:4]] + [ws[4][:h, :n]]
+    x = rng.integers(-128, 128, (frames, b, d)).astype(np.float32)
+    state = (t(x), t(spikes(ts, b, h)),
+             t(rng.standard_normal((b, h), dtype=np.float32)),
+             t(spikes(b, h)), t(spikes(ts, b, h)),
+             t(rng.standard_normal((b, h), dtype=np.float32)),
+             t(spikes(b, h)))
+    lif = tuple(t(a) for _ in range(2) for a in (
+        0.5 + 0.45 * rng.random(h, dtype=np.float32),
+        0.5 + rng.random(h, dtype=np.float32)))
+    if fc_mode == "dense_float":
+        return (*state, *lif, tuple(t(w) for w in ws[:4]), (t(ws[4]),))
+    wq = []
+    for w in ws[:4]:
+        q, sc = _quantize(w)
+        wq += [t(_pack_int4(q)), t(sc.reshape(-1))]
+    q, sc = _quantize(ws[4])
+    sc = t(sc.reshape(-1))
+    if fc_mode == "dense_int4":
+        fc = (t(_pack_int4(q)), sc)
+    elif fc_mode == "csc":
+        keep = rng.random(q.shape) >= 0.75
+        c = _csc(np.where(keep, q, 0).astype(np.int8), keep)
+        fc = (t(c["indices"]), t(c["values"]), sc)
+    else:
+        keep = _nm_mask(ws[4], *NM)
+        fc = (t(_nm_groups(np.where(keep, q, 0).astype(np.int8), keep,
+                           *NM)["packed"]), sc)
+    return (*state, *lif, tuple(wq), fc)
+
+
+def check_megastep_edges(params: dict, dev, seed: int, errs: dict,
+                         sizes=(EDGE_B, EDGE_H, EDGE_TS)) -> None:
+    """K6 and K7 at the edges of their plans (``megastep_edge_args``), in
+    every FC mode at its precision: each (B, H, TS) of ``sizes`` (by
+    default B = 256, 200 and 1; H = 128, 256 and 100; TS = 1, 2 and 4),
+    N = 1920 and 203 and F = 1 and ``MEGA_FRAMES`` in turn, each held
+    against its plain version by ``check_mega``'s rule and K7 against K6
+    bit for bit."""
+    rng = np.random.default_rng(seed + 11)
+    for fc_mode in (*FC_MODES, "dense_float"):
+        cases = list(itertools.product(*sizes))
+        for i, (b, h, ts) in enumerate(cases):
+            n = 203 if i % 2 else 1920
+            frames = MEGA_FRAMES if i % 3 == 0 else 1
+            args = megastep_edge_args(params, fc_mode, b, h, ts, n, frames,
+                                      rng, dev)
+            near = megastep_near(args)
+            outs = []
+            for spike in (False, True):
+                name = "megastep_spike" if spike else "megastep"
+                kern, plain = megastep_pair(fc_mode, spike)
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                e = check_mega(f"{name} B={b} H={h} TS={ts} N={n} "
+                               f"F={frames} fc_mode={fc_mode}", got, want,
+                               near, fc_mode == "dense_float")
+                row = mega_row(name, fc_mode)
+                errs[row] = max(errs.get(row, 0.0), *e.values())
+                outs.append(got)
+            if not all(torch.equal(p, q) for p, q in zip(*outs)):
+                raise AssertionError(f"megastep B={b} H={h} TS={ts} N={n} "
+                                     f"F={frames} fc_mode={fc_mode}: K7 "
+                                     f"differs from K6")
+        print(f"check megastep, megastep_spike edges fc_mode={fc_mode}: "
+              f"{len(cases)} cases (B = {sizes[0]}, H = {sizes[1]}, TS = "
+              f"{sizes[2]}; N = 1920, 203; F = 1, {MEGA_FRAMES}): ok, K7 "
+              f"bit-equal to K6, max_abs_err "
+              f"{errs[mega_row('megastep', fc_mode)]!r}, "
+              f"{errs[mega_row('megastep_spike', fc_mode)]!r}")
+
+
 def refused(fn, args: tuple, want: int, kernel: str, what: str) -> None:
     """``fn(*args)``, a launch function given no operands, must return the
     negative status ``want`` (it refuses before it reads an operand or
@@ -841,15 +980,17 @@ def refused(fn, args: tuple, want: int, kernel: str, what: str) -> None:
 
 def check_refusals() -> None:
     """The mega-step's launch function refuses, with its negative status,
-    TS over kMaxTs (-1), a shared-memory request over
-    kMaxMegastepSharedBytes (-2: K7 at TS = 4, H = 256 with int4 weights),
-    a hidden width over kMegaThreads (-4), an FC mode it does not serve or
-    not at the weights' precision (-5: an unknown mode; float weights with
-    an int4 layout's FC; int4 weights with dense_float; an unknown
-    precision) and an N:M geometry it cannot take (-6: n > m; entries not
-    a multiple of n); K5 refuses n < 1 and m > 16 (-6); K1 refuses TS over
-    kMaxTs (-1); K1, K9, K4, K5, K2 and K3 refuse a tile plan they do not
-    take (-7) and one whose tiles pass 227 KB of shared memory (-2)."""
+    TS over kMaxTs (-1), a CTA's shared memory over 227 KB (-2: a CSC FC
+    of 4,096 entries a column, whose 16-column sub-tile alone takes 1 MB),
+    a hidden width over kMaxMegaHidden, 256 (-4), an FC mode it does not
+    serve or not at the weights' precision (-5: an unknown mode; float
+    weights with an int4 layout's FC; int4 weights with dense_float; an
+    unknown precision), an N:M geometry it cannot take (-6: n > m; entries
+    not a multiple of n) and a plan it does not take (-7: 16 slots, a
+    cluster of 4, 48 columns a sub-tile); K5 refuses n < 1 and m > 16
+    (-6); K1 refuses TS over kMaxTs (-1); K1, K9, K4, K5, K2 and K3 refuse
+    a tile plan they do not take (-7) and one whose tiles pass 227 KB of
+    shared memory (-2)."""
     from repro_torch.kernels import (_build, int4_matmul, megastep,
                                      merged_spike_fc, nm_fc, rsnn_cell,
                                      sparse_fc, spike_broadcast)
@@ -858,21 +999,28 @@ def check_refusals() -> None:
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
     i4, f32 = megastep.PRECISIONS["int4"], megastep.PRECISIONS["float"]
     modes = megastep.FC_MODES
-    cases = [  # (status, precision, fc_mode, ts, h, spike, nm_n, nm_m)
-        (-1, i4, 1, 5, 128, 0, 0, 0), (-2, i4, 1, 4, 256, 1, 0, 0),
-        (-4, i4, 1, 2, 258, 0, 0, 0), (-5, i4, 7, 2, 128, 0, 0, 0),
-        (-5, f32, modes["csc"], 2, 256, 0, 0, 0),
-        (-5, f32, modes["dense_int4"], 2, 256, 1, 0, 0),
-        (-5, i4, modes["dense_float"], 2, 128, 0, 0, 0),
-        (-5, 2, modes["dense_float"], 2, 256, 0, 0, 0),
-        (-6, i4, 2, 2, 128, 0, 3, 2), (-6, i4, 2, 2, 128, 1, *NM)]
-    for want, prec, mode, ts, h, spike, nm_n, nm_m in cases:
+    plan = (megastep.SLOTS, 16, 64)
+    cases = [  # (status, precision, fc_mode, ts, h, spike, nm, entries, plan)
+        (-1, i4, 1, 5, 128, 0, (0, 0), nnz, plan),
+        (-2, i4, 1, 2, 128, 1, (0, 0), 4096, (megastep.SLOTS, 16, 16)),
+        (-4, i4, 1, 2, 258, 0, (0, 0), nnz, plan),
+        (-5, i4, 7, 2, 128, 0, (0, 0), nnz, plan),
+        (-5, f32, modes["csc"], 2, 256, 0, (0, 0), nnz, plan),
+        (-5, f32, modes["dense_int4"], 2, 256, 1, (0, 0), nnz, plan),
+        (-5, i4, modes["dense_float"], 2, 128, 0, (0, 0), nnz, plan),
+        (-5, 2, modes["dense_float"], 2, 256, 0, (0, 0), nnz, plan),
+        (-6, i4, 2, 2, 128, 0, (3, 2), nnz, plan),
+        (-6, i4, 2, 2, 128, 1, NM, nnz, plan),
+        (-7, i4, 1, 2, 128, 0, (0, 0), nnz, (16, 16, 64)),
+        (-7, i4, 1, 2, 128, 0, (0, 0), nnz, (megastep.SLOTS, 4, 64)),
+        (-7, i4, 1, 2, 128, 0, (0, 0), nnz, (megastep.SLOTS, 16, 48))]
+    for want, prec, mode, ts, h, spike, (nm_n, nm_m), entries, p in cases:
         refused(fn, (*[None] * 19, prec, mode, *[None] * 12, 1, ts, SLOTS,
-                     d, h, fc, nnz, nm_n, nm_m, PRUNED.input_bits, spike,
-                     None),
+                     d, h, fc, entries, nm_n, nm_m, PRUNED.input_bits, spike,
+                     *p, None),
                 want, "megastep", f"precision={prec}, fc_mode={mode}, "
                 f"ts={ts}, h={h}, spike={spike}, nm={nm_n}:{nm_m}, "
-                f"entries={nnz}")
+                f"entries={entries}, plan={p}")
     fn = _build.function("nm_fc_launch", nm_fc._ARGS)
     for want, nm_n, nm_m, entries, rows, cols in (
             (-6, 0, 4, 64, 32, 64), (-6, 2, 17, 64, 32, 64),
@@ -1188,7 +1336,9 @@ def check_kernels(packs: dict, floats: dict, dev,
     edges; K1 at its tiles' edges (``check_cell_edges``).  Then the
     float engine's kernels with the float weights of ``floats`` (width
     name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
-    K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too."""
+    K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too;
+    K6/K7 in every FC mode at their plans' edges
+    (``check_megastep_edges``)."""
     errs: dict[str, float] = {}
     gen = torch.Generator().manual_seed(seed)
     for b in (256, 200):
@@ -1208,6 +1358,7 @@ def check_kernels(packs: dict, floats: dict, dev,
                                " BASELINE float")
                 check_tile_edges(a, b, errs, " BASELINE float")
             check_megastep(a, b, errs, ("dense_float",), f" {width}")
+    check_megastep_edges(floats["BASELINE"], dev, seed, errs)
     check_refusals()
     return errs
 
@@ -1834,9 +1985,18 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes" if by_bytes else
             "operations", "library_ms": lib_ms})
+        plan = ""
+        if name.startswith("megastep"):
+            from repro_torch.kernels import megastep
+
+            spike = name.startswith("megastep_spike")
+            shape = mega_shape(items[0][2], ROW_FC_MODE[name], spike)
+            plan = "; plan " + plan_text(megastep.resident_plan(*shape),
+                                         items[0][2], ROW_FC_MODE[name],
+                                         spike)
         print(f"time {name} (per frame, B=256, {len(items)} call(s)): "
               f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, "
-              f"bound {bound!r} ms; by call {per_call!r}")
+              f"bound {bound!r} ms; by call {per_call!r}{plan}")
     for name, items in float_calls.items():  # K1, K8-K10 at H = 256
         per_call = [cuda_ms(kern, args) for kern, _, args in items]
         ms = sum(per_call)
@@ -1866,15 +2026,15 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
 
 
 def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
-    """Every tile plan K1, K5, K9, K4, K2 and K3 take at the main path's
-    shapes (B = 256, phase 5's inputs; K1 on its L0 and L1 calls and K9 on
-    both of its calls, at H = 128 and again with float weights at
-    ``BASELINE``; K5 over the 2:4 FC; K2 on the L0 and L1 feed-forward),
-    each launched through its launch function, held against the plain
-    version and timed as phase 5 times a kernel; the plan the wrapper
-    picks is marked.  What ``tile_plan``'s choice rests on.  First the
-    time of a one-element ``zero_`` timed the same way: the floor of a
-    launch."""
+    """Every tile plan K6/K7 (``sweep_megastep``), K1, K5, K9, K4, K2 and
+    K3 take at the main path's shapes (B = 256, phase 5's inputs; K1 on
+    its L0 and L1 calls and K9 on both of its calls, at H = 128 and again
+    with float weights at ``BASELINE``; K5 over the 2:4 FC; K2 on the L0
+    and L1 feed-forward), each launched through its launch function, held
+    against the plain version and timed as phase 5 times a kernel; the
+    plan the wrapper picks is marked.  What ``tile_plan``'s choice rests
+    on.  First the time of a one-element ``zero_`` timed the same way: the
+    floor of a launch."""
     from repro_torch.kernels import (_build, int4_matmul, merged_spike_fc,
                                      nm_fc, ref, rsnn_cell, sparse_fc,
                                      spike_broadcast)
@@ -1985,6 +2145,7 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
     one = torch.zeros(1, device=dev)
     print(f"sweep launch floor (one-element zero_, timed alike): "
           f"{cuda_ms(torch.Tensor.zero_, (one,))!r} ms")
+    sweep_megastep(a, fa)
     for name, fn, args, plans, want in cases:
         picked = _build.pick_tiles(plans)
         for p in plans:
@@ -1998,6 +2159,41 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
             print(f"sweep {name} {p.rows}x{p.cols} ({p.blocks} blocks, "
                   f"{p.shared_bytes} B shared, cost {p.cost}{mark}): "
                   f"{ms!r} ms")
+
+
+def sweep_megastep(a: dict, fa: dict) -> None:
+    """Every plan K6 and K7 take at the main path's shapes (B = 256, one
+    frame; ``csc``, ``nm`` and ``dense_int4`` over ``kernel_inputs`` ``a``,
+    ``dense_float`` over the ``BASELINE`` float inputs ``fa``), each held
+    against the plain version by ``check_mega``'s rule and timed as phase
+    5 times a kernel; the plan ``resident_plan`` picks is marked."""
+    from repro_torch.kernels import _build, megastep
+
+    for fc_mode, x in (("csc", a), ("nm", a), ("dense_int4", a),
+                       ("dense_float", fa)):
+        args = megastep_args(x, 1, fc_mode)
+        near = megastep_near(args)
+        for spike in (False, True):
+            name = mega_row("megastep_spike" if spike else "megastep",
+                            fc_mode)
+            kern, plain = megastep_pair(fc_mode, spike)
+            want = plain(*args)
+            shape = mega_shape(args, fc_mode, spike)
+            picked = megastep.resident_plan(*shape)
+            ts, b, d, h, _, _, entries, _, _, _ = shape
+            for p in megastep.tile_plans(ts, b, d, h, fc_mode, entries,
+                                         spike):
+                if p.shared_bytes > _build.MAX_SHARED_BYTES:
+                    continue
+                run = functools.partial(kern, plan=p)
+                got = run(*args)
+                torch.cuda.synchronize()
+                check_mega(f"{name} {p}", got, want, near,
+                           fc_mode == "dense_float")
+                ms = cuda_ms(run, args)
+                mark = ", picked" if p == picked else ""
+                print(f"sweep {name} {plan_text(p, args, fc_mode, spike)}"
+                      f"{mark}: {ms!r} ms")
 
 
 # ------------------------------------------------------------------- main
@@ -2037,8 +2233,9 @@ def main(argv=None) -> int:
                     help="stop after phase 2 (build and kernel checks)")
     ap.add_argument("--sweep-tiles", action="store_true",
                     help="with --kernels-only: time every tile plan of "
-                         "rsnn_cell, nm_fc, spike_broadcast, sparse_fc, "
-                         "int4_matmul and merged_spike_fc before stopping")
+                         "megastep, rsnn_cell, nm_fc, spike_broadcast, "
+                         "sparse_fc, int4_matmul and merged_spike_fc before "
+                         "stopping")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "

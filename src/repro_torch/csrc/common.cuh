@@ -6,16 +6,17 @@
 // below, without launching) so that the Python wrapper raises on a refused
 // launch.  No kernel allocates or synchronises.
 //
-// Tiling: K8, K10 and K6/K7 put one thread on each output column (kCols
+// Tiling: K8 and K10 put one thread on each output column (kCols
 // columns a block, neighbouring threads on neighbouring addresses, so every
 // weight row is one coalesced load) and kRows batch rows in a block, so
 // each weight element loaded from global memory serves kRows rows; the
 // rows' operand vectors sit in shared memory.  K1 (rsnn_cell), K9
-// (spike_broadcast), K4 (sparse_fc), K5 (nm_fc), K2 (int4_matmul) and K3
-// (merged_spike_fc) take their tiles from a plan their wrappers choose
-// (tile_plan), stage them with cp.async and say how in their sources; K4
-// and K5 share the gather tile below (stage_merged_transposed,
-// gather_tile), K2 and K3 int4_tile_kernel, on the int8 tensor cores.
+// (spike_broadcast), K4 (sparse_fc), K5 (nm_fc), K2 (int4_matmul), K3
+// (merged_spike_fc) and K6/K7 (megastep, thread-block clusters) take their
+// tiles from a plan their wrappers choose (tile_plan), stage them with
+// cp.async and say how in their sources; K4 and K5 share the gather tile
+// below (stage_merged_transposed, gather_tile), K2, K3 and K6/K7's int4 FC
+// the int8 tensor-core fragments (mma_s8_16832).
 // Ragged edges (B not a multiple of the rows a block, N not one of its
 // columns) are masked, not asserted.
 #pragma once
@@ -29,13 +30,13 @@ constexpr int kCols = 128;  // output columns per block, one per thread
 constexpr int kRows = 8;    // batch rows per block
 constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
-// megastep (K6/K7): threads a block (one per hidden column, all of them on
-// the FC columns); the dynamic shared memory a kernel may opt in to, the
-// H100's per-block maximum of 227 KB (megastep, rsnn_cell, spike_broadcast,
-// sparse_fc, nm_fc, int4_matmul, merged_spike_fc)
-constexpr int kMegaThreads = 256;
+// the dynamic shared memory a kernel may opt in to, the H100's per-block
+// maximum of 227 KB (megastep, rsnn_cell, spike_broadcast, sparse_fc, nm_fc,
+// int4_matmul, merged_spike_fc)
 constexpr size_t kMaxOptInSharedBytes = 227 * 1024;
-constexpr size_t kMaxMegastepSharedBytes = kMaxOptInSharedBytes;
+// megastep (K6/K7): the widest hidden layer (its event lists hold a hidden
+// index in one byte)
+constexpr int kMaxMegaHidden = 256;
 
 // Status codes a launch function returns, besides the cudaError_t values
 // (>= 0), for a shape its kernel cannot take; status.cu gives their text.
@@ -46,40 +47,22 @@ constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
                                       // spike_broadcast, sparse_fc, nm_fc,
                                       // int4_matmul, merged_spike_fc)
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
-constexpr int kErrTooWide = -4;       // megastep: hidden width > kMegaThreads
+constexpr int kErrTooWide = -4;       // megastep: hidden width > kMaxMegaHidden
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
                                       // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
 constexpr int kErrTilePlan = -7;      // rsnn_cell, spike_broadcast, sparse_fc,
-                                      // nm_fc, int4_matmul, merged_spike_fc: a
-                                      // tile plan (rows, columns a block) they
-                                      // do not take
+                                      // nm_fc, int4_matmul, merged_spike_fc,
+                                      // megastep: a tile plan (rows, columns a
+                                      // block; megastep's cluster) they do
+                                      // not take
+constexpr int kErrCluster = -8;       // megastep: no cluster of the plan can
+                                      // be resident on the card
 
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
   return static_cast<float>(((v & 0xF) ^ 8) - 8);
-}
-
-// acc[r] += sum_k rows_sh[r][k] * unpack(packed)[k][col] for one column.
-// packed is (k/2, n) int8, low nibble = even row 2p, high nibble = row 2p+1.
-// The order of the sum is p = 0, 1, ...; on integer-valued rows every
-// partial sum is an exact integer, so any order gives the same float.
-__device__ __forceinline__ void int4_column_dot(
-    const float* rows_sh, int rows, int k, const int8_t* __restrict__ packed,
-    int n, int col, float (&acc)[kRows]) {
-  for (int p = 0; p < k / 2; ++p) {
-    const int byte = packed[static_cast<long long>(p) * n + col];
-    const float lo = nibble(byte);
-    const float hi = nibble(byte >> 4);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) {
-        acc[r] = fmaf(rows_sh[r * k + 2 * p], lo, acc[r]);
-        acc[r] = fmaf(rows_sh[r * k + 2 * p + 1], hi, acc[r]);
-      }
-    }
-  }
 }
 
 // Priority-encode one row of k values into an ascending-index event list

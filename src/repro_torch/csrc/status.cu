@@ -13,7 +13,8 @@ extern "C" const char* reprotorch_error_string(int code) {
     case reprotorch::kErrCapacity:
       return "event-list capacity outside [1, k]";
     case reprotorch::kErrTooWide:
-      return "hidden width over the megastep block's threads (kMegaThreads)";
+      return "hidden width over 256, the widest the megastep kernel takes "
+             "(kMaxMegaHidden)";
     case reprotorch::kErrFcMode:
       return "an FC mode or weight precision the megastep kernel does not "
              "serve (int4 weights: dense_int4, csc, nm; float weights: "
@@ -27,7 +28,11 @@ extern "C" const char* reprotorch_error_string(int code) {
              "rows >= 1, 32, 64 or 128 columns; sparse_fc: 32 or 64 rows, "
              "columns a multiple of 32; nm_fc: 32 or 64 rows, 32, 64 or 128 "
              "columns; int4_matmul, merged_spike_fc: 16, 32 or 64 rows, 8, 16, "
-             "32, 64 or 128 columns)";
+             "32, 64 or 128 columns; megastep: 32 slots, clusters of 8 or 16, "
+             "16, 32, 64 or 128 FC columns a sub-tile)";
+    case reprotorch::kErrCluster:
+      return "no thread-block cluster of the megastep plan can be resident "
+             "on the card (cudaOccupancyMaxActiveClusters is 0)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -11,13 +11,24 @@ membrane potentials agree within the tolerance stated in
 ``chip_smoke.py`` and the tests (float32 sums in another order), the
 counters exactly, the int4 logits bit for bit given equal merged spikes
 and the float logits within that tolerance.  K7 is bit-equal to K6 on the
-same inputs.  ``launches``
-counts K6's launches of this process, ``spike_launches`` K7's.
+same inputs.  ``launches`` counts K6's launches of this process,
+``spike_launches`` K7's.
+
+The kernel runs one thread-block cluster for each tile of 32 slots: its
+``cluster`` CTAs split the hidden columns of both layers and exchange their
+new spikes through distributed shared memory, then split the FC's output
+columns, ``cols`` at a time.  ``tile_plans`` lists the plans the launch
+takes for a shape with each CTA's shared memory (``MegaLayout`` in the
+source), ``tile_plan`` ranks them, and on the card ``resident_plan`` takes
+the first whose clusters the card holds all at once
+(``cudaOccupancyMaxActiveClusters``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +42,133 @@ FC_MODES = {"dense_int4": 0, "csc": 1, "nm": 2, "dense_float": 3}
 PRECISIONS = {"int4": 0, "float": 1}
 # megastep_launch's C signature: 19 state/weight pointers, precision,
 # fc_mode, 3 FC and 9 output pointers, then frames, ts, b, d, h, fc, nnz,
-# nm_n, nm_m, input_bits, spike, and the stream
+# nm_n, nm_m, input_bits, spike, the plan's rows, cluster and cols, and the
+# stream
 _ARGS = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-         + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+# megastep_plan_info's: ts, d, h, precision, fc_mode, nnz, nm_n, nm_m,
+# spike, b, rows, cluster, cols, and an int[2] it fills
+_INFO_ARGS = [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+SLOTS = 32  # slots a cluster (the FC gather's lanes)
+CLUSTERS = (16, 8)  # CTAs a cluster, in the order tile_plan prefers them
+COLS = (128, 64, 32, 16)  # FC columns a sub-tile, likewise
+
+
+class MegaPlan(NamedTuple):
+    """One launch's plan: ``rows`` slots a cluster of ``cluster`` CTAs,
+    ``cols`` FC columns a sub-tile, the grid's ``ctas`` and a CTA's
+    ``shared_bytes``."""
+
+    rows: int
+    cluster: int
+    cols: int
+    ctas: int
+    shared_bytes: int
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def shared_bytes(ts: int, d: int, h: int, fc_mode: str, entries: int,
+                 spike: bool, cluster: int, cols: int) -> int:
+    """A CTA's shared memory as ``MegaLayout`` computes it: the layer
+    slices (float32; or, int4, L0's input slice in float32 and the others'
+    bit planes and int8 nibbles) and their scales, two frames' inputs, the
+    trains as bits (two buffers), K7's event lists, the merged spikes and
+    the FC sub-tile as staged and as multiplied, with its scales
+    (``entries``: the CSC or N:M entries a column; the dense FCs take
+    H)."""
+    hcp = 8
+    while hcp < -(-h // cluster):
+        hcp *= 2
+    hp = -(-cluster * hcp // 32) * 32
+    ld = hp + 16
+    float_fc = fc_mode == "dense_float"
+    e = h if fc_mode in ("dense_int4", "dense_float") else entries
+    tile = e * cols
+    raw = {"csc": 8 * tile, "nm": tile, "dense_int4": h // 2 * cols,
+           "dense_float": 4 * tile}[fc_mode]
+    slices = (_a16(4 * (d + 3 * hp) * hcp) if float_fc else
+              _a16(4 * d * hcp) + _a16(16 * 3 * (hp // 32) * hcp)
+              + _a16(3 * hp * hcp) + _a16(4 * 4 * hcp))
+    fixed = (slices + _a16(4 * 2 * SLOTS * d)
+             + _a16(4 * 4 * ts * SLOTS * (hp // 32)))
+    if spike:
+        fixed += _a16(2 * ts * SLOTS * (hp + 4)) + _a16(4 * (2 * ts * SLOTS
+                                                            + 1))
+        fixed += _a16(hp) if float_fc else 0
+    fixed += _a16(4 * hp * SLOTS if float_fc else SLOTS * ld)
+    fc = (_a16(raw) + _a16(4 * tile if float_fc else cols * ld)
+          + (0 if float_fc else _a16(8 * cols)))
+    nibbles = _a16((d // 2 + 3 * (hp // 2)) * hcp)
+    return fixed + max(fc, nibbles)
+
+
+def tile_plans(ts: int, b: int, d: int, h: int, fc_mode: str,
+               entries: int, spike: bool) -> list[MegaPlan]:
+    """Every plan the launch takes for this shape: clusters of 16 or 8
+    CTAs over 32 slots, 128, 64, 32 or 16 FC columns a sub-tile (16
+    leaves half the gather's warps idle: for shapes nothing wider fits)."""
+    return [MegaPlan(SLOTS, c, cols, -(-b // SLOTS) * c,
+                     shared_bytes(ts, d, h, fc_mode, entries, spike, c, cols))
+            for c in CLUSTERS for cols in COLS]
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(ts: int, b: int, d: int, h: int, fc_mode: str, entries: int,
+              spike: bool) -> MegaPlan:
+    """The first of ``tile_plans`` whose shared memory fits a CTA: the
+    larger cluster (more CTAs on the SMs), then the wider sub-tile (fewer
+    passes over the FC; the first is staged while the cells run).  When
+    none fits, the smallest, which the launch refuses (status -2)."""
+    plans = tile_plans(ts, b, d, h, fc_mode, entries, spike)
+    fits = [p for p in plans if p.shared_bytes <= _build.MAX_SHARED_BYTES]
+    return fits[0] if fits else min(plans, key=lambda p: p.shared_bytes)
+
+
+def plan_info(plan: MegaPlan, ts: int, b: int, d: int, h: int,
+              precision: str, fc_mode: str, entries: int, nm_n: int,
+              nm_m: int, spike: bool) -> tuple[int, int]:
+    """(shared bytes a CTA, clusters the card holds at once) of ``plan``,
+    from the launch's own code; raises where the launch would refuse it."""
+    info = (ctypes.c_int * 2)()
+    fn = _build.function("megastep_plan_info", _INFO_ARGS)
+    _build.check(fn(ts, d, h, PRECISIONS[precision], FC_MODES[fc_mode],
+                    entries, int(nm_n), int(nm_m), int(spike), b, plan.rows,
+                    plan.cluster, plan.cols, ctypes.addressof(info)),
+                 "megastep")
+    return info[0], info[1]
+
+
+_resident: dict[tuple, MegaPlan] = {}
+
+
+def resident_plan(ts: int, b: int, d: int, h: int, precision: str,
+                  fc_mode: str, entries: int, nm_n: int, nm_m: int,
+                  spike: bool) -> MegaPlan:
+    """The plan a launch on the card takes: among the plans that fit, in
+    ``tile_plan``'s order, the first whose ceil(b / 32) clusters the card
+    holds at once, else the one whose resident clusters hold the most
+    CTAs; ``tile_plan``'s when none fits.  Cached per shape."""
+    key = (ts, b, d, h, precision, fc_mode, entries, nm_n, nm_m, spike)
+    plan = _resident.get(key)
+    if plan is None:
+        first = tile_plan(ts, b, d, h, fc_mode, entries, spike)
+        fits = [p for p in tile_plans(ts, b, d, h, fc_mode, entries, spike)
+                if p.shared_bytes <= _build.MAX_SHARED_BYTES]
+        best, held = first, -1
+        for p in fits:
+            clusters = plan_info(p, ts, b, d, h, precision, fc_mode, entries,
+                                 nm_n, nm_m, spike)[1]
+            if clusters >= -(-b // SLOTS):
+                best = p
+                break
+            if clusters * p.cluster > held:
+                best, held = p, clusters * p.cluster
+        plan = _resident[key] = best
+    return plan
 
 
 def _fc_operands(fc_mode: str, fcargs: tuple, h: int) -> tuple:
@@ -120,15 +255,19 @@ def _layer_weights(wargs: tuple, precision: str, d: int, h: int,
 def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
              wargs: tuple, fcargs: tuple, *, fc_mode: str, input_bits: int,
              precision: str = "int4", nm_n: int = 0, nm_m: int = 0,
-             spike: bool = False) -> tuple[torch.Tensor, ...]:
+             spike: bool = False,
+             plan: MegaPlan | None = None) -> tuple[torch.Tensor, ...]:
     """Launch K6 (``spike=False``) or K7 on CUDA tensors, the operands of
-    ``ref.megastep_ref``: ``x`` (F, B, D); ``s0``/``s1`` (TS, B, H);
+    ``ref.megastep_ref``: ``x`` (F, B, D); ``s0``/``s1`` (TS, B, H) spike
+    trains (0/1: the kernel keeps them as bits);
     ``u0``/``h0``/``u1``/``h1`` (B, H); ``beta*``/``vth*`` (H,), all
     float32; ``wargs`` at ``precision="int4"`` four (int8 (K/2, H),
     float32 (H,) or (1, H)) pairs, at ``"float"`` four float32 (K, H)
     matrices; ``fcargs`` per ``fc_mode`` (``dense_float``: ``(w_fc,)``
     (H, N) float32, float only; ``nm``: ``nm_n`` of every ``nm_m`` rows, a
-    geometry the kernel refuses unless 1 <= n <= m <= 16).  Returns
+    geometry the kernel refuses unless 1 <= n <= m <= 16).  ``plan``: the
+    launch's plan (``tile_plans``' rows, cluster and cols), by default
+    ``resident_plan``'s.  Returns
     ``(s0, u0, s1, u1, logits (F, B, N), spikes_l0 (F, TS, B), spikes_l1
     (F, TS, B), union_l1 (F, B), input_one_bits (F, B))``, float32."""
     global launches, spike_launches
@@ -170,10 +309,14 @@ def megastep(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
            for t in (x, s0, u0, h0, s1, u1, h1, *lif, *w, fc_a, fc_values,
                      fc_scale)]
     with torch.cuda.device(dev):
+        if plan is None:
+            plan = resident_plan(ts, b, d, h, precision, fc_mode, nnz,
+                                 int(nm_n), int(nm_m), bool(spike))
         status = fn(*ptr[:19], PRECISIONS[precision], FC_MODES[fc_mode],
                     *ptr[19:], *(t.data_ptr() for t in outs),
                     frames, ts, b, d, h, n, nnz, int(nm_n), int(nm_m),
-                    int(input_bits), int(spike), _build.stream(dev))
+                    int(input_bits), int(spike), plan.rows, plan.cluster,
+                    plan.cols, _build.stream(dev))
     _build.check(status, "megastep")
     if spike:
         spike_launches += 1

@@ -40,6 +40,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import megastep as mega_kernel
 from repro_torch.serving import backends
 from repro_torch.serving import stream as TS
+from test_torch_kernels import c_signature
 from test_torch_spike import _close, _engines, assert_frames_match
 from test_torch_stream import ROOT, pruned_path, small_path  # noqa: F401
 
@@ -167,6 +168,94 @@ def test_cpu_tensor_runs_plain_version_without_launching():
     assert _build._lib is None  # nothing was built
     with pytest.raises(ValueError, match="CUDA"):
         mega_kernel.megastep(*args, fc_mode="csc", input_bits=8)
+
+
+# ------------------------------------------------------- K6/K7 tile plans
+
+# (width, FC mode at its precision, entries a column): PRUNED's int4 FCs
+# (the served CSC's 95 entries, 2:4 N:M's 64) and BASELINE's float FC
+MEGA_SERVED = [("pruned", "dense_int4", 0), ("pruned", "csc", 95),
+               ("pruned", "nm", 64), ("baseline", "dense_float", 0)]
+MEGA_DIMS = {"pruned": (40, 128), "baseline": (40, 256)}  # (D, H)
+
+
+@pytest.mark.parametrize("width,fc_mode,entries", MEGA_SERVED)
+@pytest.mark.parametrize("ts", [1, 2, 4])
+@pytest.mark.parametrize("b", [256, 200, 1])
+@pytest.mark.parametrize("spike", [False, True])
+def test_megastep_tile_plans_fit(width, fc_mode, entries, ts, b, spike):
+    """Every K6/K7 plan at these shapes: 32 slots, clusters of 16 or 8,
+    16-128 FC columns a sub-tile, ceil(B / 32) clusters; ``tile_plan``
+    picks one whose CTA fits 227 KB of shared memory, the larger cluster
+    first."""
+    d, h = MEGA_DIMS[width]
+    plans = mega_kernel.tile_plans(ts, b, d, h, fc_mode, entries, spike)
+    for p in plans:
+        assert p.rows == 32 and p.cluster in (8, 16)
+        assert p.cols in (16, 32, 64, 128)
+        assert p.ctas == -(-b // 32) * p.cluster
+    plan = mega_kernel.tile_plan(ts, b, d, h, fc_mode, entries, spike)
+    assert plan in plans
+    assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+    fits = [p for p in plans if p.shared_bytes <= _build.MAX_SHARED_BYTES]
+    assert plan == fits[0] and plan.cluster == max(p.cluster for p in fits)
+
+
+@pytest.mark.parametrize("width,fc_mode,entries", MEGA_SERVED)
+@pytest.mark.parametrize("spike", [False, True])
+def test_megastep_tile_plan_fills_the_card(width, fc_mode, entries, spike):
+    """At the served shape (B = 256, TS = 2) the plan's grid has at least
+    64 CTAs (eight clusters of 8 or 16): the old kernel's 32 blocks were
+    a quarter of the 132 SMs."""
+    d, h = MEGA_DIMS[width]
+    plan = mega_kernel.tile_plan(2, 256, d, h, fc_mode, entries, spike)
+    assert plan.ctas >= 64 and plan.cluster > 1
+
+
+def test_megastep_shared_bytes_grow_with_the_shape():
+    """The CTA's shared memory as ``MegaLayout`` lays it out: K7 adds its
+    event lists, a wider hidden layer its slices and trains, more entries
+    their FC tiles; the float slices at BASELINE over 16 CTAs are 51.7 KB
+    (808 rows x 16 columns x 4 B)."""
+    k6 = mega_kernel.shared_bytes(2, 40, 128, "csc", 95, False, 16, 64)
+    assert mega_kernel.shared_bytes(2, 40, 128, "csc", 95, True, 16,
+                                    64) > k6
+    assert mega_kernel.shared_bytes(2, 40, 128, "csc", 96, False, 16,
+                                    64) > k6
+    assert mega_kernel.shared_bytes(2, 40, 256, "csc", 95, False, 16,
+                                    64) > k6
+    assert mega_kernel.shared_bytes(4, 40, 128, "csc", 95, False, 16,
+                                    64) > k6
+    f32 = mega_kernel.shared_bytes(2, 40, 256, "dense_float", 0, False, 16,
+                                   32)
+    assert f32 - mega_kernel.shared_bytes(2, 40, 256, "dense_float", 0,
+                                          False, 16, 16) == 2 * 4 * 256 * 16
+    assert 808 * 16 * 4 == 51712 < f32
+
+
+@pytest.mark.parametrize("held,want", [(8, 16), (7, 8), (0, 8)])
+def test_megastep_resident_plan_takes_one_wave(monkeypatch, held, want):
+    """On the card the plan is the first of ``tile_plan``'s order whose
+    eight clusters (B = 256) the card holds at once: clusters of 16 when
+    it holds 8 of them, else clusters of 8 (which it holds 16 of)."""
+    def info(plan, *shape):
+        return plan.shared_bytes, held if plan.cluster == 16 else 16
+
+    monkeypatch.setattr(mega_kernel, "plan_info", info)
+    monkeypatch.setattr(mega_kernel, "_resident", {})
+    plan = mega_kernel.resident_plan(2, 256, 40, 128, "int4", "csc", 95, 0,
+                                     0, False)
+    assert plan.cluster == want
+    assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("name,args", [
+    ("megastep_launch", mega_kernel._ARGS),
+    ("megastep_plan_info", mega_kernel._INFO_ARGS)])
+def test_megastep_signatures_match_the_kernel_source(name, args):
+    """The wrapper's ctypes lists against ``csrc/megastep.cu``'s C
+    signatures (a mismatch would pass a pointer as an int)."""
+    assert c_signature("megastep.cu", name) == args
 
 
 # ----------------------------------------------------------- served frames
