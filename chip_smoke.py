@@ -1793,7 +1793,7 @@ def work(name: str, args, fc_mode: str = "csc") -> tuple[int, float]:
     K6/K7 (in ``fc_mode``) the operations are a pair: (float32 layer
     products and LIF chains, integer FC sums)."""
     if name.startswith("megastep"):
-        return megastep_work(name, args, fc_mode)
+        return megastep_work(args, fc_mode)
     if name in ("rsnn_cell", "spike_cell"):
         stim, s, w, u0, h0, beta, vth = args
         ts, b, h = s.shape
@@ -1844,16 +1844,16 @@ def stored_entries(*fc) -> float:
     return float((vals != 0).sum())
 
 
-def megastep_work(name: str, args,
-                  fc_mode: str) -> tuple[int, tuple[float, float]]:
+def megastep_work(args, fc_mode: str) -> tuple[int, tuple[float, float]]:
     """``work`` of one K6/K7 call: every operand read once and every output
     written once; float32 operations of the L0 feed-forward, the three
-    spike products (K7: 2 x H per event of the rows it compacts, which the
-    plain version's spike trains of this call give) and both LIF chains;
+    spike products (2 x H per event of the trains each frame reads, which
+    the plain version's trains of this call give) and both LIF chains;
     integer operations of the merged-spike FC (the stored CSC or N:M
-    entries; K7 with dense_int4: the merged union's events), or, with
-    float weights (``dense_float``), its float32 operations (K7: the
-    merged union's events)."""
+    entries; dense_int4: the merged union's events), or, with float weights
+    (``dense_float``), its float32 operations (the merged union's events).
+    K6 and K7 compute one function on the same inputs, so both count only
+    the events: a product with a 0 spike is work neither needs."""
     x, s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, wq, fc = args
     frames, b, d = x.shape
     ts, _, h = s0.shape
@@ -1865,22 +1865,17 @@ def megastep_work(name: str, args,
     merge = frames * (ts - 1.0) * b * h
     dense_fc = fc_mode in ("dense_int4", "dense_float")
     sparse_ops = 0.0 if dense_fc else 2.0 * b * stored_entries(*fc[:-1])
-    if not name.startswith("megastep_spike"):
-        f32 += frames * 3 * 2.0 * ts * b * h * h
-        fc_ops = frames * (2.0 * b * h * n if dense_fc else sparse_ops)
-    else:
-        fc_ops = 0.0
-        st0, st1 = s0, s1
-        plain = megastep_pair(fc_mode, False)[1]
-        for f in range(frames):  # the trains each frame compacts
-            out = plain(x[f:f + 1], st0, u0, h0, st1, u1, h1, b0, v0, b1,
-                        v1, wq, fc)
-            ev = sum(events(t.reshape(-1, h))[0] for t in (st0, out[0], st1))
-            f32 += 2.0 * h * ev
-            fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
-                       else sparse_ops)
-            st0, u0, st1, u1 = out[:4]
-            h0, h1 = st0[-1], st1[-1]
+    fc_ops = 0.0
+    plain = megastep_pair(fc_mode, False)[1]
+    for f in range(frames):  # the trains each frame reads
+        out = plain(x[f:f + 1], s0, u0, h0, s1, u1, h1, b0, v0, b1, v1, wq,
+                    fc)
+        ev = sum(events(t.reshape(-1, h))[0] for t in (s0, out[0], s1))
+        f32 += 2.0 * h * ev
+        fc_ops += (2.0 * n * events(out[2].sum(dim=0))[0] if dense_fc
+                   else sparse_ops)
+        s0, u0, s1, u1 = out[:4]
+        h0, h1 = s0[-1], s1[-1]
     if fc_mode == "dense_float":
         return moved, (f32 + merge + fc_ops, 0.0)
     return moved, (f32, merge + fc_ops)

@@ -4,19 +4,18 @@ GPU.
 
     python3 megastep_trace.py [--seed 0]
 
-There is no ``ncu`` on the machine with the card, so this builds an
-instrumented copy of ``src/repro_torch/csrc/megastep.cu``: at each point of
-``POINTS`` (a line of the source it is placed before or after) thread 0 of
-every CTA stores ``clock64()`` into a device array.  It then runs K6 and K7
-in every FC mode at the main path's shapes (``chip_smoke.py``'s inputs,
-B = 256, chunks of 1 and 4 frames, the plan ``resident_plan`` picks) and
-prints, for each, the mean cycles of each phase over the CTAs: the gap
-between two consecutive points, in the order the first frame reaches them
-(points inside the frame loop and the FC loop hold the last frame's and
-the last sub-tile's stamps; a CTA with no FC columns leaves the FC loop's
-unset, and is left out of the means).  The stamps cost a few cycles each; the real kernel has none.  An
-anchor the source no longer holds stops the script: edit ``POINTS`` with
-the kernel.  It imports neither JAX nor the JAX package.
+There is no ``ncu`` on the machine with the card, so this builds
+``src/repro_torch/csrc/megastep.cu`` with ``-DREPRO_MEGASTEP_TRACE``: at each
+of the source's ``MEGA_STAMP(i)`` points thread 0 of every CTA stores
+``clock64()`` into a device array.  It then runs K6 and K7 in every FC mode
+at the main path's shapes (``chip_smoke.py``'s inputs, B = 256, chunks of 1
+and 4 frames, the plan ``resident_plan`` picks) and prints, for each, the
+mean cycles of each phase over the CTAs: the gap between stamps i - 1 and
+i, named ``PHASES[i]`` (stamps inside the frame loop and the FC loop hold
+the last frame's and the last sub-tile's; a CTA with no FC columns leaves
+the FC loop's unset, and is left out of the means).  The stamps cost a few
+cycles each; the library the port builds has none.  It imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -40,81 +39,28 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import megastep as mega  # noqa: E402
 
 CSRC = ROOT / "src/repro_torch/csrc"
-SLICES = ("  cluster.sync();  // the slices, frame 0's inputs and both trains "
-          "are in place\n")
-L0_SYNC = "    cluster.sync();  // the new L0 train is complete in every CTA\n"
-L1_SYNC = "    cluster.sync();  // the new L1 train is complete in every CTA\n"
-# (anchor in megastep.cu, phase name ending at the stamp, stamp after the
-# anchor?), in the order a CTA passes them
-POINTS = [
-    ("  extern __shared__ __align__(16) unsigned char smem[];", "start", True),
-    ("  stage_x(0);\n  reprotorch::cp_async_commit();\n",
-     "weights, x issued", True),
-    ("  cluster.sync();\n  for (int j", "u/h loads", False),
-    ("  reprotorch::cp_async_wait_all();\n  float sc1[kCt]",
-     "first cluster.sync, trains pushed", False),
-    (SLICES, "wait, int4 slices built", False),
-    (SLICES, "setup cluster.sync", True),
-    ("  for (int f = 0; f < o.frames; ++f) {", "K7 compaction", True),
-    ("    const float* xs = x_sh + cur * kSlots * d;",
-     "frame wait, FC sub-tile 0 issued", True),
-    ("    if constexpr (!kFloat) {\n      int4_product<kTs, kCt>(o.spike, "
-     "train(cur, 0)", "one-bits, ff0", False),
-    ("    lif_chain<kTs, kCt>(ff, rec, beta0", "rec0", False),
-    (L0_SYNC, "LIF0, push", False),
-    (L0_SYNC, "cluster.sync 1", True),
-    ("    lif_chain<kTs, kCt>(ff, rec, beta1", "K7 compaction, ff1, rec1",
-     False),
-    (L1_SYNC, "LIF1, push", False),
-    (L1_SYNC, "cluster.sync 2", True),
-    ("    const int entries = o.spike && float_fc ? *uni_cnt : entries_all;",
-     "counters, merged spikes", False),
-    ("      if constexpr (!float_fc) {\n        decode_fc();",
-     "FC sub-tiles but the last, wait", False),
-    ("      if (j + 1 < tiles) stage_fc(j + 1, entries);", "FC decode",
-     False),
-    ("  // the state: this CTA's columns of the last trains",
-     "FC mma or fmaf (last sub-tile)", False),
-    ("    o.u1_out[at] = u1[i];\n  }\n", "write-back", True),
-]
-
-
-def instrumented() -> str:
-    """megastep.cu with a clock64() stamp at each of ``POINTS`` and a C
-    function that copies the stamps to the host."""
-    src = (CSRC / "megastep.cu").read_text()
-    for i, (anchor, _, after) in enumerate(POINTS):
-        if anchor not in src:
-            raise SystemExit(f"megastep_trace: anchor {anchor!r} is not in "
-                             f"megastep.cu; update POINTS")
-        stamp = (f"\n  if (threadIdx.x == 0) g_trace[blockIdx.x][{i}] = "
-                 f"clock64();\n")
-        src = src.replace(anchor, anchor + stamp if after else stamp + anchor,
-                          1)
-    return src.replace(
-        "namespace cg = cooperative_groups;",
-        "namespace cg = cooperative_groups;\n"
-        "__device__ long long g_trace[1024][32];\n"
-        'extern "C" int megastep_trace_read(void* host) {\n'
-        "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_trace, "
-        "sizeof(g_trace)));\n}\n"
-        'extern "C" int megastep_trace_clear() {\n'
-        "  void* p = nullptr;\n"
-        "  const cudaError_t err = cudaGetSymbolAddress(&p, g_trace);\n"
-        "  return static_cast<int>(err != cudaSuccess ? err : "
-        "cudaMemset(p, 0, sizeof(g_trace)));\n}")
+# the phase each MEGA_STAMP(i) of megastep.cu ends, in the order a CTA
+# passes them (stamp 0 starts the first)
+PHASES = ["start", "weights, x issued", "u/h loads",
+          "first cluster.sync, trains pushed", "wait, int4 slices built",
+          "setup cluster.sync", "K7 compaction",
+          "frame wait, FC sub-tile 0 issued", "one-bits, ff0", "rec0",
+          "LIF0, push", "cluster.sync 1", "K7 compaction, ff1, rec1",
+          "LIF1, push", "cluster.sync 2", "counters, merged spikes",
+          "FC sub-tiles but the last, wait", "FC decode",
+          "FC mma or fmaf (last sub-tile)", "write-back"]
 
 
 def build(tmp: Path) -> ctypes.CDLL:
-    """The instrumented megastep.cu and status.cu as one library, loaded
+    """megastep.cu with its stamps on and status.cu as one library, loaded
     in place of the port's own."""
-    (tmp / "megastep_trace.cu").write_text(instrumented())
     objs = []
-    for src in (tmp / "megastep_trace.cu", CSRC / "status.cu"):
+    for src, flags in ((CSRC / "megastep.cu", ["-DREPRO_MEGASTEP_TRACE"]),
+                       (CSRC / "status.cu", [])):
         obj = tmp / (src.stem + ".o")
-        run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
-                              str(CSRC), "-c", str(src), "-o", str(obj)],
-                             capture_output=True, text=True)
+        run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *flags,
+                              "-I", str(CSRC), "-c", str(src), "-o",
+                              str(obj)], capture_output=True, text=True)
         if run.returncode != 0:
             raise SystemExit(f"nvcc failed on {src.name}:\n{run.stdout}"
                              f"{run.stderr}")
@@ -166,12 +112,12 @@ def main(argv=None) -> int:
                     buf = np.zeros((1024, 32), np.int64)
                     _build.check(lib.megastep_trace_read(buf.ctypes.data),
                                  "megastep_trace")
-                    stamps = buf[:plan.ctas, :len(POINTS)]
+                    stamps = buf[:plan.ctas, :len(PHASES)]
                     stamps = stamps[(stamps != 0).all(axis=1)]
                     gaps = np.diff(stamps, axis=1).mean(axis=0)
                     total = stamps[:, -1] - stamps[:, 0]
-                    parts = ", ".join(f"{name} {gap:.0f}" for (_, name, _), gap
-                                      in zip(POINTS[1:], gaps))
+                    parts = ", ".join(f"{name} {gap:.0f}" for name, gap
+                                      in zip(PHASES[1:], gaps))
                     print(f"trace {fc_mode} F={frames} spike={spike} plan "
                           f"{plan.rows}x{plan.cluster}x{plan.cols}: "
                           f"{total.mean():.0f} cycles (max {total.max()}); "

@@ -389,6 +389,81 @@ __device__ __forceinline__ unsigned nibble_s8(int v) {
   return static_cast<unsigned>((((v & 0xF) ^ 8) - 8) & 0xFF);
 }
 
+// The s8 weights k = 8q .. 8q + 7 of column c, unpacked from the packed
+// int4 rows 4q .. 4q + 3 (row p's byte at wp[p * stride + c], low nibble
+// first; rows at or past k2 zero): 8 bytes of a k-contiguous B operand.
+__device__ __forceinline__ uint2 unpack_int4_8(const int8_t* wp, int stride,
+                                               int c, int q, int k2) {
+  unsigned word[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = 4 * q + j;
+    const int byte = p < k2 ? wp[p * stride + c] : 0;
+    word[j >> 1] |= (nibble_s8(byte) | nibble_s8(byte >> 4) << 8) << (16 * (j & 1));
+  }
+  return make_uint2(word[0], word[1]);
+}
+
+// A warp's int8 tensor-core tile over k < kp: acc[i][j] += (rows 16i ..
+// 16i + 15 of a8) x (columns 8j .. 8j + 7 of b8), both s8 and
+// k-contiguous, ld bytes a row or a column.  Lane (g, tq) loads 4 bytes of
+// rows g and g + 8 of A and of column g of each B (mma's fragments); its
+// sums land at rows g, g + 8 and columns 2tq, 2tq + 1 of each n8 tile.
+template <int kM, int kN>
+__device__ __forceinline__ void mma_s8_warp_tile(const int8_t* a8,
+                                                 const int8_t* b8, int ld,
+                                                 int kp,
+                                                 int (&acc)[kM][kN][4]) {
+  const int lane = threadIdx.x & 31;
+  const int at = (lane >> 2) * ld + 4 * (lane & 3);
+  for (int k0 = 0; k0 < kp; k0 += kMmaK) {
+    unsigned bf[kN][2];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int8_t* b = b8 + 8 * j * ld + at + k0;
+      bf[j][0] = *reinterpret_cast<const unsigned*>(b);
+      bf[j][1] = *reinterpret_cast<const unsigned*>(b + 16);
+    }
+#pragma unroll
+    for (int i = 0; i < kM; ++i) {
+      const int8_t* a = a8 + 16 * i * ld + at + k0;
+      const unsigned af[4] = {
+          *reinterpret_cast<const unsigned*>(a),
+          *reinterpret_cast<const unsigned*>(a + 8 * ld),
+          *reinterpret_cast<const unsigned*>(a + 16),
+          *reinterpret_cast<const unsigned*>(a + 8 * ld + 16)};
+#pragma unroll
+      for (int j = 0; j < kN; ++j) mma_s8_16832(acc[i][j], af, bf[j][0], bf[j][1]);
+    }
+  }
+}
+
+// A lane's sums of one n8 tile, scaled once: out[row + 8h][col + e] =
+// acc[2h + e] * sc[e] for rows below m and columns below n (sc[e] read
+// there only); one float2 where out8 (n even, out 8-byte aligned).
+__device__ __forceinline__ void store_scaled_n8(const int (&acc)[4], int row,
+                                                int m, int col, int n,
+                                                const float* sc,
+                                                float* __restrict__ out,
+                                                bool out8) {
+  const float s0 = col < n ? sc[0] : 0.0f;
+  const float s1 = col + 1 < n ? sc[1] : 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= m) continue;
+    const float v0 = __fmul_rn(__int2float_rn(acc[2 * h]), s0);
+    const float v1 = __fmul_rn(__int2float_rn(acc[2 * h + 1]), s1);
+    float* o = out + static_cast<long long>(r) * n + col;
+    if (out8 && col + 1 < n) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      if (col < n) o[0] = v0;
+      if (col + 1 < n) o[1] = v1;
+    }
+  }
+}
+
 // Byte offsets of one block's tiles in its dynamic shared memory:
 //   raw  float [max(ts, 1)][rows][kp]  the trains as staged; t = 0 then
 //                                      holds the merged rows (fp32 path)
@@ -496,14 +571,7 @@ __global__ void __launch_bounds__(int4_tile_threads(kRowsB, kCols))
   for (int i = threadIdx.x; i < kCols * (kp / 8); i += kThreads) {
     const int c = i % kCols;
     const int q = i / kCols;
-    unsigned word[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = 4 * q + j;
-      const int byte = p < k2 ? wp[p * kCols + c] : 0;
-      word[j >> 1] |= (nibble_s8(byte) | nibble_s8(byte >> 4) << 8) << (16 * (j & 1));
-    }
-    *reinterpret_cast<uint2*>(b8 + c * ld + 8 * q) = make_uint2(word[0], word[1]);
+    *reinterpret_cast<uint2*>(b8 + c * ld + 8 * q) = unpack_int4_8(wp, kCols, c, q, k2);
   }
   // then the rows: merge t = 0, 1, ... (zero past k), keep the float sum in
   // raw's t = 0 for the fp32 path, write the s8 copy, and vote
@@ -535,50 +603,21 @@ __global__ void __launch_bounds__(int4_tile_threads(kRowsB, kCols))
   const bool s8 = __syncthreads_and(exact);
 
   if (s8) {
-    // warp tile: 16 rows by kSub n8 tiles; lane (g, tq) loads 4 bytes of
-    // rows g and g + 8 of A and of column g of each B (mma's fragments),
-    // and its sums land at rows g, g + 8, columns 2tq, 2tq + 1 of each
-    // n8 tile: four lanes write 32 contiguous bytes of a row
+    // warp tile: 16 rows by kSub n8 tiles (mma_s8_warp_tile); four lanes
+    // write 32 contiguous bytes of a row
     const int g = lane >> 2;
     const int tq = lane & 3;
     for (int tile = warp; tile < kTiles; tile += kWarps) {
       const int mt = tile / kTilesN;
       const int nt = tile % kTilesN;
-      const int8_t* ap = a8 + (16 * mt + g) * ld + 4 * tq;
-      const int8_t* bp = b8 + (8 * kSub * nt + g) * ld + 4 * tq;
-      int acc[kSub][4] = {};
-      for (int k0 = 0; k0 < kp; k0 += kMmaK) {
-        const unsigned a[4] = {
-            *reinterpret_cast<const unsigned*>(ap + k0),
-            *reinterpret_cast<const unsigned*>(ap + 8 * ld + k0),
-            *reinterpret_cast<const unsigned*>(ap + k0 + 16),
-            *reinterpret_cast<const unsigned*>(ap + 8 * ld + k0 + 16)};
-#pragma unroll
-        for (int s = 0; s < kSub; ++s) {
-          const int8_t* b = bp + 8 * s * ld + k0;
-          mma_s8_16832(acc[s], a, *reinterpret_cast<const unsigned*>(b),
-                       *reinterpret_cast<const unsigned*>(b + 16));
-        }
-      }
+      int acc[1][kSub][4] = {};
+      mma_s8_warp_tile<1, kSub>(a8 + 16 * mt * ld, b8 + 8 * kSub * nt * ld,
+                                ld, kp, acc);
 #pragma unroll
       for (int s = 0; s < kSub; ++s) {
         const int col = c0 + 8 * (kSub * nt + s) + 2 * tq;
-        const float s0 = col < n ? scale[col] : 0.0f;
-        const float s1 = col + 1 < n ? scale[col + 1] : 0.0f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + 16 * mt + g + 8 * h;
-          if (row >= m) continue;
-          const float v0 = __fmul_rn(__int2float_rn(acc[s][2 * h]), s0);
-          const float v1 = __fmul_rn(__int2float_rn(acc[s][2 * h + 1]), s1);
-          float* o = out + static_cast<long long>(row) * n + col;
-          if (out8 && col + 1 < n) {
-            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-          } else {
-            if (col < n) o[0] = v0;
-            if (col + 1 < n) o[1] = v1;
-          }
-        }
+        store_scaled_n8(acc[0][s], row0 + 16 * mt + g, m, col, n, scale + col,
+                        out, out8);
       }
     }
   } else {

@@ -22,7 +22,9 @@
 //
 // The state (the s0/s1 spike trains, u/h of each layer) stays on chip across
 // the F frames and is written once at the end.  Shapes: x (F, B, D), s0/s1
-// (TS, B, H) spikes (0/1), u0/h0/u1/h1 (B, H), beta/vth (H,), all float32;
+// (TS, B, H) spikes, 0/1 only (kept as bits: a nonzero entry reads as 1;
+// the served state is the kernel's own output), u0/h0/u1/h1 (B, H),
+// beta/vth (H,), all float32;
 // the four layer weights (K/2, H) int8 nibbles + (H,) float32 scales, or
 // (K, H) float32 (precision float, whose only FC is dense_float: w_fc (H, N)
 // float32); FC dense_int4 packed (H/2, N) int8 + scale (N,), csc indices
@@ -34,20 +36,23 @@
 // Bound on the H100, at B = 256, F = 1, TS = 2, H = 128, N = 1920 (nnz 95):
 // the call moves 5.35 MB with csc (the 1.97 MB logits and 1.46 MB of CSC
 // index + value dominate; 4.01 MB with dense_int4 and 2:4 nm, whose FC
-// operands are 0.13 MB): 1.60 us (1.20 us) at 3.35 TB/s.  Its float32
-// products over dequantized weights (no tensor-core type holds them
-// exactly) are 53 MFLOP: 0.79 us at 67 TFLOP/s; the FC's integer sums are
-// exact on the int8 tensor cores.  Bytes bound it.  At BASELINE (H = 256,
-// float weights) the 206 MFLOP of float32 layer products and 252 MFLOP of
-// the dense float FC bound it: 6.9 us.
+// operands are 0.13 MB): 1.60 us (1.20 us) at 3.35 TB/s.  Its products
+// over the trains' events (counted as float32: at most 53 MFLOP, 0.79 us
+// at 67 TFLOP/s) and the FC's integer sums (exact on the int8 tensor
+// cores) take less: bytes bound it.  At BASELINE (H = 256, float weights)
+// the float32 products of the events and of the merged union's FC rows
+// bound it: 2.6 us (chip_smoke.py counts them from each run's trains; a
+// dense count, 458 MFLOP and 6.9 us, adds products with a 0 spike, work
+// that neither K6 nor K7 needs).
 //
 // Design: one thread-block cluster of C CTAs (8 or 16) for each tile of
 // kSlots = 32 slots; kThreads = 256 threads a CTA, 8 column groups of
 // each of the 32 slots.  The plan (32 slots, C, FC columns a sub-tile)
-// comes from the wrapper: tile_plan ranks the plans that fit 227 KB,
-// resident_plan takes the first whose B / 32 clusters the card holds at
-// once (an H100 holds 7 clusters of 16 at one CTA an SM, 14 at two, 15
-// of 8), so B = 256 runs 128 CTAs in int4 and 64 at BASELINE float.
+// comes from the wrapper: among the plans that fit 227 KB, resident_plan
+// takes the widest FC sub-tile, then the fewest waves of the B / 32
+// clusters over those the card holds at once (an H100 holds 7 clusters of
+// 16 at one CTA an SM, 14 at two, 15 of 8), then the larger cluster: B =
+// 256 runs 64 or 128 CTAs.
 //   Cells, split by hidden column: CTA r owns hcp = 8 kCt hidden columns
 //   of both layers (H / C rounded up to 8, 16 or 32; H need not divide),
 //   thread (slot, g) the columns g kCt .. g kCt + kCt - 1 of them, whose
@@ -106,6 +111,17 @@
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
+
+// MEGA_STAMP(i): built with -DREPRO_MEGASTEP_TRACE (megastep_trace.py),
+// thread 0 of each CTA stores clock64() into g_trace[cta][i] at stamp i,
+// which ends phase i (the script names the phases); otherwise nothing.
+#ifdef REPRO_MEGASTEP_TRACE
+__device__ long long g_trace[1024][32];
+#define MEGA_STAMP(i) \
+  do { if (threadIdx.x == 0) g_trace[blockIdx.x][i] = clock64(); } while (0)
+#else
+#define MEGA_STAMP(i) do { } while (0)
+#endif
 
 namespace {
 
@@ -530,8 +546,9 @@ __device__ __forceinline__ void lif_chain(
 // columns, k < kp; a8 the merged spikes (s8, {0..TS}), b8 the sub-tile's
 // int4 weights (s8, k-contiguous a column), scale the sub-tile's scales in
 // shared memory.  A warp takes 8-column tiles, both 16-row halves of each
-// at once (int4_tile_kernel's fragments, one B fragment for two mmas); the
-// integer sums are exact and scaled once, as the plain version's.
+// at once (common.cuh's mma_s8_warp_tile, int4_tile_kernel's fragments:
+// one B fragment for two mmas); the integer sums are exact and scaled
+// once, as the plain version's.
 __device__ __forceinline__ void fc_mma(const int8_t* a8, const int8_t* b8,
                                        int ld, int kp, int cols, int cf,
                                        int row0, int b, int n,
@@ -539,44 +556,15 @@ __device__ __forceinline__ void fc_mma(const int8_t* a8, const int8_t* b8,
                                        float* __restrict__ out, bool out8) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
   for (int nt = warp; nt < cols / 8; nt += kWarps) {
     if (cf + 8 * nt >= n) break;  // warp-uniform: later tiles lie further right
-    const int8_t* ap = a8 + g * ld + 4 * tq;
-    const int8_t* bp = b8 + (8 * nt + g) * ld + 4 * tq;
-    int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-    for (int k0 = 0; k0 < kp; k0 += reprotorch::kMmaK) {
-      const unsigned b0 = *reinterpret_cast<const unsigned*>(bp + k0);
-      const unsigned b1 = *reinterpret_cast<const unsigned*>(bp + k0 + 16);
+    int acc[2][1][4] = {};
+    reprotorch::mma_s8_warp_tile<2, 1>(a8, b8 + 8 * nt * ld, ld, kp, acc);
+    const int c = 8 * nt + 2 * (lane & 3);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t* am = ap + 16 * mt * ld + k0;
-        const unsigned a[4] = {
-            *reinterpret_cast<const unsigned*>(am),
-            *reinterpret_cast<const unsigned*>(am + 8 * ld),
-            *reinterpret_cast<const unsigned*>(am + 16),
-            *reinterpret_cast<const unsigned*>(am + 8 * ld + 16)};
-        reprotorch::mma_s8_16832(acc[mt], a, b0, b1);
-      }
-    }
-    const int c = 8 * nt + 2 * tq;
-    const int col = cf + c;
-    const float s0 = scale[c];
-    const float s1 = scale[c + 1];
-#pragma unroll
-    for (int hh = 0; hh < 4; ++hh) {  // rows g, g + 8, g + 16, g + 24
-      const int row = row0 + g + 8 * hh;
-      if (row >= b) continue;
-      const float v0 = __fmul_rn(__int2float_rn(acc[hh >> 1][2 * (hh & 1)]), s0);
-      const float v1 = __fmul_rn(__int2float_rn(acc[hh >> 1][2 * (hh & 1) + 1]), s1);
-      float* o = out + static_cast<long long>(row) * n + col;
-      if (out8 && col + 1 < n) {
-        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-      } else {
-        if (col < n) o[0] = v0;
-        if (col + 1 < n) o[1] = v1;
-      }
+    for (int mt = 0; mt < 2; ++mt) {  // rows g, g + 8, then g + 16, g + 24
+      reprotorch::store_scaled_n8(acc[mt][0], row0 + 16 * mt + (lane >> 2), b,
+                                  cf + c, n, scale + c, out, out8);
     }
   }
 }
@@ -659,6 +647,7 @@ template <int kTs, int kCt, bool kFloat>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     megastep_kernel(const Operands o) {
   extern __shared__ __align__(16) unsigned char smem[];
+  MEGA_STAMP(0);
   cg::cluster_group cluster = cg::this_cluster();
   const int nctas = o.cluster;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -769,6 +758,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
   }
   stage_x(0);
   reprotorch::cp_async_commit();
+  MEGA_STAMP(1);
 
   // this thread's columns c0 + grp * kCt + i: u/h carries, LIF constants
   int col[kCt];
@@ -789,6 +779,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     beta1[i] = in ? o.beta[1][col[i]] : 0.0f;
     vth1[i] = in ? o.vth[1][col[i]] : 0.0f;
   }
+  MEGA_STAMP(2);
   // the initial trains: CTA `rank` takes the rows j % C == rank of s0 then
   // s1, a warp a row (its loads first, then a ballot a 32-column word), and
   // stores each word into every CTA's copy, once every CTA of the cluster
@@ -816,6 +807,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     }
   }
 
+  MEGA_STAMP(3);
   reprotorch::cp_async_wait_all();
   float sc1[kCt], sc2[kCt], sc3[kCt];  // int4: W0h, W1x, W1h's column scales
   if constexpr (!kFloat) {
@@ -855,7 +847,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
       sc3[i] = sc_sh[3 * hcp + q];
     }
   }
+  MEGA_STAMP(4);
   cluster.sync();  // the slices, frame 0's inputs and both trains are in place
+  MEGA_STAMP(5);
   if (o.spike) {
     compact_train(train(0, 0), ts, hw, lde, ev_l[0], cnt_l[0]);
     compact_train(train(0, 1), ts, hw, lde, ev_l[1], cnt_l[1]);
@@ -946,16 +940,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     if (o.fc_mode == kFcDenseInt4) {  // b8[c][8q .. 8q + 7] from pairs 4q .. 4q + 3
       for (int i = tid; i < cols * (hp / 8); i += kThreads) {
         const int c = i & (cols - 1);
-        const int q = i >> lcols;
-        unsigned word[2] = {0u, 0u};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int pr = 4 * q + jj;
-          const int byte = pr < h / 2 ? wp[pr * cols + c] : 0;
-          word[jj >> 1] |= (reprotorch::nibble_s8(byte) | reprotorch::nibble_s8(byte >> 4) << 8)
-                           << (16 * (jj & 1));
-        }
-        *reinterpret_cast<uint2*>(b8 + c * ld + 8 * q) = make_uint2(word[0], word[1]);
+        *reinterpret_cast<uint2*>(b8 + c * ld + 8 * (i >> lcols)) =
+            reprotorch::unpack_int4_8(wp, cols, c, i >> lcols, h / 2);
       }
       return;
     }
@@ -989,6 +975,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
   };
 
   for (int f = 0; f < o.frames; ++f) {
+    MEGA_STAMP(6);
     const int cur = f & 1, nxt = cur ^ 1;
     reprotorch::cp_async_wait_all();  // frame f's inputs
     __syncthreads();
@@ -996,6 +983,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     if (early && tiles > 0) stage_fc(0, entries_all);
     reprotorch::cp_async_commit();
     const float* xs = x_sh + cur * kSlots * d;
+    MEGA_STAMP(7);
     {  // input one-bits: a slot's eight lanes take every eighth input
       int c = 0;
       for (int k = grp; k < d; k += kGroups) {
@@ -1045,6 +1033,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
         for (int i = 0; i < kCt; ++i) ff[t][i] = ff[0][i];  // the same for every t
       }
     }
+    MEGA_STAMP(8);
     if constexpr (!kFloat) {
       int4_product<kTs, kCt>(o.spike, train(cur, 0), ev_l[0], cnt_l[0], ts, hw,
                              lde, slot, planes, q_sh, grp, sc1, rec);
@@ -1053,9 +1042,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     } else {
       dense_product<kTs, kCt>(train(cur, 0), ts, hw, slot, w0h, grp, rec);
     }
+    MEGA_STAMP(9);
     lif_chain<kTs, kCt>(ff, rec, beta0, vth0, owns, u0, h0, ts, slot, grp, hw,
                         rank, nctas, cluster, train(nxt, 0));
+    MEGA_STAMP(10);
     cluster.sync();  // the new L0 train is complete in every CTA
+    MEGA_STAMP(11);
     if (o.spike) {
       compact_train(train(nxt, 0), ts, hw, lde, ev_l[0], cnt_l[0]);
       __syncthreads();
@@ -1081,9 +1073,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
       dense_product<kTs, kCt>(train(nxt, 0), ts, hw, slot, w1x, grp, ff);
       dense_product<kTs, kCt>(train(cur, 1), ts, hw, slot, w1h, grp, rec);
     }
+    MEGA_STAMP(12);
     lif_chain<kTs, kCt>(ff, rec, beta1, vth1, owns, u1, h1, ts, slot, grp, hw,
                         rank, nctas, cluster, train(nxt, 1));
+    MEGA_STAMP(13);
     cluster.sync();  // the new L1 train is complete in every CTA
+    MEGA_STAMP(14);
 
     if (f + 1 < o.frames) stage_x(f + 1);  // lands during the FC
     reprotorch::cp_async_commit();
@@ -1149,6 +1144,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
       if (lane == 0) *uni_cnt = base;
     }
     __syncthreads();
+    MEGA_STAMP(15);
     const int entries = o.spike && float_fc ? *uni_cnt : entries_all;
     if (!early && tiles > 0) stage_fc(0, entries);
     reprotorch::cp_async_commit();
@@ -1158,10 +1154,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     for (int j = 0; j < tiles; ++j) {
       reprotorch::cp_async_wait_all();
       __syncthreads();
+      MEGA_STAMP(16);
       if constexpr (!float_fc) {
         decode_fc();
         __syncthreads();
       }
+      MEGA_STAMP(17);
       if (j + 1 < tiles) stage_fc(j + 1, entries);
       reprotorch::cp_async_commit();
       const int cf = cbeg + j * cols;
@@ -1183,6 +1181,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     }
   }
 
+  MEGA_STAMP(18);
   // the state: this CTA's columns of the last trains and the potentials
   const int fin = o.frames & 1;
   const uint32_t* s0f = train(fin, 0);
@@ -1201,6 +1200,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kTs, kCt, kFloat>)
     o.u0_out[at] = u0[i];
     o.u1_out[at] = u1[i];
   }
+  MEGA_STAMP(19);
 }
 
 using MegaKernel = void (*)(const Operands);
@@ -1417,3 +1417,16 @@ extern "C" int megastep_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef REPRO_MEGASTEP_TRACE
+// The stamps to the host (32 of each of 1024 CTAs), and their reset.
+extern "C" int megastep_trace_read(void* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace)));
+}
+
+extern "C" int megastep_trace_clear() {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, g_trace);
+  return static_cast<int>(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(g_trace)));
+}
+#endif

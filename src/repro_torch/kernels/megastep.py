@@ -19,9 +19,9 @@ The kernel runs one thread-block cluster for each tile of 32 slots: its
 new spikes through distributed shared memory, then split the FC's output
 columns, ``cols`` at a time.  ``tile_plans`` lists the plans the launch
 takes for a shape with each CTA's shared memory (``MegaLayout`` in the
-source), ``tile_plan`` ranks them, and on the card ``resident_plan`` takes
-the first whose clusters the card holds all at once
-(``cudaOccupancyMaxActiveClusters``).
+source), ``tile_plan`` ranks them, and on the card ``resident_plan`` ranks
+those that fit by how many waves their clusters take
+(``cudaOccupancyMaxActiveClusters``) within each sub-tile width.
 """
 
 from __future__ import annotations
@@ -108,20 +108,20 @@ def shared_bytes(ts: int, d: int, h: int, fc_mode: str, entries: int,
 
 def tile_plans(ts: int, b: int, d: int, h: int, fc_mode: str,
                entries: int, spike: bool) -> list[MegaPlan]:
-    """Every plan the launch takes for this shape: clusters of 16 or 8
-    CTAs over 32 slots, 128, 64, 32 or 16 FC columns a sub-tile (16
-    leaves half the gather's warps idle: for shapes nothing wider fits)."""
+    """Every plan the launch takes for this shape: 128, 64, 32 or 16 FC
+    columns a sub-tile (16 leaves half the gather's warps idle: for shapes
+    nothing wider fits), each over clusters of 16 or 8 CTAs of 32 slots."""
     return [MegaPlan(SLOTS, c, cols, -(-b // SLOTS) * c,
                      shared_bytes(ts, d, h, fc_mode, entries, spike, c, cols))
-            for c in CLUSTERS for cols in COLS]
+            for cols in COLS for c in CLUSTERS]
 
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(ts: int, b: int, d: int, h: int, fc_mode: str, entries: int,
               spike: bool) -> MegaPlan:
     """The first of ``tile_plans`` whose shared memory fits a CTA: the
-    larger cluster (more CTAs on the SMs), then the wider sub-tile (fewer
-    passes over the FC; the first is staged while the cells run).  When
+    widest sub-tile (fewer passes over the FC; the first is staged while
+    the cells run), then the larger cluster (more CTAs on the SMs).  When
     none fits, the smallest, which the launch refuses (status -2)."""
     plans = tile_plans(ts, b, d, h, fc_mode, entries, spike)
     fits = [p for p in plans if p.shared_bytes <= _build.MAX_SHARED_BYTES]
@@ -148,26 +148,28 @@ _resident: dict[tuple, MegaPlan] = {}
 def resident_plan(ts: int, b: int, d: int, h: int, precision: str,
                   fc_mode: str, entries: int, nm_n: int, nm_m: int,
                   spike: bool) -> MegaPlan:
-    """The plan a launch on the card takes: among the plans that fit, in
-    ``tile_plan``'s order, the first whose ceil(b / 32) clusters the card
-    holds at once, else the one whose resident clusters hold the most
-    CTAs; ``tile_plan``'s when none fits.  Cached per shape."""
+    """The plan a launch on the card takes: among the plans that fit, the
+    widest sub-tile, then the fewest waves of the ceil(b / 32) clusters
+    over those the card holds at once, then the larger cluster;
+    ``tile_plan``'s when none fits.  Cached per shape.  (On an H100 at
+    B = 256 this picks the fastest plan of ``chip_smoke.py
+    --sweep-tiles``, or one within 2% of it, in every FC mode.)"""
     key = (ts, b, d, h, precision, fc_mode, entries, nm_n, nm_m, spike)
     plan = _resident.get(key)
     if plan is None:
-        first = tile_plan(ts, b, d, h, fc_mode, entries, spike)
         fits = [p for p in tile_plans(ts, b, d, h, fc_mode, entries, spike)
                 if p.shared_bytes <= _build.MAX_SHARED_BYTES]
-        best, held = first, -1
-        for p in fits:
-            clusters = plan_info(p, ts, b, d, h, precision, fc_mode, entries,
-                                 nm_n, nm_m, spike)[1]
-            if clusters >= -(-b // SLOTS):
-                best = p
-                break
-            if clusters * p.cluster > held:
-                best, held = p, clusters * p.cluster
-        plan = _resident[key] = best
+        need = -(-b // SLOTS)
+
+        def rank(p: MegaPlan) -> tuple:
+            held = plan_info(p, ts, b, d, h, precision, fc_mode, entries,
+                             nm_n, nm_m, spike)[1]
+            waves = -(-need // held) if held else need + 1
+            return -p.cols, waves, -p.cluster
+
+        plan = min(fits, key=rank) if fits else tile_plan(
+            ts, b, d, h, fc_mode, entries, spike)
+        _resident[key] = plan
     return plan
 
 

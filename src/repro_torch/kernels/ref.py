@@ -227,7 +227,9 @@ def megastep_ref(x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1,
     reference oracle's order.
 
     ``x`` (F, B, D) quantized frames; ``s0``/``s1`` (TS, B, H) the previous
-    frame's spike trains; ``u*``/``h*`` (B, H) the LIF carries (``h*`` the
+    frame's spike trains, 0/1 only (K6/K7 keep them as bits and read any
+    nonzero entry as 1: the function is defined on 0/1 trains, which the
+    served state always is); ``u*``/``h*`` (B, H) the LIF carries (``h*`` the
     last spike, ``lif*.spike``); ``beta*``/``vth*`` (H,); ``wargs`` the
     layer weights ``l0_wx, l0_wh, l1_wx, l1_wh``: at ``precision="int4"``
     their packed ``(q, scale)`` pairs, at ``"float"`` the four dense

@@ -20,8 +20,10 @@ version the CUDA kernel is held against on the card).  Tolerances:
   counters and logits.
 """
 
+import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -233,19 +235,35 @@ def test_megastep_shared_bytes_grow_with_the_shape():
     assert 808 * 16 * 4 == 51712 < f32
 
 
-@pytest.mark.parametrize("held,want", [(8, 16), (7, 8), (0, 8)])
-def test_megastep_resident_plan_takes_one_wave(monkeypatch, held, want):
-    """On the card the plan is the first of ``tile_plan``'s order whose
-    eight clusters (B = 256) the card holds at once: clusters of 16 when
-    it holds 8 of them, else clusters of 8 (which it holds 16 of)."""
-    def info(plan, *shape):
-        return plan.shared_bytes, held if plan.cluster == 16 else 16
+# (h, fc_mode, entries, spike): PRUNED csc K6, BASELINE float K6 and K7
+_CSC = (128, "csc", 95, False)
+_F32 = (256, "dense_float", 0, False)
+_F32_K7 = (256, "dense_float", 0, True)
 
+
+@pytest.mark.parametrize("shape,held16,held8,want", [
+    (_CSC, 8, 16, (16, 128)), (_CSC, 7, 16, (8, 128)),
+    (_CSC, 0, 16, (8, 128)), (_F32, 7, 15, (8, 32)),
+    (_F32, 7, 7, (16, 32)), (_F32, 1, 1, (16, 32)),
+    (_F32_K7, 7, 15, (16, 32))])
+def test_megastep_resident_plan_takes_one_wave(monkeypatch, shape, held16,
+                                               held8, want):
+    """On the card the plan is, among those that fit, the widest sub-tile
+    (128 columns at PRUNED, 32 at BASELINE float), then the fewest waves
+    of its eight clusters (B = 256) over those the card holds at once
+    (``held16``, ``held8``), then the larger cluster.  At BASELINE float
+    only clusters of 16 fit K7's 32-column sub-tile: they stay the plan
+    over two waves rather than give way to 16 columns in one."""
+    def info(plan, *shape):
+        return plan.shared_bytes, held16 if plan.cluster == 16 else held8
+
+    h, fc_mode, entries, spike = shape
+    precision = "float" if fc_mode == "dense_float" else "int4"
     monkeypatch.setattr(mega_kernel, "plan_info", info)
     monkeypatch.setattr(mega_kernel, "_resident", {})
-    plan = mega_kernel.resident_plan(2, 256, 40, 128, "int4", "csc", 95, 0,
-                                     0, False)
-    assert plan.cluster == want
+    plan = mega_kernel.resident_plan(2, 256, 40, h, precision, fc_mode,
+                                     entries, 0, 0, spike)
+    assert (plan.cluster, plan.cols) == want
     assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
 
 
@@ -256,6 +274,20 @@ def test_megastep_signatures_match_the_kernel_source(name, args):
     """The wrapper's ctypes lists against ``csrc/megastep.cu``'s C
     signatures (a mismatch would pass a pointer as an int)."""
     assert c_signature("megastep.cu", name) == args
+
+
+def test_megastep_trace_names_every_stamp():
+    """``megastep_trace.py`` builds ``megastep.cu`` with its stamps on and
+    names the phase each ``MEGA_STAMP(i)`` ends: the source holds stamps
+    0 .. len(PHASES) - 1, each once, and a build without the macro none."""
+    src = (ROOT / "src/repro_torch/csrc/megastep.cu").read_text()
+    stamps = [int(i) for i in re.findall(r"MEGA_STAMP\((\d+)\);", src)]
+    tree = ast.parse((ROOT / "megastep_trace.py").read_text())
+    phases = next(ast.literal_eval(node.value) for node in tree.body
+                  if isinstance(node, ast.Assign)
+                  and node.targets[0].id == "PHASES")
+    assert sorted(stamps) == list(range(len(phases)))
+    assert "#define MEGA_STAMP(i) do { } while (0)" in src
 
 
 # ----------------------------------------------------------- served frames
@@ -304,6 +336,35 @@ def test_fused_streamloop_matches_reference_loop(small_path, small_cfg,
                                           b.stacked_logits())
         else:
             _close(a.stacked_logits(), b.stacked_logits())
+
+
+@pytest.mark.parametrize("backend", FUSED)
+@pytest.mark.parametrize("sparse_fc", [True, False])
+def test_fused_backends_pass_binary_trains(small_path, small_cfg,
+                                           monkeypatch, backend, sparse_fc):
+    """K6/K7 keep the spike trains as bits and read a nonzero entry as 1,
+    so ``megastep`` is defined on 0/1 trains only: over a served
+    StreamLoop (fresh slots, refills, an idle slot) every train and last
+    spike the fused backends hand it is 0/1."""
+    port = _engines(small_path, backend, sparse_fc=sparse_fc)[1]
+    seen = []
+    real = ops.megastep
+
+    def spy(*a, **k):
+        seen.append(torch.cat([t.reshape(-1)
+                               for t in (a[1], a[3], a[4], a[6])]))
+        return real(*a, **k)
+
+    monkeypatch.setattr(ops, "megastep", spy)
+    rng = np.random.default_rng(9)
+    loop = TS.StreamLoop(port, batch_slots=2, pipeline_depth=0)
+    for t in (5, 3, 6):
+        loop.submit(rng.normal(size=(t, small_cfg.input_dim))
+                    .astype(np.float32) * 3.0)
+    loop.run()
+    values = torch.cat(seen)
+    assert len(seen) >= 6 and values.any()
+    assert bool(((values == 0) | (values == 1)).all())
 
 
 # -------------------------------------------------------------- chunk step
