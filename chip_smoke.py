@@ -22,14 +22,18 @@ Phases, each printed on its own line:
      an all-zero and a full row, N = 200 and 203, K9 at capacity 1; K5
      over 1:4, 2:4 and 3:8 masks, bit-equal to its plain version and to
      K4 on the same mask (``check_nm_edges``); K2 at K = 40 and 128 and K3
-     at TS = 1, 2 and 4, both again at B = 1, bit for bit), and K2/K3
-     within ``TOL`` on non-integer inputs and on integers outside
-     [-128, 127] in one row, which take their fp32 path
-     (``check_int4_edges``); K1 at B = 256, 200 and 1, H = 128, 256 and
-     100, TS = 1, 2 and 4, with the stride-0 and the dense stimulus
-     (``check_cell_edges``); K8 at
-     ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that every
-     row takes the cached branch.  K6 and K7 (megastep, spike=False/True)
+     at TS = 1, 2 and 4, both again at B = 1, bit for bit; K9 also bit
+     for bit against the ascending fmaf chain over its kept events,
+     ``ascending_chain``), and K2/K3 within ``TOL`` on non-integer inputs
+     and on integers outside [-128, 127] in one row, which take their
+     fp32 path (``check_int4_edges``); K1 and K10 at B = 256, 200 and 1,
+     H = 128, 256 and 100, TS = 1, 2 and 4, with the stride-0 and the
+     dense stimulus, K10 lossless bit-equal to K1 and at
+     ``TRUNC_CAPACITY`` within the rule above (``check_cell_edges``); K8
+     at ``DELTA_THRESHOLD`` and at 0, first on a repeated frame so that
+     every row takes the cached branch, and at B = 256, 200 and 1, H =
+     128, 256 and 100 on frames whose rows are mixed, all held or all
+     changed (``check_delta_edges``).  K6 and K7 (megastep, spike=False/True)
      in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
      1 and
      ``MEGA_FRAMES`` frames (``check_megastep``): a slot may differ from
@@ -116,9 +120,9 @@ Phases, each printed on its own line:
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
-times every tile plan of K6/K7 (``sweep_megastep``), K1, K5, K9, K4, K2
-and K3 at the main path's shapes (``sweep_tiles``), the measurements
-their ``tile_plan`` rests on.
+times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
+K4, K2 and K3 at the main path's shapes (``sweep_tiles``), the
+measurements their ``tile_plan`` rests on.
 Phase 1 also prints ptxas's registers, stack and spills of each kernel
 (``_build.ptxas_report``) when this process built the library, and phase
 5 each kernel's time call by call (K1's L0 call, with its stride-0
@@ -810,8 +814,15 @@ def check_mega(name, got, want, near, float_fc: bool = False
         d = (gk - wk).abs()
         errs[out] = float(d.max()) if d.numel() else 0.0
         if out in ("u0", "u1"):
-            if bool((d > U_ATOL + U_RTOL * wk.abs()).any()):
-                raise AssertionError(f"{name}: |d{out}| up to {errs[out]}")
+            lim = U_ATOL + U_RTOL * wk.abs()
+            if bool((d > lim).any()):
+                i = int(torch.argmax(d - lim))
+                raise AssertionError(
+                    f"{name}: |d{out}| up to {errs[out]}; "
+                    f"{int((d > lim).sum())} of {d.numel()} over the rule, "
+                    f"the worst at u {float(wk.flatten()[i])!r}: |du| "
+                    f"{float(d.flatten()[i])!r}, allowed "
+                    f"{float(lim.flatten()[i])!r}")
         elif out == "logits" and float_fc:
             check_close(f"{name} logits", gk, wk)
         elif not torch.equal(gk, wk):
@@ -988,12 +999,14 @@ def check_refusals() -> None:
     unknown precision), an N:M geometry it cannot take (-6: n > m; entries
     not a multiple of n) and a plan it does not take (-7: 16 slots, a
     cluster of 4, 48 columns a sub-tile); K5 refuses n < 1 and m > 16
-    (-6); K1 refuses TS over kMaxTs (-1); K1, K9, K4, K5, K2 and K3 refuse
-    a tile plan they do not take (-7) and one whose tiles pass 227 KB of
-    shared memory (-2)."""
-    from repro_torch.kernels import (_build, int4_matmul, megastep,
-                                     merged_spike_fc, nm_fc, rsnn_cell,
-                                     sparse_fc, spike_broadcast)
+    (-6); K1 and K10 refuse TS over kMaxTs (-1), K10 a capacity below 1
+    (-3); K1, K9, K4, K5, K2, K3, K10 and K8 refuse a tile plan they do not
+    take (-7: K10 a partial group of rows, more than eight groups, 48
+    neurons; K8 16 or 48 columns, under a warp, over 32 rows) and one whose
+    tiles pass 227 KB of shared memory (-2)."""
+    from repro_torch.kernels import (_build, delta_step, int4_matmul,
+                                     megastep, merged_spike_fc, nm_fc,
+                                     rsnn_cell, sparse_fc, spike_broadcast)
 
     fn = _build.function("megastep_launch", megastep._ARGS)
     d, fc, nnz = PRUNED.input_dim, PRUNED.fc_dim, 95
@@ -1063,6 +1076,24 @@ def check_refusals() -> None:
         refused(fn, (None, None, None, None, ts, SLOTS, h, fc, rows, cols,
                      None), want, "merged_spike_fc",
                 f"ts={ts}, rows={rows}, cols={cols}")
+    fn = _build.function("spike_cell_launch", spike_broadcast._CELL_ARGS)
+    for want, ts, hh, cap, rows, cols in (
+            (-1, 5, h, h, 4, 32), (-3, 2, h, 0, 4, 32),
+            (-7, 2, h, h, 3, 32), (-7, 1, h, h, 2, 32),
+            (-7, 2, h, h, 32, 32), (-7, 2, h, h, 4, 48),
+            (-2, 2, 8192, 8192, 2, 32)):
+        refused(fn, (None, 0, 0, *[None] * 8, ts, SLOTS, hh, cap, rows, cols,
+                     None), want, "spike_cell",
+                f"ts={ts}, h={hh}, capacity={cap}, rows={rows}, "
+                f"cols={cols}")
+    fn = _build.function("delta_step_launch", delta_step._ARGS)
+    d = PRUNED.input_dim
+    for want, dd, rows, cols in ((-7, d, 3, 32), (-7, d, 4, 48),
+                                 (-7, d, 8, 16), (-7, d, 1, 32),
+                                 (-7, d, 64, 64), (-2, 65536, 8, 32)):
+        refused(fn, (None, None, None, None, 0.0, None, None, None, SLOTS,
+                     dd, h, rows, cols, None), want, "delta_step",
+                f"d={dd}, rows={rows}, cols={cols}")
 
 
 def check_nm_against_csc(a: dict, b: int) -> None:
@@ -1089,6 +1120,30 @@ def edge_rows(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def kept_events(x: torch.Tensor, capacity: int | None) -> torch.Tensor:
+    """The rows K9 reads from ``x`` ((R, K), or (TS, B, K) trains merged
+    over TS), each with only its first ``capacity`` nonzeros kept (``None``:
+    all), as ``ref.spike_broadcast_ref`` truncates them."""
+    m = x.sum(dim=0) if x.dim() == 3 else x
+    if capacity is None:
+        return m
+    cnt = torch.cumsum((m != 0).to(torch.int32), dim=1)
+    return torch.where(cnt <= capacity, m, torch.zeros((), device=m.device))
+
+
+def ascending_chain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as one float32 chain a output in ascending k: ``acc = acc
+    + x[:, k] * w[k]``, each product its own op and so rounded before the
+    add.  For x in {0, 1, 2} every product is exact, so each step rounds
+    once, as ``fmaf(x, w, acc)`` does, and a zero x adds an exact zero: the
+    bits of an event-list kernel whose sums are fmaf chains in ascending
+    index (K9, K10)."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k:k + 1] * w[k]
+    return acc
+
+
 def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
     """K9 and K4 at the edges of their tiles, against their plain versions
     on inputs whose first row is all zeros and second full (``edge_rows``):
@@ -1113,10 +1168,15 @@ def check_tile_edges(a: dict, b: int, errs: dict, width: str = "") -> None:
             errs["spike_broadcast"] = max(errs["spike_broadcast"],
                                           check_close("spike_broadcast",
                                                       got, want))
+            if not torch.equal(got, ascending_chain(kept_events(x, cap), w)):
+                raise AssertionError(f"spike_broadcast{width} B={b} N="
+                                     f"{w.shape[1]} capacity={cap}: not the "
+                                     f"ascending fmaf chain over its events")
     print(f"check spike_broadcast{width} tile edges B={b} (zero and full "
           f"rows; N = {wfc.shape[1]}, 200, 203; capacity 1, "
-          f"{TRUNC_CAPACITY}, lossless): ok, max_abs_err "
-          f"{errs['spike_broadcast']!r}")
+          f"{TRUNC_CAPACITY}, lossless): ok, bit-equal to the ascending fmaf "
+          f"chain over the kept events, max_abs_err against the plain "
+          f"version {errs['spike_broadcast']!r}")
     if "csc" not in a:
         return
     check_int4_edges(a, b, errs)
@@ -1154,13 +1214,18 @@ def cell_edge_args(w: torch.Tensor, ts: int, b: int, h: int,
 
 def check_cell_edges(w128: torch.Tensor, w256: torch.Tensor,
                      gen: torch.Generator, errs: dict) -> None:
-    """K1 at the edges of its tiles, within ``check_cell``'s rule: B = 256,
-    200 and 1; H = 128 (the int4 engine's dequantized recurrent weights
-    ``w128``), 256 (the float ``BASELINE`` ones, ``w256``) and a ragged 100
-    (``w128`` cut: not a multiple of 4, so the 4-byte copies); TS = 1, 2
-    and 4; with the stride-0 and the dense stimulus (``cell_edge_args``)."""
-    from repro_torch.kernels import ref, rsnn_cell
+    """K1 and K10 at the edges of their tiles: B = 256, 200 and 1; H = 128
+    (the int4 engine's dequantized recurrent weights ``w128``), 256 (the
+    float ``BASELINE`` ones, ``w256``) and a ragged 100 (``w128`` cut: not
+    a multiple of 4, so the 4-byte copies); TS = 1, 2 and 4; with the
+    stride-0 and the dense stimulus (``cell_edge_args``).  K1 within
+    ``check_cell``'s rule; K10 lossless bit-equal to K1 on the same 0/1
+    trains (both sum one fmaf chain in ascending index), and at
+    ``TRUNC_CAPACITY`` within ``check_cell``'s rule against
+    ``ref.spike_cell_ref``."""
+    from repro_torch.kernels import ref, rsnn_cell, spike_broadcast
 
+    shapes = 0
     for b in (256, 200, 1):
         for h, w in ((128, w128), (256, w256), (100, w128)):
             for ts in (1, 2, 4):
@@ -1168,12 +1233,86 @@ def check_cell_edges(w128: torch.Tensor, w256: torch.Tensor,
                     args = cell_edge_args(w, ts, b, h, broadcast, gen)
                     got = rsnn_cell.rsnn_cell(*args)
                     want = ref.rsnn_cell_ref(*args)
+                    events = spike_broadcast.spike_cell(*args)
+                    cut = spike_broadcast.spike_cell(
+                        *args, capacity=TRUNC_CAPACITY)
+                    cut_want = ref.spike_cell_ref(*args, TRUNC_CAPACITY)
                     torch.cuda.synchronize()
                     errs["rsnn_cell"] = max(errs["rsnn_cell"], check_call(
                         "rsnn_cell", got, want, args, None))
-    print(f"check rsnn_cell tile edges (B = 256, 200, 1; H = 128, 256, 100; "
-          f"TS = 1, 2, 4; stride-0 and dense stimulus; zero and full rows): "
-          f"ok, max_abs_err {errs['rsnn_cell']!r}")
+                    if not all(map(torch.equal, events, got)):
+                        raise AssertionError(
+                            f"spike_cell B={b} H={h} TS={ts} broadcast="
+                            f"{broadcast}: lossless, not bit-equal to "
+                            f"rsnn_cell")
+                    errs["spike_cell"] = max(errs["spike_cell"], check_call(
+                        "spike_cell", cut, cut_want, args, TRUNC_CAPACITY))
+                    shapes += 1
+    print(f"check rsnn_cell, spike_cell tile edges ({shapes} shapes: B = "
+          f"256, 200, 1; H = 128, 256, 100; TS = 1, 2, 4; stride-0 and dense "
+          f"stimulus; zero and full rows): ok; spike_cell lossless "
+          f"bit-equal to rsnn_cell; max_abs_err rsnn_cell "
+          f"{errs['rsnn_cell']!r}, spike_cell at capacity {TRUNC_CAPACITY} "
+          f"{errs['spike_cell']!r}")
+
+
+def delta_edge_frames(b: int, d: int, gen: torch.Generator) -> dict:
+    """K8's inputs at the edges of its gate: name -> (x, x_prev), 8-bit
+    integers.  ``mixed``: rows that repeat (every 4th), move by at most
+    ``DELTA_THRESHOLD`` LSB (every 4th, one further) or change, as
+    ``kernel_inputs``; ``held``: x_prev = x, every row takes the cached
+    branch; ``changed``: every row moves by 3 LSB in one element (x_hat
+    mixes x and x_prev), so every row is recomputed at threshold 0 and
+    at 2."""
+    x = torch.randint(-128, 128, (b, d), generator=gen).float()
+    mixed = torch.randint(-128, 128, (b, d), generator=gen).float()
+    mixed[0::4] = x[0::4]
+    mixed[1::4] = x[1::4] + torch.randint(
+        -int(DELTA_THRESHOLD), int(DELTA_THRESHOLD) + 1, x[1::4].shape,
+        generator=gen).float()
+    changed = x.clone()
+    rows = torch.arange(b)
+    changed[rows, rows % d] -= 3.0
+    return {"mixed": (x, mixed), "held": (x, x.clone()),
+            "changed": (x, changed)}
+
+
+def check_delta_edges(w128: torch.Tensor, w256: torch.Tensor,
+                      gen: torch.Generator, errs: dict) -> None:
+    """K8 at the edges of its tiles and its gate, by ``check_delta``'s rule
+    (mask, x_hat and held rows exact, recomputed rows within ``TOL``): B =
+    256, 200 and 1; H = 128 (the int4 engine's dequantized L0 weights
+    ``w128``), 256 (the float ``BASELINE`` ones, ``w256``) and a ragged
+    100 (``w128`` cut); thresholds 0 and ``DELTA_THRESHOLD``; the
+    ``delta_edge_frames``: mixed rows, every row held, every row
+    changed."""
+    from repro_torch.kernels import delta_step, ref
+
+    dev = w128.device
+    shapes = 0
+    for b in (256, 200, 1):
+        for h, w in ((128, w128), (256, w256), (100, w128)):
+            w = w[:, :h].contiguous()
+            pre_prev = torch.randn((b, h), generator=gen).to(dev)
+            for name, (x, x_prev) in delta_edge_frames(
+                    b, w.shape[0], gen).items():
+                for thr in (0.0, DELTA_THRESHOLD):
+                    args = (x.to(dev), x_prev.to(dev), pre_prev, w, thr)
+                    got = delta_step.delta_step(*args)
+                    want = ref.delta_step_ref(*args)
+                    torch.cuda.synchronize()
+                    rows_changed = int(want[2].bool().any(dim=1).sum())
+                    if rows_changed != {"held": 0, "changed": b}.get(
+                            name, rows_changed):
+                        raise AssertionError(f"delta edge frame {name}: "
+                                             f"{rows_changed} rows changed")
+                    errs["delta_step"] = max(errs["delta_step"], check_call(
+                        "delta_step", got, want, args, None))
+                    shapes += 1
+    print(f"check delta_step tile edges ({shapes} calls: B = 256, 200, 1; "
+          f"H = 128, 256, 100; threshold 0 and {DELTA_THRESHOLD}; mixed, "
+          f"every row held, every row changed): ok, max_abs_err "
+          f"{errs['delta_step']!r}")
 
 
 def nm_edge_fcs(w: np.ndarray, geometries=((1, 4), NM, (3, 8))) -> list:
@@ -1333,7 +1472,9 @@ def check_kernels(packs: dict, floats: dict, dev,
     ``DELTA_THRESHOLD``; K9, K4, K2 and K3 at their tiles' edges
     (``check_tile_edges``), K2 and K3 also on their fp32 path; K5 also
     against K4 on the same mask, at the served shape and at its tiles'
-    edges; K1 at its tiles' edges (``check_cell_edges``).  Then the
+    edges; K1 and K10 at their tiles' edges, K10 lossless bit-equal to K1
+    (``check_cell_edges``); K8 at its tiles' and its gate's edges
+    (``check_delta_edges``).  Then the
     float engine's kernels with the float weights of ``floats`` (width
     name -> ``float_params``): K6/K7 in ``dense_float`` at each width, and
     K1, K8-K10 at ``BASELINE`` (H = 256), K9 at its tiles' edges too;
@@ -1347,8 +1488,9 @@ def check_kernels(packs: dict, floats: dict, dev,
         check_tile_edges(a, b, errs)
         check_nm_against_csc(a, b)
         check_megastep(a, b, errs)
-    check_cell_edges(a["w0h"], float_kernel_inputs(
-        floats["BASELINE"], 1, gen, dev)["w0h"], gen, errs)
+    fa = float_kernel_inputs(floats["BASELINE"], 1, gen, dev)
+    check_cell_edges(a["w0h"], fa["w0h"], gen, errs)
+    w0x = a["w0x"]
     for b in (256, 200):
         for width, params in floats.items():
             a = float_kernel_inputs(params, b, gen, dev)
@@ -1358,6 +1500,7 @@ def check_kernels(packs: dict, floats: dict, dev,
                                " BASELINE float")
                 check_tile_edges(a, b, errs, " BASELINE float")
             check_megastep(a, b, errs, ("dense_float",), f" {width}")
+    check_delta_edges(w0x, fa["w0x"], gen, errs)
     check_megastep_edges(floats["BASELINE"], dev, seed, errs)
     check_refusals()
     return errs
@@ -2021,18 +2164,19 @@ def time_kernels(packs: dict, floats: dict, dev, seed: int, launches: dict,
 
 
 def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
-    """Every tile plan K6/K7 (``sweep_megastep``), K1, K5, K9, K4, K2 and
-    K3 take at the main path's shapes (B = 256, phase 5's inputs; K1 on
-    its L0 and L1 calls and K9 on both of its calls, at H = 128 and again
+    """Every tile plan K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9, K4,
+    K2 and K3 take at the main path's shapes (B = 256, phase 5's inputs; K1
+    and K10 (lossless) on their L0 and L1 calls, K8 at
+    ``DELTA_THRESHOLD`` and K9 on both of its calls, at H = 128 and again
     with float weights at ``BASELINE``; K5 over the 2:4 FC; K2 on the L0
     and L1 feed-forward), each launched through its launch function, held
     against the plain version and timed as phase 5 times a kernel; the
     plan the wrapper picks is marked.  What ``tile_plan``'s choice rests
     on.  First the time of a one-element ``zero_`` timed the same way: the
     floor of a launch."""
-    from repro_torch.kernels import (_build, int4_matmul, merged_spike_fc,
-                                     nm_fc, ref, rsnn_cell, sparse_fc,
-                                     spike_broadcast)
+    from repro_torch.kernels import (_build, delta_step, int4_matmul,
+                                     merged_spike_fc, nm_fc, ref, rsnn_cell,
+                                     sparse_fc, spike_broadcast)
 
     gen = torch.Generator().manual_seed(seed + 7)
     a = kernel_inputs(packs, 256, gen, dev)
@@ -2085,6 +2229,45 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
         return (f"rsnn_cell {what}", k1, args, rsnn_cell.tile_plans(*s.shape),
                 ref.rsnn_cell_ref(*args))
 
+    k10_fn = _build.function("spike_cell_launch", spike_broadcast._CELL_ARGS)
+    k8_fn = _build.function("delta_step_launch", delta_step._ARGS)
+
+    def k10(stim, s, w, u0, h0, beta, vth, rows, cols):
+        ts, b, h = s.shape
+        spikes = torch.empty_like(s)
+        u = torch.empty_like(u0)
+        _build.check(k10_fn(stim.data_ptr(), stim.stride(0), stim.stride(1),
+                            s.data_ptr(), w.data_ptr(), u0.data_ptr(),
+                            h0.data_ptr(), beta.data_ptr(), vth.data_ptr(),
+                            spikes.data_ptr(), u.data_ptr(), ts, b, h, h,
+                            rows, cols, _build.stream(dev)), "spike_cell")
+        return spikes, u
+
+    def k10_case(what, stim, s, w, u0, h0, beta, vth):
+        args = (stim, s, w, u0, h0, beta, vth)
+        return (f"spike_cell {what}", k10, args,
+                spike_broadcast.cell_tile_plans(*s.shape),
+                ref.spike_cell_ref(*args))
+
+    def k8(x, x_prev, pre_prev, w, thr, rows, cols):
+        b, d = x.shape
+        h = w.shape[1]
+        x_hat, mask = torch.empty_like(x), torch.empty_like(x)
+        pre = torch.empty_like(pre_prev)
+        _build.check(k8_fn(x.data_ptr(), x_prev.data_ptr(),
+                           pre_prev.data_ptr(), w.data_ptr(), thr,
+                           x_hat.data_ptr(), pre.data_ptr(), mask.data_ptr(),
+                           b, d, h, rows, cols, _build.stream(dev)),
+                     "delta_step")
+        return x_hat, pre, mask
+
+    def k8_case(what, x):
+        args = (x["x"], x["x_prev"], x["pre_prev"], x["w0x"],
+                DELTA_THRESHOLD)
+        return (f"delta_step {what}", k8, args,
+                delta_step.tile_plans(*x["x"].shape, x["w0x"].shape[1]),
+                ref.delta_step_ref(*args))
+
     i4_fn = _build.function("int4_matmul_launch", int4_matmul._ARGS)
     mfc_fn = _build.function("merged_spike_fc_launch", merged_spike_fc._ARGS)
 
@@ -2116,11 +2299,12 @@ def sweep_tiles(packs: dict, floats: dict, dev, seed: int) -> None:
                 ref.spike_broadcast_ref(x3, w))
 
     s1, (idx, val, sc) = a["s1"], a["csc"]
-    cells = [k1_case(f"{layer}{width}", x[f"stim{i}"], x[f"s{i}"],
-                     x[f"w{i}h"], x["u0"], x["h0"], x["beta"], x["vth"])
+    cells = [case(f"{layer}{width}", x[f"stim{i}"], x[f"s{i}"], x[f"w{i}h"],
+                  x["u0"], x["h0"], x["beta"], x["vth"])
+             for case in (k1_case, k10_case)
              for x, width in ((a, ""), (fa, " BASELINE float"))
              for i, layer in enumerate(("L0 (stride-0 stimulus)", "L1"))]
-    cases = cells + [
+    cases = cells + [k8_case("H=128", a), k8_case("H=256 BASELINE float", fa),
              ("nm_fc", k5, (s1, *a["nm"]),
               nm_fc.tile_plans(*s1.shape, *a["nm"][0].shape),
               ref.nm_fc_ref(s1, *a["nm"], n=NM[0], m=NM[1])),
@@ -2228,9 +2412,9 @@ def main(argv=None) -> int:
                     help="stop after phase 2 (build and kernel checks)")
     ap.add_argument("--sweep-tiles", action="store_true",
                     help="with --kernels-only: time every tile plan of "
-                         "megastep, rsnn_cell, nm_fc, spike_broadcast, "
-                         "sparse_fc, int4_matmul and merged_spike_fc before "
-                         "stopping")
+                         "megastep, rsnn_cell, spike_cell, delta_step, "
+                         "nm_fc, spike_broadcast, sparse_fc, int4_matmul and "
+                         "merged_spike_fc before stopping")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "

@@ -6,16 +6,11 @@
 // below, without launching) so that the Python wrapper raises on a refused
 // launch.  No kernel allocates or synchronises.
 //
-// Tiling: K8 and K10 put one thread on each output column (kCols
-// columns a block, neighbouring threads on neighbouring addresses, so every
-// weight row is one coalesced load) and kRows batch rows in a block, so
-// each weight element loaded from global memory serves kRows rows; the
-// rows' operand vectors sit in shared memory.  K1 (rsnn_cell), K9
-// (spike_broadcast), K4 (sparse_fc), K5 (nm_fc), K2 (int4_matmul), K3
-// (merged_spike_fc) and K6/K7 (megastep, thread-block clusters) take their
-// tiles from a plan their wrappers choose (tile_plan), stage them with
-// cp.async and say how in their sources; K4 and K5 share the gather tile
-// below (stage_merged_transposed, gather_tile), K2, K3 and K6/K7's int4 FC
+// Tiling: every kernel takes its tiles from a plan its wrapper chooses
+// (tile_plan), stages them with cp.async and says how in its source.  K9
+// (spike_broadcast) and K10 (spike_cell) share the union event lists below
+// (compact_group, union_product), K4 (sparse_fc) and K5 (nm_fc) the gather
+// tile (stage_merged_transposed, gather_tile), K2, K3 and K6/K7's int4 FC
 // the int8 tensor-core fragments (mma_s8_16832).
 // Ragged edges (B not a multiple of the rows a block, N not one of its
 // columns) are masked, not asserted.
@@ -26,13 +21,10 @@
 
 namespace reprotorch {
 
-constexpr int kCols = 128;  // output columns per block, one per thread
-constexpr int kRows = 8;    // batch rows per block
 constexpr int kMaxTs = 4;   // time steps the recurrent cell keeps in registers
 constexpr size_t kMaxSharedBytes = 48 * 1024;  // a block's shared memory without opting in
-// the dynamic shared memory a kernel may opt in to, the H100's per-block
-// maximum of 227 KB (megastep, rsnn_cell, spike_broadcast, sparse_fc, nm_fc,
-// int4_matmul, merged_spike_fc)
+// the dynamic shared memory every kernel may opt in to, the H100's
+// per-block maximum of 227 KB
 constexpr size_t kMaxOptInSharedBytes = 227 * 1024;
 // megastep (K6/K7): the widest hidden layer (its event lists hold a hidden
 // index in one byte)
@@ -41,21 +33,16 @@ constexpr int kMaxMegaHidden = 256;
 // Status codes a launch function returns, besides the cudaError_t values
 // (>= 0), for a shape its kernel cannot take; status.cu gives their text.
 constexpr int kErrTooManySteps = -1;  // ts > kMaxTs
-constexpr int kErrSharedMemory = -2;  // the block's rows exceed kMaxSharedBytes
-                                      // (kMaxOptInSharedBytes for the kernels
-                                      // that opt in: megastep, rsnn_cell,
-                                      // spike_broadcast, sparse_fc, nm_fc,
-                                      // int4_matmul, merged_spike_fc)
+constexpr int kErrSharedMemory = -2;  // the block's tiles exceed
+                                      // kMaxOptInSharedBytes
 constexpr int kErrCapacity = -3;      // event-list capacity outside [1, k]
 constexpr int kErrTooWide = -4;       // megastep: hidden width > kMaxMegaHidden
 constexpr int kErrFcMode = -5;        // megastep: an FC mode it does not serve,
                                       // or not at the given weight precision
 constexpr int kErrNmGeometry = -6;    // nm_fc, megastep nm mode: n < 1, n > m,
                                       // m > 16, or entries not a multiple of n
-constexpr int kErrTilePlan = -7;      // rsnn_cell, spike_broadcast, sparse_fc,
-                                      // nm_fc, int4_matmul, merged_spike_fc,
-                                      // megastep: a tile plan (rows, columns a
-                                      // block; megastep's cluster) they do
+constexpr int kErrTilePlan = -7;      // a tile plan (rows, columns a block;
+                                      // megastep's cluster) the kernel does
                                       // not take
 constexpr int kErrCluster = -8;       // megastep: no cluster of the plan can
                                       // be resident on the card
@@ -63,40 +50,6 @@ constexpr int kErrCluster = -8;       // megastep: no cluster of the plan can
 // Sign-extend one int4 nibble held in the low 4 bits of v: [0,15] -> [-8,7].
 __device__ __forceinline__ float nibble(int v) {
   return static_cast<float>(((v & 0xF) ^ 8) - 8);
-}
-
-// Priority-encode one row of k values into an ascending-index event list
-// (K9/K10's form of the reference's compact_spikes): the row's value at i
-// is sum_t row[t * ts_stride + i] for t < ts, summed t = 0, 1, ... (a
-// merged spike count for ts > 1).  Every nonzero value is an event; the
-// first cap events in index order land in idx[0..)/val[0..), the rest are
-// dropped, as the reference truncates a row over capacity.  Each 32-wide
-// chunk of the row is one __ballot_sync; an event's slot is the events
-// before it: the running count plus the __popc of the lower lanes' bits.
-// Called by all 32 lanes of one warp (base is uniform across it, so the
-// early exit is too).  Returns the number of events kept, min(nnz, cap).
-__device__ __forceinline__ int compact_row(const float* __restrict__ row,
-                                           long long ts_stride, int ts,
-                                           int k, int cap, int* idx,
-                                           float* val) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int base = 0;
-  for (int k0 = 0; k0 < k && base < cap; k0 += 32) {
-    const int i = k0 + lane;
-    float v = 0.0f;
-    if (i < k) {
-      for (int t = 0; t < ts; ++t) v = __fadd_rn(v, row[t * ts_stride + i]);
-    }
-    const unsigned live = __ballot_sync(0xffffffffu, v != 0.0f);
-    const int pos = base + __popc(live & below);
-    if (v != 0.0f && pos < cap) {
-      idx[pos] = i;
-      val[pos] = v;
-    }
-    base += __popc(live);
-  }
-  return base < cap ? base : cap;
 }
 
 // Asynchronous global -> shared copies (cp.async, sm_80 and later).  A copy
@@ -171,6 +124,161 @@ __device__ __forceinline__ void stage_column_tile(const T* __restrict__ src,
       const bool in = c < n;
       cp_async4(sh + i, src + (in ? static_cast<long long>(row) * n + c : 0),
                 in ? 4 : 0);
+    }
+  }
+}
+
+// ------------------------------------------ union event lists (K9, K10)
+//
+// kUnionLists spike lists (K9: rows of merged trains; K10: the TS steps of
+// one or more rows) share one event list: the union of the indices each
+// list keeps, ascending, each entry with every list's value (0 where a
+// list keeps no event there).  One W row read per entry then serves every
+// list, and a list's sum over the union is the fmaf chain over its own
+// events with exact zero terms added: the same float.
+
+constexpr int kUnionLists = 4;  // lists that share one union (a float4 of values)
+constexpr int kUnionChunks = 4;  // 32-index chunks whose loads go ahead
+
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (kVec == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kVec == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Compact the `lists` (<= kUnionLists) lists starting at `x`, list l at
+// x + l * list_stride, into one union event list: list l's value at i is
+// sum_m x[m * merge_stride + l * list_stride + i] for m < merges (summed
+// m = 0, 1, ...: K9's merged trains; merges = 1 reads the list itself),
+// its first cap nonzeros in index order are its kept events (the
+// reference's compact_spikes truncation), and every index that some list
+// keeps lands in off[pos] = i * scale (the W tile's row offset) and
+// val[pos] = the lists' kept values there (0 for a list that does not keep
+// i), pos ascending with i.  x may point to global or shared memory; every
+// load of a 128-index chunk is issued before its ballots.  The list is
+// padded with (0, zeros) entries to a multiple of 4.  Called by all 32
+// lanes of one warp; returns the padded length, the same in every lane.
+__device__ __forceinline__ int compact_group(const float* __restrict__ x,
+                                             long long merge_stride,
+                                             int merges, long long list_stride,
+                                             int k, int cap, int lists,
+                                             int scale, int* off, float4* val) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int base[kUnionLists] = {};  // each list's events so far
+  int len = 0;
+  for (int g = 0; g < k; g += 32 * kUnionChunks) {
+    float v[kUnionLists][kUnionChunks] = {};
+    for (int m0 = 0; m0 < merges; m0 += 2) {
+      float a[2][kUnionLists][kUnionChunks];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int l = 0; l < kUnionLists; ++l) {
+#pragma unroll
+          for (int c = 0; c < kUnionChunks; ++c) {
+            const int i = g + 32 * c + lane;
+            a[m][l][c] = (m0 + m < merges && l < lists && i < k)
+                             ? x[(m0 + m) * merge_stride + l * list_stride + i]
+                             : 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        if (m0 + m < merges) {
+#pragma unroll
+          for (int l = 0; l < kUnionLists; ++l) {
+#pragma unroll
+            for (int c = 0; c < kUnionChunks; ++c) v[l][c] = __fadd_rn(v[l][c], a[m][l][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kUnionChunks; ++c) {
+      float kept[kUnionLists];
+      unsigned any = 0u;
+#pragma unroll
+      for (int l = 0; l < kUnionLists; ++l) {
+        const bool nz = v[l][c] != 0.0f;
+        const unsigned live = __ballot_sync(0xffffffffu, nz);
+        const bool keep = nz && base[l] + __popc(live & below) < cap;
+        kept[l] = keep ? v[l][c] : 0.0f;
+        any |= __ballot_sync(0xffffffffu, keep);
+        base[l] += __popc(live);
+      }
+      if ((any >> lane) & 1u) {
+        const int pos = len + __popc(any & below);
+        off[pos] = (g + 32 * c + lane) * scale;
+        val[pos] = make_float4(kept[0], kept[1], kept[2], kept[3]);
+      }
+      len += __popc(any);
+    }
+  }
+  const int padded = (len + 3) & ~3;
+  if (lane < padded - len) {
+    off[len + lane] = 0;
+    val[len + lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return padded;
+}
+
+// The products over one union (compact_group's off/val, len entries): for
+// each of its lists l and each of a lane's kVec columns j,
+// acc[l][j] = fmaf(val[e].l, wl[off[e] + j], acc[l][j]) for e ascending,
+// wl the lane's first column in a W tile whose rows are `scale` floats
+// apart.  Four entries' loads go ahead of their multiply-adds.
+template <int kVec>
+__device__ __forceinline__ void union_product(const int* off,
+                                              const float4* val, int len,
+                                              const float* wl,
+                                              float (&acc)[kUnionLists][kVec]) {
+  static_assert(kUnionLists == 4, "a union entry's values are one float4");
+  for (int e = 0; e < len; e += 4) {
+    const int4 o = *reinterpret_cast<const int4*>(off + e);
+    const int at[4] = {o.x, o.y, o.z, o.w};
+    float vr[4][kUnionLists];
+    float wv[4][kVec];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 v = val[e + u];
+      vr[u][0] = v.x;
+      vr[u][1] = v.y;
+      vr[u][2] = v.z;
+      vr[u][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) load_vec<kVec>(wl + at[u], wv[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int l = 0; l < kUnionLists; ++l) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[l][j] = fmaf(vr[u][l], wv[u][j], acc[l][j]);
+      }
     }
   }
 }

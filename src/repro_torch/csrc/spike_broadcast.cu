@@ -23,146 +23,33 @@
 // dequantized weights are not exact in TF32), 2 x events x N of them.
 //
 // Design: a block owns rows_b rows by cols = 32 x kVec output columns
-// (the tile plan, chosen by the wrapper from (ts, R, K, N)).  It
-// starts a cp.async copy of its W column tile (K x cols float32) into
-// opted-in shared memory.  While that is in flight, each warp compacts
-// groups of kGroup rows (compact_group: every load of the group's trains
-// issued before its ballots): each row keeps its first cap events, and
-// the group's event list is the union of the rows' kept indices, in
-// ascending order, each with the kGroup rows' values (0 where a row has
-// no kept event there).  Then lane l of the warp owns kVec adjacent
-// columns of the group's rows: per union entry it reads the index and
-// the values as shared broadcasts and W[i][cols] once, as one
-// float4/float2/float from the staged tile, for all kGroup rows, four
-// entries' loads ahead of their multiply-adds.  So no L2 load sits in the
-// product loop, one W read serves kGroup outputs wherever the rows' events
-// overlap, and a row's sum is its fmaf chain in ascending event order
-// with exact zero terms where only another row of the group has an
-// event: the same float as the chain over its own events alone.  What
-// holds it now: shared-memory bandwidth (the W reads of the union
-// entries) and the tile's staging and compaction latency on the small L1
-// feed-forward.  The launch refuses a plan whose tiles do not fit 227 KB
-// (kErrSharedMemory) or that it does not take (kErrTilePlan).  Rows and
-// columns past the edge are masked, with no divisibility rule.
+// (the tile plan, chosen by the wrapper from (ts, R, K, N)).  It starts a
+// cp.async copy of its W column tile (K x cols float32) into opted-in
+// shared memory.  While that is in flight, each warp compacts groups of
+// kGroup rows (common.cuh compact_group, shared with K10: every load of
+// the group's trains issued before its ballots): each row keeps its first
+// cap events, and the group's event list is the union of the rows' kept
+// indices, in ascending order, each with the kGroup rows' values (0 where
+// a row has no kept event there).  Then lane l of the warp owns kVec
+// adjacent columns of the group's rows (common.cuh union_product): per
+// union entry it reads the index and the values as shared broadcasts and
+// W[i][cols] once, as one float4/float2/float from the staged tile, for
+// all kGroup rows, four entries' loads ahead of their multiply-adds.  So
+// no L2 load sits in the product loop, one W read serves kGroup outputs
+// wherever the rows' events overlap, and a row's sum is its fmaf chain in
+// ascending event order with exact zero terms where only another row of
+// the group has an event: the same float as the chain over its own events
+// alone.  What holds it now: shared-memory bandwidth (the W reads of the
+// union entries) and the tile's staging and compaction latency on the
+// small L1 feed-forward.  The launch refuses a plan whose tiles do not fit
+// 227 KB (kErrSharedMemory) or that it does not take (kErrTilePlan).  Rows
+// and columns past the edge are masked, with no divisibility rule.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kGroup = 4;     // rows that share one union event list
-constexpr int kQuads = kGroup / 4;  // float4s of values a union entry
+constexpr int kGroup = reprotorch::kUnionLists;  // rows that share one union event list
 constexpr int kMaxWarps = 8;  // warps a block: one per group, up to 8
-constexpr int kChunks = 4;    // 32-column chunks whose loads go ahead
-
-template <int kVec>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
-  if constexpr (kVec == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else if constexpr (kVec == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
-  if constexpr (kVec == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (kVec == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
-}
-
-// Compact the `rows` (<= kGroup) rows starting at `x` (row stride k, train
-// stride ts_stride) into one union event list: each row's value at i is
-// sum_t x[t][row][i] (t = 0, 1, ..., as compact_row), its first cap
-// nonzeros in index order are its kept events (compact_row's truncation),
-// and every index that some row keeps lands in off[pos] = i * scale (the
-// W tile's row offset) and val[pos] = the rows' kept values there (0 for a
-// row that does not keep i), pos ascending with i.  The list is padded
-// with (0, zeros) entries to a multiple of 4.  Called by all 32 lanes of
-// one warp; returns the padded length.
-__device__ __forceinline__ int compact_group(const float* __restrict__ x,
-                                             long long ts_stride, int ts,
-                                             int k, int cap, int rows,
-                                             int scale, int* off,
-                                             float4* val) {
-  static_assert(kGroup % 4 == 0, "a union entry's values are float4s");
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int base[kGroup] = {};  // each row's events so far
-  int len = 0;
-  for (int g = 0; g < k; g += 32 * kChunks) {
-    float v[kGroup][kChunks] = {};
-    for (int t0 = 0; t0 < ts; t0 += 2) {
-      float a[2][kGroup][kChunks];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-#pragma unroll
-        for (int r = 0; r < kGroup; ++r) {
-#pragma unroll
-          for (int c = 0; c < kChunks; ++c) {
-            const int i = g + 32 * c + lane;
-            a[t][r][c] = (t0 + t < ts && r < rows && i < k)
-                             ? x[(t0 + t) * ts_stride + static_cast<long long>(r) * k + i]
-                             : 0.0f;
-          }
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        if (t0 + t < ts) {
-#pragma unroll
-          for (int r = 0; r < kGroup; ++r) {
-#pragma unroll
-            for (int c = 0; c < kChunks; ++c) v[r][c] = __fadd_rn(v[r][c], a[t][r][c]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      float kept[kGroup];
-      unsigned any = 0u;
-#pragma unroll
-      for (int r = 0; r < kGroup; ++r) {
-        const bool nz = v[r][c] != 0.0f;
-        const unsigned live = __ballot_sync(0xffffffffu, nz);
-        const bool keep = nz && base[r] + __popc(live & below) < cap;
-        kept[r] = keep ? v[r][c] : 0.0f;
-        any |= __ballot_sync(0xffffffffu, keep);
-        base[r] += __popc(live);
-      }
-      if ((any >> lane) & 1u) {
-        const int pos = len + __popc(any & below);
-        off[pos] = (g + 32 * c + lane) * scale;
-#pragma unroll
-        for (int q = 0; q < kQuads; ++q) {
-          val[pos * kQuads + q] = make_float4(kept[4 * q], kept[4 * q + 1],
-                                              kept[4 * q + 2], kept[4 * q + 3]);
-        }
-      }
-      len += __popc(any);
-    }
-  }
-  const int padded = (len + 3) & ~3;
-  if (lane < padded - len) {
-    off[len + lane] = 0;
-#pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      val[(len + lane) * kQuads + q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  }
-  return padded;
-}
 
 template <int kVec>
 __global__ void spike_broadcast_kernel(const float* __restrict__ x,
@@ -175,8 +62,8 @@ __global__ void spike_broadcast_kernel(const float* __restrict__ x,
   const int groups_b = (rows_b + kGroup - 1) / kGroup;
   extern __shared__ __align__(16) float sh[];
   float* w_sh = sh;  // [k][kColsB]
-  float4* val_sh = reinterpret_cast<float4*>(sh + k * kColsB);  // [groups_b][slots][kQuads]
-  int* off_sh = reinterpret_cast<int*>(val_sh + groups_b * slots * kQuads);  // [groups_b][slots]
+  float4* val_sh = reinterpret_cast<float4*>(sh + k * kColsB);  // [groups_b][slots]
+  int* off_sh = reinterpret_cast<int*>(val_sh + groups_b * slots);  // [groups_b][slots]
   int* len_sh = off_sh + groups_b * slots;                          // [groups_b]
   const int c0 = blockIdx.x * kColsB;
   const int row0 = blockIdx.y * rows_b;
@@ -188,11 +75,11 @@ __global__ void spike_broadcast_kernel(const float* __restrict__ x,
 
   reprotorch::stage_column_tile(w, k, n, c0, kColsB, w16, w_sh);
   for (int gr = warp; gr < groups; gr += warps) {
-    const int len = compact_group(
+    const int len = reprotorch::compact_group(
         x + static_cast<long long>(row0 + kGroup * gr) * k,
-        static_cast<long long>(r_total) * k, ts, k, cap,
+        static_cast<long long>(r_total) * k, ts, k, k, cap,
         min(kGroup, rows - kGroup * gr), kColsB, off_sh + gr * slots,
-        val_sh + gr * slots * kQuads);
+        val_sh + gr * slots);
     if (lane == 0) len_sh[gr] = len;
   }
   reprotorch::cp_async_wait_all();
@@ -203,48 +90,21 @@ __global__ void spike_broadcast_kernel(const float* __restrict__ x,
   const float* wl = w_sh + lane * kVec;
   for (int gr = warp; gr < groups; gr += warps) {
     const int* off = off_sh + gr * slots;
-    const float4* val = val_sh + gr * slots * kQuads;
-    const int len = len_sh[gr];
+    const float4* val = val_sh + gr * slots;
     float acc[kGroup][kVec];
 #pragma unroll
     for (int r = 0; r < kGroup; ++r) {
 #pragma unroll
       for (int j = 0; j < kVec; ++j) acc[r][j] = 0.0f;
     }
-    for (int e = 0; e < len; e += 4) {
-      const int4 o = *reinterpret_cast<const int4*>(off + e);
-      const int at[4] = {o.x, o.y, o.z, o.w};
-      float vr[4][kGroup];
-      float wv[4][kVec];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int q = 0; q < kQuads; ++q) {
-          const float4 v = val[(e + u) * kQuads + q];
-          vr[u][4 * q] = v.x;
-          vr[u][4 * q + 1] = v.y;
-          vr[u][4 * q + 2] = v.z;
-          vr[u][4 * q + 3] = v.w;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) load_vec<kVec>(wl + at[u], wv[u]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int r = 0; r < kGroup; ++r) {
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) acc[r][j] = fmaf(vr[u][r], wv[u][j], acc[r][j]);
-        }
-      }
-    }
+    reprotorch::union_product<kVec>(off, val, len_sh[gr], wl, acc);
 #pragma unroll
     for (int r = 0; r < kGroup; ++r) {
       const int row = kGroup * gr + r;
       if (row >= rows) break;
       float* o = out + static_cast<long long>(row0 + row) * n + col;
       if (out_vec && col + kVec <= n) {
-        store_vec<kVec>(o, acc[r]);
+        reprotorch::store_vec<kVec>(o, acc[r]);
       } else {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
@@ -253,10 +113,6 @@ __global__ void spike_broadcast_kernel(const float* __restrict__ x,
       }
     }
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
@@ -273,7 +129,7 @@ extern "C" int spike_broadcast_launch(const void* x, const void* w,
   const size_t groups = static_cast<size_t>(rows_b / kGroup);
   const size_t slots = static_cast<size_t>((k + 3) & ~3);
   const size_t smem = sizeof(float) * static_cast<size_t>(k) * cols +
-                      (sizeof(float4) * kQuads + sizeof(int)) * groups * slots +
+                      (sizeof(float4) + sizeof(int)) * groups * slots +
                       sizeof(int) * groups;
   if (smem > reprotorch::kMaxOptInSharedBytes) {
     return reprotorch::kErrSharedMemory;
@@ -283,15 +139,10 @@ extern "C" int spike_broadcast_launch(const void* x, const void* w,
                  int, bool, bool) =
       vec == 4 ? spike_broadcast_kernel<4>
                : (vec == 2 ? spike_broadcast_kernel<2> : spike_broadcast_kernel<1>);
-  if (smem > reprotorch::kMaxSharedBytes) {  // opt in beyond 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const bool w16 = n % 4 == 0 && aligned16(w);
-  const bool out_vec = n % vec == 0 &&
-                       (reinterpret_cast<uintptr_t>(out) & (4u * vec - 1u)) == 0;
+  const int opt = reprotorch::opt_in_shared(kernel, smem);
+  if (opt != 0) return opt;
+  const bool w16 = n % 4 == 0 && reprotorch::aligned_to(w, 16);
+  const bool out_vec = n % vec == 0 && reprotorch::aligned_to(out, 4u * vec);
   const dim3 grid((n + cols - 1) / cols, (r_total + rows_b - 1) / rows_b);
   const int threads =
       32 * (static_cast<int>(groups) < kMaxWarps ? static_cast<int>(groups) : kMaxWarps);

@@ -10,7 +10,18 @@ float32 sum of dequantized weights, in event order here).  The event
 lists follow ``ref.compact_spikes``: ascending index, the first
 ``capacity`` nonzeros of a row kept (``None``: all K).  ``launches``
 counts K9's launches of this process, ``cell_launches`` K10's.
-``tile_plan`` chooses K9's tiles for each shape.
+``tile_plan`` chooses K9's tiles for each shape, ``cell_tile_plan``
+K10's.
+
+K10 is K1's block (``rsnn_cell``) with K9's union event lists: a block
+stages its rows' trains and W's column tile into shared memory with
+``cp.async``; each warp compacts the TS steps of its group's rows into one
+union list (``GROUP`` lists a union) and runs it against the staged W, one
+W read for every step; the LIF chain runs in the epilogue.  Each output's
+sum is one ``fmaf`` chain in ascending index, so at lossless capacity on
+0/1 trains K10 gives K1's bits.  Bytes bound a call on the H100 (about
+1.1 MB at B = 256, H = 128, TS = 2: 0.33 us); the launch and one round of
+staging set its time (PERF.md).
 """
 
 from __future__ import annotations
@@ -22,13 +33,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-GROUP = 4  # K9's rows that share one union event list (kGroup)
+GROUP = 4  # lists that share one union event list (kUnionLists): K9's rows
+CELL_ROWS = (1, 2, 4, 8, 16, 32)  # K10: batch rows a block
+CELL_COLS = (32, 64, 128)  # K10: neurons a block, 32 lanes x 1, 2 or 4
+CELL_MAX_WARPS = 8  # K10: warps a block, one per group of lists
 launches = 0  # K9 spike_broadcast
 cell_launches = 0  # K10 spike_cell
 
 _SB_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CELL_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-              + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
               + [ctypes.c_void_p])
 
 
@@ -75,6 +89,52 @@ def tile_plans(ts: int, r: int, k: int, n: int) -> list[_build.TilePlan]:
 def tile_plan(ts: int, r: int, k: int, n: int) -> _build.TilePlan:
     """K9's tiles for this shape: ``_build.pick_tiles`` of ``tile_plans``."""
     return _build.pick_tiles(tile_plans(ts, r, k, n))
+
+
+def group_rows(ts: int) -> int:
+    """K10's rows a union group: its ``GROUP`` lists are the ``ts`` steps
+    of each row (TS = 3: one row, the fourth list empty)."""
+    return 1 if ts >= 3 else GROUP // ts
+
+
+def cell_shared_bytes(ts: int, rows: int, cols: int, h: int) -> int:
+    """A K10 block's shared memory as ``CellLayout`` computes it: W's
+    column tile, and per group a union of up to H entries (k padded to 4),
+    each a float4 of values and an offset, and the rows' ``ts`` trains."""
+    kp = -(-h // 4) * 4
+    groups = -(-rows // group_rows(ts))
+    return 4 * h * cols + 20 * groups * kp + 4 * rows * ts * kp
+
+
+def cell_tile_plans(ts: int, b: int, h: int) -> list[_build.TilePlan]:
+    """Every tile plan K10's launch takes for ``ts`` trains of ``b`` rows
+    of ``h`` neurons: ``rows`` (whole groups of ``group_rows(ts)``, at
+    most ``CELL_MAX_WARPS`` groups) by ``cols`` neurons a block.  The grid
+    stages W's column tile once per row tile and the trains once per
+    column tile; per union entry (at most h) a warp reads cols / 32
+    wavefronts of W, one of values and a quarter of an offset quad."""
+    gr = group_rows(ts)
+    kp = -(-h // 4) * 4
+    plans = []
+    for rows in CELL_ROWS:
+        if rows % gr or rows // gr > CELL_MAX_WARPS:
+            continue
+        row_tiles = -(-b // rows)
+        for cols in CELL_COLS:
+            col_tiles = -(-h // cols)
+            blocks = row_tiles * col_tiles
+            plans.append(_build.TilePlan(
+                rows, cols, blocks, cell_shared_bytes(ts, rows, cols, h),
+                4 * (blocks * h * cols + col_tiles * ts * b * h),
+                blocks * (rows // gr) * kp * (4 * (cols // 32) + 5) // 4))
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def cell_tile_plan(ts: int, b: int, h: int) -> _build.TilePlan:
+    """K10's tiles for this shape: ``_build.pick_tiles`` of
+    ``cell_tile_plans``."""
+    return _build.pick_tiles(cell_tile_plans(ts, b, h))
 
 
 def spike_broadcast(x: torch.Tensor, w: torch.Tensor, *,
@@ -140,13 +200,14 @@ def spike_cell(stim_base: torch.Tensor, s_prev: torch.Tensor, w: torch.Tensor,
     u = torch.empty((b, h), dtype=f32, device=dev)
     if spikes.numel() == 0:
         return spikes, u0.clone()
+    plan = cell_tile_plan(ts, b, h)
     fn = _build.function("spike_cell_launch", _CELL_ARGS)
     with torch.cuda.device(dev):
         status = fn(stim_base.data_ptr(), stim_base.stride(0),
                     stim_base.stride(1), s_prev.data_ptr(), w.data_ptr(),
                     u0.data_ptr(), h0.data_ptr(), beta.data_ptr(),
                     vth.data_ptr(), spikes.data_ptr(), u.data_ptr(), ts, b, h,
-                    cap, _build.stream(dev))
+                    cap, plan.rows, plan.cols, _build.stream(dev))
     _build.check(status, "spike_cell")
     cell_launches += 1
     return spikes, u

@@ -10,6 +10,8 @@ sums float32 dequantized weights in another order, within ``|d| <= TOL *
 """
 
 import dataclasses
+import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,11 @@ from repro.kernels import ops as jops
 from repro.serving import stream as S
 from repro_torch.core.lif import LIFState
 from repro_torch.core.rsnn import RSNNState
+from repro_torch.kernels import _build
 from repro_torch.kernels import delta_step as delta_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.serving import stream as TS
+from test_torch_kernels import CSRC, c_signature
 from test_torch_spike import TOL, _close, _engines, assert_frames_match
 from test_torch_stream import pruned_path, small_path  # noqa: F401
 
@@ -69,6 +73,45 @@ def test_delta_step_cpu_runs_plain_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         delta_kernel.delta_step(z, z, torch.ones((4, 16)),
                                 torch.ones((8, 16)), 0.0)
+
+
+def test_delta_step_launch_signature_matches_the_kernel_source():
+    """K8's ctypes signature and the outputs a thread owns match the C
+    source."""
+    assert c_signature("delta_step.cu", "delta_step_launch") == \
+        delta_kernel._ARGS
+    src = (CSRC / "delta_step.cu").read_text()
+    assert re.search(r"constexpr int kVec = (\d+);", src).group(1) == \
+        str(delta_kernel.VEC)
+
+
+@pytest.mark.parametrize("b", [256, 200, 1])
+@pytest.mark.parametrize("d", [8, 40])
+@pytest.mark.parametrize("h", [16, 100, 128, 256])
+def test_delta_step_tile_plans_fit(b, d, h):
+    """Every K8 plan at these shapes: tiles the launch takes (1-32 rows, a
+    power of two, by 32, 64 or 128 columns, one to 32 warps of four
+    outputs a thread), shared memory as ``DeltaLayout`` computes it (W's column
+    tile, the rows' x_hat, a flag a row) and under 227 KB, and the grid;
+    the picked plan is one of them."""
+    plans = delta_kernel.tile_plans(b, d, h)
+    assert delta_kernel.tile_plan(b, d, h) in plans
+    for p in plans:
+        assert p.rows in (1, 2, 4, 8, 16, 32)
+        assert p.cols in (32, 64, 128)
+        assert 32 <= p.rows * p.cols // 4 <= 1024
+        assert p.shared_bytes == 4 * (d * p.cols + p.rows * d + p.rows)
+        assert p.shared_bytes <= _build.MAX_SHARED_BYTES
+        assert p.blocks == math.ceil(h / p.cols) * math.ceil(b / p.rows)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_delta_step_tile_plan_fills_the_card(h):
+    """At the served shapes (B = 256, D = 40; PRUNED's H = 128 and
+    BASELINE's 256) K8's grid puts a block on each of the 132 SMs."""
+    plan = delta_kernel.tile_plan(256, 40, h)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
 
 
 @pytest.mark.parametrize("width", ["small", "pruned"])

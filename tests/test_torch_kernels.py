@@ -34,7 +34,8 @@ U_TOL = 1e-5  # K1: |du| <= U_TOL * (1 + |u|)
 FP32_TOL = 1e-5
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-           "int": ctypes.c_int, "long long": ctypes.c_longlong}
+           "int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float}
 
 # (input_dim, hidden, fc_dim, batch): small_cfg's widths and PRUNED's
 WIDTHS = {"small": (8, 16, 12, 4), "pruned": (40, 128, 1920, 8)}

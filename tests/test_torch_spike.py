@@ -139,15 +139,21 @@ def test_cpu_tensor_runs_plain_version_without_launching():
 
 
 def test_launch_signatures_match_the_kernel_sources():
-    """The ctypes signatures of K9 and K10, and K9's row group, match the C
-    sources."""
+    """The ctypes signatures of K9 and K10, the lists a union holds (K9's
+    row group, shared with K10 in common.cuh) and K10's warps a block
+    match the C sources."""
     assert c_signature("spike_broadcast.cu", "spike_broadcast_launch") == \
         sb_kernel._SB_ARGS
-    src = (CSRC / "spike_broadcast.cu").read_text()
-    assert re.search(r"constexpr int kGroup = (\d+);", src).group(1) == \
-        str(sb_kernel.GROUP)
+    common = (CSRC / "common.cuh").read_text()
+    assert re.search(r"constexpr int kUnionLists = (\d+);", common).group(1) \
+        == str(sb_kernel.GROUP)
+    assert "constexpr int kGroup = reprotorch::kUnionLists;" in \
+        (CSRC / "spike_broadcast.cu").read_text()
     assert c_signature("spike_cell.cu", "spike_cell_launch") == \
         sb_kernel._CELL_ARGS
+    cell = (CSRC / "spike_cell.cu").read_text()
+    assert re.search(r"constexpr int kMaxWarps = (\d+);", cell).group(1) == \
+        str(sb_kernel.CELL_MAX_WARPS)
 
 
 # K9's main-path shapes (ts, R, K, N): the L1 feed-forward over TS * B
@@ -197,6 +203,39 @@ def test_spike_broadcast_tile_plan_over_shared_memory():
 
 
 # ------------------------------------------------------------- spike_cell
+
+
+@pytest.mark.parametrize("ts", [1, 2, 3, 4])
+@pytest.mark.parametrize("b", [256, 200, 1])
+@pytest.mark.parametrize("h", [40, 100, 128, 256])
+def test_spike_cell_tile_plans_fit(ts, b, h):
+    """Every K10 plan at these shapes: tiles the launch takes (1-32 rows in
+    whole groups of ``group_rows(ts)``, at most eight groups, by 32, 64 or
+    128 neurons), shared memory as ``CellLayout`` computes it (W's column
+    tile, per group a union of H entries padded to 4 of a float4 and an
+    offset each, the rows' trains) and under 227 KB, and the grid; the
+    picked plan is one of them."""
+    plans = sb_kernel.cell_tile_plans(ts, b, h)
+    assert sb_kernel.cell_tile_plan(ts, b, h) in plans
+    gr = {1: 4, 2: 2, 3: 1, 4: 1}[ts]
+    kp = -(-h // 4) * 4
+    for p in plans:
+        assert p.rows in (1, 2, 4, 8, 16, 32) and p.cols in (32, 64, 128)
+        assert p.rows % gr == 0 and p.rows // gr <= 8
+        assert p.shared_bytes == (4 * h * p.cols + 20 * (p.rows // gr) * kp
+                                  + 4 * p.rows * ts * kp)
+        assert p.shared_bytes <= _build.MAX_SHARED_BYTES
+        assert p.blocks == math.ceil(h / p.cols) * math.ceil(b / p.rows)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_spike_cell_tile_plan_fills_the_card(h):
+    """At the served shapes (B = 256, TS = 2; PRUNED's H = 128 and
+    BASELINE's 256) K10's grid puts a block on each of the 132 SMs and
+    leaves room for a second."""
+    plan = sb_kernel.cell_tile_plan(2, 256, h)
+    assert plan.blocks >= _build.SM_COUNT
+    assert plan.shared_bytes <= _build.TWO_BLOCK_SHARED_BYTES
 
 
 def _near_threshold(stim, s_prev, w, u0, h0, beta, vth, capacity):
