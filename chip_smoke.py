@@ -62,7 +62,8 @@ Phases, each printed on its own line:
      uncompressed model) as ``save_artifact(params=...)`` writes it
      (``write_float_artifact``);
   4. 512 seeded utterances of 40-100 frames served through
-     ``StreamLoop(batch_slots=256, pipeline_depth=0)`` in every
+     ``StreamLoop(batch_slots=256, pipeline_depth=0, aot_warmup=False)``
+     (the eager v1 loop, ``V1_EAGER``) in every
      configuration of ``SERVED``: ``pallas``, ``sparse``, ``spike`` with
      the CSC readout (K4) and without it (K9's union), ``delta`` at
      threshold 0 and at ``DELTA_THRESHOLD``, ``fused`` and ``fused_spike``
@@ -93,6 +94,22 @@ Phases, each printed on its own line:
      for bit, in one launch against one a frame, over the ``csc`` and the
      float artifact.  ``core.rsnn.forward``, the float golden model,
      equals the ``ref`` engine on 8 streams (``check_forward``);
+ 4b. every configuration of ``SERVED`` over the ``csc`` and the float
+     artifact served again through each loop of ``GRAPH_LOOPS``, its step
+     captured as a CUDA graph at construction: v2 (``pipeline_depth=2``),
+     v2 at chunks of ``MEGA_FRAMES`` frames (``ring_frames=256``), v1, and
+     v1 at chunks of ``MEGA_FRAMES`` (``serve_graphs``).  Each request's
+     logits must be bit-equal to phase 4's; each kernel's launches, which
+     the loop credits at every graph replay, must be steps x (1 for the
+     mega-step, else the chunk's frames) x its launches a frame; the
+     engine's ``capture_count`` must rise by one at construction and not
+     during the serve; no step may be in flight after ``run``.  Steps,
+     dispatches and host syncs a frame and frames/s are printed.  Then
+     ``pallas``, ``fused`` and ``fused float`` are served three times
+     through the eager v1, the v2 and the chunked v2 loop in turns (each
+     run, the median and the spread of frames/s), and ``pallas`` and
+     ``fused`` once more through the chunked v2 loop under
+     ``torch.profiler`` (busy share, device ms a step, copy counts);
   5. the device busy share of one more run of ``pallas``, ``sparse``,
      ``spike``, ``delta`` at ``DELTA_THRESHOLD``, ``fused`` and
      ``fused_spike``, and of ``pallas``, ``spike``, ``fused`` and
@@ -164,6 +181,8 @@ SLOTS = 256  # StreamLoop batch slots
 TRUNC_CAPACITY = 16  # a truncating event list: rows hold ~38-65 events
 DELTA_THRESHOLD = 2.0  # LSB of the 8-bit input
 MEGA_FRAMES = 4  # the longer megastep chunk (frames a launch)
+# phase 4's loop: the synchronous v1 contract, stepped eagerly
+V1_EAGER = {"pipeline_depth": 0, "aot_warmup": False}
 NM = (2, 4)  # the N:M artifacts' FC mask: the 2 largest |w| of every 4 rows
 # the artifacts, name -> (prune, fc_layout) of write_artifact: the FC pruned
 # 40% at random into padded CSC, and its 2:4 mask as N:M and as CSC
@@ -1514,11 +1533,19 @@ def core(state):
     return getattr(state, "rsnn", state)
 
 
-def serve(engine, utts):
-    """One StreamLoop run; returns (loop, finished requests, seconds)."""
+def make_loop(engine, **loop_kw):
+    """A ``StreamLoop`` over ``SLOTS`` slots; by default phase 4's eager v1
+    loop (``V1_EAGER``)."""
     from repro_torch.serving.stream import StreamLoop
 
-    loop = StreamLoop(engine, batch_slots=SLOTS, pipeline_depth=0)
+    return StreamLoop(engine, batch_slots=SLOTS, **{**V1_EAGER, **loop_kw})
+
+
+def serve(engine, utts, loop=None, **loop_kw):
+    """One StreamLoop run (``loop``, or ``make_loop(engine, **loop_kw)``),
+    its construction untimed; returns (loop, finished requests, seconds)."""
+    if loop is None:
+        loop = make_loop(engine, **loop_kw)
     for u in utts:
         loop.submit(u)
     torch.cuda.synchronize()
@@ -1611,17 +1638,20 @@ def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
     return worst, let_through
 
 
-def device_busy(engine, utts, name: str) -> None:
-    """Phase 5: one StreamLoop run under ``torch.profiler``; prints the
-    share of its wall time in which the card ran a kernel or a copy, and
-    the device operations that took most of it.  The profiler slows the
-    host, so the share is a lower bound for the unprofiled loop."""
+def device_busy(engine, utts, name: str, **loop_kw) -> None:
+    """One StreamLoop run (``make_loop``'s, built outside the window) under
+    ``torch.profiler``; prints the share of its wall time in which the
+    card ran a kernel or a copy, the device ms a step, the count of each
+    kind of copy and fill, and the device operations that took most of
+    it.  The profiler slows the host, so the share is a lower bound for
+    the unprofiled loop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    loop = make_loop(engine, **loop_kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loop, _, secs = serve(engine, utts)
+        loop, _, secs = serve(engine, utts, loop=loop)
     ops = [(e.self_device_time_total, e.count, e.key)
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
@@ -1630,11 +1660,13 @@ def device_busy(engine, utts, name: str) -> None:
         print("device busy share: not measured (the profiler recorded no "
               "device time)")
         return
+    copies = {k: c for _, c, k in ops if k.startswith(("Memcpy", "Memset"))}
     top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
                     for t, c, k in sorted(ops, reverse=True)[:8])
     print(f"device busy share ({name}, profiled): "
           f"{busy_us / 1e6 / secs!r} of {secs!r} s over {loop.steps} "
-          f"steps; device ms/step {busy_us / 1e3 / loop.steps!r}; top: {top}")
+          f"steps; device ms/step {busy_us / 1e3 / loop.steps!r}; copies "
+          f"{copies}; top: {top}")
 
 
 # Served configurations: name -> (EngineConfig fields, launches per step of
@@ -1740,7 +1772,7 @@ def serve_all(paths: dict, arts: dict, utts) -> tuple[dict, dict]:
     """Phase 4: every configuration of ``SERVED`` over the same streams,
     against the port's ``ref`` backend over the same artifact, then
     ``LAYOUT_PARITY``; returns (launches of each kernel over all runs,
-    logits by configuration)."""
+    (engine, logits) by configuration)."""
     from repro_torch.serving.stream import CompiledRSNN
 
     refs = {}
@@ -1750,7 +1782,7 @@ def serve_all(paths: dict, arts: dict, utts) -> tuple[dict, dict]:
         refs[key] = ref, [r.stacked_logits() for r in ref_done]
         print(f"serve ref ({key} artifact): {ref_s!r} s = "
               f"{sum(map(len, utts)) / ref_s!r} frames/s")
-    launches = dict.fromkeys([*kernel_modules(), *ROW_FC_MODE], 0)
+    launches = dict.fromkeys([*read_counts(), *ROW_FC_MODE], 0)
     served = {}
     for name, (fields, per_step, forced, profiled, key) in SERVED.items():
         ref, ref_logits = refs[key]
@@ -1793,7 +1825,113 @@ def serve_all(paths: dict, arts: dict, utts) -> tuple[dict, dict]:
             loop, _, secs = serve(served[name][0], utts)
             print(f"serve again {name}: {loop.frames_served / secs!r} "
                   f"frames/s")
-    return launches, {name: lg for name, (_, lg) in served.items()}
+    return launches, served
+
+
+# Phase 4b: the loops served against phase 4's eager v1 loop, each step a
+# captured graph
+GRAPH = {"aot_warmup": True}
+GRAPH_LOOPS = {"v2": {"pipeline_depth": 2, **GRAPH},
+               f"v2 C={MEGA_FRAMES}": {"pipeline_depth": 2,
+                                       "chunk_frames": MEGA_FRAMES,
+                                       "ring_frames": 256, **GRAPH},
+               "v1 graph": {"pipeline_depth": 0, **GRAPH},
+               f"v1 C={MEGA_FRAMES}": {"pipeline_depth": 0,
+                                       "chunk_frames": MEGA_FRAMES, **GRAPH}}
+SPREAD = ("pallas", "fused", "fused float")  # frames/s spread, 3 runs each
+SPREAD_LOOPS = {"v1 eager": V1_EAGER, "v2": GRAPH_LOOPS["v2"],
+                f"v2 C={MEGA_FRAMES}": GRAPH_LOOPS[f"v2 C={MEGA_FRAMES}"]}
+PROFILED_V2 = ("pallas", "fused")
+
+
+def serve_graphs(served: dict, utts) -> None:
+    """Phase 4b: every configuration of ``SERVED`` over the ``csc`` and the
+    float artifact through each loop of ``GRAPH_LOOPS``: each request's
+    logits bit-equal to phase 4's eager v1 loop; each kernel's launches
+    steps x (1 for the mega-step, else the chunk's frames) x its launches
+    a frame, credited at each graph replay; one capture at construction
+    and none during the serve; no step in flight after ``run``.  Then the
+    frames/s of ``SPREAD`` in turns, and ``PROFILED_V2`` under the
+    profiler at chunks of ``MEGA_FRAMES``."""
+    frames = sum(map(len, utts))
+    for name, (_, per_step, _, _, key) in SERVED.items():
+        if key not in ("csc", "float"):
+            continue
+        eng, want = served[name]
+        mega = any(k.startswith("megastep") for k in per_step)
+        for loop_name, kw in GRAPH_LOOPS.items():
+            before = eng.capture_count
+            t0 = time.perf_counter()
+            loop = make_loop(eng, **kw)
+            built = time.perf_counter() - t0
+            if eng.capture_count != before + 1:
+                raise AssertionError(f"{name} {loop_name}: "
+                                     f"{eng.capture_count - before} "
+                                     f"captures at construction, not 1")
+            set_counts(0)
+            loop, done, secs = serve(eng, utts, loop=loop)
+            counts = read_counts()
+            per_replay = 1 if mega else loop.chunk_frames
+            for n, c in counts.items():
+                if c != loop.steps * per_replay * per_step.get(n, 0):
+                    raise AssertionError(
+                        f"{name} {loop_name}: {n} launched {c} times, "
+                        f"expected {loop.steps} steps x {per_replay} x "
+                        f"{per_step.get(n, 0)}")
+            if eng.capture_count != before + 1 or loop.pending_steps:
+                raise AssertionError(
+                    f"{name} {loop_name}: captures "
+                    f"{eng.capture_count - before}, steps in flight "
+                    f"{loop.pending_steps} after the serve")
+            if not all(np.array_equal(r.stacked_logits(), w)
+                       for r, w in zip(done, want)):
+                raise AssertionError(f"{name} {loop_name}: logits differ "
+                                     f"from the eager v1 loop's")
+            print(f"serve {name} {loop_name}: logits bit-equal to eager "
+                  f"v1; {loop.steps} steps, {loop.dispatches / frames!r} "
+                  f"dispatches and {loop.host_syncs / frames!r} host syncs "
+                  f"a frame; {frames / secs!r} frames/s; built in "
+                  f"{built!r} s; launches "
+                  f"{ {n: c for n, c in counts.items() if c} }")
+            # the requests hold their pinned logit blocks: let them go
+            # before the next serve, as a server hands its results on
+            del loop, done
+    for name in SPREAD:
+        eng = served[name][0]
+        runs = {k: [] for k in SPREAD_LOOPS}
+        for _ in range(3):
+            for loop_name, kw in SPREAD_LOOPS.items():
+                runs[loop_name].append(frames / serve(eng, utts, **kw)[2])
+        for loop_name, fps in runs.items():
+            print(f"frames/s {name} {loop_name}: runs {fps!r}; median "
+                  f"{float(np.median(fps))!r}, spread "
+                  f"{max(fps) - min(fps)!r}")
+    for name in PROFILED_V2:
+        device_busy(served[name][0], utts, f"{name} v2 C={MEGA_FRAMES}",
+                    **GRAPH_LOOPS[f"v2 C={MEGA_FRAMES}"])
+        host_profile(served[name][0], utts, f"{name} v2 C={MEGA_FRAMES}",
+                     **GRAPH_LOOPS[f"v2 C={MEGA_FRAMES}"])
+
+
+def host_profile(engine, utts, name: str, **loop_kw) -> None:
+    """One StreamLoop run under ``cProfile`` (the host's Python, the
+    card's work unseen): its wall time and the functions that took most
+    of it, by their own time."""
+    import cProfile
+    import pstats
+
+    loop = make_loop(engine, **loop_kw)
+    prof = cProfile.Profile()
+    prof.enable()
+    _, _, secs = serve(engine, utts, loop=loop)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(((tt, nc, f"{Path(f).name}:{ln}({fn})")
+                  for (f, ln, fn), (_, nc, tt, _, _) in stats.items()),
+                 reverse=True)[:10]
+    print(f"host profile ({name}): {secs!r} s over {loop.steps} steps; "
+          f"own time: " + "; ".join(f"{where} x{nc} {tt * 1e3:.1f} ms"
+                                    for tt, nc, where in top))
 
 
 def check_chunk(path, art, utts, backend: str) -> None:
@@ -2378,31 +2516,18 @@ def sweep_megastep(a: dict, fa: dict) -> None:
 # ------------------------------------------------------------------- main
 
 
-def kernel_modules() -> dict:
-    """Kernel name -> (wrapper module, its launch counter's name)."""
-    from repro_torch.kernels import (delta_step, int4_matmul, megastep,
-                                     merged_spike_fc, nm_fc, rsnn_cell,
-                                     sparse_fc, spike_broadcast)
-
-    return {"rsnn_cell": (rsnn_cell, "launches"),
-            "int4_matmul": (int4_matmul, "launches"),
-            "merged_spike_fc": (merged_spike_fc, "launches"),
-            "sparse_fc": (sparse_fc, "launches"),
-            "nm_fc": (nm_fc, "launches"),
-            "delta_step": (delta_step, "launches"),
-            "spike_broadcast": (spike_broadcast, "launches"),
-            "spike_cell": (spike_broadcast, "cell_launches"),
-            "megastep": (megastep, "launches"),
-            "megastep_spike": (megastep, "spike_launches")}
-
-
 def set_counts(value: int) -> None:
-    for module, attr in kernel_modules().values():
-        setattr(module, attr, value)
+    """Every kernel's launch counter (``kernels/ops.py`` ``COUNTERS``) to
+    ``value``."""
+    from repro_torch.kernels import ops
+
+    ops.set_launch_counts(dict.fromkeys(ops.COUNTERS, value))
 
 
 def read_counts() -> dict[str, int]:
-    return {n: getattr(m, a) for n, (m, a) in kernel_modules().items()}
+    from repro_torch.kernels import ops
+
+    return ops.launch_counts()
 
 
 def main(argv=None) -> int:
@@ -2475,7 +2600,8 @@ def main(argv=None) -> int:
             if args.sweep_tiles:
                 sweep_tiles(packs, floats, dev, args.seed)
             return 0
-        launches, served = serve_all(paths, arts, utts)
+        launches, engines = serve_all(paths, arts, utts)
+        served = {name: lg for name, (_, lg) in engines.items()}
         for a, b in zip(served["pallas"], served["sparse"]):
             if not np.array_equal(a, b):
                 raise AssertionError("pallas and sparse logits differ")
@@ -2495,6 +2621,7 @@ def main(argv=None) -> int:
             for backend in ("fused", "fused_spike"):
                 check_chunk(paths[key], arts[key], utts, backend)
         check_forward(paths["float"], arts["float"], utts)
+        serve_graphs(engines, utts)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -4,6 +4,11 @@ A CPU tensor runs the kernel's plain PyTorch version (``ref.py``); a CUDA
 tensor launches the CUDA kernel, and a build or launch failure raises —
 nothing falls back.  Any other device raises.  The first argument's device
 decides; the CUDA wrappers check that every operand lies on it.
+
+Each wrapper adds one to its launch counter where it launches its kernel
+(``COUNTERS``).  A captured CUDA graph runs no Python when it replays, so
+the slot loop credits a graph's launches to these counters at every replay
+(``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,37 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rsnn_cell as _cell
 from repro_torch.kernels import sparse_fc as _sfc
 from repro_torch.kernels import spike_broadcast as _sb
+
+
+# kernel name -> (wrapper module, the name of its launch counter there)
+COUNTERS = {"rsnn_cell": (_cell, "launches"),
+            "int4_matmul": (_i4, "launches"),
+            "merged_spike_fc": (_mfc, "launches"),
+            "sparse_fc": (_sfc, "launches"),
+            "nm_fc": (_nfc, "launches"),
+            "delta_step": (_delta, "launches"),
+            "spike_broadcast": (_sb, "launches"),
+            "spike_cell": (_sb, "cell_launches"),
+            "megastep": (_mega, "launches"),
+            "megastep_spike": (_mega, "spike_launches")}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count in this process, by kernel name."""
+    return {n: getattr(m, a) for n, (m, a) in COUNTERS.items()}
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    for n, c in counts.items():
+        m, a = COUNTERS[n]
+        setattr(m, a, c)
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Credit ``counts`` launches to the kernels it names."""
+    for n, c in counts.items():
+        m, a = COUNTERS[n]
+        setattr(m, a, getattr(m, a) + c)
 
 
 def _plain(op: str, t: torch.Tensor) -> bool:

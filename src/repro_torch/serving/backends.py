@@ -134,6 +134,12 @@ def available() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def unregister(name: str) -> None:
+    """Remove a registered backend (a bench- or test-local plugin); a name
+    that is not registered is left alone."""
+    _REGISTRY.pop(name, None)
+
+
 def _entry(name: str) -> _Entry:
     if name not in _REGISTRY:
         raise ValueError(f"unknown backend {name!r}; available: "

@@ -9,9 +9,9 @@ over 10-ms audio frames, from the pruned int4 model or the float one
    a static calibrated scale (``quantize_features``).
 2. **Slots.** ``StreamLoop`` packs N concurrent utterances into a fixed
    batch of ``batch_slots`` slots.  Every step advances each active slot by
-   one frame; a finished slot has its recurrent state zeroed
-   (``reset_slot``) and is refilled from the queue without stopping the
-   batch.
+   one frame (or by up to ``chunk_frames`` frames); a finished slot has its
+   recurrent state zeroed in place (``reset_slot_``) and is refilled from
+   the queue without stopping the batch.
 3. **State.** ``CompiledRSNN`` carries ``RSNNState`` (per-ts spikes + LIF
    membrane chain) across frames, wrapped in ``DeltaRSNNState`` (held
    input, cached L0 pre-activation) when the backend gates its input.
@@ -21,10 +21,21 @@ over 10-ms audio frames, from the pruned int4 model or the float one
    mega-step launch that does all three (``CompiledRSNN._chunk_step``
    runs F frames in one).
 
-The port runs the reference's synchronous v1 contract (one logit fetch and
-one counter fetch per step) at one frame per step.  The pipelined v2
-contract (``pipeline_depth > 0``) and the loop's frame chunking
-(``chunk_frames > 1``) are not ported yet (ROADMAP).
+4. **Contracts.** ``pipeline_depth=0`` is the reference's synchronous v1
+   contract: one logit fetch and one counter fetch a step.  ``>= 1`` is
+   the pipelined v2 contract: each step writes its logits into a device
+   ring (``(slots, ring_frames, fc_dim)``, in place) and adds its packed
+   counters into a device accumulator; at most ``pipeline_depth`` steps
+   are in flight, retired on a fence (a ``torch.cuda.Event``), and a
+   stream's logits cross to the host once, on completion or at a
+   ring-watermark flush.  ``chunk_frames=C`` advances every slot by up to
+   C frames in one dispatch (one K6/K7 launch for ``fused*``).  Scheduling
+   and logits are the same in every contract, bit for bit.
+5. **Graphs.** The loop allocates its state, ring, accumulator and step
+   inputs once and only writes into them.  With ``aot_warmup=True`` on a
+   CUDA engine it warms its step up and captures it as one CUDA graph,
+   which every step then replays: the port's counterpart of the
+   reference's donated, ahead-of-time compiled step.
 
 Entry points (``CompiledRSNN``, ``CompiledRSNN.from_artifact``,
 ``StreamLoop`` through its engine) run on ``device="cuda"`` unless the
@@ -33,9 +44,11 @@ caller asks for ``device="cpu"``; with no GPU present the default raises.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -47,10 +60,11 @@ from repro_torch.core.layouts.nm import NMGroupPacked, entry_rows
 from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
 from repro_torch.core.sparse import PackedRSNN, SparseColumns, dequantize
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serving import backends
 from repro_torch.serving.slots import SlotScheduler
 
-_V2 = "ROADMAP queue 1, P7 (slot loop v2, chunking)"
+WARMUP_STEPS = 2  # eager steps on scratch buffers before a graph capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,29 +130,54 @@ class DeltaRSNNState(NamedTuple):
     pre: torch.Tensor  # (B, hidden_dim) cached x_hat @ l0_wx
 
 
-def _zero_slot(t: torch.Tensor, dim: int, i: int) -> torch.Tensor:
-    t = t.clone()
-    t.select(dim, i).zero_()
-    return t
+def _tree_map(fn: Callable, tree):
+    """``fn`` over every tensor of a (nested) NamedTuple/dict."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    return tree
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a (nested) state NamedTuple, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for field in tree for t in _leaves(field)]
+
+
+def copy_state_(dst, src) -> None:
+    """Copy every tensor of state ``src`` into the same field of ``dst``."""
+    for a, b in zip(_leaves(dst), _leaves(src)):
+        a.copy_(b)
+
+
+def reset_slot_(state, i: int) -> None:
+    """Zero slot ``i`` of ``state`` in place (fresh utterance boundary):
+    row ``i`` of ``h0``/``h1`` along dim 1, of the LIF carries along dim 0,
+    and of a ``DeltaRSNNState``'s held input and cached pre-activation — a
+    fresh utterance must not inherit the previous occupant's.  Allocates
+    nothing: every tensor keeps its storage."""
+    if isinstance(state, DeltaRSNNState):
+        reset_slot_(state.rsnn, i)
+        state.x_prev[i].zero_()
+        state.pre[i].zero_()
+        return
+    state.h0[:, i].zero_()
+    state.h1[:, i].zero_()
+    for s in (state.lif0, state.lif1):
+        s.u[i].zero_()
+        s.spike[i].zero_()
 
 
 def reset_slot(state, i: int):
-    """Zero one slot's recurrent state (fresh utterance boundary), and for
-    a ``DeltaRSNNState`` its held input and cached pre-activation too: a
-    fresh utterance must not inherit the previous occupant's.  Returns a
-    new state; the tensors of ``state`` are left as they were."""
-    if isinstance(state, DeltaRSNNState):
-        return DeltaRSNNState(rsnn=reset_slot(state.rsnn, i),
-                              x_prev=_zero_slot(state.x_prev, 0, i),
-                              pre=_zero_slot(state.pre, 0, i))
-
-    def zl(s: LIFState) -> LIFState:
-        return LIFState(u=_zero_slot(s.u, 0, i),
-                        spike=_zero_slot(s.spike, 0, i))
-
-    return RSNNState(h0=_zero_slot(state.h0, 1, i),
-                     h1=_zero_slot(state.h1, 1, i),
-                     lif0=zl(state.lif0), lif1=zl(state.lif1))
+    """``reset_slot_`` on a copy: returns a new state and leaves the
+    tensors of ``state`` as they were (the reference's functional form)."""
+    out = _tree_map(torch.clone, state)
+    reset_slot_(out, i)
+    return out
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -189,13 +228,7 @@ def _check_packed(cfg: RSNNConfig, packed: PackedRSNN) -> None:
 
 def _to(tree, device: torch.device):
     """Move every tensor of a (nested) NamedTuple/dict to ``device``."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to(v, device) for v in tree))
-    return tree
+    return _tree_map(lambda t: t.to(device), tree)
 
 
 def _check_params(cfg: RSNNConfig, params: dict) -> None:
@@ -227,7 +260,12 @@ class CompiledRSNN:
     Owns the weights (moved to ``device``): the raw float32 parameters at
     ``engine.precision="float"``, the packed int4 model at ``"int4"``; the
     static input scale and the op table of its backend.  State threads
-    through explicitly so callers control the frame/slot lifecycle.
+    through explicitly so callers control the frame/slot lifecycle; the
+    ring steps (``step_ring``) update the state, the logit ring and the
+    counter accumulator they are given in place.  ``capture_count`` counts
+    the step graphs the slot loops over this engine captured (on the CPU,
+    the eager steps that stand for them), the port's counterpart of the
+    reference's ``compile_count``.
     """
 
     def __init__(self, cfg: RSNNConfig, params: dict | None,
@@ -281,6 +319,7 @@ class CompiledRSNN:
         scale = engine.input_scale
         self._input_scale = (None if scale is None else torch.as_tensor(
             scale, dtype=torch.float32).to(self.device))
+        self.capture_count = 0
 
     def _load_int4(self, cfg: RSNNConfig, packed: PackedRSNN,
                    engine: EngineConfig) -> tuple[dict, dict, dict]:
@@ -446,6 +485,73 @@ class CompiledRSNN:
         return state, torch.stack(logits), {
             k: torch.stack([a[k] for a in aux]) for k in aux[0]}
 
+    def _masked_chunk_step(self, state, x_chunk: torch.Tensor,
+                           active: torch.Tensor):
+        """Chunked ``step_masked``: ``active`` is the (F, slots) fill mask
+        of the sub-steps.  A False entry is idle padding (a ragged stream
+        tail or a mid-chunk completion): the slot advances on a zero frame,
+        as an idle slot does frame by frame, and is masked out of the
+        packed counters."""
+        state, logits, aux = self._chunk_step(state, x_chunk)
+        return state, logits, pack_chunk_aux(aux, active)
+
+    # --------------------------------------------------- v2 ring steps
+
+    def _ring_write(self, ring: torch.Tensor, ring_idx: torch.Tensor,
+                    logits: torch.Tensor) -> torch.Tensor:
+        """Write each slot's logits row into its ring row ``ring_idx``, in
+        place."""
+        rows = torch.arange(logits.shape[0], device=ring.device)
+        ring.index_put_((rows, ring_idx.long()), logits)
+        return ring
+
+    def _ring_write_chunk(self, ring: torch.Tensor, ring_idx: torch.Tensor,
+                          logits: torch.Tensor) -> torch.Tensor:
+        """Write an (F, B, fc) chunk of logit rows into the ring rows
+        ``ring_idx`` (F, B), in place.  Idle sub-steps carry the index
+        ``ring_frames``: the ring holds one spare row there
+        (``StreamLoop._init_ring``), which takes those writes, so the idle
+        tail after a mid-chunk completion never touches the completed
+        stream's rows (the reference drops them with ``mode="drop"``,
+        which ``index_put_`` has no counterpart of)."""
+        f, b, fc = logits.shape
+        rows = torch.arange(b, device=ring.device).repeat(f)
+        ring.index_put_((rows, ring_idx.reshape(-1).long()),
+                        logits.reshape(f * b, fc))
+        return ring
+
+    def _ring_frame_step(self, state, x_t: torch.Tensor,
+                         active: torch.Tensor, ring: torch.Tensor,
+                         ring_idx: torch.Tensor, aux_acc: torch.Tensor):
+        new, logits, aux = self._frame_step(state, x_t)
+        copy_state_(state, new)
+        self._ring_write(ring, ring_idx, logits)
+        aux_acc.add_(pack_step_aux(aux, active))
+        return state, ring, aux_acc
+
+    def _ring_frame_step_quiet(self, state, x_t: torch.Tensor,
+                               ring: torch.Tensor, ring_idx: torch.Tensor):
+        new, logits, _ = self._frame_step(state, x_t)
+        copy_state_(state, new)
+        self._ring_write(ring, ring_idx, logits)
+        return state, ring
+
+    def _ring_chunk_step(self, state, x_chunk: torch.Tensor,
+                         active: torch.Tensor, ring: torch.Tensor,
+                         ring_idx: torch.Tensor, aux_acc: torch.Tensor):
+        new, logits, aux = self._chunk_step(state, x_chunk)
+        copy_state_(state, new)
+        self._ring_write_chunk(ring, ring_idx, logits)
+        aux_acc.add_(pack_chunk_aux(aux, active))
+        return state, ring, aux_acc
+
+    def _ring_chunk_step_quiet(self, state, x_chunk: torch.Tensor,
+                               ring: torch.Tensor, ring_idx: torch.Tensor):
+        new, logits, _ = self._chunk_step(state, x_chunk)
+        copy_state_(state, new)
+        self._ring_write_chunk(ring, ring_idx, logits)
+        return state, ring
+
     # ------------------------------------------------------------ execution
 
     def step(self, state, x_q: torch.Tensor):
@@ -459,6 +565,48 @@ class CompiledRSNN:
         to active slots and reduced (``pack_step_aux``)."""
         state, logits, aux = self._frame_step(state, x_q)
         return state, logits, pack_step_aux(aux, active)
+
+    def step_ring(self, state, x_raw, ctrl: torch.Tensor, ring: torch.Tensor,
+                  aux_acc: torch.Tensor):
+        """Contract-v2 step over raw frames ``x_raw`` (B, input_dim): input
+        quantization, the frame step, the logit write into ``ring`` at the
+        per-slot row ``ctrl[1]`` and the ``ctrl[0]``-masked packed-counter
+        add into ``aux_acc``.  ``ctrl`` is the (2, slots) int32 control
+        word.  The state, ``ring`` and ``aux_acc`` are updated in place and
+        returned: (state, ring, aux_acc).  Nothing crosses to the host."""
+        x = torch.as_tensor(x_raw, dtype=torch.float32).to(self.device)
+        return self._ring_frame_step(state, self._quantize(x), ctrl[0], ring,
+                                     ctrl[1], aux_acc)
+
+    def step_ring_quiet(self, state, x_raw, ctrl: torch.Tensor,
+                        ring: torch.Tensor):
+        """``step_ring`` without the counter accumulator (the step's
+        counters are computed and dropped).  Returns (state, ring)."""
+        x = torch.as_tensor(x_raw, dtype=torch.float32).to(self.device)
+        return self._ring_frame_step_quiet(state, self._quantize(x), ring,
+                                           ctrl[1])
+
+    def _run_scan(self, state, xq: torch.Tensor):
+        """Step every frame of ``xq`` (B, T, input_dim) in order -> (state,
+        logits (B, T, fc_dim), aux stacked per frame)."""
+        logits, aux = [], []
+        for x_t in xq.transpose(0, 1):
+            state, lg, ax = self._frame_step(state, x_t)
+            logits.append(lg)
+            aux.append(ax)
+        return state, torch.stack(logits, dim=1), {
+            k: torch.stack([a[k] for a in aux]) for k in aux[0]}
+
+    def run(self, x, state=None):
+        """Batch-run a chunk of raw frames ``x`` (B, T_chunk, input_dim),
+        carrying ``state`` across calls.  Returns (logits (B, T_chunk,
+        fc_dim), state, aux); the aux counters are stacked per frame and
+        summed over the slots."""
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        if state is None:
+            state = self.init_state(x.shape[0])
+        state, logits, aux = self._run_scan(state, self.quantize_features(x))
+        return logits, state, {k: v.sum(dim=-1) for k, v in aux.items()}
 
 
 def _frame_counters(x_t: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
@@ -494,6 +642,15 @@ def pack_step_aux(aux: dict, active: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def pack_chunk_aux(aux: dict, active: torch.Tensor) -> torch.Tensor:
+    """``pack_step_aux`` of every sub-step of a chunk (``aux`` with a
+    leading frame axis) under its row of the (F, slots) fill mask
+    ``active``, summed over the sub-steps."""
+    return torch.stack([
+        pack_step_aux({k: v[f] for k, v in aux.items()}, active[f])
+        for f in range(active.shape[0])]).sum(dim=0)
+
+
 def unpack_step_aux(vec, num_ts: int) -> dict:
     """Host-side inverse of ``pack_step_aux`` -> the dict
     ``complexity.SparsityCounters.update`` consumes."""
@@ -514,10 +671,22 @@ def unpack_step_aux(vec, num_ts: int) -> dict:
 class StreamRequest:
     """One utterance: its frames in, its per-frame logits out.
 
+    In the pipelined contract a stream's logits reach the host as blocks
+    in ``pending``, one per completion or watermark flush: ``(block, fill,
+    fence)``, where ``block`` holds the stream's ``fill`` ring rows, copied
+    at harvest time (a pinned host tensor filled by a copy queued on the
+    card's stream, behind the step), and ``fence`` the event after which
+    the copy has landed (``None`` on the CPU, where the copy is made at
+    once).  They move into ``logits`` when the pipeline retires the
+    completing step, or on the first ``stacked_logits`` call: as rows of
+    the block itself, with no host copy, so the request holds its block
+    (pinned memory returns to PyTorch's host cache when the rows go).
+
     Lifecycle timestamps (``StreamLoop.clock``, monotonic seconds):
     ``t_submit`` at enqueue, ``t_start`` when the stream takes a slot,
-    ``t_done`` when its last frame is served and ``t_harvest`` when its
-    logits are on the host — the same moment in the synchronous contract.
+    ``t_done`` when its last frame is scheduled and ``t_harvest`` when its
+    logits are on the host: the same moment in the synchronous contract,
+    the retirement of the completing step in the pipelined one.
     """
 
     sid: int
@@ -525,15 +694,58 @@ class StreamRequest:
     fc_dim: int = 0  # logit width, stamped by StreamLoop.submit
     logits: list = dataclasses.field(default_factory=list)
     done: bool = False
+    pending: list = dataclasses.field(default_factory=list, repr=False)
     t_submit: float | None = None
     t_start: float | None = None
     t_done: float | None = None
     t_harvest: float | None = None
 
+    def _materialize(self) -> int:
+        """Move the pending logit blocks into ``logits`` rows, each after
+        its fence; returns the number of device->host transfers they
+        were."""
+        n = len(self.pending)
+        for block, fill, fence in self.pending:
+            if fence is not None:
+                fence.synchronize()
+            self.logits.extend(block.numpy()[:fill])
+        self.pending.clear()
+        return n
+
     def stacked_logits(self) -> np.ndarray:
+        self._materialize()
         if not self.logits:
             return np.zeros((0, self.fc_dim), np.float32)
         return np.stack(self.logits)
+
+
+class _InflightStep:
+    """One dispatched step not yet retired: its fence (a ``torch.cuda.Event``
+    recorded after the step and its harvest copies; ``None`` on the CPU)
+    and the requests whose completion rode on it."""
+
+    __slots__ = ("fence", "completed")
+
+    def __init__(self, fence, completed):
+        self.fence = fence
+        self.completed = completed  # list[StreamRequest]
+
+
+class _StepGraph:
+    """A loop's step captured as a CUDA graph: ``__call__`` replays it and
+    credits the kernel launches the capture recorded to the wrappers'
+    counters (a replay runs no Python); returns the step's outputs, the
+    graph's static output tensors."""
+
+    def __init__(self, graph, outputs, launches: dict[str, int]):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = {n: c for n, c in launches.items() if c}
+
+    def __call__(self):
+        self.graph.replay()
+        kernel_ops.add_launch_counts(self.launches)
+        return self.outputs
 
 
 class StreamLoop(SlotScheduler):
@@ -543,34 +755,241 @@ class StreamLoop(SlotScheduler):
     Each ``step_once`` advances every active slot by one frame; a slot
     whose utterance ends is state-reset and refilled from the queue
     mid-batch.  Idle slots carry zero frames and are excluded from the
-    sparsity counters.  This is the synchronous v1 contract: the logits
-    and the packed counter vector cross to the host every step
-    (``host_syncs``).  ``pipeline_depth`` and ``chunk_frames`` other than
-    0 and 1 are not ported yet and raise.
+    sparsity counters.
+
+    ``pipeline_depth`` selects the contract (module docstring): ``0`` is
+    the synchronous v1 loop (the logits, and the packed counter vector
+    when a sink is attached, cross to the host every step); ``>= 1`` the
+    pipelined v2 loop, with at most ``pipeline_depth`` steps in flight,
+    the logits kept in a device ring of ``ring_frames`` rows a slot and
+    the counters accumulated on the device.  ``chunk_frames=C`` advances
+    every active slot by up to C frames in one dispatch: slot i serves
+    ``min(C, remaining frames)`` and idles for the rest, masked out of the
+    ring writes and the counters; completions, refills and the ring
+    watermark are decided at the chunk boundary, so per-stream logits and
+    counters equal ``chunk_frames=1``'s bit for bit.  In the pipelined
+    contract ``ring_frames`` must be a multiple of C, so that a live slot
+    never idles mid-chunk on ring capacity.  Scheduling is the reference's
+    in every contract; only when data crosses to the host changes.
+
+    The loop allocates its state, ring, counter accumulator and step
+    inputs once and only writes into them (``reset_slot_``, ``copy_``,
+    ``index_put_``, ``add_``).  Frames and the control word reach the card
+    through ``pipeline_depth + 1`` pinned host buffers in rotation, copied
+    asynchronously.  With ``aot_warmup=True`` on a CUDA engine the
+    constructor warms the step up on a side stream over scratch copies of
+    those buffers, then captures it as one CUDA graph for the loop's
+    signature ``_key``, (contract, slots, chunk, ring_frames,
+    track_sparsity); every step replays it.  A graph binds its buffers'
+    addresses, so it belongs to its loop and is not shared with other
+    loops.  On the CPU the eager step stands in for the graph, and counts
+    as its capture.  ``aot_warmup=False`` dispatches the eager step.  A
+    failed capture or replay raises; the loop never carries on eagerly.
+
+    ``host_syncs`` counts the device->host transfers the loop makes,
+    ``dispatches`` its step dispatches (one a chunk) and ``frames_served``
+    the slot-frames advanced.  ``track_sparsity=False`` detaches the
+    counter sink: no counter fetch and no accumulator.
     """
 
     def __init__(self, engine: CompiledRSNN, batch_slots: int = 4,
-                 pipeline_depth: int = 0, chunk_frames: int = 1):
+                 pipeline_depth: int = 2, ring_frames: int = 256,
+                 track_sparsity: bool = True, chunk_frames: int = 1,
+                 aot_warmup: bool = True):
         super().__init__(batch_slots)
         if pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, "
                              f"got {pipeline_depth}")
+        if ring_frames < 1:
+            raise ValueError(f"ring_frames must be >= 1, got {ring_frames}")
         if chunk_frames < 1:
             raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-        if pipeline_depth != 0:
-            raise NotImplementedError(
-                f"pipeline_depth={pipeline_depth}: the pipelined v2 loop is "
-                f"not yet ported to repro_torch ({_V2}); use 0")
-        if chunk_frames != 1:
-            raise NotImplementedError(
-                f"chunk_frames={chunk_frames}: frame-chunked dispatch is not "
-                f"yet ported to repro_torch ({_V2}); use 1")
+        if (chunk_frames > 1 and pipeline_depth >= 1
+                and ring_frames % chunk_frames != 0):
+            # a live slot's ring fill advances in whole chunks; any other
+            # ring would make a live slot idle mid-chunk on ring capacity
+            # and advance its state through frames it never received
+            raise ValueError(
+                f"ring_frames ({ring_frames}) must be a multiple of "
+                f"chunk_frames ({chunk_frames}) in the pipelined contract")
         self.engine = engine
         self.pipeline_depth = pipeline_depth
+        self.ring_frames = ring_frames
+        self.track_sparsity = track_sparsity
         self.chunk_frames = chunk_frames
+        self.aot_warmup = aot_warmup
         self.clock = time.monotonic  # swappable for deterministic tests
         self.state = engine.init_state(batch_slots)
+        self._flushed = [0] * batch_slots  # frames already harvested, per slot
+        self._inflight: collections.deque[_InflightStep] = collections.deque()
+        self._ring = self._init_ring() if pipeline_depth >= 1 else None
+        self._aux_acc = None
+        self._fence = None  # the fence of the step being dispatched
         self.reset_metrics()
+        self._init_inputs()
+        self._key, fn = self._step_fn()
+        # the step's buffers never move, so its arguments are bound once
+        # (and the loop is not: no reference cycle through the entry)
+        args = (self._x_in, self._ctrl_in, self.state, self._ring,
+                self._aux_acc)
+        self._entry = functools.partial(fn, *args)
+        if aot_warmup:
+            if engine.device.type == "cuda":
+                self._entry = self._capture(fn, args)
+            engine.capture_count += 1
+
+    def _init_ring(self) -> torch.Tensor:
+        """The device logit ring, ``(slots, ring_frames + 1, fc_dim)``: the
+        spare last row of each slot takes the idle sub-steps' writes of a
+        chunk (``CompiledRSNN._ring_write_chunk``).  ``ring`` is the view
+        without it."""
+        return torch.zeros((self.slots, self.ring_frames + 1,
+                            self.engine.cfg.fc_dim), dtype=torch.float32,
+                           device=self.engine.device)
+
+    def _zero_aux_acc(self) -> torch.Tensor:
+        """A zeroed packed-counter accumulator on the device."""
+        return torch.zeros((2 * self.engine.cfg.num_ts + 4,),
+                           dtype=torch.float32, device=self.engine.device)
+
+    @property
+    def ring(self) -> torch.Tensor | None:
+        """The logit ring, ``(slots, ring_frames, fc_dim)`` (v2 only)."""
+        return None if self._ring is None else self._ring[:, :self.ring_frames]
+
+    # -------------------------------------------------- step inputs / graphs
+
+    def _init_inputs(self) -> None:
+        """The step's static inputs on the device, ([C,] slots, input_dim)
+        frames and the (2, [C,] slots) int32 control word (row 0 the fill
+        mask, row 1 the ring row), and the host buffers they are staged
+        in, allocated once (a fresh host buffer a step costs its page
+        faults): on a CUDA engine ``pipeline_depth + 1`` pinned pairs,
+        each with the event after which its last upload has landed; on
+        the CPU the inputs themselves."""
+        b, c = self.slots, self.chunk_frames
+        lead = () if c == 1 else (c,)
+        x_shape = (*lead, b, self.engine.cfg.input_dim)
+        ctrl_shape = (2, *lead, b)
+        dev = self.engine.device
+        if dev.type == "cuda":  # pin_memory needs CUDA
+            self._x_in = torch.zeros(x_shape, dtype=torch.float32,
+                                     device=dev)
+            self._ctrl_in = torch.zeros(ctrl_shape, dtype=torch.int32,
+                                        device=dev)
+            self._staging = [
+                (torch.zeros(x_shape, dtype=torch.float32, pin_memory=True),
+                 torch.zeros(ctrl_shape, dtype=torch.int32, pin_memory=True),
+                 torch.cuda.Event())
+                for _ in range(self.pipeline_depth + 1)]
+        else:
+            self._x_in = torch.zeros(x_shape, dtype=torch.float32)
+            self._ctrl_in = torch.zeros(ctrl_shape, dtype=torch.int32)
+            self._staging = [(self._x_in, self._ctrl_in, None)]
+        self._stage_next = 0
+
+    def _step_fn(self) -> tuple[tuple, Callable]:
+        """(key, fn) of the step this loop dispatches: ``fn(x, ctrl, state,
+        ring, aux_acc)`` quantizes the frames and runs the contract's step
+        over those buffers, in place; it returns v1's (logits, packed
+        counter vector) and nothing in v2.  The key is (contract, slots,
+        chunk, ring_frames, track_sparsity)."""
+        eng, c = self.engine, self.chunk_frames
+        if self.pipeline_depth == 0:
+            step = eng.step_masked if c == 1 else eng._masked_chunk_step
+            contract = "v1" if c == 1 else "v1-chunk"
+
+            def fn(x, ctrl, state, ring, aux_acc):
+                new, logits, vec = step(state, eng._quantize(x), ctrl[0])
+                copy_state_(state, new)
+                return logits, vec
+        elif self.track_sparsity:
+            step = eng._ring_frame_step if c == 1 else eng._ring_chunk_step
+            contract = "v2" if c == 1 else "v2-chunk"
+
+            def fn(x, ctrl, state, ring, aux_acc):
+                step(state, eng._quantize(x), ctrl[0], ring, ctrl[1],
+                     aux_acc)
+        else:
+            step = (eng._ring_frame_step_quiet if c == 1
+                    else eng._ring_chunk_step_quiet)
+            contract = "v2-quiet" if c == 1 else "v2-chunk-quiet"
+
+            def fn(x, ctrl, state, ring, aux_acc):
+                step(state, eng._quantize(x), ring, ctrl[1])
+        key = (contract, self.slots, c, self.ring_frames, self.track_sparsity)
+        return key, fn
+
+    def _capture(self, fn: Callable, args: tuple) -> _StepGraph:
+        """Warm the step up on a side stream over scratch copies of the
+        state, ring and accumulator (the plan and occupancy caches fill,
+        the live buffers do not move), then capture it over the live
+        buffers.  The kernel counters are restored afterwards, so neither
+        the warm-up nor the capture counts as launches; the capture's own
+        launches are kept and credited at every replay.  The capture is
+        begun and ended by hand: ``torch.cuda.graph`` would also empty
+        PyTorch's caches, the pinned host blocks of earlier harvests
+        among them, and every later harvest would pin new memory."""
+        dev = self.engine.device
+        saved = kernel_ops.launch_counts()
+        scratch = (*args[:2], *(_tree_map(torch.clone, t) for t in args[2:]))
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.stream(side):
+                    for _ in range(WARMUP_STEPS):
+                        fn(*scratch)
+                torch.cuda.synchronize(dev)
+                kernel_ops.set_launch_counts(dict.fromkeys(saved, 0))
+                with torch.cuda.stream(side):
+                    graph.capture_begin()
+                    try:
+                        outputs = fn(*args)
+                    finally:
+                        graph.capture_end()
+                launches = kernel_ops.launch_counts()
+            finally:
+                kernel_ops.set_launch_counts(saved)
+        return _StepGraph(graph, outputs, launches)
+
+    def _stage(self) -> tuple[np.ndarray, np.ndarray]:
+        """The host buffers of the next step's frames and control word,
+        zeroed: the next pinned pair of the rotation once the upload that
+        last read it has landed (CUDA), or the step's own inputs (CPU)."""
+        hx, hc, landed = self._staging[self._stage_next]
+        if landed is not None:
+            landed.synchronize()
+        x, ctrl = hx.numpy(), hc.numpy()
+        x.fill(0)
+        ctrl.fill(0)
+        return x, ctrl
+
+    def _dispatch(self):
+        """Dispatch the step over the staged inputs (replay its graph, or
+        run it eagerly).  On a CUDA engine the pinned pair is uploaded
+        first, asynchronously, and the step's fence is created, which the
+        caller records after its harvests.  Returns the step's outputs."""
+        hx, hc, landed = self._staging[self._stage_next]
+        self._stage_next = (self._stage_next + 1) % len(self._staging)
+        if landed is not None:
+            self._x_in.copy_(hx, non_blocking=True)
+            self._ctrl_in.copy_(hc, non_blocking=True)
+            landed.record()
+            if self.pipeline_depth >= 1:
+                self._fence = torch.cuda.Event()
+        return self._entry()
+
+    def _push_inflight(self, completed: list[StreamRequest]) -> None:
+        """Fence the step just dispatched (and its harvest copies) and
+        retire the oldest steps down to ``pipeline_depth - 1`` in flight."""
+        fence, self._fence = self._fence, None
+        if fence is not None:
+            fence.record()
+        self._inflight.append(_InflightStep(fence, completed))
+        while len(self._inflight) > max(self.pipeline_depth - 1, 0):
+            self._retire()
 
     # ------------------------------------------------------------- frontend
 
@@ -586,6 +1005,8 @@ class StreamLoop(SlotScheduler):
                 f"got {frames.shape}")
         if (self.engine._input_scale is None
                 and frames.size and np.any(frames != np.round(frames))):
+            # the step quantizes without the integer check (a host sync),
+            # so the contract is checked here, once an utterance
             raise ValueError(
                 "input_scale=None requires integer-valued features; "
                 "pass input_scale=calibrate_input_scale(features)")
@@ -604,50 +1025,98 @@ class StreamLoop(SlotScheduler):
         return sid
 
     def _on_slot_filled(self, i: int, req: StreamRequest) -> None:
-        """Fresh utterance boundary: zero the slot's recurrent state."""
+        """Fresh utterance boundary: zero the slot's recurrent state and
+        harvest cursor.  The previous occupant's ring rows were copied out
+        at its completion, so the new stream may overwrite them."""
         req.t_start = self.clock()
-        self.state = reset_slot(self.state, i)
+        self._flushed[i] = 0
+        reset_slot_(self.state, i)
 
     def _finish_slot(self, i: int) -> StreamRequest:
         req = super()._finish_slot(i)
-        req.t_done = req.t_harvest = self.clock()
+        req.t_done = self.clock()
+        if self.pipeline_depth == 0:
+            # synchronous contract: the logits were fetched this step
+            req.t_harvest = req.t_done
         return req
+
+    def _harvest(self, r: StreamRequest, i: int, fill: int) -> None:
+        """Queue slot ``i``'s first ``fill`` ring rows for the host.  The
+        rows are copied now, behind the step on the card's stream: the slot
+        (or the next stream in it) overwrites them before the step
+        retires, so a view would not do."""
+        rows = self._ring[i, :fill]
+        if rows.is_cuda:
+            block = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            block.copy_(rows, non_blocking=True)
+        else:
+            block = rows.clone()
+        r.pending.append((block, fill, self._fence))
 
     # ------------------------------------------------------------ step path
 
-    def _gather_host_frames(self) -> np.ndarray:
-        """Host-side frame assembly: idle slots carry zero frames (the
-        counter masking keys off the active mask, not this zeroing)."""
-        x = np.zeros((self.slots, self.engine.cfg.input_dim), np.float32)
+    def _gather_host_frames(self, x: np.ndarray) -> None:
+        """Host-side frame assembly into the zeroed (slots, input_dim)
+        ``x``: idle slots carry zero frames (the counter masking keys off
+        the active mask, not this zeroing)."""
         for i, r in enumerate(self.slot_req):
             if r is not None:
                 x[i] = r.frames[self.slot_pos[i]]
-        return x
 
     def _dispatch_step(self, active: np.ndarray):
-        """Advance the engine one frame over all slots.  Returns (logits
-        (slots, fc_dim) np, packed masked counter vector)."""
-        dev = self.engine.device
-        x = torch.from_numpy(self._gather_host_frames()).to(dev)
-        act = torch.from_numpy(active).to(dev)
-        self.state, logits, aux_vec = self.engine.step_masked(
-            self.state, self.engine._quantize(x), act)
-        return logits.cpu().numpy(), aux_vec
+        """v1: advance every slot one frame.  Returns (logits (slots,
+        fc_dim) np, packed masked counter vector)."""
+        x, ctrl = self._stage()
+        self._gather_host_frames(x)
+        ctrl[0] = active
+        logits, vec = self._dispatch()
+        return logits.cpu().numpy(), vec
 
     def step_once(self) -> bool:
         """One engine step over all slots; returns False when fully drained
-        (empty queue and empty slots)."""
+        (empty queue, empty slots and, pipelined, no step in flight)."""
         self._refill()
         active = self.active_mask()
         if not active.any():
+            if self._inflight:  # shutdown drain: retire without dispatching
+                self._retire()
+                return True
             return False
+        if self.pipeline_depth == 0:
+            if self.chunk_frames == 1:
+                return self._step_once_sync(active)
+            return self._step_once_sync_chunk()
+        if self.chunk_frames > 1:
+            return self._step_once_chunk()
+
+        x, ctrl = self._stage()  # ctrl: [active mask; ring row]
+        self._gather_host_frames(x)
+        ctrl[0] = active
+        ctrl[1] = [self.slot_pos[i] - self._flushed[i]
+                   if self.slot_req[i] is not None else 0
+                   for i in range(self.slots)]
+        self._dispatch()
+        self.steps += 1
+        self.dispatches += 1
+        self.frames_served += int(active.sum())
+        if self.counters is not None:
+            self._frames_acc += float(active.sum())
+        self._push_inflight(self._advance_slots())
+        return True
+
+    def _step_once_sync(self, active: np.ndarray) -> bool:
+        """v1: fetch the logits (and the counters, when a sink is
+        attached) to the host every step."""
         logits_np, aux_vec = self._dispatch_step(active)
         self.host_syncs += 1  # per-frame logit fetch
         self.steps += 1
+        self.dispatches += 1
         self.frames_served += int(active.sum())
-        self.counters.update(unpack_step_aux(aux_vec, self.engine.cfg.num_ts),
-                             active_frames=float(active.sum()))
-        self.host_syncs += 1  # per-frame counter fetch
+        if self.counters is not None:
+            self.counters.update(
+                unpack_step_aux(aux_vec, self.engine.cfg.num_ts),
+                active_frames=float(active.sum()))
+            self.host_syncs += 1  # per-frame counter fetch
         for i, r in enumerate(self.slot_req):
             if r is None:
                 continue
@@ -655,33 +1124,207 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += 1
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                self.state = reset_slot(self.state, i)
+                reset_slot_(self.state, i)
         return True
 
+    def _advance_slots(self) -> list[StreamRequest]:
+        """Dispatch-time bookkeeping of v2: advance the cursors, harvest
+        completed and watermark-full slots, reset and free finished ones.
+        Completion depends only on host-side frame counts, so this runs
+        while the step is in flight; the schedule is v1's."""
+        return self._advance_slots_chunk([1 if r is not None else 0
+                                          for r in self.slot_req])
+
+    # -------------------------------------------------- chunked step paths
+
+    def _chunk_counts(self) -> list[int]:
+        """Frames each slot serves in this chunk: the chunk size, or the
+        stream's remaining frames (ragged tail).  A slot that completes
+        idles to the chunk boundary, masked, and is reset there.  In the
+        pipelined contract a live slot never idles: ``ring_frames`` is a
+        multiple of ``chunk_frames``, so the fill reaches the watermark at
+        a chunk boundary and the flush restores full capacity."""
+        counts = []
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                counts.append(0)
+                continue
+            n = min(self.chunk_frames, len(r.frames) - self.slot_pos[i])
+            if self.pipeline_depth >= 1:
+                cap = self.ring_frames - (self.slot_pos[i] - self._flushed[i])
+                assert cap >= n, "live slot would idle mid-chunk (ring " \
+                    "capacity below a chunk)"
+            counts.append(n)
+        return counts
+
+    def _stage_chunk(self, counts: list[int]) -> tuple[np.ndarray,
+                                                       np.ndarray]:
+        """Stage the next ``counts[i]`` frames of each slot into the (F,
+        slots, input_dim) frames, idle sub-steps zero, and their fill mask
+        into row 0 of the control word; returns (fill mask, control
+        word)."""
+        x, ctrl = self._stage()
+        for i, r in enumerate(self.slot_req):
+            if counts[i]:
+                p = self.slot_pos[i]
+                x[:counts[i], i] = r.frames[p:p + counts[i]]
+        live = np.arange(self.chunk_frames)[:, None] < np.asarray(counts)
+        ctrl[0] = live
+        return live, ctrl
+
+    def _step_once_sync_chunk(self) -> bool:
+        """v1 at ``chunk_frames > 1``: one dispatch and one logit fetch a
+        chunk, the schedule otherwise that of frame-by-frame stepping."""
+        counts = self._chunk_counts()
+        self._stage_chunk(counts)
+        logits, aux_vec = self._dispatch()
+        logits_np = logits.cpu().numpy()
+        self.host_syncs += 1  # per-chunk logit fetch
+        self.steps += 1
+        self.dispatches += 1
+        served = int(sum(counts))
+        self.frames_served += served
+        if self.counters is not None:
+            self.counters.update(
+                unpack_step_aux(aux_vec, self.engine.cfg.num_ts),
+                active_frames=float(served))
+            self.host_syncs += 1
+        for i, r in enumerate(self.slot_req):
+            if r is None or counts[i] == 0:
+                continue
+            r.logits.extend(logits_np[:counts[i], i])
+            self.slot_pos[i] += counts[i]
+            if self.slot_pos[i] == len(r.frames):
+                self._finish_slot(i)
+                reset_slot_(self.state, i)
+        return True
+
+    def _step_once_chunk(self) -> bool:
+        """v2 at ``chunk_frames > 1``: one pipeline entry a chunk.  Idle
+        sub-steps write the spare ring row ``ring_frames``."""
+        counts = self._chunk_counts()
+        live, ctrl = self._stage_chunk(counts)
+        base = np.array([self.slot_pos[i] - self._flushed[i]
+                         for i in range(self.slots)])
+        ctrl[1] = np.where(live, base + np.arange(self.chunk_frames)[:, None],
+                           self.ring_frames)
+        self._dispatch()
+        self.steps += 1
+        self.dispatches += 1
+        served = int(sum(counts))
+        self.frames_served += served
+        if self.counters is not None:
+            self._frames_acc += float(served)
+        self._push_inflight(self._advance_slots_chunk(counts))
+        return True
+
+    def _advance_slots_chunk(self, counts: list[int]) -> list[StreamRequest]:
+        """``_advance_slots`` over a per-slot frame count (the chunk's
+        fill): the cursors advance by ``counts[i]``, and completion and
+        the ring watermark are decided at the chunk boundary."""
+        completed = []
+        for i, r in enumerate(self.slot_req):
+            if r is None or counts[i] == 0:
+                continue
+            self.slot_pos[i] += counts[i]
+            fill = self.slot_pos[i] - self._flushed[i]
+            if self.slot_pos[i] == len(r.frames):  # stream complete
+                if fill > 0:
+                    self._harvest(r, i, fill)
+                completed.append(r)
+                self._finish_slot(i)
+                self._flushed[i] = 0
+                reset_slot_(self.state, i)
+            elif fill == self.ring_frames:  # watermark flush: ring is full
+                self._harvest(r, i, fill)
+                self._flushed[i] = self.slot_pos[i]
+        return completed
+
+    def _retire(self) -> None:
+        """Retire the oldest in-flight step: wait on its fence, then move
+        the logits of the streams it completed to the host."""
+        step = self._inflight.popleft()
+        if step.fence is not None:
+            step.fence.synchronize()  # a fence, not a transfer
+        for r in step.completed:
+            self.host_syncs += r._materialize()
+            r.t_harvest = self.clock()
+
+    @property
+    def pending_steps(self) -> int:
+        """Steps dispatched but not yet retired."""
+        return len(self._inflight)
+
+    def flush(self) -> None:
+        """Drain the pipeline: retire every in-flight step (materializing
+        completed streams' logits) and fold the device counter accumulator
+        into ``counters``.  Afterwards ``pending_steps == 0`` and the
+        metrics cover every dispatched step.  In-progress streams keep
+        their unflushed logits on the device until they complete."""
+        while self._inflight:
+            self._retire()
+        self._drain_aux()
+
     def run(self) -> list[StreamRequest]:
-        """Drain queue and slots; returns finished requests in sid order."""
+        """Drain queue, slots and pipeline; returns finished requests in sid
+        order, their logits on the host."""
         while self.step_once():
             pass
+        self.flush()
         return sorted(self.finished, key=lambda r: r.sid)
 
     # --------------------------------------------------- measured complexity
 
     def reset_metrics(self) -> None:
-        """Zero the measured-traffic counters (e.g. after a warmup run)."""
+        """Zero the measured-traffic counters (e.g. after a warmup run).
+        The accumulator is zeroed in place: a captured step holds it."""
         cfg = self.engine.cfg
-        self.counters = complexity.SparsityCounters(
+        self.counters = (complexity.SparsityCounters(
             num_ts=cfg.num_ts, hidden_dim=cfg.hidden_dim,
             input_dim=cfg.input_dim, input_bits=cfg.input_bits)
+            if self.track_sparsity else None)
+        if self.track_sparsity and self.pipeline_depth >= 1:
+            if self._aux_acc is None:
+                self._aux_acc = self._zero_aux_acc()
+            else:
+                self._aux_acc.zero_()
+        self._frames_acc = 0.0
         self.steps = 0
         self.host_syncs = 0
+        self.dispatches = 0  # step dispatches (one a chunk)
         self.frames_served = 0  # slot-frames advanced
 
-    def sparsity_profile(self) -> complexity.SparsityProfile:
-        return self.counters.profile()
+    def _drain_aux(self) -> None:
+        """Fold the device counter accumulator into ``counters``: one host
+        transfer for every step since the last drain."""
+        if self.counters is None or self._frames_acc == 0.0:
+            return
+        self.counters.update(
+            unpack_step_aux(self._aux_acc, self.engine.cfg.num_ts),
+            active_frames=self._frames_acc)
+        self.host_syncs += 1
+        self._frames_acc = 0.0
+        self._aux_acc.zero_()
 
-    def mmac_per_second(self) -> float:
-        """Zero-skip MMAC/s of the traffic served so far (paper Fig. 13),
-        at the pruning fraction of the model the engine serves."""
-        return self.counters.mmac_per_second(
+    def _require_counters(self) -> complexity.SparsityCounters:
+        if self.counters is None:
+            raise ValueError(
+                "sparsity tracking is disabled (track_sparsity=False); "
+                "construct the loop with track_sparsity=True to measure "
+                "profiles/MMAC/s")
+        self._drain_aux()
+        return self.counters
+
+    def sparsity_profile(self) -> complexity.SparsityProfile:
+        return self._require_counters().profile()
+
+    def mmac_per_second(self, fc_prune_frac: float | None = None) -> float:
+        """Zero-skip MMAC/s of the traffic served so far (paper Fig. 13), at
+        ``fc_prune_frac``, by default the pruning fraction of the model the
+        engine serves."""
+        counters = self._require_counters()
+        if fc_prune_frac is None:
+            fc_prune_frac = self.engine.fc_prune_frac
+        return counters.mmac_per_second(
             self.engine.cfg, merged_spike=self.engine.cfg.merged_spike,
-            fc_prune_frac=self.engine.fc_prune_frac)
+            fc_prune_frac=fc_prune_frac)

@@ -189,10 +189,11 @@ def test_config_and_loop_validation(small_path, small_cfg):
     assert TS.EngineConfig(backend="sparse", precision="int4").wants_sparse_fc
     eng = TS.CompiledRSNN.from_artifact(small_path,
                                         backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="P7"):
-        TS.StreamLoop(eng, batch_slots=2, pipeline_depth=2)
-    with pytest.raises(NotImplementedError, match="P7"):
-        TS.StreamLoop(eng, batch_slots=2, chunk_frames=4)
+    with pytest.raises(ValueError, match="ring_frames must be >= 1"):
+        TS.StreamLoop(eng, batch_slots=2, pipeline_depth=2, ring_frames=0)
+    with pytest.raises(ValueError, match="multiple of"):
+        TS.StreamLoop(eng, batch_slots=2, pipeline_depth=1, ring_frames=6,
+                      chunk_frames=4)
     with pytest.raises(ValueError, match="pipeline_depth"):
         TS.StreamLoop(eng, batch_slots=2, pipeline_depth=-1)
     loop = TS.StreamLoop(eng, batch_slots=2)
