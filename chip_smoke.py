@@ -11,10 +11,13 @@ Phases, each printed on its own line:
      shapes, B = 256 and a ragged B = 200 (``check_call``): K2-K5
      (int4_matmul, merged_spike_fc, sparse_fc, nm_fc over the 2:4 FC)
      bit for bit (``torch.equal``), and K5 bit-equal to K4 over the same
-     mask stored as CSC; K1 (rsnn_cell) and K10 (spike_cell) within
-     ``U_RTOL``/``U_ATOL`` on the membrane potential, with a spike allowed
-     to differ only where the plain potential lies within that tolerance
-     of the threshold; K9 (spike_broadcast: the 2-D L1 feed-forward and
+     mask stored as CSC; K1 (rsnn_cell) and K10 (spike_cell), and their
+     plain versions, within the u rule: the plain chain replayed in
+     float64 with the magnitude A of its summands (``lif_bound``), |u -
+     u64| <= gamma(n) A = (n + 3) 2^-24 A, n the longest sum feeding the
+     element, a spike differing from the replay's only where |u64 - vth|
+     is within that bound (``check_cell``; the largest |du| / (2^-24 A)
+     of each is printed); K9 (spike_broadcast: the 2-D L1 feed-forward and
      the 3-D FC union) within ``TOL``; K8 (delta_step) with mask, held
      input and cached rows exact and recomputed rows within ``TOL``.
      K9/K10 run lossless and at ``TRUNC_CAPACITY`` events a row, and K9,
@@ -37,16 +40,21 @@ Phases, each printed on its own line:
      in the three FC modes (``dense_int4``, ``csc``, ``nm``) over chunks of
      1 and
      ``MEGA_FRAMES`` frames (``check_megastep``): a slot may differ from
-     the plain version only where the plain chain, replayed frame by
-     frame, comes within ``U_RTOL``/``U_ATOL`` of a threshold; every other
-     slot's spikes, counters and logits are bit-equal and its u within
-     that tolerance; the input one-bits are bit-equal everywhere, and K7
-     is bit-equal to K6 on the same inputs.  Then the float engine's
-     kernels with the float weights of ``float_params``: K6/K7 with float
-     layer weights and the ``dense_float`` FC at ``BASELINE`` and
-     ``PRUNED`` widths by the same rule, the logits within ``TOL``
-     (float32 sums in another order), K7 bit-equal to K6; and K1, K8-K10
-     at H = 256 (``BASELINE``), a width no int4 path reaches.  K6/K7 again
+     the plain version only where the chain, replayed frame by frame in
+     float64 (``megastep_replay``), comes within the u rule of a
+     threshold; every other slot's spikes, counters and logits are
+     bit-equal to the plain version's, its trains the replay's and its u,
+     the kernel's and the plain version's, within the u rule of the
+     replay's (``check_mega``); the input one-bits are bit-equal
+     everywhere, and K7 is bit-equal to K6 on the same inputs.  Then the
+     float engine's kernels with the float weights of ``float_params``:
+     K6/K7 with float layer weights and the ``dense_float`` FC at
+     ``BASELINE`` and ``PRUNED`` widths by the same rule, the logits within
+     gamma(TS H) sum |s w| of the replay's, K7 bit-equal to K6; and K1,
+     K8-K10 at H = 256 (``BASELINE``), a width no int4 path reaches.  K6
+     float at ``PRUNED`` width again on the inputs drawn after K8's edge
+     check, where the old rule ``1e-5 (1 + |u|)`` failed (``old_u_rule``
+     prints how it fares).  K6/K7 again
      at the edges of their plans in all four FC modes
      (``check_megastep_edges``: B = 256, 200 and 1; H = 128, 256 and 100;
      TS = 1, 2 and 4; N = 1920 and 203; F = 1 and ``MEGA_FRAMES``).  The
@@ -54,8 +62,11 @@ Phases, each printed on its own line:
      of weight precision and FC mode they cannot take
      (``check_refusals``);
   3. three PRUNED int4 artifacts (40 -> 128 -> 128 -> 1920, TS = 2) made
-     from ``--seed`` with numpy and written in the reference's schema-v2
-     format (``ARTIFACTS``): the FC pruned 40% at random into padded CSC,
+     from ``--seed`` and packed and written by the port
+     (``seeded_int4``: ``quantize_to_int``, ``nm_prune_mask``,
+     ``pack_int4``, ``sparsify_columns``, ``pack_nm_groups``,
+     ``save_artifact``) in the reference's schema-v2 format
+     (``ARTIFACTS``): the FC pruned 40% at random into padded CSC,
      and its 2 largest |w| of every 4 rows kept, as N:M (``nm_group``)
      and as padded CSC; and a float ``BASELINE`` artifact (40 -> 256 ->
      256 -> 1920, 2,793,472 B of float32 weights, the paper's
@@ -135,6 +146,18 @@ Phases, each printed on its own line:
      configuration over the ``csc`` artifact is then served once more, in
      reverse order, for the spread of frames/s between runs.
 
+Before phase 5, phase 4c (``check_packing``): the port packs an int4
+model itself.  Seeded float ``PRUNED`` parameters packed on the card in
+four recipes (``PACK_RECIPES``: the FC 40% by magnitude, 2:4, l0_wh 2:4
+beside the FC's 40%, none), each bit-equal to the same packing on the CPU,
+its size report equal (100,864 B for the 40% recipe) and its
+``save_artifact`` / ``load_artifact`` round trip equal; then each
+``PACK_SERVED`` configuration served through the v2 graph loop from the
+engine that packed in process and from its reloaded artifact, logits
+bit-equal.  Then ``examples/stream_asr_torch.py`` at 256 slots and 512
+streams, in process and as a ``--save-artifact`` / ``--artifact`` pair
+(``run_example``), its report printed.
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -156,24 +179,37 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import argparse  # noqa: E402
-import dataclasses  # noqa: E402
+import contextlib  # noqa: E402
 import functools  # noqa: E402
+import importlib.util  # noqa: E402
+import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+from typing import NamedTuple  # noqa: E402
 import warnings  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.rsnn_timit import BASELINE, PRUNED  # noqa: E402
+from repro_torch.core.artifact import (load_artifact,  # noqa: E402
+                                       params_from_arrays, save_artifact)
+from repro_torch.core.compression import (CompressionConfig,  # noqa: E402
+                                          PruneSpec, nm_prune_mask)
+from repro_torch.core.compression.quantization import (  # noqa: E402
+    pack_int4, quantize_to_int)
+from repro_torch.core.layouts.csc import sparsify_columns  # noqa: E402
+from repro_torch.core.layouts.nm import pack_nm_groups  # noqa: E402
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
+from repro_torch.core.sparse import PackedRSNN, QuantTensor  # noqa: E402
 
-U_RTOL = 1e-5  # K1/K10: order-dependent float32 recurrent sum
+U_RTOL = 1e-5  # teacher-forced engines against ref: near the threshold
 U_ATOL = 1e-5
+EPS32 = 2.0 ** -24  # float32 unit roundoff: the u rule's unit (``gamma``)
 TOL = 1e-5  # K8 recomputed rows, K9: |d| <= TOL * (1 + |y|), float32 sums
 LOGIT_ATOL = 1e-4  # kernel backends vs ref backend, teacher-forced frames
 STREAMS = 512  # utterances served per configuration
@@ -262,144 +298,65 @@ BETA_INIT, VTH_INIT = 0.9, 1.0
 # ------------------------------------------------------------- the artifact
 
 
-def _pack_int4(q: np.ndarray) -> np.ndarray:
-    """(2k, n) ints in [-8, 7] -> (k, n) int8, low nibble = even row."""
-    lo = q[0::2].astype(np.uint8) & 0xF
-    hi = (q[1::2].astype(np.uint8) & 0xF) << 4
-    return (lo | hi).view(np.int8)
-
-
-def _quantize(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Per-output-channel symmetric int4: (q in [-8, 7], scale (1, N))."""
-    scale = (np.maximum(np.abs(w).max(axis=0, keepdims=True), 1e-8)
-             / 7.0).astype(np.float32)
-    q = np.clip(np.round(w / scale), -8, 7).astype(np.int8)
-    return q, scale
-
-
-def _csc(q: np.ndarray, keep: np.ndarray) -> dict[str, np.ndarray]:
-    """Padded CSC of the kept entries: kept rows first, in row order; pad
-    entries are (index 0, value 0)."""
-    nnz_max = max(int(keep.sum(axis=0).max()), 1)
-    order = np.argsort(~keep, axis=0, kind="stable")[:nnz_max]
-    taken = np.take_along_axis(keep, order, axis=0)
-    return {"indices": np.where(taken, order, 0).astype(np.int32),
-            "values": np.where(taken, np.take_along_axis(q, order, axis=0),
-                               0).astype(np.float32),
-            "count": keep.sum(axis=0).astype(np.int32)}
-
-
-def _nm_mask(w: np.ndarray, n: int, m: int) -> np.ndarray:
-    """Keep the ``n`` largest |w| of every ``m`` consecutive rows of each
-    column (a tail group of ``r < m`` rows keeps ``min(n, r)``)."""
-    rows, cols = w.shape
-    groups = -(-rows // m)
-    a = np.concatenate([np.abs(w), np.full((groups * m - rows, cols),
-                                           -np.inf, w.dtype)])
-    rank = np.argsort(np.argsort(-a.reshape(groups, m, cols), axis=1,
-                                 kind="stable"), axis=1, kind="stable")
-    return (rank < n).reshape(groups * m, cols)[:rows]
-
-
-def _nm_groups(q: np.ndarray, keep: np.ndarray, n: int,
-               m: int) -> dict[str, np.ndarray]:
-    """Group-packed N:M of the kept entries, byte for byte the reference's
-    ``pack_nm_groups``: per group of ``m`` rows the kept offsets first, in
-    ascending order, then pad slots (offset 0, value 0); one int8 byte per
-    slot, value in the low nibble and offset in the high one."""
-    rows, cols = q.shape
-    groups = -(-rows // m)
-    pad = groups * m - rows
-    qg = np.concatenate([q, np.zeros((pad, cols), q.dtype)]).reshape(
-        groups, m, cols)
-    kg = np.concatenate([keep, np.zeros((pad, cols), bool)]).reshape(
-        groups, m, cols)
-    if kg.sum(axis=1).max(initial=0) > n:
-        raise ValueError(f"the mask is not {n}:{m}-regular")
-    order = np.argsort(~kg, axis=1, kind="stable")[:, :n]
-    taken = np.take_along_axis(kg, order, axis=1)
-    vals = np.where(taken, np.take_along_axis(qg, order, axis=1), 0)
-    offs = np.where(taken, order, 0)
-    byte = (vals.astype(np.int64) & 0xF) | ((offs.astype(np.int64) & 0xF) << 4)
-    return {"packed": byte.reshape(groups * n, cols).astype(np.uint8)
-            .view(np.int8),
-            "count": keep.sum(axis=0).astype(np.int32),
-            "meta": np.asarray([n, m, rows], np.int32)}
+def seeded_int4(seed: int, cfg: RSNNConfig = PRUNED,
+                prune: float | tuple[int, int] = 0.4
+                ) -> tuple[dict, np.random.Generator]:
+    """The seeded int4 weights of ``write_artifact``: name -> (q, scale,
+    keep), through the port's ``quantize_to_int`` (per channel) of uniform
+    weights of half-width ``WEIGHT_RANGE``; ``fc_w`` pruned (``keep``, its
+    q zeroed where dropped) at random by ``prune``, or to its ``(n, m)``
+    largest |w| by ``nm_prune_mask``; keep is None elsewhere.  Returns
+    them and the generator drawn past them."""
+    rng = np.random.default_rng(seed)
+    layers = {}
+    for name, (k, cols) in cfg.layer_shapes.items():
+        a = WEIGHT_RANGE[name]
+        w = torch.from_numpy(rng.uniform(-a, a, (k, cols)).astype(np.float32))
+        q, scale = quantize_to_int(w)
+        keep = None
+        if name == "fc_w":
+            keep = (nm_prune_mask(w, *prune).bool()
+                    if isinstance(prune, tuple)
+                    else torch.from_numpy(rng.random((k, cols)) >= prune))
+            q = torch.where(keep, q, 0).to(torch.int8)
+        layers[name] = (q, scale, keep)
+    return layers, rng
 
 
 def write_artifact(path: Path, seed: int, features: list[np.ndarray],
                    cfg: RSNNConfig = PRUNED,
                    prune: float | tuple[int, int] = 0.4,
                    fc_layout: str = "csc") -> Path:
-    """Write a seeded int4 artifact in the reference's schema-v2 format:
-    random weights quantized per channel to int4, ``fc_w`` pruned and
-    stored also in ``fc_layout`` (``csc`` or ``nm_group``), power-of-two
-    LIF constants, and the max-abs 8-bit input scale of ``features``.
-    ``prune`` is a fraction pruned at random, or ``(n, m)``: the ``n``
-    largest |w| of every ``m`` rows kept, an N:M spec in the manifest."""
+    """Write a seeded int4 artifact through the port's ``save_artifact``:
+    the weights of ``seeded_int4`` nibble-packed (``pack_int4``), ``fc_w``
+    also stored in ``fc_layout`` (``sparsify_columns`` or
+    ``pack_nm_groups``), power-of-two LIF constants, and the max-abs 8-bit
+    input scale of ``features``.  ``prune`` is a fraction pruned at
+    random, or ``(n, m)``: an N:M spec in the manifest."""
     nm = isinstance(prune, tuple)
     if fc_layout not in ("csc", "nm_group") or (fc_layout == "nm_group"
                                                 and not nm):
         raise ValueError(f"fc_layout {fc_layout!r} with prune {prune!r}")
-    rng = np.random.default_rng(seed)
-    flat: dict[str, np.ndarray] = {}
-    report: dict = {}
-    for name, (k, cols) in cfg.layer_shapes.items():
-        a = WEIGHT_RANGE[name]
-        w = rng.uniform(-a, a, (k, cols)).astype(np.float32)
-        q, scale = _quantize(w)
-        entry = {"dense_int4": k * cols * 4 / 8.0}
-        if name == "fc_w":
-            keep = _nm_mask(w, *prune) if nm else rng.random((k, cols)) >= prune
-            q = np.where(keep, q, 0).astype(np.int8)
-            if fc_layout == "nm_group":
-                fields = _nm_groups(q, keep, *prune)
-                stored = fields["packed"].size * (
-                    4 + max(int(np.ceil(np.log2(max(prune[1], 2)))), 1))
-            else:
-                fields = _csc(q, keep)
-                stored = float(keep.sum()) * (
-                    4 + max(int(np.ceil(np.log2(max(k, 2)))), 1))
-            for field, arr in fields.items():
-                flat[f"{fc_layout}.{name}.{field}"] = arr
-            flat[f"{fc_layout}.{name}.scale"] = scale
-            entry.update(layout=fc_layout, nnz_int4=float(keep.sum()) * 4 / 8)
-            entry[f"{fc_layout}_int4"] = stored / 8
-        else:
-            entry["nnz_int4"] = entry["dense_int4"]
-        flat[f"quant.{name}.packed"] = _pack_int4(q)
-        flat[f"quant.{name}.scale"] = scale
-        report[name] = entry
+    layers, rng = seeded_int4(seed, cfg, prune)
+    q, scale, keep = layers["fc_w"]
+    fc = (pack_nm_groups(q, scale, keep, *prune) if fc_layout == "nm_group"
+          else sparsify_columns(q, scale, keep))
     h = cfg.hidden_dim
+    lif = {}
     for i in (0, 1):
-        flat[f"lif.beta{i}"] = rng.choice(
-            np.float32([0.5, 0.75, 0.875]), h).astype(np.float32)
-        flat[f"lif.vth{i}"] = np.full((h,), 1.0, np.float32)
-    flat["input_scale"] = input_scale(features)
-    report["total_bytes"] = sum(
-        min(e["dense_int4"], e.get(f"{fc_layout}_int4", 1e30))
-        for e in report.values())
-    report["broadcast_total_bytes"] = sum(e["nnz_int4"]
-                                          for e in list(report.values())[:-1])
-    specs = ([["fc_w", {"kind": "nm", "frac": 0.0, "n": prune[0],
-                        "m": prune[1], "layout": fc_layout}]] if nm else [])
-    manifest = {
-        "schema_version": 2,
-        "precision": "int4",
-        "rsnn_config": {**dataclasses.asdict(cfg), "dtype": "float32"},
-        "compression_config": {
-            "fc_prune_frac": 0.0 if nm else prune, "prune_names": ["fc_w"],
-            "prune_specs": specs, "weight_bits": 4,
-            "quant_names": list(LAYERS),
-            "quant_granularity": "per_channel"},
-        "sparsity_profile": None,
-        "size_report": report,
-        "backend": "pallas",
-        "sparse_fc": False,
-        "layouts": {"fc_w": fc_layout},
-        "has_input_scale": True,
-    }
-    return _save(path, flat, manifest)
+        lif[f"beta{i}"] = torch.from_numpy(rng.choice(
+            np.float32([0.5, 0.75, 0.875]), h).astype(np.float32))
+        lif[f"vth{i}"] = torch.full((h,), 1.0)
+    packed = PackedRSNN(
+        quant={n: QuantTensor(pack_int4(q), sc)
+               for n, (q, sc, _) in layers.items()},
+        sparse={"fc_w": fc}, lif=lif)
+    ccfg = CompressionConfig(
+        fc_prune_frac=0.0 if nm else prune, weight_bits=4,
+        prune_specs=((("fc_w", PruneSpec(kind="nm", n=prune[0], m=prune[1],
+                                         layout=fc_layout)),) if nm else ()))
+    return save_artifact(path, cfg=cfg, packed=packed, ccfg=ccfg,
+                         input_scale=input_scale(features), backend="pallas")
 
 
 def input_scale(features: list[np.ndarray]) -> np.ndarray:
@@ -408,18 +365,6 @@ def input_scale(features: list[np.ndarray]) -> np.ndarray:
     amax = max(float(np.abs(f).max()) for f in features)
     return np.asarray(np.float32(max(amax, 1e-8)) / np.float32(127.0),
                       np.float32)
-
-
-def _save(path: Path, flat: dict[str, np.ndarray], manifest: dict) -> Path:
-    """``tensors.npz`` and ``manifest.json``, with the manifest's index of
-    every tensor's shape and dtype last, as ``save_artifact`` writes it."""
-    manifest["tensors"] = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                           for k, v in flat.items()}
-    path = Path(path)
-    path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / "tensors.npz", **flat)
-    (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    return path
 
 
 def float_params(seed: int, cfg: RSNNConfig = BASELINE
@@ -445,25 +390,13 @@ def float_params(seed: int, cfg: RSNNConfig = BASELINE
 
 def write_float_artifact(path: Path, seed: int, features: list[np.ndarray],
                          cfg: RSNNConfig = BASELINE) -> Path:
-    """Write a seeded float artifact in the reference's schema-v2 format,
-    as ``save_artifact(params=..., input_scale=..., backend="pallas")``
-    writes it: ``float_params`` and the max-abs 8-bit input scale of
-    ``features``."""
-    flat = float_params(seed, cfg)
-    flat["input_scale"] = input_scale(features)
-    manifest = {
-        "schema_version": 2,
-        "precision": "float",
-        "rsnn_config": {**dataclasses.asdict(cfg), "dtype": "float32"},
-        "compression_config": None,
-        "sparsity_profile": None,
-        "size_report": None,
-        "backend": "pallas",
-        "sparse_fc": False,
-        "layouts": {},
-        "has_input_scale": True,
-    }
-    return _save(path, flat, manifest)
+    """Write a seeded float artifact through the port's ``save_artifact``
+    (``params=...``, ``input_scale=...``, ``backend="pallas"``):
+    ``float_params`` and the max-abs 8-bit input scale of ``features``."""
+    return save_artifact(path, cfg=cfg,
+                         params=params_from_arrays(float_params(seed, cfg),
+                                                   cfg),
+                         input_scale=input_scale(features), backend="pallas")
 
 
 def utterances(seed: int, count: int, cfg: RSNNConfig = PRUNED
@@ -479,7 +412,7 @@ def utterances(seed: int, count: int, cfg: RSNNConfig = PRUNED
 
 def lif_trace(stim: torch.Tensor, rec: torch.Tensor, u0, h0, beta, vth):
     """Per-time-step membrane potentials of the plain LIF chain
-    (``rsnn_cell_ref``'s order), to find spikes near the threshold."""
+    (``rsnn_cell_ref``'s order), in the inputs' dtype."""
     u, h, trace = u0, h0, []
     for t in range(stim.shape[0]):
         u = (stim[t] + rec[t]) + beta * u * (1.0 - h)
@@ -488,24 +421,92 @@ def lif_trace(stim: torch.Tensor, rec: torch.Tensor, u0, h0, beta, vth):
     return torch.stack(trace)
 
 
-def check_cell(name, got, want, stim, rec, u0, h0, beta, vth) -> float:
-    """K1/K10 within tolerance: u close where the spike trains agree; a
-    spike may differ only where the plain potential (over the plain
-    recurrent term ``rec``) is within tolerance of the threshold at some
-    time step.  Returns the largest |du| kept."""
-    (s_k, u_k), (s_p, u_p) = got, want
+def gamma(n: int) -> float:
+    """The rounding bound, relative to the summands' magnitude, of a float32
+    sum of ``n`` terms in any order, with three operations to spare (the
+    dequantized weight, the beta product, the last add): (n + 3) 2^-24.
+    A correct float32 kernel cannot exceed it (to first order)."""
+    return (n + 3) * EPS32
+
+
+def lif_bound(stim, rec, mag, u0, h0, beta, vth, a0=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain chain replayed in float64 (``lif_trace`` on float64
+    inputs) and, per time step, the magnitude ``A`` that bounds a float32
+    chain's error: ``A_t = mag_t + beta (1 - h_{t-1}) (|u_{t-1}| +
+    A_{t-1})``, where ``mag`` is the sum of the step's |products| and
+    |stimulus| (``|x| @ |W_x| + |s| @ |W_h|``), and the carried term adds
+    the bound of u_{t-1}'s own error.  ``a0`` is the initial potential's
+    (None: an exact input, 0).  Returns (u, A), each (TS, B, H)."""
     trace = lif_trace(stim, rec, u0, h0, beta, vth)
-    near = ((trace - vth).abs() <= U_ATOL + U_RTOL * vth.abs()).any(dim=0)
-    flipped = (s_k != s_p).any(dim=0)
-    if bool((flipped & ~near).any()):
-        raise AssertionError(f"{name}: a spike differs away from the "
-                             f"threshold")
-    ok = ~(flipped | near)
-    du = (u_k - u_p).abs()[ok]
-    lim = (U_ATOL + U_RTOL * u_p.abs())[ok]
-    if bool((du > lim).any()):
-        raise AssertionError(f"{name}: |du| up to {float(du.max())}")
-    return float(du.max()) if du.numel() else 0.0
+    a = torch.zeros_like(u0) if a0 is None else a0
+    u, h, bounds = u0, h0, []
+    for t in range(trace.shape[0]):
+        a = mag[t] + beta * (1.0 - h) * (u.abs() + a)
+        bounds.append(a)
+        u = trace[t]
+        h = (u >= vth).to(u.dtype)
+    return trace, torch.stack(bounds)
+
+
+def note_ratio(errs: dict | None, row: str, du: torch.Tensor,
+               a: torch.Tensor) -> None:
+    """Keep in ``errs`` the largest |du| / (2^-24 A) of ``row`` (under
+    ``"<row> |du|/(2^-24 A)"``): how far under (n + 3) it runs."""
+    if errs is None or not du.numel():
+        return
+    ratio = torch.where(du == 0, 0.0, du / (EPS32 * a))
+    key = f"{row} |du|/(2^-24 A)"
+    errs[key] = max(errs.get(key, 0.0), float(ratio.max()))
+
+
+def check_u(name: str, u32: torch.Tensor, u64: torch.Tensor,
+            bound: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """|u32 - u64| <= bound (= gamma(n) A) on every element given;
+    returns |du|."""
+    du = (u32.double() - u64).abs()
+    over = du > bound
+    if bool(over.any()):
+        i = int(torch.argmax(du - bound))
+        raise AssertionError(
+            f"{name}: {int(over.sum())} of {du.numel()} over the u rule, "
+            f"the worst at u {float(u64.flatten()[i])!r}: |du| "
+            f"{float(du.flatten()[i])!r}, allowed "
+            f"{float(bound.flatten()[i])!r} (A "
+            f"{float(a.flatten()[i])!r})")
+    return du
+
+
+def check_cell(name, got, want, stim, x, w, u0, h0, beta, vth,
+               errs: dict | None = None) -> float:
+    """K1/K10 and their plain version against the chain replayed in float64
+    (``lif_bound``) over the rows ``x`` (TS x B, H) the recurrent product
+    reads (K10's truncated to its capacity): a spike may differ from the
+    replay's only where |u64 - vth| <= gamma(H + 2) A at some time step;
+    elsewhere |u - u64| <= gamma(H + 2) A (the stimulus, the H products,
+    the decayed potential).  Returns the largest |du| of the kernel
+    against the plain version there."""
+    ts, b, h = want[0].shape
+    d = [t.double() for t in (stim, x, w, u0, h0, beta, vth)]
+    stim64, x64, w64, u64_0, h64_0, beta64, vth64 = d
+    rec = (x64 @ w64).reshape(ts, b, h)
+    mag = stim64.abs() + (x64 @ w64.abs()).reshape(ts, b, h)
+    trace, a = lif_bound(stim64, rec, mag, u64_0, h64_0, beta64, vth64)
+    bound = gamma(h + 2) * a
+    near = ((trace - vth64).abs() <= bound).any(dim=0)
+    spikes = trace >= vth64
+    ok = ~near
+    for who, (s_, u_) in (("", got), (" plain", want)):
+        flipped = (s_.bool() != spikes).any(dim=0)
+        if bool((flipped & ~near).any()):
+            raise AssertionError(f"{name}{who}: a spike differs from the "
+                                 f"float64 replay away from the threshold")
+        ok &= ~flipped
+        du = check_u(f"{name}{who}", u_[ok], trace[-1][ok], bound[-1][ok],
+                     a[-1][ok])
+        note_ratio(errs, f"{name}{who}", du, a[-1][ok])
+    diff = (got[1] - want[1]).abs()[ok]
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def check_close(name, got, want) -> float:
@@ -767,17 +768,16 @@ def kernel_calls(a: dict, capacity: int | None = None,
     return calls
 
 
-def check_call(name, got, want, args, capacity) -> float:
-    """One kernel call against its plain version; returns its error."""
-    from repro_torch.kernels.ref import spike_broadcast_ref
-
+def check_call(name, got, want, args, capacity,
+               errs: dict | None = None) -> float:
+    """One kernel call against its plain version; returns its error.
+    K1/K10 note their u rule's ratio in ``errs`` (``check_cell``)."""
     if name in ("rsnn_cell", "spike_cell"):
         stim, s, w, *cell = args
         ts, b, h = s.shape
-        rec = spike_broadcast_ref(s.reshape(ts * b, h), w, capacity
-                                  if name == "spike_cell" else None)
-        return check_cell(name, got, want, stim, rec.reshape(ts, b, h),
-                          *cell)
+        x = kept_events(s.reshape(ts * b, h),
+                        capacity if name == "spike_cell" else None)
+        return check_cell(name, got, want, stim, x, w, *cell, errs=errs)
     if name == "delta_step":
         return check_delta(got, want, *args)
     if name == "spike_broadcast":
@@ -788,66 +788,119 @@ def check_call(name, got, want, args, capacity) -> float:
     return 0.0
 
 
-def megastep_near(args) -> torch.Tensor:
-    """Per slot: whether the plain chain over ``args``, replayed frame by
-    frame with dense products (``lif_trace``), brings some neuron of either
-    layer within ``U_RTOL``/``U_ATOL`` of its threshold at some time step
-    of some frame: ``check_cell``'s rule over a chunk.  Returns (B,)
-    bool."""
+class Replay(NamedTuple):
+    """K6/K7's plain chain over a chunk replayed in float64
+    (``megastep_replay``): per slot whether a neuron comes within the u
+    rule of its threshold (``near``); the last frame's trains ``s`` and
+    potentials ``u`` of L0 and L1 with their bounds (gamma(n) A); and with
+    float FC weights the logits of every frame and their bounds."""
+
+    near: torch.Tensor  # (B,) bool
+    s: tuple  # (TS, B, H) bool, L0 and L1
+    u: tuple  # (B, H) float64
+    a: tuple  # (B, H) magnitudes A
+    bound: tuple  # (B, H) gamma(n) A
+    logits: torch.Tensor | None  # (F, B, N) float64
+    logit_a: torch.Tensor | None  # (F, B, N) sum |merged spikes x w|
+    logit_bound: torch.Tensor | None
+
+
+def megastep_replay(args) -> Replay:
+    """The plain chain over ``args`` replayed frame by frame in float64
+    (``lif_bound``, the potential's magnitude carried across frames), the
+    int4 weights dequantized exactly (q x scale in float64).  L0 sums
+    D + H + 1 terms (the feed-forward, the recurrent products, the decayed
+    potential), L1 2H + 1; a float FC sums TS x H (a kernel may sum each
+    time step's train apart)."""
     from repro_torch.kernels.ref import unpack_int4_ref
 
-    x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wq, _ = args
-    w0x, w0h, w1x, w1h = wq if len(wq) == 4 else (  # float or int4
-        unpack_int4_ref(q).float() * sc for q, sc in zip(wq[0::2], wq[1::2]))
+    x, s0, u0, h0, s1, u1, h1, beta0, vth0, beta1, vth1, wq, fc = args
+    if len(wq) == 4:  # float weights
+        w0x, w0h, w1x, w1h = (w.double() for w in wq)
+    else:
+        w0x, w0h, w1x, w1h = (unpack_int4_ref(q).double() * sc.double()
+                              for q, sc in zip(wq[0::2], wq[1::2]))
+    fc_w = fc[0].double() if len(fc) == 1 else None  # dense_float
     ts, b, h = s0.shape
+    g0, g1 = gamma(x.shape[2] + h + 1), gamma(2 * h + 1)
+    s0, s1, u0, h0, u1, h1, b0, v0, b1, v1 = (
+        t.double() for t in (s0, s1, u0, h0, u1, h1, beta0, vth0, beta1,
+                             vth1))
+    a0 = a1 = None
     near = torch.zeros(b, dtype=torch.bool, device=x.device)
-    for xf in x:
+    logits, logit_a = [], []
+    for xf in x.double():
         stim0 = (xf @ w0x).unsqueeze(0).expand(ts, b, h)
-        tr0 = lif_trace(stim0, torch.matmul(s0, w0h), u0, h0, beta0, vth0)
-        s0 = (tr0 >= vth0).float()
-        u0, h0 = tr0[-1], s0[-1]
-        stim1 = (s0.reshape(ts * b, h) @ w1x).reshape(ts, b, h)
-        tr1 = lif_trace(stim1, torch.matmul(s1, w1h), u1, h1, beta1, vth1)
-        s1 = (tr1 >= vth1).float()
-        u1, h1 = tr1[-1], s1[-1]
-        for tr, vth in ((tr0, vth0), (tr1, vth1)):
-            near |= ((tr - vth).abs() <= U_ATOL + U_RTOL * vth.abs()) \
-                .any(dim=0).any(dim=1)
-    return near
+        mag0 = (xf.abs() @ w0x.abs()).unsqueeze(0) + s0 @ w0h.abs()
+        tr0, at0 = lif_bound(stim0, s0 @ w0h, mag0, u0, h0, b0, v0, a0)
+        s0 = (tr0 >= v0).double()
+        rows0 = s0.reshape(ts * b, h)
+        stim1 = (rows0 @ w1x).reshape(ts, b, h)
+        mag1 = (rows0 @ w1x.abs()).reshape(ts, b, h) + s1 @ w1h.abs()
+        tr1, at1 = lif_bound(stim1, s1 @ w1h, mag1, u1, h1, b1, v1, a1)
+        s1 = (tr1 >= v1).double()
+        for tr, at, vth, g in ((tr0, at0, v0, g0), (tr1, at1, v1, g1)):
+            near |= ((tr - vth).abs() <= g * at).any(dim=0).any(dim=1)
+        u0, h0, a0 = tr0[-1], s0[-1], at0[-1]
+        u1, h1, a1 = tr1[-1], s1[-1], at1[-1]
+        if fc_w is not None:
+            merged = s1.sum(dim=0)
+            logits.append(merged @ fc_w)
+            logit_a.append(merged @ fc_w.abs())
+    lg = la = lb = None
+    if fc_w is not None:
+        lg, la = torch.stack(logits), torch.stack(logit_a)
+        lb = gamma(ts * h) * la
+    return Replay(near=near, s=(s0.bool(), s1.bool()), u=(u0, u1),
+                  a=(a0, a1), bound=(g0 * a0, g1 * a1), logits=lg,
+                  logit_a=la, logit_bound=lb)
 
 
-def check_mega(name, got, want, near, float_fc: bool = False
+def check_mega(name, got, want, rep: Replay, float_fc: bool = False,
+               errs: dict | None = None, row: str | None = None
                ) -> dict[str, float]:
-    """K6/K7 against their plain version over a chunk: on the slots away
-    from the threshold (``~near``) spikes, counters and logits bit-equal
-    (``float_fc``: logits within ``TOL``, float32 sums in another order)
-    and u within ``U_RTOL``/``U_ATOL``; the input one-bits bit-equal on
-    every slot.  Returns each output's largest |difference| there."""
-    keep = ~near
-    errs = {}
+    """K6/K7 against their plain version over a chunk, on the slots away
+    from the threshold (``~rep.near``): spikes, counters and int4 logits
+    bit-equal, the input one-bits bit-equal on every slot; the kernel's
+    and the plain version's last trains equal the float64 replay's
+    (``megastep_replay``), their u within gamma(n) A of its u and, with a
+    float FC (``float_fc``), their logits within gamma(TS H) sum |s w| of
+    its logits.  Notes each rule's ratio in ``errs`` under ``row``.
+    Returns each output's largest |kernel - plain| there."""
+    keep = ~rep.near
+    row = row or name
+    diffs = {}
     for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
         if out == "input_one_bits":
             gk, wk = g, w
         else:
             gk, wk = (t.transpose(0, axis)[keep] for t in (g, w))
         d = (gk - wk).abs()
-        errs[out] = float(d.max()) if d.numel() else 0.0
+        diffs[out] = float(d.max()) if d.numel() else 0.0
         if out in ("u0", "u1"):
-            lim = U_ATOL + U_RTOL * wk.abs()
-            if bool((d > lim).any()):
-                i = int(torch.argmax(d - lim))
-                raise AssertionError(
-                    f"{name}: |d{out}| up to {errs[out]}; "
-                    f"{int((d > lim).sum())} of {d.numel()} over the rule, "
-                    f"the worst at u {float(wk.flatten()[i])!r}: |du| "
-                    f"{float(d.flatten()[i])!r}, allowed "
-                    f"{float(lim.flatten()[i])!r}")
-        elif out == "logits" and float_fc:
-            check_close(f"{name} logits", gk, wk)
+            i = int(out[1])
+            for who, t in (("", gk), (" plain", wk)):
+                du = check_u(f"{name}{who} {out}", t, rep.u[i][keep],
+                             rep.bound[i][keep], rep.a[i][keep])
+                note_ratio(errs, f"{row}{who} {out}", du, rep.a[i][keep])
+            continue
+        if out in ("s0", "s1"):
+            want_s = rep.s[int(out[1])].transpose(0, 1)[keep]
+            for who, t in (("", gk), (" plain", wk)):
+                if not torch.equal(t.bool(), want_s):
+                    raise AssertionError(f"{name}{who}: {out} differs from "
+                                         f"the float64 replay away from "
+                                         f"the threshold")
+        if out == "logits" and float_fc:
+            lg, la, lb = (t.transpose(0, 1)[keep] for t in (
+                rep.logits, rep.logit_a, rep.logit_bound))
+            for who, t in (("", gk), (" plain", wk)):
+                du = check_u(f"{name}{who} logits", t, lg, lb, la)
+                note_ratio(errs, f"{row}{who} logits", du, la)
         elif not torch.equal(gk, wk):
             raise AssertionError(f"{name}: {out} differs away from the "
-                                 f"threshold by up to {errs[out]}")
-    return errs
+                                 f"threshold by up to {diffs[out]}")
+    return diffs
 
 
 def check_megastep(a: dict, b: int, errs: dict,
@@ -859,25 +912,26 @@ def check_megastep(a: dict, b: int, errs: dict,
     for fc_mode in fc_modes:
         for frames in (1, MEGA_FRAMES):
             args = megastep_args(a, frames, fc_mode)
-            near = megastep_near(args)
+            rep = megastep_replay(args)
             outs = {}
             for spike in (False, True):
                 name = "megastep_spike" if spike else "megastep"
                 kern, plain = megastep_pair(fc_mode, spike)
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
-                e = check_mega(name, got, want, near,
-                               fc_mode == "dense_float")
                 row = mega_row(name, fc_mode)
+                e = check_mega(f"{name}{width} B={b} fc_mode={fc_mode} "
+                               f"F={frames}", got, want, rep,
+                               fc_mode == "dense_float", errs, row)
                 errs[row] = max(errs.get(row, 0.0), *e.values())
-                differs = torch.zeros_like(near)
+                differs = torch.zeros_like(rep.near)
                 for (out, axis), g, w in zip(MEGA_OUTS.items(), got, want):
                     if out not in ("u0", "u1", "input_one_bits"):
                         differs |= (g != w).transpose(0, axis).reshape(
                             b, -1).any(dim=1)
                 print(f"check {name}{width} B={b} fc_mode={fc_mode} "
                       f"F={frames}: "
-                      f"ok, slots near the threshold {int(near.sum())} "
+                      f"ok, slots near the threshold {int(rep.near.sum())} "
                       f"(differing {int(differs.sum())}), max_abs_err "
                       f"{e!r}")
                 outs[spike] = got
@@ -931,20 +985,22 @@ def megastep_edge_args(params: dict, fc_mode: str, b: int, h: int, ts: int,
         return (*state, *lif, tuple(t(w) for w in ws[:4]), (t(ws[4]),))
     wq = []
     for w in ws[:4]:
-        q, sc = _quantize(w)
-        wq += [t(_pack_int4(q)), t(sc.reshape(-1))]
-    q, sc = _quantize(ws[4])
-    sc = t(sc.reshape(-1))
+        q, sc = quantize_to_int(torch.from_numpy(np.ascontiguousarray(w)))
+        wq += [pack_int4(q).to(dev), sc.reshape(-1).to(dev)]
+    w_fc = torch.from_numpy(np.ascontiguousarray(ws[4]))
+    q, scale = quantize_to_int(w_fc)
+    sc = scale.reshape(-1).to(dev)
     if fc_mode == "dense_int4":
-        fc = (t(_pack_int4(q)), sc)
+        fc = (pack_int4(q).to(dev), sc)
     elif fc_mode == "csc":
-        keep = rng.random(q.shape) >= 0.75
-        c = _csc(np.where(keep, q, 0).astype(np.int8), keep)
-        fc = (t(c["indices"]), t(c["values"]), sc)
+        keep = torch.from_numpy(rng.random(tuple(q.shape)) >= 0.75)
+        c = sparsify_columns(torch.where(keep, q, 0).to(torch.int8), scale,
+                             keep)
+        fc = (c.indices.to(dev), c.values.to(dev), sc)
     else:
-        keep = _nm_mask(ws[4], *NM)
-        fc = (t(_nm_groups(np.where(keep, q, 0).astype(np.int8), keep,
-                           *NM)["packed"]), sc)
+        keep = nm_prune_mask(w_fc, *NM).bool()
+        fc = (pack_nm_groups(torch.where(keep, q, 0).to(torch.int8), scale,
+                             keep, *NM).packed.to(dev), sc)
     return (*state, *lif, tuple(wq), fc)
 
 
@@ -964,17 +1020,17 @@ def check_megastep_edges(params: dict, dev, seed: int, errs: dict,
             frames = MEGA_FRAMES if i % 3 == 0 else 1
             args = megastep_edge_args(params, fc_mode, b, h, ts, n, frames,
                                       rng, dev)
-            near = megastep_near(args)
+            rep = megastep_replay(args)
             outs = []
             for spike in (False, True):
                 name = "megastep_spike" if spike else "megastep"
                 kern, plain = megastep_pair(fc_mode, spike)
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
+                row = mega_row(name, fc_mode)
                 e = check_mega(f"{name} B={b} H={h} TS={ts} N={n} "
                                f"F={frames} fc_mode={fc_mode}", got, want,
-                               near, fc_mode == "dense_float")
-                row = mega_row(name, fc_mode)
+                               rep, fc_mode == "dense_float", errs, row)
                 errs[row] = max(errs.get(row, 0.0), *e.values())
                 outs.append(got)
             if not all(torch.equal(p, q) for p, q in zip(*outs)):
@@ -1258,14 +1314,15 @@ def check_cell_edges(w128: torch.Tensor, w256: torch.Tensor,
                     cut_want = ref.spike_cell_ref(*args, TRUNC_CAPACITY)
                     torch.cuda.synchronize()
                     errs["rsnn_cell"] = max(errs["rsnn_cell"], check_call(
-                        "rsnn_cell", got, want, args, None))
+                        "rsnn_cell", got, want, args, None, errs))
                     if not all(map(torch.equal, events, got)):
                         raise AssertionError(
                             f"spike_cell B={b} H={h} TS={ts} broadcast="
                             f"{broadcast}: lossless, not bit-equal to "
                             f"rsnn_cell")
                     errs["spike_cell"] = max(errs["spike_cell"], check_call(
-                        "spike_cell", cut, cut_want, args, TRUNC_CAPACITY))
+                        "spike_cell", cut, cut_want, args, TRUNC_CAPACITY,
+                        errs))
                     shapes += 1
     print(f"check rsnn_cell, spike_cell tile edges ({shapes} shapes: B = "
           f"256, 200, 1; H = 128, 256, 100; TS = 1, 2, 4; stride-0 and dense "
@@ -1338,15 +1395,17 @@ def nm_edge_fcs(w: np.ndarray, geometries=((1, 4), NM, (3, 8))) -> list:
     """The FC weights ``w`` (H, N) quantized to int4 and masked N:M for each
     (n, m) of ``geometries`` (the ``n`` largest |w| of every ``m`` rows),
     as (n, m, packed, scale, indices, values): the group-packed N:M and the
-    same mask as padded CSC, numpy, as ``write_artifact`` writes them."""
-    q, scale = _quantize(w)
+    same mask as padded CSC (the port's packers), as numpy arrays."""
+    wt = torch.from_numpy(np.ascontiguousarray(w))
+    q, scale = quantize_to_int(wt)
     out = []
     for n, m in geometries:
-        keep = _nm_mask(w, n, m)
-        qk = np.where(keep, q, 0).astype(np.int8)
-        csc = _csc(qk, keep)
-        out.append((n, m, _nm_groups(qk, keep, n, m)["packed"], scale,
-                    csc["indices"], csc["values"]))
+        keep = nm_prune_mask(wt, n, m).bool()
+        qk = torch.where(keep, q, 0).to(torch.int8)
+        csc = sparsify_columns(qk, scale, keep)
+        out.append((n, m, pack_nm_groups(qk, scale, keep, n, m).packed
+                    .numpy(), scale.numpy(), csc.indices.numpy(),
+                    csc.values.numpy()))
     return out
 
 
@@ -1474,7 +1533,7 @@ def check_variants(a: dict, b: int, errs: dict, names=None,
             for kern, plain, args in items:
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
-                err = check_call(name, got, want, args, cap)
+                err = check_call(name, got, want, args, cap, errs)
                 errs[name] = max(errs.get(name, 0.0), err)
             knob = {"delta_step": f" threshold={thr}",
                     "spike_broadcast": f" capacity={cap}",
@@ -1510,6 +1569,7 @@ def check_kernels(packs: dict, floats: dict, dev,
     fa = float_kernel_inputs(floats["BASELINE"], 1, gen, dev)
     check_cell_edges(a["w0h"], fa["w0h"], gen, errs)
     w0x = a["w0x"]
+    drawn = gen.get_state()
     for b in (256, 200):
         for width, params in floats.items():
             a = float_kernel_inputs(params, b, gen, dev)
@@ -1519,10 +1579,48 @@ def check_kernels(packs: dict, floats: dict, dev,
                                " BASELINE float")
                 check_tile_edges(a, b, errs, " BASELINE float")
             check_megastep(a, b, errs, ("dense_float",), f" {width}")
+    # PR 22's second chip call ran K8's edge check before the float checks:
+    # on the inputs drawn after it, K6 float at PRUNED width missed the old
+    # rule 1e-5 (1 + |u|) at one element
+    gen.set_state(drawn)
     check_delta_edges(w0x, fa["w0x"], gen, errs)
+    float_kernel_inputs(floats["BASELINE"], 256, gen, dev)
+    a = float_kernel_inputs(floats["PRUNED"], 256, gen, dev)
+    check_megastep(a, 256, errs, ("dense_float",),
+                   " PRUNED (drawn after K8's edges)")
+    old_u_rule(a)
     check_megastep_edges(floats["BASELINE"], dev, seed, errs)
     check_refusals()
+    print("check u rule (|du| <= (n + 3) 2^-24 A; n + 3 = H + 5 for K1/K10, "
+          "D + H + 4 and 2H + 4 for K6/K7's L0 and L1, TS H + 3 for the "
+          "float FC): largest |du| / (2^-24 A): " + "; ".join(
+              f"{k.split(' |du|')[0]} {v!r}" for k, v in sorted(errs.items())
+              if k.endswith("|du|/(2^-24 A)")))
     return errs
+
+
+def old_u_rule(a: dict) -> None:
+    """Print how K6 float over ``MEGA_FRAMES`` frames of ``a`` fares under
+    the u rule chip_smoke.py held K1, K10 and K6/K7 to before,
+    ``|du| <= U_ATOL + U_RTOL |u|`` against the plain version, on the
+    slots the float64 replay finds away from the threshold."""
+    args = megastep_args(a, MEGA_FRAMES, "dense_float")
+    keep = ~megastep_replay(args).near
+    kern, plain = megastep_pair("dense_float", False)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    for out in ("u0", "u1"):
+        i = list(MEGA_OUTS).index(out)
+        g, w = got[i][keep], want[i][keep]
+        du = (g - w).abs()
+        lim = U_ATOL + U_RTOL * w.abs()
+        j = int(torch.argmax(du - lim))
+        print(f"check megastep PRUNED float F={MEGA_FRAMES} (drawn after "
+              f"K8's edges) under the old rule 1e-5 (1 + |u|): {out} "
+              f"{int((du > lim).sum())} of {du.numel()} over it, the "
+              f"closest at u {float(w.flatten()[j])!r}: |du| "
+              f"{float(du.flatten()[j])!r}, allowed "
+              f"{float(lim.flatten()[j])!r}")
 
 
 # ---------------------------------------------------------------- serving
@@ -2021,6 +2119,184 @@ def check_forward(path, art, utts, streams: int = 8,
           f"{ {n: v.tolist() for n, v in aux.items()} }")
 
 
+# ------------------------------------------------------ in-process packing
+
+# the in-process recipes at PRUNED width: the FC pruned 40% by magnitude
+# (padded CSC), 2:4 (N:M), mixed-level (l0_wh 2:4 beside the FC's 40%) and
+# no pruning (dense int4 only)
+PACK_RECIPES = {
+    "csc": CompressionConfig(fc_prune_frac=0.4, weight_bits=4),
+    "nm": CompressionConfig(weight_bits=4, prune_specs=(
+        ("fc_w", PruneSpec(kind="nm", n=2, m=4)),)),
+    "mixed": CompressionConfig(fc_prune_frac=0.4, weight_bits=4, prune_specs=(
+        ("l0_wh", PruneSpec(kind="nm", n=2, m=4)),)),
+    "dense": CompressionConfig(weight_bits=4),
+}
+# served through the v2 graph loop from the in-process engine and from its
+# reloaded artifact: recipe -> backend -> (sparse_fc, launches a step)
+PACK_SERVED = {
+    "csc": {"fused": (True, {"megastep": 1}),
+            "sparse": (True, {"rsnn_cell": 2, "int4_matmul": 2,
+                              "sparse_fc": 1}),
+            "pallas": (False, {"rsnn_cell": 2, "int4_matmul": 2,
+                               "merged_spike_fc": 1})},
+    "nm": {"fused": (True, {"megastep": 1}),
+           "sparse": (True, {"rsnn_cell": 2, "int4_matmul": 2,
+                             "nm_fc": 1})},
+}
+
+
+def pack_timed(params: dict, ccfg) -> tuple[object, object, float]:
+    """``init_compression`` then ``pack_model`` of ``params`` on their
+    device: (packed, cstate, ms, host clock around a synchronised call)."""
+    from repro_torch.core.compression import init_compression
+    from repro_torch.core.sparse import pack_model
+
+    sync = params["fc_w"].is_cuda
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cstate = init_compression(params, ccfg)
+    packed = pack_model(params, PRUNED, ccfg, cstate)
+    if sync:
+        torch.cuda.synchronize()
+    return packed, cstate, (time.perf_counter() - t0) * 1e3
+
+
+def assert_same_packed(what: str, got, want) -> None:
+    """Every array of two packed models (as ``save_artifact`` flattens
+    them) bit-equal, dtypes and layout tags included."""
+    from repro_torch.core.artifact import _flatten_packed
+
+    (a, tags_a), (b, tags_b) = _flatten_packed(got), _flatten_packed(want)
+    if tags_a != tags_b or a.keys() != b.keys():
+        raise AssertionError(f"{what}: layouts {tags_a} against {tags_b}")
+    for key in b:
+        if a[key].dtype != b[key].dtype or not np.array_equal(a[key],
+                                                              b[key]):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def check_packing(seed: int, utts, tmp: Path, dev) -> None:
+    """Phase 4c: the port packs an int4 model itself and serves it.  The
+    seeded float ``PRUNED`` parameters (``float_params``) packed on the
+    card (``dev``) in each ``PACK_RECIPES`` recipe, bit-equal to the same
+    packing on the CPU, the size reports equal and
+    ``broadcast_total_bytes`` equal to ``compressed_size_bytes``;
+    ``save_artifact`` then ``load_artifact`` gives the same arrays; every
+    ``PACK_SERVED`` configuration serves the 512 streams through the v2
+    graph loop from ``CompiledRSNN(cfg, params,
+    EngineConfig(precision="int4"), ccfg)`` (packed in process on the
+    card) and from its reloaded artifact, logits bit-equal, each kernel
+    launched steps x its launches a step."""
+    from repro_torch.core.compression import compressed_size_bytes
+    from repro_torch.core.sparse import packed_size_report
+    from repro_torch.serving.stream import CompiledRSNN, EngineConfig
+
+    params = params_from_arrays(float_params(seed, PRUNED), PRUNED)
+    on_card = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                   type(v)(*(t.to(dev) for t in v)))
+               for k, v in params.items()}
+    scale = input_scale(utts)
+    paths = {}
+    for name, ccfg in PACK_RECIPES.items():
+        packed, cstate, first_ms = pack_timed(on_card, ccfg)
+        packed, cstate, ms = pack_timed(on_card, ccfg)
+        if packed.quant["fc_w"].packed.device != on_card["fc_w"].device:
+            raise AssertionError(f"pack {name}: packed off the card")
+        cpu, _, cpu_ms = pack_timed(params, ccfg)
+        assert_same_packed(f"pack {name}: the card against the CPU",
+                           packed, cpu)
+        report = packed_size_report(packed)
+        if report != packed_size_report(cpu) or \
+                report["broadcast_total_bytes"] != compressed_size_bytes(
+                    on_card, ccfg, cstate):
+            raise AssertionError(f"pack {name}: size reports differ")
+        if name == "csc" and report["broadcast_total_bytes"] != 100_864.0:
+            raise AssertionError(f"pack csc: "
+                                 f"{report['broadcast_total_bytes']} B, "
+                                 f"not 100,864")
+        paths[name] = save_artifact(tmp / f"packed_{name}", cfg=PRUNED,
+                                    packed=packed, ccfg=ccfg,
+                                    input_scale=scale, backend="fused")
+        back = load_artifact(paths[name]).packed
+        assert_same_packed(f"pack {name}: save_artifact -> load", back,
+                           cpu)
+        tags = {n: v["layout"] for n, v in report.items()
+                if isinstance(v, dict) and "layout" in v}
+        print(f"pack {name}: on the card {ms!r} ms (first call "
+              f"{first_ms!r} ms; the CPU {cpu_ms!r} ms), bit-equal to the "
+              f"CPU's packing and to its saved artifact; layouts {tags}, "
+              f"broadcast_total_bytes {report['broadcast_total_bytes']!r} B "
+              f"(= compressed_size_bytes), total_bytes "
+              f"{report['total_bytes']!r} B")
+    frames = sum(map(len, utts))
+    for name, configs in PACK_SERVED.items():
+        for backend, (sparse_fc, per_step) in configs.items():
+            cfg_kw = {"backend": backend, "precision": "int4",
+                      "sparse_fc": sparse_fc, "input_scale": scale}
+            runs = {}
+            for source, make in (
+                    ("in-process", lambda: CompiledRSNN(
+                        PRUNED, params, EngineConfig(**cfg_kw),
+                        PACK_RECIPES[name], device=dev)),
+                    ("reloaded", lambda: CompiledRSNN.from_artifact(
+                        paths[name], EngineConfig(**cfg_kw), device=dev))):
+                eng = make()
+                loop = make_loop(eng, **GRAPH_LOOPS["v2"])
+                set_counts(0)
+                loop, done, secs = serve(eng, utts, loop=loop)
+                counts = read_counts()
+                for n, c in counts.items():
+                    if c != loop.steps * per_step.get(n, 0):
+                        raise AssertionError(
+                            f"packed {name} {backend} {source}: {n} "
+                            f"launched {c} times, expected {loop.steps} "
+                            f"steps x {per_step.get(n, 0)}")
+                runs[source] = [r.stacked_logits() for r in done]
+                print(f"serve packed {name} {backend} ({source}, v2 "
+                      f"graph): {frames / secs!r} frames/s; launches "
+                      f"{ {n: c for n, c in counts.items() if c} }; "
+                      f"fc_prune_frac {eng.fc_prune_frac!r}")
+                del loop, done
+            if not all(np.array_equal(a, b) and np.isfinite(a).all()
+                       for a, b in zip(runs["in-process"], runs["reloaded"])):
+                raise AssertionError(f"packed {name} {backend}: the "
+                                     f"reloaded artifact's logits differ")
+            print(f"serve packed {name} {backend}: {len(utts)} streams, "
+                  f"in-process and reloaded logits bit-equal")
+
+
+def run_example(tmp: Path, dev) -> None:
+    """``examples/stream_asr_torch.py``'s ``main`` on the card at 256
+    slots and 512 streams: in process (the default ``fused`` backend over
+    the 40% CSC recipe), then as a ``--save-artifact`` / ``--artifact``
+    pair, whose two runs must print the same predictions; its report
+    lines are printed."""
+    spec = importlib.util.spec_from_file_location(
+        "stream_asr_torch",
+        Path(__file__).resolve().parent / "examples" / "stream_asr_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    base = ["--slots", str(SLOTS), "--streams", str(STREAMS), "--device",
+            torch.device(dev).type]
+    art = str(tmp / "example_artifact")
+    preds = []
+    for extra in ([], ["--layout", "nm", "--save-artifact", art],
+                  ["--artifact", art]):
+        print(f"example: stream_asr_torch.py {' '.join(base + extra)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = example.main(base + extra)
+        print(out.getvalue(), end="")
+        if code != 0:
+            raise AssertionError(f"example {extra}: nonzero exit")
+        preds.append([ln for ln in out.getvalue().splitlines()
+                      if "first predictions" in ln])
+    if not preds[1] or preds[1] != preds[2]:
+        raise AssertionError("example: the saved artifact serves other "
+                             "predictions than the in-process model")
+
 # ----------------------------------------------------------------- timing
 
 
@@ -2489,7 +2765,7 @@ def sweep_megastep(a: dict, fa: dict) -> None:
     for fc_mode, x in (("csc", a), ("nm", a), ("dense_int4", a),
                        ("dense_float", fa)):
         args = megastep_args(x, 1, fc_mode)
-        near = megastep_near(args)
+        rep = megastep_replay(args)
         for spike in (False, True):
             name = mega_row("megastep_spike" if spike else "megastep",
                             fc_mode)
@@ -2505,7 +2781,7 @@ def sweep_megastep(a: dict, fa: dict) -> None:
                 run = functools.partial(kern, plan=p)
                 got = run(*args)
                 torch.cuda.synchronize()
-                check_mega(f"{name} {p}", got, want, near,
+                check_mega(f"{name} {p}", got, want, rep,
                            fc_mode == "dense_float")
                 ms = cuda_ms(run, args)
                 mark = ", picked" if p == picked else ""
@@ -2545,7 +2821,6 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA GPU", file=sys.stderr)
         return 1
-    from repro_torch.core.artifact import load_artifact
     from repro_torch.kernels import _build
 
     # the plain versions' products on the card run in IEEE float32
@@ -2622,6 +2897,8 @@ def main(argv=None) -> int:
                 check_chunk(paths[key], arts[key], utts, backend)
         check_forward(paths["float"], arts["float"], utts)
         serve_graphs(engines, utts)
+        check_packing(args.seed, utts, Path(tmp), dev)
+        run_example(Path(tmp), dev)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -1,4 +1,5 @@
-"""Reader of the versioned on-disk deployment artifact (int4 or float).
+"""Versioned on-disk deployment artifact of the compressed RSNN (int4 or
+float): the contract between the packer and the serving engine.
 
 An artifact is a directory
 
@@ -8,21 +9,20 @@ An artifact is a directory
                         backend, per-tensor shape/dtype index
       tensors.npz     — every deployed array, verbatim
 
-written by the reference's ``save_artifact``.  This module reads it with
-numpy and torch alone.  Schema v2 keys each sparse tensor as
-``<layout>.<name>.<field>`` and records the per-tensor layout tags under
-``layouts``; schema v1 artifacts (no ``layouts``) load their ``csc.*`` keys
-as implicit padded CSC.  Any other version, a tensor missing from
-``tensors.npz``, or a shape or dtype that disagrees with the manifest
-raises ``ArtifactError``.
+in the reference's format: ``save_artifact`` writes it and
+``load_artifact`` reads it, with numpy and torch alone, and an artifact
+written by either package loads in the other.  Schema v2 keys each sparse
+tensor as ``<layout>.<name>.<field>`` and records the per-tensor layout
+tags under ``layouts``; schema v1 artifacts (no ``layouts``) load their
+``csc.*`` keys as implicit padded CSC.  Any other version, a tensor
+missing from ``tensors.npz``, or a shape or dtype that disagrees with the
+manifest raises ``ArtifactError``.
 
-Both payloads load.  The int4 payload (``PackedRSNN``: nibble-packed
+Both payloads: the int4 one (``PackedRSNN``: nibble-packed
 ``QuantTensor``s, a layout-resolved tensor for every pruned weight,
-inference LIF constants) in every registered layout (``dense``, ``csc``
-and ``nm_group``, for ``fc_w`` and for any recurrent tensor a mixed-level
-spec pruned); the float payload (the raw parameter dict, keyed as the
-reference's ``_flatten_params`` keys it) through ``params_from_arrays``.
-The write side is not ported.
+inference LIF constants) in every registered layout, and the float one
+(the raw parameter dict, keyed as ``_flatten_params`` keys it).  Arrays
+round-trip bit for bit.
 """
 
 from __future__ import annotations
@@ -37,10 +37,14 @@ import torch
 
 from repro_torch.core import layouts
 from repro_torch.core.complexity import SparsityProfile
+from repro_torch.core.compression.compress import CompressionConfig, PruneSpec
+from repro_torch.core.layouts.base import host
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.rsnn import RSNNConfig
-from repro_torch.core.sparse import PackedRSNN, QuantTensor
+from repro_torch.core.sparse import (PackedRSNN, QuantTensor,
+                                     packed_size_report)
 
+SCHEMA_VERSION = 2
 SUPPORTED_VERSIONS = (1, 2)
 MANIFEST = "manifest.json"
 TENSORS = "tensors.npz"
@@ -56,6 +60,7 @@ class RSNNArtifact(NamedTuple):
 
     manifest: dict
     cfg: RSNNConfig
+    ccfg: CompressionConfig | None
     packed: PackedRSNN | None  # int4 payload
     params: dict | None  # float payload
     sparsity: SparsityProfile | None
@@ -77,25 +82,9 @@ class RSNNArtifact(NamedTuple):
 
     @property
     def fc_prune_fraction(self) -> float:
-        """Deployed pruned fraction of the FC readout, from the manifest's
-        compression config (the reference's
-        ``CompressionConfig.fc_prune_fraction``): an explicit ``fc_w``
-        prune spec over the legacy ``fc_prune_frac``/``prune_names``
-        shorthand; an N:M spec prunes ``1 - n/m``.  0.0 without a config
-        or a spec."""
-        cc = self.manifest.get("compression_config") or {}
-        spec = None
-        if cc.get("fc_prune_frac", 0.0) > 0.0 \
-                and "fc_w" in cc.get("prune_names", ("fc_w",)):
-            spec = {"kind": "magnitude", "frac": cc["fc_prune_frac"]}
-        for name, s in cc.get("prune_specs", ()):
-            if name == "fc_w":
-                spec = s
-        if spec is None:
-            return 0.0
-        if spec.get("kind", "magnitude") == "nm":
-            return 1.0 - spec.get("n", 2) / spec.get("m", 4)
-        return max(float(spec.get("frac", 0.0)), 0.0)
+        """Deployed pruned fraction of the FC readout
+        (``CompressionConfig.fc_prune_fraction``; 0.0 without a config)."""
+        return 0.0 if self.ccfg is None else self.ccfg.fc_prune_fraction
 
     @property
     def layouts(self) -> dict:
@@ -106,6 +95,12 @@ class RSNNArtifact(NamedTuple):
             return {}
         return {n: layouts.layout_of(t).name
                 for n, t in self.packed.sparse.items()}
+
+
+def _encode_rsnn_config(cfg: RSNNConfig) -> dict:
+    """The config's fields, and the reference's ``dtype`` field (the port's
+    models are float32)."""
+    return {**dataclasses.asdict(cfg), "dtype": "float32"}
 
 
 def _decode_rsnn_config(d: dict) -> RSNNConfig:
@@ -121,6 +116,27 @@ def _decode_rsnn_config(d: dict) -> RSNNConfig:
     return RSNNConfig(**d)
 
 
+def _encode_compression_config(ccfg: CompressionConfig | None
+                               ) -> dict | None:
+    # PruneSpecs become dicts, tuples lists
+    return None if ccfg is None else dataclasses.asdict(ccfg)
+
+
+def _decode_compression_config(d: dict | None) -> CompressionConfig | None:
+    if d is None:
+        return None
+    d = dict(d)
+    d["prune_names"] = tuple(d["prune_names"])
+    d["quant_names"] = tuple(d["quant_names"])
+    d["prune_specs"] = tuple(
+        (name, PruneSpec(**spec)) for name, spec in d["prune_specs"])
+    return CompressionConfig(**d)
+
+
+def _encode_sparsity(sp: SparsityProfile | None) -> dict | None:
+    return None if sp is None else dataclasses.asdict(sp)
+
+
 def _decode_sparsity(d: dict | None) -> SparsityProfile | None:
     if d is None:
         return None
@@ -128,6 +144,42 @@ def _decode_sparsity(d: dict | None) -> SparsityProfile | None:
     for k in ("l0_density", "l1_density", "fc_density"):
         d[k] = tuple(d[k])
     return SparsityProfile(**d)
+
+
+def _flatten_packed(packed: PackedRSNN
+                    ) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """Flatten to named host arrays; returns (arrays, per-tensor layout
+    tags).  Sparse tensors go through their layout's codec under
+    ``<layout>.<name>.<field>`` keys."""
+    flat: dict[str, np.ndarray] = {}
+    tags: dict[str, str] = {}
+    for name, qt in packed.quant.items():
+        flat[f"quant.{name}.packed"] = host(qt.packed)
+        flat[f"quant.{name}.scale"] = host(qt.scale)
+    for name, t in packed.sparse.items():
+        layout = layouts.layout_of(t)
+        tags[name] = layout.name
+        for field, arr in layout.flatten(t).items():
+            flat[f"{layout.name}.{name}.{field}"] = arr
+    for name, arr in packed.lif.items():
+        flat[f"lif.{name}"] = host(arr)
+    return flat, tags
+
+
+def _flatten_params(params: dict) -> dict[str, np.ndarray]:
+    """The float parameter dict as the reference's ``_flatten_params``
+    keys a parameter tree: names sorted, ``params['<layer>']`` and
+    ``params['lif<i>'].raw_beta`` / ``.raw_vth``."""
+    flat: dict[str, np.ndarray] = {}
+    for name in sorted(params):
+        leaf = params[name]
+        if isinstance(leaf, LIFParams):
+            for field in LIFParams._fields:
+                flat[f"params['{name}'].{field}"] = host(
+                    getattr(leaf, field))
+        else:
+            flat[f"params['{name}']"] = host(leaf)
+    return flat
 
 
 def packed_from_arrays(arrays: dict[str, np.ndarray]) -> PackedRSNN:
@@ -188,8 +240,74 @@ def params_from_arrays(arrays: dict[str, np.ndarray],
     return params
 
 
+def save_artifact(path: str | Path, *, cfg: RSNNConfig,
+                  packed: PackedRSNN | None = None,
+                  params: dict | None = None,
+                  ccfg: CompressionConfig | None = None,
+                  sparsity: SparsityProfile | None = None,
+                  input_scale=None, backend: str | None = None,
+                  sparse_fc: bool = False) -> Path:
+    """Write a deployment artifact directory; returns its path.
+
+    Exactly one of ``packed`` (int4 payload) / ``params`` (float payload)
+    must be given.  ``input_scale`` is the static 8-bit input calibration
+    the engine serves with; ``backend`` names the preferred entry of
+    ``serving/backends.py``; ``sparse_fc=True`` records that the pruned FC
+    should be served through its packed layout's zero-skip path
+    (``from_artifact`` honours it).
+    """
+    if (packed is None) == (params is None):
+        raise ValueError("save_artifact needs exactly one of packed/params")
+    if packed is not None and (ccfg is None or ccfg.quant_spec is None):
+        raise ValueError("an int4 artifact needs the CompressionConfig it "
+                         "was packed with (weight_bits set)")
+    if sparse_fc and (packed is None or "fc_w" not in packed.sparse):
+        raise ValueError("sparse_fc=True needs an int4 payload with a "
+                         "pruned fc_w (a packed sparse layout to serve)")
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+
+    layout_tags: dict[str, str] = {}
+    if packed is not None:
+        precision = "int4"
+        flat, layout_tags = _flatten_packed(packed)
+        size_report = packed_size_report(packed)
+    else:
+        precision = "float"
+        flat = _flatten_params(params)
+        size_report = None
+    if input_scale is not None:
+        flat["input_scale"] = np.asarray(host(torch.as_tensor(input_scale)),
+                                         np.float32)
+
+    manifest = {
+        "schema_version": SCHEMA_VERSION,
+        "precision": precision,
+        "rsnn_config": _encode_rsnn_config(cfg),
+        "compression_config": _encode_compression_config(ccfg),
+        "sparsity_profile": _encode_sparsity(sparsity),
+        "size_report": size_report,
+        "backend": backend,
+        "sparse_fc": sparse_fc,
+        "layouts": layout_tags,
+        "has_input_scale": input_scale is not None,
+        "tensors": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                    for k, v in flat.items()},
+    }
+    # the manifest last, and any previous one gone first: a save that dies
+    # mid-write leaves a directory without a manifest, which load_artifact
+    # rejects, never an old or truncated manifest beside new tensors
+    (path / MANIFEST).unlink(missing_ok=True)
+    np.savez(path / TENSORS, **flat)
+    tmp = path / (MANIFEST + ".tmp")
+    tmp.write_text(json.dumps(manifest, indent=1))
+    tmp.rename(path / MANIFEST)  # atomic commit
+    return path
+
+
 def load_artifact(path: str | Path) -> RSNNArtifact:
-    """Read an artifact directory written by the reference writer."""
+    """Read an artifact directory back; the bit-exact inverse of
+    ``save_artifact`` (the port's or the reference's)."""
     path = Path(path)
     mf = path / MANIFEST
     if not mf.exists():
@@ -235,6 +353,8 @@ def load_artifact(path: str | Path) -> RSNNArtifact:
                     f"manifest layout tags {declared_tags} disagree with "
                     f"the tensor payload {actual}")
     return RSNNArtifact(
-        manifest=manifest, cfg=cfg, packed=packed, params=params,
+        manifest=manifest, cfg=cfg,
+        ccfg=_decode_compression_config(manifest.get("compression_config")),
+        packed=packed, params=params,
         sparsity=_decode_sparsity(manifest.get("sparsity_profile")),
         input_scale=scale)

@@ -1,29 +1,32 @@
-"""The ``WeightLayout`` interface and registry, serving side.
+"""The ``WeightLayout`` interface and registry.
 
 A weight layout is how one packed 2-D weight is stored and executed at
 deployment.  Each layout is one object owning its layout-specific
-decisions; the port carries the serving half of the reference's
-interface:
+decisions:
 
-  * ``matmul`` / ``fc_oracle`` — the plain PyTorch execution oracles;
-  * ``fc_kernel``             — the merged-spike readout through
+  * ``pack`` / ``unpack``          — build the packed tensor from integer
+    weights and their pruning mask, and dequantize it back to dense float;
+  * ``matmul`` / ``fc_oracle``     — the plain PyTorch execution oracles;
+  * ``fc_kernel``                  — the merged-spike readout through
     ``kernels/ops.py`` (a CUDA kernel on a CUDA tensor);
-  * ``megastep_fc``           — the FC operands of the mega-step kernel
-    (``kernels/megastep.py``, the ``fused`` backends);
-  * ``unflatten``             — the on-disk tensor codec used by
+  * ``megastep_fc``                — the FC operands of the mega-step
+    kernel (``kernels/megastep.py``, the ``fused`` backends);
+  * ``stored_entries`` / ``size_bytes`` — the layout's part of
+    ``sparse.packed_size_report`` (Fig. 12 accounting);
+  * ``flatten`` / ``unflatten``    — the on-disk tensor codec of
     ``core/artifact.py``.
 
 Layouts register by name; ``layout_of`` maps a packed tensor back to its
-layout by type, so the serving op table resolves the readout from whatever
-the artifact holds.  Three layouts are registered: ``dense``, ``csc`` and
-``nm_group``.  The packing half (``pack``, size accounting, ``flatten``)
-is not ported yet.
+layout by type, so the packer, the serving op table and the artifact codec
+resolve a tensor's layout from the tensor.  Three layouts are registered:
+``dense``, ``csc`` and ``nm_group``.
 """
 
 from __future__ import annotations
 
 import abc
 
+import numpy as np
 import torch
 
 
@@ -33,6 +36,20 @@ class WeightLayout(abc.ABC):
 
     name: str
     tensor_type: type
+
+    @abc.abstractmethod
+    def pack(self, q: torch.Tensor, scale: torch.Tensor, *, keep=None,
+             spec=None):
+        """Pack an int-quantized matrix ``q`` (K, N) with per-channel
+        ``scale`` into this layout's tensor, on ``q``'s device.  ``keep``
+        is the pruning mask deciding which entries are stored (storage
+        follows the pruning decision even where a kept weight quantizes
+        to 0); ``spec`` is the tensor's ``PruneSpec`` for layouts whose
+        structure depends on it (the N:M group shape)."""
+
+    @abc.abstractmethod
+    def unpack(self, t, k_rows: int) -> torch.Tensor:
+        """Dequantize back to the dense (k_rows, N) float32 matrix."""
 
     @abc.abstractmethod
     def matmul(self, x: torch.Tensor, t) -> torch.Tensor:
@@ -60,8 +77,27 @@ class WeightLayout(abc.ABC):
             f"'fused' backend cannot serve this packed tensor")
 
     @abc.abstractmethod
+    def stored_entries(self, t) -> float:
+        """Entries the pruning decision stores (mask survivors): the
+        Fig. 12 broadcast accounting, without index overhead."""
+
+    @abc.abstractmethod
+    def size_bytes(self, t, k_rows: int, bits: int = 4) -> float:
+        """Deployed bytes of this layout, its index overhead included."""
+
+    @abc.abstractmethod
+    def flatten(self, t) -> dict[str, np.ndarray]:
+        """Tensor -> named host arrays for ``tensors.npz`` (the inverse of
+        ``unflatten``)."""
+
+    @abc.abstractmethod
     def unflatten(self, fields: dict[str, torch.Tensor]):
         """Named arrays (as loaded from disk) -> the packed tensor."""
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A packed field as the host array ``flatten`` writes."""
+    return t.detach().cpu().numpy()
 
 
 _REGISTRY: dict[str, WeightLayout] = {}

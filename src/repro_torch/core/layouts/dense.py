@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.compression.quantization import unpack_int4
+from repro_torch.core.compression.quantization import pack_int4, unpack_int4
 from repro_torch.core.layouts import base
 
 
@@ -33,6 +33,14 @@ class DenseInt4Layout(base.WeightLayout):
     name = "dense"
     tensor_type = QuantTensor
 
+    def pack(self, q, scale, *, keep=None, spec=None) -> QuantTensor:
+        # ``keep`` was already applied to q by the caller's masking; dense
+        # storage keeps the zeros in place
+        return QuantTensor(packed=pack_int4(q), scale=scale.reshape(1, -1))
+
+    def unpack(self, t: QuantTensor, k_rows: int) -> torch.Tensor:
+        return dequantize(t)
+
     def matmul(self, x, t: QuantTensor) -> torch.Tensor:
         return x.to(torch.float32) @ dequantize(t)
 
@@ -43,6 +51,15 @@ class DenseInt4Layout(base.WeightLayout):
 
     def megastep_fc(self, t: QuantTensor) -> tuple[str, tuple, dict]:
         return "dense_int4", (t.packed, t.scale), {}
+
+    def stored_entries(self, t: QuantTensor) -> float:
+        return float(t.packed.shape[0] * 2 * t.packed.shape[1])
+
+    def size_bytes(self, t: QuantTensor, k_rows: int, bits: int = 4) -> float:
+        return k_rows * t.packed.shape[1] * bits / 8.0
+
+    def flatten(self, t: QuantTensor) -> dict:
+        return {"packed": base.host(t.packed), "scale": base.host(t.scale)}
 
     def unflatten(self, fields) -> QuantTensor:
         return QuantTensor(**fields)

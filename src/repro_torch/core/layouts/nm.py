@@ -2,14 +2,15 @@
 index padding (serving side).
 
 Every group of ``m`` consecutive input rows keeps ``n`` entries, so entry
-``e`` of a column belongs to group ``e // n`` and only its in-group row
-offset is stored.  One int8 byte per entry slot holds the int4 value in the
-low nibble and the offset in the high nibble (hence ``m <= 16``).  A tail
+``e`` of a column belongs to group ``e // n`` and only its
+``ceil(log2 m)``-bit in-group row offset is stored: at equal nnz smaller
+than padded CSC whenever ``m < K``.  One int8 byte per entry slot holds
+the int4 value in the low nibble and the offset in the high nibble (hence
+``m <= 16``).  A tail
 group (``rows % m != 0``) may keep fewer than ``n`` rows; its missing slots
-are (offset 0, value 0) and add nothing.  ``kernels/nm_fc.py`` and
-``kernels/megastep.py`` (``fc_mode="nm"``) read this layout.  The packer
-(``pack_nm_groups``), ``flatten`` and the size accounting are not ported
-yet.
+are (offset 0, value 0) and add nothing; ``count`` records the true mask
+survivors for the Fig. 12 accounting.  ``kernels/nm_fc.py`` and
+``kernels/megastep.py`` (``fc_mode="nm"``) read this layout.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.layouts import base
@@ -55,6 +57,49 @@ def split_nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return val, off
 
 
+def pack_nm_groups(q: torch.Tensor, scale: torch.Tensor, keep: torch.Tensor,
+                   n: int, m: int) -> NMGroupPacked:
+    """Pack an int-quantized matrix whose mask is N:M-regular, on ``q``'s
+    device.  ``keep`` must store at most ``n`` entries in every ``m``-row
+    group of every column (what ``pruning.nm_prune_mask`` guarantees); a
+    tail group may store fewer and is padded with zero-value slots.  A
+    group's kept offsets come first, ascending (a stable sort on
+    "dropped"), then its pad slots."""
+    if not 1 <= n <= m:
+        raise ValueError(f"N:M layout needs 1 <= n <= m, got n={n} m={m}")
+    if m > 16:
+        raise ValueError(
+            f"N:M group layout packs the in-group offset into a nibble, "
+            f"so m <= 16 is required; got m={m} (use the 'csc' layout)")
+    kp = keep.to(torch.bool)
+    rows, cols = q.shape
+    groups = -(-rows // m)
+    pad_rows = groups * m - rows
+    qp, kpp = q, kp
+    if pad_rows:
+        qp = torch.cat([q, q.new_zeros((pad_rows, cols))])
+        kpp = torch.cat([kp, kp.new_zeros((pad_rows, cols))])
+    qg = qp.reshape(groups, m, cols)
+    kg = kpp.reshape(groups, m, cols)
+    per_group = kg.sum(dim=1)
+    worst = int(per_group.max()) if per_group.numel() else 0
+    if worst > n:
+        bad = int(per_group.reshape(-1).argmax()) // cols
+        raise ValueError(
+            f"mask is not {n}:{m}-regular: a group stores {worst} > n={n} "
+            f"entries (group {bad}); pack it with the 'csc' layout instead")
+    order = torch.argsort((~kg).to(torch.int8), dim=1, stable=True)[:, :n]
+    taken = torch.gather(kg, 1, order)
+    vals = torch.where(taken, torch.gather(qg, 1, order), 0).to(torch.int16)
+    offs = torch.where(taken, order, 0).to(torch.int16)
+    byte = (vals & 0xF) | ((offs & 0xF) << 4)
+    return NMGroupPacked(
+        packed=byte.reshape(groups * n, cols).to(torch.uint8)
+        .view(torch.int8),
+        scale=scale.to(torch.float32).reshape(1, -1),
+        count=kp.sum(dim=0).to(torch.int32), n=n, m=m, rows=rows)
+
+
 def _rows(off: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """(E, N) in-group offsets -> global rows ``(e // n) * m + offset``."""
     group = torch.arange(off.shape[0], dtype=torch.int32,
@@ -83,6 +128,24 @@ class NMGroupPackedLayout(base.WeightLayout):
     name = "nm_group"
     tensor_type = NMGroupPacked
 
+    def pack(self, q, scale, *, keep=None, spec=None) -> NMGroupPacked:
+        if keep is None:
+            raise ValueError("the N:M group layout packs a pruning mask; "
+                             "keep= is required")
+        if spec is None or getattr(spec, "kind", None) != "nm":
+            raise ValueError(
+                "the N:M group layout needs the tensor's PruneSpec of kind "
+                f"'nm' (its n/m shape the groups); got {spec!r}")
+        return pack_nm_groups(q, scale, keep, spec.n, spec.m)
+
+    def unpack(self, t: NMGroupPacked, k_rows: int) -> torch.Tensor:
+        val, off = split_nibbles(t.packed)
+        dense = torch.zeros((t.rows, val.shape[1]), dtype=torch.float32,
+                            device=val.device)
+        # scatter-add: pad slots carry value 0 and collide harmlessly
+        dense.scatter_add_(0, _rows(off, t.n, t.m).long(), val)
+        return dense * t.scale
+
     def matmul(self, x, t: NMGroupPacked) -> torch.Tensor:
         return nm_matmul(x, t)
 
@@ -93,6 +156,19 @@ class NMGroupPackedLayout(base.WeightLayout):
 
     def megastep_fc(self, t: NMGroupPacked) -> tuple[str, tuple, dict]:
         return "nm", (t.packed, t.scale), {"nm_n": t.n, "nm_m": t.m}
+
+    def stored_entries(self, t: NMGroupPacked) -> float:
+        return float(t.count.sum())
+
+    def size_bytes(self, t: NMGroupPacked, k_rows: int,
+                   bits: int = 4) -> float:
+        slots = t.packed.shape[0] * t.packed.shape[1]  # tail padding too
+        return slots * (bits + nm_index_bits(t.m)) / 8.0
+
+    def flatten(self, t: NMGroupPacked) -> dict:
+        return {"packed": base.host(t.packed), "scale": base.host(t.scale),
+                "count": base.host(t.count),
+                "meta": np.asarray([t.n, t.m, t.rows], np.int32)}
 
     def unflatten(self, fields) -> NMGroupPacked:
         n, m, rows = (int(v) for v in fields["meta"])

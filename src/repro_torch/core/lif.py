@@ -4,18 +4,20 @@
     h[t][ts] = 1  if U[t][ts] >= V_th else 0
 
 An int4 deployment artifact carries the inference constants (beta, vth)
-already resolved.  A float artifact carries the learnable parameters in
+already resolved.  ``init_lif`` makes the learnable parameters at a
+requested beta and vth.  A float artifact carries the learnable parameters in
 their unconstrained form (``LIFParams``); ``inference_constants`` turns
 them into (beta, vth), rounded to powers of two on the hardware path
 (paper Fig. 6), with the reference's formulas in the reference's order.
 Transcendentals (sigmoid, log-add-exp, log2) may round an ulp apart from
 the reference's, so the constants agree within a few ulp, not bit for bit.
 The surrogate gradient, ``lif_step`` and the straight-through gradients
-belong to training and are not here.
+belong to training and are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -33,6 +35,21 @@ class LIFState(NamedTuple):
 
     u: torch.Tensor  # (B, H)
     spike: torch.Tensor  # (B, H)
+
+
+def init_lif(num_neurons: int, beta_init: float = 0.9, vth_init: float = 1.0,
+             dtype: torch.dtype = torch.float32,
+             device: torch.device | str | None = None) -> LIFParams:
+    """Learnable LIF parameters at the requested beta and vth:
+    ``raw_beta = logit(beta_init)``, ``raw_vth = softplus^-1(vth_init)``,
+    computed in double precision and rounded once to ``dtype``."""
+    raw_beta = math.log(beta_init / (1.0 - beta_init))
+    raw_vth = math.log(math.expm1(vth_init))
+    return LIFParams(
+        raw_beta=torch.full((num_neurons,), raw_beta, dtype=dtype,
+                            device=device),
+        raw_vth=torch.full((num_neurons,), raw_vth, dtype=dtype,
+                           device=device))
 
 
 def beta_of(params: LIFParams) -> torch.Tensor:

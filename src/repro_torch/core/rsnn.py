@@ -2,7 +2,8 @@
 the float golden model.
 
 Two recurrent spiking layers and a merged-spike FC readout (paper Fig. 1,
-Table I).  ``frame_step`` and ``forward`` run the float model over a
+Table I).  ``init_params`` draws a parameter dict from an explicit
+``torch.Generator``.  ``frame_step`` and ``forward`` run the float model over a
 parameter dict (``l0_wx``, ``l0_wh``, ``l1_wx``, ``l1_wh``, ``fc_w`` and
 ``lif0``/``lif1`` as ``LIFParams``) with plain PyTorch, on the device the
 tensors lie on; they are the reference's golden model, operation for
@@ -13,6 +14,7 @@ composed from the op table of ``serving/backends.py``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -56,6 +58,24 @@ class RSNNState(NamedTuple):
     h1: torch.Tensor  # (TS, B, H) L1 spike outputs of the previous frame
     lif0: LIFState  # membrane chain of L0 (last ts of the previous frame)
     lif1: LIFState
+
+
+def init_params(generator: torch.Generator, cfg: RSNNConfig) -> dict:
+    """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) weights, PyTorch-RNN style,
+    drawn from ``generator`` on its device, and the LIF parameters at
+    ``cfg``'s beta and vth.  The values are not the reference's, whose
+    draws come from a JAX key."""
+    device = generator.device
+    params: dict = {}
+    for name, shape in cfg.layer_shapes.items():
+        bound = 1.0 / math.sqrt(shape[0])
+        params[name] = torch.empty(shape, dtype=torch.float32,
+                                   device=device).uniform_(
+            -bound, bound, generator=generator)
+    for i in (0, 1):
+        params[f"lif{i}"] = lif_lib.init_lif(cfg.hidden_dim, cfg.beta_init,
+                                             cfg.vth_init, device=device)
+    return params
 
 
 def init_state(cfg: RSNNConfig, batch: int, num_ts: int | None = None, *,

@@ -59,7 +59,11 @@ from repro_torch.core import rsnn, spike_ops
 from repro_torch.core.layouts.nm import NMGroupPacked, entry_rows
 from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
-from repro_torch.core.sparse import PackedRSNN, SparseColumns, dequantize
+from repro_torch.core.compression.compress import (CompressionConfig,
+                                                   CompressionState,
+                                                   init_compression)
+from repro_torch.core.sparse import (PackedRSNN, SparseColumns, dequantize,
+                                     pack_model)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serving import backends
 from repro_torch.serving.slots import SlotScheduler
@@ -258,9 +262,12 @@ class CompiledRSNN:
     """One RSNN ready for streaming inference on one device.
 
     Owns the weights (moved to ``device``): the raw float32 parameters at
-    ``engine.precision="float"``, the packed int4 model at ``"int4"``; the
-    static input scale and the op table of its backend.  State threads
-    through explicitly so callers control the frame/slot lifecycle; the
+    ``engine.precision="float"``, the packed int4 model at ``"int4"`` —
+    given pre-packed (``packed=``), or packed here on ``device`` from float
+    ``params`` by ``ccfg`` (its masks from ``cstate``, built when missing),
+    as the reference's engine packs in process; the static input scale and
+    the op table of its backend.  State threads through explicitly so
+    callers control the frame/slot lifecycle; the
     ring steps (``step_ring``) update the state, the logit ring and the
     counter accumulator they are given in place.  ``capture_count`` counts
     the step graphs the slot loops over this engine captured (on the CPU,
@@ -269,31 +276,25 @@ class CompiledRSNN:
     """
 
     def __init__(self, cfg: RSNNConfig, params: dict | None,
-                 engine: EngineConfig = EngineConfig(), *,
+                 engine: EngineConfig = EngineConfig(),
+                 ccfg: CompressionConfig | None = None,
+                 cstate: CompressionState | None = None, *,
                  packed: PackedRSNN | None = None,
-                 device: torch.device | str = "cuda",
-                 fc_prune_frac: float = 0.0):
+                 device: torch.device | str = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine = engine
-        if (params is None) == (packed is None):
-            raise ValueError("CompiledRSNN needs exactly one payload: float "
-                             "params or a packed int4 model (packed=)")
+        if params is not None and packed is not None:
+            raise ValueError("CompiledRSNN takes one payload: float params "
+                             "or a packed int4 model (packed=), not both")
         if engine.precision == "int4":
             if packed is None:
-                raise ValueError(
-                    "int4 precision needs the packed model (packed=); "
-                    "packing float params is not ported (ROADMAP queue 1 "
-                    "item 6)")
+                packed = self._pack(cfg, params, ccfg, cstate)
             dense, quant, sparse = self._load_int4(cfg, packed, engine)
         else:
             if params is None:
                 raise ValueError("float precision needs the parameter dict "
                                  "(params), not a packed model")
-            if fc_prune_frac:
-                raise ValueError("a float model has no pruned FC; "
-                                 f"fc_prune_frac must be 0, got "
-                                 f"{fc_prune_frac}")
             _check_params(cfg, params)
             self.packed = None
             params = _to(params, self.device)
@@ -308,7 +309,9 @@ class CompiledRSNN:
             dense = {n: params[n] for n in cfg.layer_shapes}
             quant, sparse = {}, {}
         # deployed FC pruning fraction, for the measured MMAC/s accounting
-        self.fc_prune_frac = fc_prune_frac
+        self.fc_prune_frac = (ccfg.fc_prune_fraction
+                              if engine.precision == "int4"
+                              and ccfg is not None else 0.0)
         self._ctx = backends.BackendContext(
             cfg=cfg, precision=engine.precision,
             sparse_fc=engine.wants_sparse_fc, dense=dense, quant=quant,
@@ -320,6 +323,24 @@ class CompiledRSNN:
         self._input_scale = (None if scale is None else torch.as_tensor(
             scale, dtype=torch.float32).to(self.device))
         self.capture_count = 0
+
+    def _pack(self, cfg: RSNNConfig, params: dict | None,
+              ccfg: CompressionConfig | None,
+              cstate: CompressionState | None) -> PackedRSNN:
+        """Pack float ``params`` on the engine's device: the masks of
+        ``cstate`` (built from ``ccfg`` when missing), then int4 and the
+        sparse layouts (``core.sparse.pack_model``)."""
+        if params is None:
+            raise ValueError("int4 precision needs params to pack (or a "
+                             "pre-packed model via packed=)")
+        if ccfg is None or ccfg.quant_spec is None:
+            raise ValueError("int4 precision needs a CompressionConfig "
+                             "with weight_bits set")
+        _check_params(cfg, params)
+        params = _to(params, self.device)
+        cstate = (init_compression(params, ccfg) if cstate is None
+                  else _to(cstate, self.device))
+        return pack_model(params, cfg, ccfg, cstate)
 
     def _load_int4(self, cfg: RSNNConfig, packed: PackedRSNN,
                    engine: EngineConfig) -> tuple[dict, dict, dict]:
@@ -374,8 +395,8 @@ class CompiledRSNN:
                 f"engine precision {engine.precision!r} does not match the "
                 f"artifact's {art.precision!r} payload")
         if art.precision == "int4":
-            return cls(art.cfg, None, engine, packed=art.packed,
-                       device=device, fc_prune_frac=art.fc_prune_fraction)
+            return cls(art.cfg, None, engine, art.ccfg, packed=art.packed,
+                       device=device)
         return cls(art.cfg, art.params, engine, device=device)
 
     # ------------------------------------------------------------ frontend

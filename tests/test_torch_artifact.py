@@ -229,9 +229,9 @@ def test_unported_payloads_raise(tmp_path, small_cfg, rng_key):
 def test_chip_smoke_artifact_loads_in_both_readers(tmp_path):
     """chip_smoke.py's numpy writer produces schema-v2 artifacts the
     reference reads, at the PRUNED widths, with equal arrays: the FC
-    pruned 40% as CSC, and its 2:4 magnitude mask as N:M and as CSC.  Its
-    N:M packer is the reference's ``pack_nm_groups`` byte for byte, its
-    mask ``nm_prune_mask``."""
+    pruned 40% as CSC, and its 2:4 magnitude mask as N:M and as CSC.  The
+    N:M packer it writes with (the port's) is the reference's
+    ``pack_nm_groups`` byte for byte, its mask ``nm_prune_mask``."""
     from repro.core.layouts import get_layout
     from repro.core.layouts.nm import pack_nm_groups
 
@@ -260,15 +260,17 @@ def test_chip_smoke_artifact_loads_in_both_readers(tmp_path):
         nm_q, np.asarray(refs["nm as csc"].packed.quant["fc_w"].packed))
     rng = np.random.default_rng(0)
     w = rng.normal(size=(18, 7)).astype(np.float32)
-    q, scale = cs._quantize(w)
+    q, scale = cs.quantize_to_int(torch.from_numpy(w))
+    q, scale = q.numpy(), scale.numpy()
     for n, m in ((1, 4), (2, 4), (3, 8)):
-        keep = cs._nm_mask(w, n, m)
-        np.testing.assert_array_equal(keep, np.asarray(
+        keep = cs.nm_prune_mask(torch.from_numpy(w), n, m).bool()
+        np.testing.assert_array_equal(keep.numpy(), np.asarray(
             pruning.nm_prune_mask(jnp.asarray(w), n, m)).astype(bool))
-        mine = cs._nm_groups(np.where(keep, q, 0).astype(np.int8), keep,
-                             n, m)
-        want = pack_nm_groups(q, scale, keep, n, m)
+        mine = cs.pack_nm_groups(torch.from_numpy(
+            np.where(keep.numpy(), q, 0).astype(np.int8)), torch.from_numpy(
+            scale), keep, n, m)
+        want = pack_nm_groups(q, scale, keep.numpy(), n, m)
         for field in ("packed", "count"):
-            np.testing.assert_array_equal(mine[field],
+            np.testing.assert_array_equal(getattr(mine, field).numpy(),
                                           np.asarray(getattr(want, field)))
-        np.testing.assert_array_equal(mine["meta"], [n, m, 18])
+        assert (mine.n, mine.m, mine.rows) == (n, m, 18)

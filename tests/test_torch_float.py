@@ -40,8 +40,11 @@ from repro.kernels import ref as jref
 from repro.serving import stream as S
 from repro_torch.configs import rsnn_timit
 from repro_torch.core import artifact, lif, rsnn, spike_ops
+from repro_torch.core.compression import \
+    CompressionConfig as TCompressionConfig
 from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
+from repro_torch.core.sparse import PackedRSNN
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import megastep as mega_kernel
 from repro_torch.serving import stream as TS
@@ -638,19 +641,22 @@ def test_payload_and_precision_mismatches_raise(float_paths):
         TS.CompiledRSNN.from_artifact(path, TS.EngineConfig(
             precision="int4"), device="cpu")
     art = artifact.load_artifact(path)
-    with pytest.raises(ValueError, match="exactly one payload"):
+    with pytest.raises(ValueError, match="parameter dict"):
         TS.CompiledRSNN(art.cfg, None, device="cpu")
-    with pytest.raises(ValueError, match="packed"):
+    with pytest.raises(ValueError, match="CompressionConfig"):
         TS.CompiledRSNN(art.cfg, art.params, TS.EngineConfig(
             precision="int4"), device="cpu")
-    with pytest.raises(ValueError, match="fc_prune_frac"):
+    with pytest.raises(ValueError, match="not both"):
         TS.CompiledRSNN(art.cfg, art.params, device="cpu",
-                        fc_prune_frac=0.4)
+                        packed=PackedRSNN({}, {}, {}))
     bad = dict(art.params, lif1=art.params["lif1"]._replace(
         raw_vth=art.params["lif1"].raw_vth[:-1]))
     with pytest.raises(ValueError, match="lif1.raw_vth"):
         TS.CompiledRSNN(art.cfg, bad, device="cpu")
-    eng = TS.CompiledRSNN(art.cfg, art.params, device="cpu")
+    # a float model has no pruned FC, whatever the compression config says
+    eng = TS.CompiledRSNN(art.cfg, art.params, TS.EngineConfig(),
+                          TCompressionConfig(fc_prune_frac=0.4),
+                          device="cpu")
     assert eng.engine.backend == "jnp" and eng.fc_prune_frac == 0.0
     state = eng.init_state(2)
     assert isinstance(state, RSNNState) and isinstance(state.lif0, LIFState)

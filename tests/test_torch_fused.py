@@ -460,6 +460,7 @@ def test_layout_megastep_fc_bindings(small_path):
     class Bare(layout_base.WeightLayout):
         name, tensor_type = "bare", tuple
         matmul = fc_kernel = unflatten = None
+        pack = unpack = stored_entries = size_bytes = flatten = None
 
     with pytest.raises(NotImplementedError, match="mega-step"):
         Bare().megastep_fc(())
