@@ -158,6 +158,26 @@ bit-equal.  Then ``examples/stream_asr_torch.py`` at 256 slots and 512
 streams, in process and as a ``--save-artifact`` / ``--artifact`` pair
 (``run_example``), its report printed.
 
+Then phase 4d (``check_training``): the compression recipe trains on the
+card, in plain PyTorch (no kernel of the port lies on the training path,
+as none of the reference's does).  (a) ``check_one_step``: one training
+step from the seeded ``BASELINE`` parameters on a batch of 32 utterances
+of 8 frames, on the card and on the CPU: every LIF step's spikes equal
+except where the CPU's |u - vth| lies within the u rule
+(``train_u_bounds``; the count is printed), and then every gradient leaf
+within ``GRAD_TOL`` of its largest element and ``make_train_step``'s
+update with it.  (b) ``check_recipe``: ``run_pipeline`` at full width
+(hidden 256 -> 128, FC 1920, 100 frames, batch 32, the temporal schedule
+on, ``RECIPE_STEPS`` steps a stage), stopped after ``structured`` and
+resumed with ``--artifact``'s export; the restored stages bit-equal and
+their only records ``restored``; steps/s and each stage's metrics, then
+the accelerator model at the QAT stage's measured sparsity.
+``profile_train_step`` times a full-width step at TS 4 and 2 and
+profiles one.  (c) The exported model served through the v2 graph loop
+in ``fused`` (K6, FC ``csc``) and ``sparse`` (K1, K2, K4) from the
+in-process engine and from the artifact, logits bit-equal, launches
+steps x a step's.
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -2230,41 +2250,50 @@ def check_packing(seed: int, utts, tmp: Path, dev) -> None:
               f"broadcast_total_bytes {report['broadcast_total_bytes']!r} B "
               f"(= compressed_size_bytes), total_bytes "
               f"{report['total_bytes']!r} B")
-    frames = sum(map(len, utts))
     for name, configs in PACK_SERVED.items():
         for backend, (sparse_fc, per_step) in configs.items():
             cfg_kw = {"backend": backend, "precision": "int4",
                       "sparse_fc": sparse_fc, "input_scale": scale}
-            runs = {}
-            for source, make in (
-                    ("in-process", lambda: CompiledRSNN(
-                        PRUNED, params, EngineConfig(**cfg_kw),
-                        PACK_RECIPES[name], device=dev)),
-                    ("reloaded", lambda: CompiledRSNN.from_artifact(
-                        paths[name], EngineConfig(**cfg_kw), device=dev))):
-                eng = make()
-                loop = make_loop(eng, **GRAPH_LOOPS["v2"])
-                set_counts(0)
-                loop, done, secs = serve(eng, utts, loop=loop)
-                counts = read_counts()
-                for n, c in counts.items():
-                    if c != loop.steps * per_step.get(n, 0):
-                        raise AssertionError(
-                            f"packed {name} {backend} {source}: {n} "
-                            f"launched {c} times, expected {loop.steps} "
-                            f"steps x {per_step.get(n, 0)}")
-                runs[source] = [r.stacked_logits() for r in done]
-                print(f"serve packed {name} {backend} ({source}, v2 "
-                      f"graph): {frames / secs!r} frames/s; launches "
-                      f"{ {n: c for n, c in counts.items() if c} }; "
-                      f"fc_prune_frac {eng.fc_prune_frac!r}")
-                del loop, done
-            if not all(np.array_equal(a, b) and np.isfinite(a).all()
-                       for a, b in zip(runs["in-process"], runs["reloaded"])):
-                raise AssertionError(f"packed {name} {backend}: the "
-                                     f"reloaded artifact's logits differ")
-            print(f"serve packed {name} {backend}: {len(utts)} streams, "
-                  f"in-process and reloaded logits bit-equal")
+            serve_in_process_and_reloaded(
+                f"packed {name} {backend}", lambda: CompiledRSNN(
+                    PRUNED, params, EngineConfig(**cfg_kw),
+                    PACK_RECIPES[name], device=dev),
+                lambda: CompiledRSNN.from_artifact(
+                    paths[name], EngineConfig(**cfg_kw), device=dev),
+                per_step, utts)
+
+
+def serve_in_process_and_reloaded(label: str, in_process, reloaded,
+                                  per_step: dict, utts) -> None:
+    """The engines that ``in_process()`` and ``reloaded()`` make, each
+    serving ``utts`` through the v2 graph loop: each kernel launched steps
+    x its launches a step (``per_step``), and the two runs' logits finite
+    and bit-equal."""
+    frames = sum(map(len, utts))
+    runs = {}
+    for source, make in (("in-process", in_process), ("reloaded", reloaded)):
+        eng = make()
+        loop = make_loop(eng, **GRAPH_LOOPS["v2"])
+        set_counts(0)
+        loop, done, secs = serve(eng, utts, loop=loop)
+        counts = read_counts()
+        for n, c in counts.items():
+            if c != loop.steps * per_step.get(n, 0):
+                raise AssertionError(
+                    f"{label} {source}: {n} launched {c} times, expected "
+                    f"{loop.steps} steps x {per_step.get(n, 0)}")
+        runs[source] = [r.stacked_logits() for r in done]
+        print(f"serve {label} ({source}, v2 graph): {frames / secs!r} "
+              f"frames/s; launches "
+              f"{ {n: c for n, c in counts.items() if c} }; "
+              f"fc_prune_frac {eng.fc_prune_frac!r}")
+        del loop, done
+    if not all(np.array_equal(a, b) and np.isfinite(a).all()
+               for a, b in zip(runs["in-process"], runs["reloaded"])):
+        raise AssertionError(f"{label}: the reloaded artifact's logits "
+                             f"differ")
+    print(f"serve {label}: {len(utts)} streams, in-process and reloaded "
+          f"logits bit-equal")
 
 
 def run_example(tmp: Path, dev) -> None:
@@ -2296,6 +2325,383 @@ def run_example(tmp: Path, dev) -> None:
     if not preds[1] or preds[1] != preds[2]:
         raise AssertionError("example: the saved artifact serves other "
                              "predictions than the in-process model")
+
+# ---------------------------------------------------- training (phase 4d)
+
+TRAIN_BATCH = 32  # utterances a training step
+ONE_STEP_FRAMES = 8  # frames an utterance in the card-against-CPU step
+ONE_STEP_TS = 2  # time steps of that step (BASELINE's)
+# the card-against-CPU step's gradients: max |g - g_cpu| <= GRAD_TOL max
+# |g_cpu| over each leaf, where no spike differs.  The CPU rehearsal (this
+# step in float32 against float64 on the CPU, seeds 0-2, spikes equal)
+# measured at most 4.0e-4 of a leaf's largest element (lif0.raw_beta, whose
+# terms cancel over the batch and frames; fc_w 2e-7); two float32 devices
+# differ by at most twice one's error, and the bound leaves 5x to spare
+GRAD_TOL = 4e-3
+RECIPE_STEPS = 6  # steps a stage: TS 4 for 2 steps, then TS 2 (temporal)
+# the exported model, served: backend -> launches a step (FC CSC, K6 or K4)
+TRAINED_SERVED = {"fused": {"megastep": 1},
+                  "sparse": {"rsnn_cell": 2, "int4_matmul": 2,
+                             "sparse_fc": 1}}
+
+
+@contextlib.contextmanager
+def recorded_lif_steps(calls: list):
+    """Every ``lif.lif_step`` call's (u, spike), detached, appended to
+    ``calls`` in call order: frame by frame, L0's time steps, then L1's."""
+    from repro_torch.core import lif as lif_lib
+
+    step = lif_lib.lif_step
+
+    def record(params, state, stimulus, slope=25.0, hw_rounded=False):
+        new, h = step(params, state, stimulus, slope, hw_rounded)
+        calls.append((new.u.detach(), h.detach()))
+        return new, h
+
+    lif_lib.lif_step = record
+    try:
+        yield
+    finally:
+        lif_lib.lif_step = step
+
+
+def loss_and_grads(params: dict, batch: dict, cfg: RSNNConfig, num_ts: int
+                   ) -> tuple[float, dict, list]:
+    """``rsnn.loss_fn`` and its gradient in every parameter, as
+    ``make_train_step`` takes them, with the LIF steps' (u, spike)."""
+    from repro_torch.core import rsnn
+    from repro_torch.training import optimizer as opt_lib
+
+    leaves = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+    calls: list = []
+    with recorded_lif_steps(calls):
+        loss, _ = rsnn.loss_fn(leaves, batch, cfg, num_ts=num_ts)
+    grads = torch.autograd.grad(loss, opt_lib.tree_leaves(leaves))
+    return (float(loss.detach()), opt_lib.tree_unflatten(params, iter(grads)),
+            calls)
+
+
+def train_u_bounds(params: dict, xq: torch.Tensor, calls: list, cfg,
+                   num_ts: int) -> list[torch.Tensor]:
+    """For each recorded LIF step (CPU tensors) the u rule's bound on two
+    float32 devices' |du|: 2 gamma(n) A + 2^-23 vth, A the float64 chain
+    of the summands' magnitude as ``lif_bound`` carries it (|x| @ |W0x| +
+    |h0| @ |W0h| for L0, |s0| @ |W1x| + |h1| @ |W1h| for L1, plus beta
+    (1 - h) (|u| + A) of the step before), n the longest sum (D + H for
+    L0, 2 H for L1)."""
+    from repro_torch.core import lif as lif_lib
+
+    b, t_frames, d = xq.shape
+    h = cfg.hidden_dim
+    w = {n: params[n].double().abs() for n in cfg.layer_shapes}
+    consts = [lif_lib.inference_constants(params[f"lif{i}"],
+                                          cfg.hw_rounded_lif)
+              for i in (0, 1)]
+    n = (d + h, 2 * h)
+    z = torch.zeros(b, h, dtype=torch.float64)
+    a, u_prev, h_prev = [z, z], [z, z], [z, z]
+    prev = [[z] * num_ts, [z] * num_ts]
+    bounds, it = [], iter(calls)
+    for t in range(t_frames):
+        trains = [[], []]
+        for layer in (0, 1):
+            beta, vth = (c.double() for c in consts[layer])
+            for k in range(num_ts):
+                if layer == 0:
+                    mag = xq[:, t].double().abs() @ w["l0_wx"] \
+                        + prev[0][k] @ w["l0_wh"]
+                else:
+                    mag = trains[0][k] @ w["l1_wx"] + prev[1][k] @ w["l1_wh"]
+                a[layer] = mag + beta * (1.0 - h_prev[layer]) * (
+                    u_prev[layer].abs() + a[layer])
+                bounds.append(2 * gamma(n[layer]) * a[layer]
+                              + 2 * EPS32 * vth)
+                u, s = next(it)
+                u_prev[layer], h_prev[layer] = u.double(), s.double()
+                trains[layer].append(s.double())
+        prev = trains
+    return bounds
+
+
+def check_one_step(seed: int, dev) -> None:
+    """Phase 4d (a): one training step on the card and on the CPU from the
+    same seeded ``BASELINE`` parameters (``float_params``) and batch
+    (``TRAIN_BATCH`` utterances of ``ONE_STEP_FRAMES`` frames).  Every LIF
+    step's spikes must agree, except where the CPU's |u - vth| lies within
+    the u rule (``train_u_bounds``); from the first step where one
+    differs the later frames are not compared, and the count is printed.
+    Where no spike differs, every gradient leaf must agree within
+    ``GRAD_TOL`` of its largest element, and ``make_train_step``'s loss,
+    gradient norm and updated parameters with it."""
+    from repro_torch.core import lif as lif_lib
+    from repro_torch.core import spike_ops
+    from repro_torch.core.compression import (CompressionConfig,
+                                              init_compression)
+    from repro_torch.data.synthetic import SpeechDataConfig, TimitLikeStream
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.rsnn_pipeline import make_train_step
+
+    cfg, ts = BASELINE, ONE_STEP_TS
+    cpu = params_from_arrays(float_params(seed, BASELINE), BASELINE)
+    card = opt_lib.tree_map(lambda v: v.to(dev), cpu)
+    host = TimitLikeStream(SpeechDataConfig(frames=ONE_STEP_FRAMES)).batch(
+        TRAIN_BATCH, step=0)
+    batches = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+               for d in ("cpu", dev)}
+    xq = spike_ops.quantize_input(batches["cpu"]["features"])[0]
+    if not torch.equal(spike_ops.quantize_input(
+            batches[dev]["features"])[0].cpu(), xq):
+        raise AssertionError("train step: the card's quantized input "
+                             "differs from the CPU's")
+    t0 = time.perf_counter()
+    loss_c, g_card, calls_card = loss_and_grads(card, batches[dev], cfg, ts)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    loss_h, g_cpu, calls_cpu = loss_and_grads(cpu, batches["cpu"], cfg, ts)
+    bounds = train_u_bounds(cpu, xq, calls_cpu, cfg, ts)
+    vth = [lif_lib.inference_constants(cpu[f"lif{i}"])[1] for i in (0, 1)]
+    flips, first = 0, None
+    for i, ((uc, hc), (uh, hh), bound) in enumerate(
+            zip(calls_card, calls_cpu, bounds)):
+        diff = hc.cpu() != hh
+        if not bool(diff.any()):
+            continue
+        layer = (i // ts) % 2
+        near = (uh.double() - vth[layer].double()).abs() <= bound
+        if not bool(near[diff].all()):
+            j = int(torch.nonzero(diff & ~near)[0, 0])
+            raise AssertionError(
+                f"train step: a spike differs away from the threshold at "
+                f"LIF step {i} (frame {i // (2 * ts)}, L{layer}, ts "
+                f"{i % ts}), slot {j}")
+        flips, first = int(diff.sum()), i
+        break
+    rates = [float(torch.stack([h for _, h in calls_cpu[k::2 * ts]]).mean())
+             for k in range(2 * ts)]
+    print(f"train step (a): BASELINE, {TRAIN_BATCH} utterances x "
+          f"{ONE_STEP_FRAMES} frames, TS {ts}: loss card {loss_c!r} CPU "
+          f"{loss_h!r}; card forward+backward {card_s!r} s (first call); "
+          f"spike rates per LIF step (L0 ts.., L1 ts..) {rates}")
+    if first is not None:
+        print(f"train step (a): {flips} spikes flipped near the threshold "
+              f"(within the u rule) at LIF step {first} of {len(calls_cpu)} "
+              f"(frame {first // (2 * ts)}); later frames and the gradients "
+              f"not compared")
+        return
+    print(f"train step (a): all {len(calls_cpu)} LIF steps' spikes equal "
+          f"({sum(h.numel() for _, h in calls_cpu)} spikes)")
+    worst = {}
+    for (k, gc), (_, gh) in zip(checkpoint_items(g_card),
+                                checkpoint_items(g_cpu)):
+        scale = float(gh.abs().max())
+        ratio = float((gc.cpu() - gh).abs().max()) / max(scale, 1e-30)
+        worst[k] = ratio
+        if ratio > GRAD_TOL:
+            raise AssertionError(f"train step: gradient {k} differs by "
+                                 f"{ratio!r} of its largest element")
+    print(f"train step (a): gradients, max |g - g_cpu| / max |g_cpu| "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (<= "
+          f"{GRAD_TOL})")
+    # the optimizer step itself on both: Adam's first update is about
+    # +-lr where |g| >> eps, so the parameters agree except where g lies
+    # so near 0 that the gradient tolerance lets its sign or |g| / (|g| +
+    # eps) move (within 100 x GRAD_TOL of the leaf's largest element)
+    ocfg = OptimizerConfig(name="adamw", lr=3.5e-3, warmup_steps=5,
+                           decay_steps=RECIPE_STEPS, weight_decay=0.0)
+    ccfg = CompressionConfig()
+    out = {}
+    for d, p in (("cpu", cpu), (dev, card)):
+        step = make_train_step(cfg, ocfg, ccfg, init_compression(p, ccfg),
+                               ts)
+        out[d] = step({"params": p, "opt": opt_lib.init_opt_state(p, ocfg)},
+                      batches[d])
+    (new_h, m_h), (new_c, m_c) = out["cpu"], out[dev]
+    lr = float(m_h["lr"])
+    if abs(float(m_c["loss"]) - loss_c) > 1e-6 * abs(loss_c) or abs(
+            float(m_c["grad_norm"]) - float(m_h["grad_norm"])) > \
+            GRAD_TOL * float(m_h["grad_norm"]):
+        raise AssertionError("train step: make_train_step's loss or "
+                             "gradient norm differs")
+    moved = 0
+    for (k, pc), (_, ph), (_, gh) in zip(
+            checkpoint_items(new_c["params"]), checkpoint_items(
+                new_h["params"]), checkpoint_items(g_cpu)):
+        d = (pc.cpu() - ph).abs()
+        small = gh.abs() <= 100 * GRAD_TOL * float(gh.abs().max())
+        if bool((d > 1e-6 * (1 + ph.abs()))[~small].any()) or \
+                bool((d > 2 * lr + 1e-6)[small].any()):
+            raise AssertionError(f"train step: updated {k} differs")
+        moved += int((d > 1e-6 * (1 + ph.abs())).sum())
+    print(f"train step (a): make_train_step on both, loss "
+          f"{float(m_c['loss'])!r}, grad_norm {float(m_c['grad_norm'])!r} "
+          f"(CPU {float(m_h['grad_norm'])!r}), lr {lr!r}; updated "
+          f"parameters equal within 1e-6 (1 + |p|) but {moved} where |g| "
+          f"is near 0")
+
+
+def checkpoint_items(tree) -> list:
+    """(key, leaf) pairs of a parameter tree, keyed as the checkpoints key
+    them."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+
+    return _flatten(tree)
+
+
+def check_recipe(seed: int, tmp: Path, dev):
+    """Phase 4d (b): ``run_pipeline`` on the card at full width (hidden 256
+    -> 128, FC 1920, 100-frame utterances, batch ``TRAIN_BATCH``, the
+    temporal schedule on, ``RECIPE_STEPS`` steps a stage), stopped after
+    ``structured`` and resumed with ``--artifact``'s export: the restored
+    stages bit-equal to what was saved, their only records ``restored``.
+    Prints steps/s a stage and each stage's (loss, frame error rate,
+    size_bytes, mmac_skip), then the accelerator model at the QAT stage's
+    measured sparsity.  Returns (the resumed results, the artifact)."""
+    from repro_torch.core import complexity
+    from repro_torch.training.rsnn_pipeline import run_pipeline
+
+    records: list = []
+
+    def sink(record: dict) -> None:
+        records.append((time.perf_counter(), record))
+
+    work, art = tmp / "train", tmp / "trained_artifact"
+    kw = {"steps": RECIPE_STEPS, "batch_size": TRAIN_BATCH, "seed": seed,
+          "workdir": work, "device": dev, "metric_sink": sink,
+          "log_every": 1}
+    t0 = time.perf_counter()
+    first = run_pipeline(stop_after="structured", **kw)
+    t1 = time.perf_counter()
+    split = len(records)
+    results = run_pipeline(resume=True, artifact_path=art, **kw)
+    t2 = time.perf_counter()
+    if [r.name for r in first] != ["baseline", "structured"] or \
+            [r.name for r in results] != ["baseline", "structured",
+                                          "unstructured", "qat4"]:
+        raise AssertionError("recipe: unexpected stages")
+    for a, b in zip(first, results):
+        events = [r["event"] for _, r in records[split:]
+                  if r["stage"] == a.name]
+        same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            checkpoint_items({"params": a.params, "masks": a.cstate.masks}),
+            checkpoint_items({"params": b.params, "masks": b.cstate.masks})))
+        if events != ["restored"] or not same or b.params["fc_w"].device \
+                != a.params["fc_w"].device:
+            raise AssertionError(f"recipe: stage {a.name} was not restored "
+                                 f"bit-equal (events {events})")
+    print(f"recipe (b): stop after structured {t1 - t0!r} s, resume with "
+          f"export {t2 - t1!r} s; baseline and structured restored "
+          f"bit-equal, their only records ['restored']")
+    for r in results:
+        train = [(t, rec) for t, rec in records
+                 if rec["stage"] == r.name and rec["event"] == "train"]
+        rate = ((len(train) - 1) / (train[-1][0] - train[0][0])
+                if len(train) > 1 else float("nan"))
+        print(f"recipe (b): {r.name}: {r.cfg.hidden_dim} hidden, "
+              f"{rate!r} steps/s over steps 1-{len(train) - 1} (TS "
+              f"{[rec['num_ts'] for _, rec in train]}); loss {r.loss!r}, "
+              f"frame_error_rate {r.error_rate!r}, size_bytes "
+              f"{r.size_bytes!r}, mmac_skip {r.mmac_skip!r}")
+    final = results[-1]
+    ts = final.cfg.num_ts
+    cyc = complexity.cycles_per_frame(final.cfg, ts,
+                                      sparsity=final.sparsity,
+                                      merged_spike=True)
+    f = complexity.realtime_frequency_hz(cyc)
+    print(f"recipe (b): qat4's measured sparsity {final.sparsity}: "
+          f"cycles_per_frame {cyc!r}, realtime_frequency_hz {f!r}, "
+          f"power_w at that clock {complexity.power_w(f)!r}, tops_per_watt "
+          f"at 500 MHz "
+          f"{complexity.tops_per_watt(final.cfg, ts, sparsity=final.sparsity)!r}"
+          f" and at that clock "
+          f"{complexity.tops_per_watt(final.cfg, ts, freq_hz=f, cycles=cyc)!r}")
+    return results, art
+
+
+def profile_train_step(seed: int, dev) -> None:
+    """Where a full-width training step's time goes: ``make_train_step``
+    on the seeded ``BASELINE`` parameters and ``TRAIN_BATCH`` 100-frame
+    utterances at TS 4 and 2 (the temporal schedule's), one step to warm
+    up, two timed on the host clock, then one under ``torch.profiler``:
+    its device busy share, the device operations it ran and the most
+    costly of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.compression import (CompressionConfig,
+                                              init_compression)
+    from repro_torch.data.synthetic import SpeechDataConfig, TimitLikeStream
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.rsnn_pipeline import make_train_step
+
+    params = opt_lib.tree_map(lambda v: v.to(dev), params_from_arrays(
+        float_params(seed, BASELINE), BASELINE))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TimitLikeStream(
+        SpeechDataConfig()).batch(TRAIN_BATCH, step=0).items()}
+    ocfg = OptimizerConfig(name="adamw", lr=3.5e-3, warmup_steps=5,
+                           decay_steps=RECIPE_STEPS, weight_decay=0.0)
+    ccfg = CompressionConfig()
+    for ts in (4, 2):
+        step = make_train_step(BASELINE, ocfg, ccfg,
+                               init_compression(params, ccfg), ts)
+        state = {"params": params,
+                 "opt": opt_lib.init_opt_state(params, ocfg)}
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = step(state, batch)
+        float(m["loss"])
+        secs = (time.perf_counter() - t0) / 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            prof_secs = time.perf_counter() - t0
+        ops = [(e.self_device_time_total, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy_us = sum(t for t, _, _ in ops)
+        top = "; ".join(f"{k[:40]} x{c} {t / 1e3:.2f} ms"
+                        for t, c, k in sorted(ops, reverse=True)[:5])
+        print(f"train step profile: BASELINE, {TRAIN_BATCH} x 100 frames, "
+              f"TS {ts}: {secs!r} s a step ({1 / secs!r} steps/s); "
+              f"profiled {prof_secs!r} s, device busy "
+              f"{busy_us / 1e6 / prof_secs!r} of it, "
+              f"{sum(c for _, c, _ in ops)} device operations, top: {top}")
+
+
+def check_training(seed: int, utts, tmp: Path, dev) -> None:
+    """Phase 4d: the compression recipe trains on the card (plain PyTorch:
+    no kernel of the port lies on the training path) and the model it
+    exports is served through K6 (``fused``, FC ``csc``) and K1, K2, K4
+    (``sparse``): (a) ``check_one_step``, (b) ``check_recipe``, (c) the
+    exported artifact served through the v2 graph loop from
+    ``CompiledRSNN(final.cfg, final.params, EngineConfig(precision="int4",
+    input_scale=...), final.ccfg, final.cstate)`` and from the artifact,
+    logits bit-equal and launches counted."""
+    from repro_torch.serving.stream import CompiledRSNN, EngineConfig
+
+    t0 = time.perf_counter()
+    check_one_step(seed, dev)
+    results, art = check_recipe(seed, tmp, dev)
+    profile_train_step(seed, dev)
+    final = results[-1]
+    scale = load_artifact(art).input_scale
+    for backend, per_step in TRAINED_SERVED.items():
+        cfg_kw = {"backend": backend, "precision": "int4", "sparse_fc": True,
+                  "input_scale": scale}
+        serve_in_process_and_reloaded(
+            f"trained {backend}", lambda: CompiledRSNN(
+                final.cfg, final.params, EngineConfig(**cfg_kw), final.ccfg,
+                final.cstate, device=dev),
+            lambda: CompiledRSNN.from_artifact(art, EngineConfig(**cfg_kw),
+                                               device=dev),
+            per_step, utts)
+    print(f"phase 4d: {time.perf_counter() - t0!r} s")
 
 # ----------------------------------------------------------------- timing
 
@@ -2899,6 +3305,7 @@ def main(argv=None) -> int:
         serve_graphs(engines, utts)
         check_packing(args.seed, utts, Path(tmp), dev)
         run_example(Path(tmp), dev)
+        check_training(args.seed, utts, Path(tmp), dev)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

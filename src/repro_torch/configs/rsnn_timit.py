@@ -9,3 +9,4 @@ from repro_torch.core.rsnn import RSNNConfig
 
 BASELINE = RSNNConfig(input_dim=40, hidden_dim=256, fc_dim=1920, num_ts=2)
 PRUNED = RSNNConfig(input_dim=40, hidden_dim=128, fc_dim=1920, num_ts=2)
+CONFIG = PRUNED

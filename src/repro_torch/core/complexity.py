@@ -1,14 +1,17 @@
-"""Measured sparsity and the zero-skip complexity it drives: the counters
+"""Measured sparsity and the complexity it drives: the counters
 ``StreamLoop`` accumulates, the density profile they convert to (paper
-Fig. 18), and the accumulates/MMAC/s accounting over it (paper Fig. 13;
-the reference's ``core/complexity.py``, whose conventions it keeps: the
-8-bit input layer runs bit-serially once a frame, every other layer costs
-one accumulate per weight per time step, zero-skipping scales each term by
-its measured density, merged spikes read the FC once over the union of
-the two spike trains, 100 frames a second).
+Fig. 18), the accumulates/MMAC/s accounting over it (paper Fig. 13), and
+the paper's accelerator model: model size (Fig. 12), weight accesses
+(§II-C), cycles a frame on the dual 128-PE design (Fig. 17), the real-time
+clock, and power, energy and TOPS/W (Figs. 19-20, Table III).
 
-The reference's model-size, weight-access, cycle and power models are not
-ported yet; they are pure Python too.
+The reference's ``core/complexity.py`` in plain Python floats, operation
+for operation, so every function returns the reference's float for the
+same arguments.  Its conventions: the 8-bit input layer runs bit-serially
+once a frame, every other layer costs one accumulate per weight per time
+step, zero-skipping scales each term by its measured density, merged
+spikes read the FC once over the union of the two spike trains, 100 frames
+a second.
 """
 
 from __future__ import annotations
@@ -156,3 +159,114 @@ def spike_broadcast_report(cfg: RSNNConfig, num_ts: int,
         "gathered": gathered, "dense": dense,
         "skip_fraction": 1.0 - gathered / dense,
     }
+
+
+def model_size_bytes(cfg: RSNNConfig, weight_bits: int = 32,
+                     fc_prune_frac: float = 0.0) -> float:
+    """Weight storage in bytes.  fc_prune_frac = unstructured-pruned
+    fraction of FC weights (paper: 40%)."""
+    shapes = cfg.layer_shapes
+    fc = shapes["fc_w"][0] * shapes["fc_w"][1] * (1.0 - fc_prune_frac)
+    rest = sum(a * b for n, (a, b) in shapes.items() if n != "fc_w")
+    return (rest + fc) * weight_bits / 8.0
+
+
+def num_params(cfg: RSNNConfig, fc_prune_frac: float = 0.0) -> int:
+    return int(model_size_bytes(cfg, 8, fc_prune_frac))
+
+
+def weight_accesses_per_frame(cfg: RSNNConfig, num_ts: int,
+                              parallel_time_steps: bool) -> int:
+    """Weight-buffer reads per frame (paper §II-C dataflow comparison)."""
+    h = cfg.hidden_dim
+    inp = cfg.input_bits * cfg.input_dim * h  # re-read per bit plane
+    body = 3 * h * h + h * cfg.fc_dim
+    ts_factor = 1 if parallel_time_steps else num_ts
+    return inp + ts_factor * body
+
+
+def cycles_per_frame(cfg: RSNNConfig, num_ts: int,
+                     sparsity: SparsityProfile | None = None,
+                     merged_spike: bool = False) -> float:
+    """Cycle count for one frame on the 2 x 128-PE accelerator.
+
+    Conventions (the reference's, validated against Fig. 17's 2464/1312
+    -> 1224/574 -> 895):
+      * input: 40 features x 8 bit planes, split over the 2 PE sets
+        -> 160 cycles dense; type-A skips zero bits.
+      * recurrent layers (H=128): one broadcast cycle per input spike.
+        2 ts: the sets run the two ts in parallel (type-D, NO skipping to
+        keep single-port SRAM). 1 ts: work splits across sets (type-B,
+        skipping active).
+      * FC (1920 outputs = 15 blocks of 128 PEs): 2 ts unmerged -> sets
+        run ts in parallel, type-B skip per ts; merged -> one pass over
+        the spike union, blocks split across BOTH sets.
+    """
+    if not (cfg.hidden_dim % 128 == 0 or cfg.hidden_dim == 128):
+        raise ValueError(f"the cycle model maps hidden {cfg.hidden_dim} "
+                         f"onto 128-PE sets; it needs a multiple of 128")
+    s = sparsity or SparsityProfile(1.0, (1.0,) * 2, (1.0,) * 2, (1.0,) * 2,
+                                    1.0)
+    skip = sparsity is not None
+
+    inp = cfg.input_dim * cfg.input_bits / 2 * (
+        s.input_bit_density if skip else 1.0)
+
+    h = cfg.hidden_dim
+    if num_ts == 2:
+        # type-D: parallel time steps, no zero-skip on recurrent layers
+        rec = 3 * h
+    else:
+        dens = ([s.l0_density[0], s.l0_density[0], s.l1_density[0]] if skip
+                else [1] * 3)
+        rec = sum(h / 2 * d for d in dens)
+
+    blocks = cfg.fc_dim / 128
+    if num_ts == 2:
+        if merged_spike:
+            fc = blocks / 2 * h * (s.fc_union_density if skip else 1.0)
+        else:
+            fc = blocks * h * (max(s.fc_density) if skip else 1.0)
+    else:
+        fc = blocks / 2 * h * (s.fc_density[0] if skip else 1.0)
+    return inp + rec + fc
+
+
+def realtime_frequency_hz(cycles: float) -> float:
+    """Minimum clock for real-time operation (one frame per 10 ms)."""
+    return cycles / 0.010
+
+
+# Power / energy model (paper Fig. 19/20, Table III).  Two published
+# operating points (TSMC 28 nm, 0.8 V): 71.2 uW at 100 kHz and 35.5 mW at
+# 500 MHz give a leakage + per-cycle-switching split,
+#   P(f) = P_LEAK + E_CYCLE * f
+E_CYCLE = (35.5e-3 - 71.2e-6) / (500e6 - 100e3)  # ~70.9 pJ / cycle
+P_LEAK = 71.2e-6 - E_CYCLE * 100e3  # ~64.1 uW
+
+
+def power_w(freq_hz: float) -> float:
+    """Core power at a given clock (interpolates the paper's two points)."""
+    return P_LEAK + E_CYCLE * freq_hz
+
+
+def energy_per_frame_j(cycles: float, freq_hz: float) -> float:
+    """Active + leakage energy for one 10-ms frame processed in
+    ``cycles``: Table III's 63.5 nJ a frame at 500 MHz (895 cycles) and
+    ~637 nJ at the 100 kHz always-on point (= 71.2 uW x 8.95 ms)."""
+    t_frame = cycles / freq_hz
+    return cycles * E_CYCLE + P_LEAK * t_frame
+
+
+def tops_per_watt(cfg: RSNNConfig, num_ts: int, freq_hz: float = 500e6,
+                  cycles: float | None = None,
+                  sparsity: SparsityProfile | None = None,
+                  merged_spike: bool = True) -> float:
+    """Energy efficiency in dense-equivalent TOPS/W (2 ops an
+    accumulate).  The paper's 28.41 TOPS/W lies between the skipped-ops
+    (lower) and dense-equivalent (upper) conventions."""
+    cyc = cycles if cycles is not None else cycles_per_frame(
+        cfg, num_ts, sparsity=sparsity, merged_spike=merged_spike)
+    frames_per_s = freq_hz / cyc
+    dense_ops = 2.0 * accumulates_per_frame(cfg, num_ts) * frames_per_s
+    return dense_ops / power_w(freq_hz) / 1e12

@@ -1,5 +1,5 @@
-"""The paper's recurrent spiking network: configuration, carried state and
-the float golden model.
+"""The paper's recurrent spiking network: configuration, carried state, the
+float golden model and its training loss.
 
 Two recurrent spiking layers and a merged-spike FC readout (paper Fig. 1,
 Table I).  ``init_params`` draws a parameter dict from an explicit
@@ -7,15 +7,17 @@ Table I).  ``init_params`` draws a parameter dict from an explicit
 parameter dict (``l0_wx``, ``l0_wh``, ``l1_wx``, ``l1_wh``, ``fc_w`` and
 ``lif0``/``lif1`` as ``LIFParams``) with plain PyTorch, on the device the
 tensors lie on; they are the reference's golden model, operation for
-operation.  The served frame step lives in ``serving/stream.py``,
-composed from the op table of ``serving/backends.py``.
+operation, and differentiable: ``loss_fn`` back-propagates through every
+frame, the spikes by the surrogate gradient of ``lif.spike_fn``.  The
+served frame step lives in ``serving/stream.py``, composed from the op
+table of ``serving/backends.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -50,6 +52,10 @@ class RSNNConfig:
             "fc_w": (h, self.fc_dim),
         }
 
+    @property
+    def num_params(self) -> int:
+        return sum(a * b for a, b in self.layer_shapes.values())
+
 
 class RSNNState(NamedTuple):
     """Carried across frames: per-ts recurrent spikes + LIF membrane chain."""
@@ -83,24 +89,23 @@ def init_state(cfg: RSNNConfig, batch: int, num_ts: int | None = None, *,
     ts = num_ts or cfg.num_ts
     h = cfg.hidden_dim
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    # separate tensors: the slot loop writes its state in place
+    def z():
+        return torch.zeros((ts, batch, h), dtype=torch.float32, device=device)
 
-    return RSNNState(h0=z(ts, batch, h), h1=z(ts, batch, h),
-                     lif0=LIFState(u=z(batch, h), spike=z(batch, h)),
-                     lif1=LIFState(u=z(batch, h), spike=z(batch, h)))
+    return RSNNState(h0=z(), h1=z(),
+                     lif0=lif_lib.init_lif_state(batch, h, device=device),
+                     lif1=lif_lib.init_lif_state(batch, h, device=device))
 
 
 def _lif_chain(lif_params: LIFParams, state: LIFState, stim_ts: torch.Tensor,
                cfg: RSNNConfig) -> tuple[LIFState, torch.Tensor]:
     """Sequential membrane chain over the TS axis (paper Eq. 2-3).
     stim_ts: (TS, B, H)."""
-    beta, vth = lif_lib.inference_constants(lif_params, cfg.hw_rounded_lif)
     spikes = []
     for ts in range(stim_ts.shape[0]):
-        u = stim_ts[ts] + beta * state.u * (1.0 - state.spike)
-        h = (u >= vth).to(u.dtype)
-        state = LIFState(u=u, spike=h)
+        state, h = lif_lib.lif_step(lif_params, state, stim_ts[ts],
+                                    cfg.surrogate_slope, cfg.hw_rounded_lif)
         spikes.append(h)
     return state, torch.stack(spikes)
 
@@ -136,7 +141,8 @@ def forward(params: dict, x: torch.Tensor, cfg: RSNNConfig,
     """The float RSNN over a frame sequence on ``x``'s device.  x: (B, T,
     input_dim) raw features, quantized to ``cfg.input_bits`` with their
     own max-abs scale.  Returns (logits (B, T, fc_dim), state, aux: the
-    per-frame rates averaged over frames, and ``input_bit_sparsity``)."""
+    per-frame rates averaged over frames, and ``input_bit_sparsity``).
+    Differentiable in the parameters: ``loss_fn`` trains through it."""
     b = x.shape[0]
     if state is None:
         state = init_state(cfg, b, num_ts, device=x.device)
@@ -150,3 +156,33 @@ def forward(params: dict, x: torch.Tensor, cfg: RSNNConfig,
     aux["input_bit_sparsity"] = spike_ops.input_bit_sparsity(xq,
                                                              cfg.input_bits)
     return torch.stack(logits, dim=1), state, aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: RSNNConfig,
+            materialize: Callable[[dict], dict] | None = None,
+            num_ts: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Frame-level cross entropy (paper §IV-A).  batch: ``features`` (B, T,
+    input_dim), ``labels`` (B, T) and an optional 0/1 ``mask`` (B, T) of
+    the frames that count.
+
+    ``materialize`` lets the compression pipeline rewrite weights (pruning
+    masks, fake-quant) before the forward pass.  Returns (loss, aux: the
+    forward's rates, ``accuracy`` and ``frame_error_rate``).
+    """
+    p = materialize(params) if materialize is not None else params
+    logits, _, aux = forward(p, batch["features"], cfg, num_ts=num_ts)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # a negative label counts from the end, as the reference's
+    # take_along_axis reads it
+    idx = torch.where(labels < 0, labels + logp.shape[-1], labels)
+    nll = -torch.gather(logp, -1, idx.unsqueeze(-1)).squeeze(-1)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    preds = logits.argmax(dim=-1)
+    acc = ((preds == labels) * mask).sum() / denom
+    aux = dict(aux, accuracy=acc, frame_error_rate=1.0 - acc)
+    return loss, aux

@@ -27,16 +27,20 @@ def quantize_input(x: torch.Tensor, bits: int = 8,
     """Symmetric fixed-point input quantization (paper: 8-bit inputs).
 
     Returns (q, scale).  ``round`` is half to even in both frameworks; the
-    last line is the straight-through form ``x/scale + (q - x/scale)``,
-    which in float32 need not equal ``q`` where a value clips — it is kept
-    so that the result matches the reference bit for bit.
+    last line is the reference's straight-through form ``x/scale + (q -
+    x/scale)`` (gradient 1 through ``x/scale``), which in float32 need not
+    equal ``q`` where a value clips — it is kept so that the result
+    matches the reference bit for bit.  ``qmax`` divides as a tensor on
+    ``x``'s device: PyTorch divides a CUDA tensor by a host scalar as a
+    product with its reciprocal, an ulp from the reference's scale.
     """
     qmax = 2.0 ** (bits - 1) - 1
     if scale is None:
-        scale = torch.clamp(x.abs().max(), min=1e-8) / qmax
+        scale = torch.clamp(x.abs().max(), min=1e-8) / torch.full(
+            (), qmax, dtype=x.dtype, device=x.device)
     xs = x / scale
     q = torch.clamp(torch.round(xs), -qmax - 1, qmax)
-    return xs + (q - xs), scale
+    return xs + (q - xs).detach(), scale
 
 
 def bitplanes(q: torch.Tensor, bits: int = 8) -> torch.Tensor:
