@@ -178,6 +178,20 @@ in ``fused`` (K6, FC ``csc``) and ``sparse`` (K1, K2, K4) from the
 in-process engine and from the artifact, logits bit-equal, launches
 steps x a step's.
 
+Then phase 4e (``check_paper_claims``): the paper's end-to-end claims at
+full width.  ``run_pipeline`` at ``tests/test_system.py``'s schedule (90
+steps a stage, batch 16, 40-frame utterances, 1920 classes, the temporal
+schedule on) and the paper's widths (hidden 256, then 128); the four
+claims asserted with the reference's thresholds (every stage's error
+below chance - 0.02; the QAT stage under 0.1 of the baseline's bytes and
+its zero-skip MMAC/s below dense; QAT within 0.1 of the unstructured
+stage's error; L0/L1 densities in (0.02, 0.7), the FC union at most the
+summed FC density).  Each stage's error, bytes, MMAC/s, densities and
+steps/s a TS are printed; the results payload with the TS sweep (1, 2, 4)
+is written and ``repro_torch.benchmarks.paper_tables`` prints the nine
+tables from it and ``bench_rsnn_forward`` on the card.  No kernel lies on
+this path: every launch counter stays 0.
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -2703,6 +2717,123 @@ def check_training(seed: int, utts, tmp: Path, dev) -> None:
             per_step, utts)
     print(f"phase 4d: {time.perf_counter() - t0!r} s")
 
+# ------------------------------------------------ paper claims (phase 4e)
+
+# ``tests/test_system.py``'s schedule at the paper's widths (40 -> 256 ->
+# 256 -> 1920, then hidden 128): steps a stage, batch, utterance frames
+CLAIM_STEPS = 90
+CLAIM_BATCH = 16
+CLAIM_FRAMES = 40
+
+
+def paper_claims(results) -> list[str]:
+    """``tests/test_system.py``'s four pipeline claims, with its
+    thresholds, on ``run_pipeline``'s results: the claims that fail."""
+    failed = []
+    names = [r.name for r in results]
+    if names != ["baseline", "structured", "unstructured", "qat4"]:
+        return [f"stages {names}"]
+    chance = 1.0 - 1.0 / results[0].cfg.fc_dim
+    failed += [f"{r.name} error {r.error_rate!r} >= chance - 0.02"
+               for r in results if not r.error_rate < chance - 0.02]
+    base, _, unstruct, qat = results
+    if not qat.size_bytes < 0.1 * base.size_bytes:
+        failed.append(f"qat4 {qat.size_bytes!r} B >= 0.1 x baseline's "
+                      f"{base.size_bytes!r} B")
+    if not qat.mmac_skip < qat.mmac_dense:
+        failed.append(f"qat4 mmac_skip {qat.mmac_skip!r} >= mmac_dense "
+                      f"{qat.mmac_dense!r}")
+    if not qat.error_rate < unstruct.error_rate + 0.1:
+        failed.append(f"qat4 error {qat.error_rate!r} >= unstructured's "
+                      f"{unstruct.error_rate!r} + 0.1")
+    sp = qat.sparsity
+    failed += [f"qat4 density {d!r} outside (0.02, 0.7)"
+               for d in (*sp.l0_density, *sp.l1_density)
+               if not 0.02 < d < 0.7]
+    if not sp.fc_union_density <= min(1.0, sum(sp.fc_density)):
+        failed.append(f"qat4 FC union density {sp.fc_union_density!r} > "
+                      f"the summed FC density {sum(sp.fc_density)!r}")
+    return failed
+
+
+def check_paper_claims(seed: int, tmp: Path, dev) -> None:
+    """Phase 4e: the paper's end-to-end claims at full width on the card.
+    ``run_pipeline`` at ``tests/test_system.py``'s schedule
+    (``CLAIM_STEPS`` steps a stage, batch ``CLAIM_BATCH``,
+    ``CLAIM_FRAMES`` frames, 1920 classes, the temporal schedule on) and
+    the paper's widths (hidden 256, then 128); its four claims asserted
+    with the reference's thresholds (``paper_claims``); the results
+    payload with the TS sweep written (``write_results``) and the nine
+    tables and ``bench_rsnn_forward`` printed from it
+    (``repro_torch.benchmarks.paper_tables``'s ``main``).  Training and
+    the tables reach no kernel: every launch counter stays 0."""
+    from repro_torch.benchmarks import paper_tables
+    from repro_torch.data.synthetic import SpeechDataConfig, TimitLikeStream
+    from repro_torch.training.rsnn_pipeline import run_pipeline, write_results
+
+    records: list = []
+
+    def sink(record: dict) -> None:
+        records.append((time.perf_counter(), record))
+
+    data_cfg = SpeechDataConfig(frames=CLAIM_FRAMES, num_classes=1920)
+    set_counts(0)
+    t0 = time.perf_counter()
+    results = run_pipeline(steps=CLAIM_STEPS, batch_size=CLAIM_BATCH,
+                           hidden_base=BASELINE.hidden_dim,
+                           hidden_pruned=PRUNED.hidden_dim,
+                           data_cfg=data_cfg, temporal=True, seed=seed,
+                           device=dev, metric_sink=sink, log_every=1)
+    t1 = time.perf_counter()
+    for r in results:
+        train = [(t, rec) for t, rec in records
+                 if rec["stage"] == r.name and rec["event"] == "train"]
+        rates = []
+        for ts in sorted({rec["num_ts"] for _, rec in train}, reverse=True):
+            times = [t for t, rec in train if rec["num_ts"] == ts]
+            rates.append(f"TS {ts}: {len(times)} steps, "
+                         f"{(len(times) - 1) / (times[-1] - times[0])!r} "
+                         f"steps/s")
+        sp = r.sparsity
+        print(f"claims: {r.name}: hidden {r.cfg.hidden_dim}, error "
+              f"{r.error_rate!r}, loss {r.loss!r}, size_bytes "
+              f"{r.size_bytes!r}, mmac_dense {r.mmac_dense!r}, mmac_skip "
+              f"{r.mmac_skip!r}, input bits {sp.input_bit_density!r}, L0 "
+              f"{sp.l0_density!r}, L1 {sp.l1_density!r}, FC union "
+              f"{sp.fc_union_density!r}; {'; '.join(rates)}")
+    failed = paper_claims(results)
+    if failed:
+        raise AssertionError(f"paper claims fail: {failed}")
+    print(f"claims: all four hold (every stage's error < chance - 0.02 = "
+          f"{1 - 1 / 1920 - 0.02!r}; qat4 {results[-1].size_bytes!r} B < "
+          f"0.1 x {results[0].size_bytes!r} B, mmac_skip < mmac_dense; qat4 "
+          f"within 0.1 of unstructured; densities in (0.02, 0.7), FC union "
+          f"<= summed FC); training {t1 - t0!r} s")
+    path = tmp / "claims" / "results.json"
+    payload = write_results(results, TimitLikeStream(data_cfg), path)
+    sweep = payload[-1]["ts_sweep"]
+    tables = {t.__name__: t(path) for t in paper_tables.ANALYTIC}
+    if len(tables["fig14_error_ablation"][0]) != 4 or \
+            tables["fig16_time_steps"][0] != sweep or \
+            tables["fig18_sparsity"][1]["source"] != "measured":
+        raise AssertionError("tables: the results file was not read")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = paper_tables.main(["--results", str(path), "--device",
+                                  str(dev)])
+    lines = out.getvalue().splitlines()
+    if code != 0 or len(lines) != 2 + len(paper_tables.ANALYTIC) or \
+            not lines[-1].startswith("bench_rsnn_forward,"):
+        raise AssertionError(f"paper_tables: exit {code}, {len(lines)} lines")
+    for line in lines:
+        print(f"tables: {line}")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 4e launched kernels: {counts}")
+    print(f"phase 4e: {time.perf_counter() - t0!r} s (training {t1 - t0!r} "
+          f"s); no kernel launched")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -3306,6 +3437,7 @@ def main(argv=None) -> int:
         check_packing(args.seed, utts, Path(tmp), dev)
         run_example(Path(tmp), dev)
         check_training(args.seed, utts, Path(tmp), dev)
+        check_paper_claims(args.seed, Path(tmp), dev)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

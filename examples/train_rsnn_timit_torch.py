@@ -19,8 +19,6 @@ serves.  ``--device`` is ``cuda`` by default and raises without a GPU.
 """
 
 import argparse
-import dataclasses
-import json
 import logging
 import sys
 from pathlib import Path
@@ -29,8 +27,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.data.synthetic import (SpeechDataConfig,  # noqa: E402
                                         TimitLikeStream)
-from repro_torch.training.rsnn_pipeline import (evaluate,  # noqa: E402
-                                                run_pipeline)
+from repro_torch.training.rsnn_pipeline import (run_pipeline,  # noqa: E402
+                                                write_results)
 
 
 def main(argv=None) -> int:
@@ -56,29 +54,12 @@ def main(argv=None) -> int:
                            artifact_path=args.artifact, device=args.device)
 
     # Fig. 16: error rate vs number of time steps (on the final QAT model)
-    final = results[-1]
-    stream = TimitLikeStream(SpeechDataConfig())
-    ts_sweep = []
-    for ts in (1, 2, 4):
-        ev = evaluate(final.params, final.cfg, final.ccfg, final.cstate,
-                      stream, num_ts=ts)
-        ts_sweep.append({"time_steps": ts,
-                         "frame_error_rate": round(ev["error_rate"], 4)})
-        print(f"[ts-sweep] ts={ts} fer={ev['error_rate']:.4f}")
-
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    payload = []
-    for r in results:
-        payload.append({
-            "name": r.name, "error_rate": r.error_rate, "loss": r.loss,
-            "size_bytes": r.size_bytes, "mmac_dense": r.mmac_dense,
-            "mmac_skip": r.mmac_skip,
-            "sparsity": dataclasses.asdict(r.sparsity),
-        })
-    payload[-1]["ts_sweep"] = ts_sweep
-    (out / "results.json").write_text(json.dumps(payload, indent=1))
-    print(f"\nwrote {out/'results.json'}")
+    out = Path(args.out) / "results.json"
+    payload = write_results(results, TimitLikeStream(SpeechDataConfig()), out)
+    for point in payload[-1]["ts_sweep"]:
+        print(f"[ts-sweep] ts={point['time_steps']} "
+              f"fer={point['frame_error_rate']:.4f}")
+    print(f"\nwrote {out}")
     print(f"{'stage':14s} {'FER':>7s} {'size KB':>9s} {'MMAC/s skip':>12s}")
     for r in results:
         print(f"{r.name:14s} {r.error_rate:7.4f} {r.size_bytes/1e3:9.1f} "

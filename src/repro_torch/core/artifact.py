@@ -96,6 +96,10 @@ class RSNNArtifact(NamedTuple):
         return {n: layouts.layout_of(t).name
                 for n, t in self.packed.sparse.items()}
 
+    @property
+    def size_report(self) -> dict | None:
+        return self.manifest.get("size_report")
+
 
 def _encode_rsnn_config(cfg: RSNNConfig) -> dict:
     """The config's fields, and the reference's ``dtype`` field (the port's

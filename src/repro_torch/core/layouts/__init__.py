@@ -15,11 +15,12 @@ from __future__ import annotations
 from repro_torch.core.layouts import csc, dense, nm  # noqa: F401 (register)
 from repro_torch.core.layouts.base import (WeightLayout, available_layouts,
                                            get_layout, layout_of,
-                                           register_layout)
+                                           register_layout, unregister_layout)
 
 __all__ = [
     "WeightLayout", "available_layouts", "get_layout", "layout_of",
-    "register_layout", "resolve_for_spec", "csc", "dense", "nm",
+    "register_layout", "unregister_layout", "resolve_for_spec", "csc",
+    "dense", "nm",
 ]
 
 

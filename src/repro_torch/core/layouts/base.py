@@ -115,6 +115,12 @@ def register_layout(layout: WeightLayout) -> WeightLayout:
     return layout
 
 
+def unregister_layout(name: str) -> None:
+    """Remove a registered layout (for test-local plugins); an unknown
+    name is a no-op."""
+    _REGISTRY.pop(name, None)
+
+
 def available_layouts() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 

@@ -562,6 +562,31 @@ def run_pipeline(steps: int = 300, batch_size: int = 32,
     return results
 
 
+def write_results(results: list[StageResult], stream: TimitLikeStream,
+                  path: str | Path) -> list[dict]:
+    """Write the recipe's ``results.json`` (the reference example's format,
+    which both packages' ``paper_tables`` read) and return its payload.
+
+    One entry a stage: ``name``, ``error_rate``, ``loss``, ``size_bytes``,
+    ``mmac_dense``, ``mmac_skip`` and ``sparsity`` (the profile's fields);
+    the last one also carries ``ts_sweep``, the Fig. 16 frame error rate
+    of the final model at 1, 2 and 4 time steps, evaluated on ``stream``.
+    """
+    final = results[-1]
+    ts_sweep = []
+    for ts in (1, 2, 4):
+        ev = evaluate(final.params, final.cfg, final.ccfg, final.cstate,
+                      stream, num_ts=ts)
+        ts_sweep.append({"time_steps": ts,
+                         "frame_error_rate": round(ev["error_rate"], 4)})
+    payload = [{"name": r.name, **r.metrics()} for r in results]
+    payload[-1]["ts_sweep"] = ts_sweep
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(payload, indent=1))
+    return payload
+
+
 # ------------------------------------------------------------------- CLI
 
 

@@ -427,6 +427,35 @@ def test_resolve_for_spec_equals_reference(spec):
         j_layouts.resolve_for_spec(make(j_compress.PruneSpec)).name
 
 
+
+@pytest.mark.parametrize("lib", [layouts, j_layouts],
+                         ids=["port", "reference"])
+def test_register_and_unregister_plugin(lib):
+    """A test-local plugin layout comes and goes, as
+    ``tests/test_layouts.py`` holds it on the reference; removing a name
+    that is not registered is a no-op in both packages."""
+    class PluginTensor(tuple):
+        pass
+
+    class Plugin(lib.csc.SparseColumnsLayout):
+        name = "plugin_csc"
+        tensor_type = PluginTensor
+
+    before = lib.available_layouts()
+    lib.register_layout(Plugin())
+    try:
+        assert "plugin_csc" in lib.available_layouts()
+        assert lib.get_layout("plugin_csc").name == "plugin_csc"
+    finally:
+        lib.unregister_layout("plugin_csc")
+    assert lib.available_layouts() == before
+    lib.unregister_layout("plugin_csc")
+    lib.unregister_layout("no_such_layout")
+    assert lib.available_layouts() == before
+    with pytest.raises(ValueError, match="unknown weight layout"):
+        lib.get_layout("plugin_csc")
+
+
 # ------------------------------------------------------------ pack_model
 
 
@@ -532,6 +561,26 @@ def test_port_artifact_loads_in_reference(tmp_path, recipe):
     _assert_packed_equal(port.packed, ref.packed)
     assert port.ccfg == _configs(recipe)[1]
     assert port.fc_prune_fraction == ref.ccfg.fc_prune_fraction
+
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_size_report_equals_reference(tmp_path, recipe):
+    """``RSNNArtifact.size_report`` reads the manifest's report as the
+    reference's property does, on an artifact written by each package."""
+    path, ref_path, packed = _save_both(tmp_path, recipe)
+    for p in (path, ref_path):
+        got = artifact.load_artifact(p).size_report
+        assert got == j_artifact.load_artifact(p).size_report
+        assert got == json.loads((p / "manifest.json").read_text())[
+            "size_report"]
+        assert got == sparse.packed_size_report(packed)
+    mf = path / "manifest.json"
+    m = json.loads(mf.read_text())
+    del m["size_report"]
+    mf.write_text(json.dumps(m))
+    assert artifact.load_artifact(path).size_report is None
+    assert j_artifact.load_artifact(path).size_report is None
 
 
 def test_port_float_artifact_loads_in_reference(tmp_path):

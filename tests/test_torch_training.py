@@ -825,7 +825,8 @@ def test_export_artifact_serves_pipeline_output(tmp_path):
     np.testing.assert_array_equal(_np(la), _np(lb))
     art = artifact.load_artifact(path)
     assert art.sparsity == final.sparsity
-    report = art.manifest["size_report"]
+    report = art.size_report
+    assert report == art.manifest["size_report"]
     assert report["broadcast_total_bytes"] == final.size_bytes
     # the reference reads the port's artifact and serves it
     ref = j_artifact.load_artifact(path)
