@@ -121,6 +121,21 @@ Phases, each printed on its own line:
      run, the median and the spread of frames/s), and ``pallas`` and
      ``fused`` once more through the chunked v2 loop under
      ``torch.profiler`` (busy share, device ms a step, copy counts);
+ 4f. sharded serving (``check_sharded``): ``pallas``, ``fused``, ``delta``
+     at threshold 0 and ``fused float`` (``SHARDED``) through
+     ``ShardedStreamLoop`` over ``[cuda:0]`` (one shard of 256 slots) and
+     ``[cuda:0] * 4`` (four of 64), at v2 and at v2 in chunks of
+     ``MEGA_FRAMES``, fed by ``AsyncFeaturizer.for_loop`` and
+     ``submit_stream(quantized=True)``: each request's logits bit-equal
+     to phase 4's; each kernel's launches steps x shards x (1 for the
+     mega-step, else the chunk's frames) x its launches a frame;
+     ``capture_count`` up by the shards at construction and not during
+     the serve; no step in flight after ``run``; each shard's state and
+     ring ``256 / shards`` slots on the card.  The CPU featurizer is held
+     bit-equal to ``quantize_features`` on the card over every utterance,
+     ``bench_stream_sharded`` runs on the card and the example runs with
+     ``--sharded`` at 256 slots.  Frames/s (submission included),
+     dispatches and host syncs a frame are printed;
   5. the device busy share of one more run of ``pallas``, ``sparse``,
      ``spike``, ``delta`` at ``DELTA_THRESHOLD``, ``fused`` and
      ``fused_spike``, and of ``pallas``, ``spike``, ``fused`` and
@@ -2045,6 +2060,122 @@ def serve_graphs(served: dict, utts) -> None:
                      **GRAPH_LOOPS[f"v2 C={MEGA_FRAMES}"])
 
 
+# Phase 4f: sharded serving, each shard's step a captured graph
+SHARDED = ("pallas", "fused", "delta threshold=0", "fused float")
+SHARD_LISTS = {"1 shard": 1, "4 shards": 4}  # entries of cuda:0
+SHARDED_LOOPS = {"v2": {"pipeline_depth": 2},
+                 f"v2 C={MEGA_FRAMES}": {"pipeline_depth": 2,
+                                         "chunk_frames": MEGA_FRAMES}}
+SHARD_MAX_FRAMES = 128  # the frame buffer's rows a slot (ring: 128 rows)
+
+
+def check_sharded(served: dict, utts, dev, smi: str) -> None:
+    """Phase 4f: ``SHARDED`` through ``ShardedStreamLoop`` over ``[dev]``
+    and ``[dev] * 4`` (256 and 64 slots a shard), at v2 and v2 in chunks
+    of ``MEGA_FRAMES``, fed by ``AsyncFeaturizer.for_loop`` +
+    ``submit_stream(quantized=True)``: each request's logits bit-equal to
+    phase 4's eager v1 loop; each kernel's launches steps x shards x (1
+    for the mega-step, else the chunk's frames) x its launches a frame;
+    ``capture_count`` up by the shards at construction and not during the
+    serve; no step in flight after ``run``; each shard's state and ring
+    ``SLOTS / shards`` slots on ``dev``.  The CPU featurizer equals
+    ``quantize_features`` on the card over every utterance, for each
+    artifact's scale.  Then ``bench_stream_sharded`` and the example's
+    ``--sharded`` at ``SLOTS`` slots on the card.  Frames/s, dispatches
+    and host syncs a frame are printed."""
+    from repro_torch.benchmarks.paper_tables import bench_stream_sharded
+    from repro_torch.data.featurize import AsyncFeaturizer, cpu_quantizer
+    from repro_torch.distributed.sharding import stream_state_specs
+    from repro_torch.serving.sharded import ShardedStreamLoop
+    from repro_torch.serving.stream import _leaves
+
+    t_phase = time.perf_counter()
+    print(f"phase 4f on {smi}")
+    frames = sum(map(len, utts))
+    for name in ("pallas", "fused float"):  # the csc and the float scale
+        eng = served[name][0]
+        quant = cpu_quantizer(eng)
+        for u in utts:
+            if not np.array_equal(quant(u),
+                                  eng.quantize_features(u).cpu().numpy()):
+                raise AssertionError(f"{name}: the CPU featurizer differs "
+                                     f"from quantize_features on the card")
+        print(f"sharded {name}: the CPU featurizer bit-equal to "
+              f"quantize_features on the card over {len(utts)} utterances")
+    for name in SHARDED:
+        eng, want = served[name]
+        per_step = SERVED[name][1]
+        mega = any(k.startswith("megastep") for k in per_step)
+        for list_name, n in SHARD_LISTS.items():
+            for loop_name, kw in SHARDED_LOOPS.items():
+                label = f"{name} {list_name} {loop_name}"
+                before = eng.capture_count
+                loop = ShardedStreamLoop(eng, batch_slots=SLOTS,
+                                         devices=[dev] * n,
+                                         max_frames=SHARD_MAX_FRAMES, **kw)
+                captured = eng.capture_count - before
+                if captured != n:
+                    raise AssertionError(f"{label}: {captured} captures, "
+                                         f"not {n}")
+                dims = _flat_ints(stream_state_specs(loop.shard_states[0]))
+                for state, ring in zip(loop.shard_states, loop.shard_rings):
+                    for leaf, dim in zip(_leaves(state), dims):
+                        if leaf.shape[dim] != SLOTS // n or \
+                                leaf.device != torch.device(dev):
+                            raise AssertionError(f"{label}: a state leaf "
+                                                 f"{tuple(leaf.shape)} on "
+                                                 f"{leaf.device}")
+                    if ring.shape[0] != SLOTS // n or \
+                            ring.device != torch.device(dev):
+                        raise AssertionError(f"{label}: ring "
+                                             f"{tuple(ring.shape)}")
+                feat = AsyncFeaturizer.for_loop(loop, utts)
+                set_counts(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.submit_stream(feat, quantized=True)
+                done = loop.run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = read_counts()
+                per_replay = 1 if mega else loop.chunk_frames
+                for k, c in counts.items():
+                    if c != loop.steps * n * per_replay * per_step.get(k, 0):
+                        raise AssertionError(
+                            f"{label}: {k} launched {c} times, expected "
+                            f"{loop.steps} steps x {n} shards x "
+                            f"{per_replay} x {per_step.get(k, 0)}")
+                if eng.capture_count != before + n or loop.pending_steps:
+                    raise AssertionError(
+                        f"{label}: captures {eng.capture_count - before}, "
+                        f"steps in flight {loop.pending_steps}")
+                if len(done) != len(want) or not all(
+                        np.array_equal(r.stacked_logits(), w)
+                        for r, w in zip(done, want)):
+                    raise AssertionError(f"{label}: logits differ from the "
+                                         f"eager v1 loop's")
+                print(f"sharded {label}: logits bit-equal to eager v1; "
+                      f"{loop.steps} steps, {loop.dispatches / frames!r} "
+                      f"dispatches and {loop.host_syncs / frames!r} host "
+                      f"syncs a frame; {frames / secs!r} frames/s; launches "
+                      f"{ {k: c for k, c in counts.items() if c} }")
+                del loop, done, feat
+    us, row = bench_stream_sharded(dev)
+    print(f"bench_stream_sharded: {us!r} us a step, {row}")
+    out = run_example_main(["--slots", str(SLOTS), "--streams", str(STREAMS),
+                            "--device", torch.device(dev).type, "--sharded"])
+    if "sharded over" not in out:
+        raise AssertionError("example --sharded: no sharded loop")
+    print(f"phase 4f: {time.perf_counter() - t_phase!r} s")
+
+
+def _flat_ints(tree) -> list:
+    """The leaves of a (nested) NamedTuple of slot dimensions."""
+    if isinstance(tree, tuple):
+        return [x for f in tree for x in _flat_ints(f)]
+    return [tree]
+
+
 def host_profile(engine, utts, name: str, **loop_kw) -> None:
     """One StreamLoop run under ``cProfile`` (the host's Python, the
     card's work unseen): its wall time and the functions that took most
@@ -2310,31 +2441,38 @@ def serve_in_process_and_reloaded(label: str, in_process, reloaded,
           f"logits bit-equal")
 
 
+def run_example_main(argv: list[str]) -> str:
+    """``examples/stream_asr_torch.py``'s ``main(argv)``; its output is
+    printed and returned.  A nonzero exit raises."""
+    spec = importlib.util.spec_from_file_location(
+        "stream_asr_torch",
+        Path(__file__).resolve().parent / "examples" / "stream_asr_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    print(f"example: stream_asr_torch.py {' '.join(argv)}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = example.main(argv)
+    print(out.getvalue(), end="")
+    if code != 0:
+        raise AssertionError(f"example {argv}: nonzero exit")
+    return out.getvalue()
+
+
 def run_example(tmp: Path, dev) -> None:
     """``examples/stream_asr_torch.py``'s ``main`` on the card at 256
     slots and 512 streams: in process (the default ``fused`` backend over
     the 40% CSC recipe), then as a ``--save-artifact`` / ``--artifact``
     pair, whose two runs must print the same predictions; its report
     lines are printed."""
-    spec = importlib.util.spec_from_file_location(
-        "stream_asr_torch",
-        Path(__file__).resolve().parent / "examples" / "stream_asr_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
     base = ["--slots", str(SLOTS), "--streams", str(STREAMS), "--device",
             torch.device(dev).type]
     art = str(tmp / "example_artifact")
     preds = []
     for extra in ([], ["--layout", "nm", "--save-artifact", art],
                   ["--artifact", art]):
-        print(f"example: stream_asr_torch.py {' '.join(base + extra)}")
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            code = example.main(base + extra)
-        print(out.getvalue(), end="")
-        if code != 0:
-            raise AssertionError(f"example {extra}: nonzero exit")
-        preds.append([ln for ln in out.getvalue().splitlines()
+        out = run_example_main(base + extra)
+        preds.append([ln for ln in out.splitlines()
                       if "first predictions" in ln])
     if not preds[1] or preds[1] != preds[2]:
         raise AssertionError("example: the saved artifact serves other "
@@ -2764,7 +2902,8 @@ def check_paper_claims(seed: int, tmp: Path, dev) -> None:
     the paper's widths (hidden 256, then 128); its four claims asserted
     with the reference's thresholds (``paper_claims``); the results
     payload with the TS sweep written (``write_results``) and the nine
-    tables and ``bench_rsnn_forward`` printed from it
+    tables, ``bench_rsnn_forward`` and ``bench_stream_sharded`` (the
+    reference's default backend) printed from it
     (``repro_torch.benchmarks.paper_tables``'s ``main``).  Training and
     the tables reach no kernel: every launch counter stays 0."""
     from repro_torch.benchmarks import paper_tables
@@ -2822,8 +2961,9 @@ def check_paper_claims(seed: int, tmp: Path, dev) -> None:
         code = paper_tables.main(["--results", str(path), "--device",
                                   str(dev)])
     lines = out.getvalue().splitlines()
-    if code != 0 or len(lines) != 2 + len(paper_tables.ANALYTIC) or \
-            not lines[-1].startswith("bench_rsnn_forward,"):
+    if code != 0 or len(lines) != 3 + len(paper_tables.ANALYTIC) or \
+            not lines[-2].startswith("bench_rsnn_forward,") or \
+            not lines[-1].startswith("bench_stream_sharded,"):
         raise AssertionError(f"paper_tables: exit {code}, {len(lines)} lines")
     for line in lines:
         print(f"tables: {line}")
@@ -3434,6 +3574,7 @@ def main(argv=None) -> int:
                 check_chunk(paths[key], arts[key], utts, backend)
         check_forward(paths["float"], arts["float"], utts)
         serve_graphs(engines, utts)
+        check_sharded(engines, utts, dev, smi)
         check_packing(args.seed, utts, Path(tmp), dev)
         run_example(Path(tmp), dev)
         check_training(args.seed, utts, Path(tmp), dev)

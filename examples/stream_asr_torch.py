@@ -4,7 +4,7 @@
       [--backend fused|fused_spike|pallas|sparse|spike|delta|jnp|ref] \
       [--layout dense|csc|nm] [--hidden 128] [--device cuda|cpu] \
       [--slots 4] [--streams 8] [--pipeline-depth 2] \
-      [--artifact DIR | --save-artifact DIR] [--frames N]
+      [--artifact DIR | --save-artifact DIR] [--frames N] [--sharded]
 
 The PyTorch counterpart of ``examples/stream_asr.py``.  Builds the paper's
 model from a seeded ``torch.Generator``, packs it in process to the pruned
@@ -25,7 +25,12 @@ as a deployment artifact; ``--artifact DIR`` serves one (config,
 precision, preferred backend and input scale from its manifest), with
 logits bit-equal to serving the same model packed in process.
 ``--frames N`` truncates every utterance to N frames.  ``--device cpu``
-runs the plain PyTorch versions on the CPU.
+runs the plain PyTorch versions on the CPU.  ``--sharded`` serves through
+``serving/sharded.py``'s ``ShardedStreamLoop`` over every device of
+``--device``'s type (every visible card; the one CPU), its slots a
+multiple of their count, fed by ``data/featurize.py``'s
+``AsyncFeaturizer``, which quantizes the utterances on a host thread
+ahead of the loop.
 """
 
 from __future__ import annotations
@@ -46,9 +51,13 @@ from repro_torch.core import rsnn, sparse  # noqa: E402
 from repro_torch.core.compression import (CompressionConfig,  # noqa: E402
                                           PruneSpec)
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
+from repro_torch.data.featurize import (AsyncFeaturizer,  # noqa: E402
+                                        cpu_quantizer, prefetch_depth)
 from repro_torch.data.synthetic import (SpeechDataConfig,  # noqa: E402
                                         TimitLikeStream)
 from repro_torch.serving import backends  # noqa: E402
+from repro_torch.serving.sharded import (ShardedStreamLoop,  # noqa: E402
+                                         stream_mesh)
 from repro_torch.serving.stream import (CompiledRSNN,  # noqa: E402
                                         EngineConfig, StreamLoop,
                                         calibrate_input_scale)
@@ -111,6 +120,9 @@ def main(argv=None) -> int:
                     help="write the in-process model out as an artifact")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="in-flight device steps (0 = v1 synchronous loop)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the slots over every device of --device's "
+                         "type, fed by an async featurization front end")
     args = ap.parse_args(argv)
     if args.artifact and args.save_artifact:
         ap.error("--save-artifact conflicts with --artifact (the model "
@@ -154,6 +166,13 @@ def main(argv=None) -> int:
                     args.save_artifact, cfg=cfg, params=params,
                     input_scale=scale, backend=backend)
             print(f"wrote deployment artifact to {args.save_artifact}")
+    feat = None
+    if args.sharded:
+        # quantize ahead of the loop on a host thread; it starts now, so
+        # the front end overlaps the loop's construction and graph capture
+        feat = AsyncFeaturizer(
+            utts, cpu_quantizer(engine),
+            depth=prefetch_depth(args.slots, args.pipeline_depth))
 
     if engine.packed is not None:
         rep = sparse.packed_size_report(engine.packed)
@@ -164,13 +183,29 @@ def main(argv=None) -> int:
               f"{rep['total_bytes'] / 1e6:.3f} MB packed layout "
               f"({tags or 'all dense'})")
 
-    loop = StreamLoop(engine, batch_slots=args.slots,
-                      pipeline_depth=args.pipeline_depth)
-    for u in utts:
-        loop.submit(u)
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    if args.sharded:
+        devices = stream_mesh(None if args.device == "cuda" else ["cpu"])
+        loop = ShardedStreamLoop(engine, batch_slots=args.slots,
+                                 devices=devices,
+                                 max_frames=max(map(len, utts)),
+                                 pipeline_depth=args.pipeline_depth)
+        print(f"sharded over {len(loop.devices)} devices ({args.slots} "
+              f"slots, pipeline depth {args.pipeline_depth}, async "
+              f"featurization front end)")
+        # submit_stream serves while the featurizer drains, so the timed
+        # region covers it: its steps count toward the totals below
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.submit_stream(feat, quantized=True)
+    else:
+        loop = StreamLoop(engine, batch_slots=args.slots,
+                          pipeline_depth=args.pipeline_depth)
+        for u in utts:
+            loop.submit(u)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
     done = loop.run()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()

@@ -9,8 +9,9 @@ operating point.
 The results file is an argument of every table (``results``: a path, the
 loaded payload, or None for ``runs/rsnn_pipeline/results.json``); a path
 that does not exist counts as no results.  ``bench_rsnn_forward`` times
-the float golden model on ``device`` (``cuda`` unless the caller asks for
-``cpu``; no GPU raises).
+the float golden model and ``bench_stream_sharded`` the sharded slot loop
+on ``device`` (``cuda`` unless the caller asks for ``cpu``; no GPU
+raises).
 
   python -m repro_torch.benchmarks.paper_tables [--results PATH] \\
       [--device cuda|cpu]
@@ -26,6 +27,7 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.configs.rsnn_timit import BASELINE as BASE
@@ -214,13 +216,77 @@ def bench_rsnn_forward(device: torch.device | str = "cuda", iters: int = 20):
                 "realtime_streams": int(frames / (us / 1e6) / C.FRAMES_PER_SECOND)}
 
 
+def bench_stream_sharded(device: torch.device | str = "cuda"):
+    """``ShardedStreamLoop`` over every visible device of ``device``'s
+    type (one entry for ``cpu``) serving 8 seeded utterances of 40-100
+    frames with the reference's model (``PRUNED`` from seed 0, the FC
+    pruned 40%, int4, input scale 0.05, the default backend): microseconds
+    a step, frames/s and the measured sparsity of the served traffic,
+    after one warm-up utterance.  The wall clock, synchronized on the
+    card."""
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.serving.sharded import ShardedStreamLoop, stream_mesh
+    from repro_torch.serving.stream import CompiledRSNN, EngineConfig
+
+    device = resolve_device(device)
+    devices = stream_mesh(None if device.type == "cuda" else [device])
+    cfg = PRUNED
+    # drawn on the CPU: the same model on every device
+    params = rsnn.init_params(torch.Generator().manual_seed(0), cfg)
+    engine = CompiledRSNN(cfg, params,
+                          EngineConfig(precision="int4", input_scale=0.05),
+                          CompressionConfig(fc_prune_frac=0.4, weight_bits=4),
+                          device=devices[0])
+    rng = np.random.default_rng(0)
+    utts = [0.5 * rng.normal(size=(int(rng.integers(40, 101)),
+                                   cfg.input_dim)).astype(np.float32)
+            for _ in range(8)]
+    # the smallest multiple of the device count that covers 4 slots
+    ndev = len(devices)
+    loop = ShardedStreamLoop(engine, batch_slots=max(4 // ndev, 1) * ndev,
+                             devices=devices, max_frames=128)
+    loop.submit(utts[0][:4])  # warm-up, untimed
+    loop.run()
+    loop.finished.clear()
+    loop.reset_metrics()
+    for u in utts:
+        loop.submit(u)
+
+    def sync():
+        if device.type == "cuda":
+            for d in dict.fromkeys(devices):
+                torch.cuda.synchronize(d)
+
+    sync()
+    t0 = time.perf_counter()
+    loop.run()
+    sync()
+    dt = time.perf_counter() - t0
+    frames = int(loop.counters.frames)
+    prof = loop.sparsity_profile()
+    return dt / max(loop.steps, 1) * 1e6, {
+        "devices": ndev,
+        "slots": loop.slots,
+        "frames": frames,
+        "frames_per_s": round(frames / dt, 1),
+        "measured_mmac_per_s": round(loop.mmac_per_second(), 3),
+        "sparsity_profile": {
+            "input_bit_density": round(prof.input_bit_density, 4),
+            "l0_density": [round(d, 4) for d in prof.l0_density],
+            "l1_density": [round(d, 4) for d in prof.l1_density],
+            "fc_union_density": round(prof.fc_union_density, 4),
+        },
+    }
+
+
 def _emit(name: str, us: float, derived) -> None:
     print(f"{name},{us:.2f},{json.dumps(derived, default=str)}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Print the paper's tables and bench_rsnn_forward as CSV")
+        description="Print the paper's tables, bench_rsnn_forward and "
+                    "bench_stream_sharded as CSV")
     ap.add_argument("--results", default=None, metavar="PATH",
                     help=f"the recipe's results.json (default: {RESULTS})")
     ap.add_argument("--device", default="cuda",
@@ -233,8 +299,9 @@ def main(argv=None) -> int:
     for table in ANALYTIC:
         rows, derived = table(results)
         _emit(table.__name__, 0.0, {"rows": rows, **derived})
-    us, derived = bench_rsnn_forward(device)
-    _emit("bench_rsnn_forward", us, derived)
+    for bench in (bench_rsnn_forward, bench_stream_sharded):
+        us, derived = bench(device)
+        _emit(bench.__name__, us, derived)
     return 0
 
 

@@ -1,0 +1,22 @@
+"""The device an entry point runs on: ``cuda`` unless the caller asks for
+``cpu``, and a CUDA device with no GPU present raises instead of carrying
+on on the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no GPU present
+    raises instead of carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch serves on a CUDA device and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}; use cuda or cpu")
+    return device

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.device import resolve_device
+
 
 class LIFParams(NamedTuple):
     """Per-neuron learnable LIF parameters (unconstrained space)."""
@@ -41,10 +43,12 @@ class LIFState(NamedTuple):
 
 def init_lif(num_neurons: int, beta_init: float = 0.9, vth_init: float = 1.0,
              dtype: torch.dtype = torch.float32,
-             device: torch.device | str | None = None) -> LIFParams:
+             device: torch.device | str = "cuda") -> LIFParams:
     """Learnable LIF parameters at the requested beta and vth:
     ``raw_beta = logit(beta_init)``, ``raw_vth = softplus^-1(vth_init)``,
-    computed in double precision and rounded once to ``dtype``."""
+    computed in double precision and rounded once to ``dtype``, on
+    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    device = resolve_device(device)
     raw_beta = math.log(beta_init / (1.0 - beta_init))
     raw_vth = math.log(math.expm1(vth_init))
     return LIFParams(
@@ -56,7 +60,10 @@ def init_lif(num_neurons: int, beta_init: float = 0.9, vth_init: float = 1.0,
 
 def init_lif_state(batch: int, num_neurons: int,
                    dtype: torch.dtype = torch.float32,
-                   device: torch.device | str | None = None) -> LIFState:
+                   device: torch.device | str = "cuda") -> LIFState:
+    """Zero LIF carries on ``device`` (``cuda`` unless the caller asks
+    for ``cpu``)."""
+    device = resolve_device(device)
     return LIFState(
         u=torch.zeros((batch, num_neurons), dtype=dtype, device=device),
         spike=torch.zeros((batch, num_neurons), dtype=dtype, device=device))

@@ -56,6 +56,7 @@ import torch
 from repro_torch.core import complexity
 from repro_torch.core import lif as lif_lib
 from repro_torch.core import rsnn, spike_ops
+from repro_torch.core.device import resolve_device
 from repro_torch.core.layouts.nm import NMGroupPacked, entry_rows
 from repro_torch.core.lif import LIFParams, LIFState
 from repro_torch.core.rsnn import RSNNConfig, RSNNState
@@ -182,21 +183,6 @@ def reset_slot(state, i: int):
     out = _tree_map(torch.clone, state)
     reset_slot_(out, i)
     return out
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device with no GPU present
-    raises instead of carrying on on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch serves on a CUDA device and "
-                "torch.cuda.is_available() is False; pass device='cpu' to "
-                "run the plain PyTorch versions on the CPU")
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}; use cuda or cpu")
-    return device
 
 
 def _check_packed(cfg: RSNNConfig, packed: PackedRSNN) -> None:
@@ -365,6 +351,25 @@ class CompiledRSNN:
         self._lif = {k: v.to(torch.float32)
                      for k, v in self.packed.lif.items()}
         return dense, dict(self.packed.quant), dict(self.packed.sparse)
+
+    def place_weights(self, device: torch.device | str) -> None:
+        """Move every deployed tensor (the packed model, the op table's
+        dense, quant and sparse bundles, the LIF constants and the input
+        scale) to ``device``, make it the engine's device, and re-resolve
+        the op table so that its steps read the placed copies."""
+        device = resolve_device(device)
+        put = functools.partial(_to, device=device)
+        if self.packed is not None:
+            self.packed = put(self.packed)
+        self._ctx = dataclasses.replace(
+            self._ctx, dense=put(self._ctx.dense), quant=put(self._ctx.quant),
+            sparse=put(self._ctx.sparse))
+        self.ops = backends.resolve(self.engine.backend, self._ctx)
+        self._w = self._ctx.dense
+        self._lif = put(self._lif)
+        if self._input_scale is not None:
+            self._input_scale = self._input_scale.to(device)
+        self.device = device
 
     @classmethod
     def from_artifact(cls, path, engine: EngineConfig | None = None, *,
@@ -740,6 +745,17 @@ class StreamRequest:
         return np.stack(self.logits)
 
 
+def host_copy(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` copied to the host: into a pinned block by a copy queued
+    on the card's stream (it lands behind the work queued before it), or
+    cloned on the CPU."""
+    if not rows.is_cuda:
+        return rows.clone()
+    block = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    block.copy_(rows, non_blocking=True)
+    return block
+
+
 class _InflightStep:
     """One dispatched step not yet retired: its fence (a ``torch.cuda.Event``
     recorded after the step and its harvest copies; ``None`` on the CPU)
@@ -756,10 +772,14 @@ class _StepGraph:
     """A loop's step captured as a CUDA graph: ``__call__`` replays it and
     credits the kernel launches the capture recorded to the wrappers'
     counters (a replay runs no Python); returns the step's outputs, the
-    graph's static output tensors."""
+    graph's static output tensors.  It holds the captured step ``fn``: a
+    tensor that ``fn`` closes over is read by every replay, and must not
+    return to the allocator."""
 
-    def __init__(self, graph, outputs, launches: dict[str, int]):
+    def __init__(self, graph, fn: Callable, outputs,
+                 launches: dict[str, int]):
         self.graph = graph
+        self.fn = fn
         self.outputs = outputs
         self.launches = {n: c for n, c in launches.items() if c}
 
@@ -807,6 +827,14 @@ class StreamLoop(SlotScheduler):
     as its capture.  ``aot_warmup=False`` dispatches the eager step.  A
     failed capture or replay raises; the loop never carries on eagerly.
 
+    The data path goes through hooks, so that ``serving/sharded.py``'s
+    subclass overrides it and nothing of the scheduling:
+    ``_build_data_path`` (state, ring, accumulator, inputs, step),
+    ``_dispatch_step``, ``_dispatch_ring_step``, ``_dispatch_step_chunk``
+    and ``_dispatch_ring_chunk`` (one each for v1 and v2, by frame and by
+    chunk), ``_reset_slot``, ``_harvest``, ``_aux_total`` and
+    ``_zero_aux``.
+
     ``host_syncs`` counts the device->host transfers the loop makes,
     ``dispatches`` its step dispatches (one a chunk) and ``frames_served``
     the slot-frames advanced.  ``track_sparsity=False`` detaches the
@@ -840,38 +868,54 @@ class StreamLoop(SlotScheduler):
         self.chunk_frames = chunk_frames
         self.aot_warmup = aot_warmup
         self.clock = time.monotonic  # swappable for deterministic tests
-        self.state = engine.init_state(batch_slots)
         self._flushed = [0] * batch_slots  # frames already harvested, per slot
         self._inflight: collections.deque[_InflightStep] = collections.deque()
-        self._ring = self._init_ring() if pipeline_depth >= 1 else None
-        self._aux_acc = None
         self._fence = None  # the fence of the step being dispatched
+        self._build_data_path()
         self.reset_metrics()
+
+    def _build_data_path(self) -> None:
+        """The loop's device side, allocated once: the slot state, the v2
+        ring and counter accumulator, the step inputs and the step."""
+        eng = self.engine
+        self.state = eng.init_state(self.slots)
+        v2 = self.pipeline_depth >= 1
+        self._ring = self._init_ring(self.slots, eng.device) if v2 else None
+        self._aux_acc = (self._zero_aux_acc(eng.device)
+                         if v2 and self.track_sparsity else None)
         self._init_inputs()
         self._key, fn = self._step_fn()
-        # the step's buffers never move, so its arguments are bound once
-        # (and the loop is not: no reference cycle through the entry)
-        args = (self._x_in, self._ctrl_in, self.state, self._ring,
-                self._aux_acc)
-        self._entry = functools.partial(fn, *args)
-        if aot_warmup:
-            if engine.device.type == "cuda":
-                self._entry = self._capture(fn, args)
-            engine.capture_count += 1
+        self._entry = self._bind_step(eng, fn, (
+            self._x_in, self._ctrl_in, self.state, self._ring,
+            self._aux_acc))
 
-    def _init_ring(self) -> torch.Tensor:
-        """The device logit ring, ``(slots, ring_frames + 1, fc_dim)``: the
+    def _bind_step(self, eng: CompiledRSNN, fn: Callable, args: tuple
+                   ) -> Callable:
+        """The step ``fn`` bound to its buffers ``args``: they never move,
+        so they are bound once (and the loop is not: no reference cycle
+        through the entry).  With ``aot_warmup`` the step is captured as a
+        CUDA graph over them on a CUDA engine ``eng`` (on the CPU the eager
+        step stands in), and the loop's engine counts the capture."""
+        entry = functools.partial(fn, *args)
+        if self.aot_warmup:
+            if eng.device.type == "cuda":
+                entry = self._capture(fn, args, eng.device)
+            self.engine.capture_count += 1
+        return entry
+
+    def _init_ring(self, slots: int, device: torch.device) -> torch.Tensor:
+        """A device logit ring, ``(slots, ring_frames + 1, fc_dim)``: the
         spare last row of each slot takes the idle sub-steps' writes of a
         chunk (``CompiledRSNN._ring_write_chunk``).  ``ring`` is the view
         without it."""
-        return torch.zeros((self.slots, self.ring_frames + 1,
+        return torch.zeros((slots, self.ring_frames + 1,
                             self.engine.cfg.fc_dim), dtype=torch.float32,
-                           device=self.engine.device)
+                           device=device)
 
-    def _zero_aux_acc(self) -> torch.Tensor:
-        """A zeroed packed-counter accumulator on the device."""
+    def _zero_aux_acc(self, device: torch.device) -> torch.Tensor:
+        """A zeroed packed-counter accumulator on ``device``."""
         return torch.zeros((2 * self.engine.cfg.num_ts + 4,),
-                           dtype=torch.float32, device=self.engine.device)
+                           dtype=torch.float32, device=device)
 
     @property
     def ring(self) -> torch.Tensor | None:
@@ -911,37 +955,54 @@ class StreamLoop(SlotScheduler):
 
     def _step_fn(self) -> tuple[tuple, Callable]:
         """(key, fn) of the step this loop dispatches: ``fn(x, ctrl, state,
-        ring, aux_acc)`` quantizes the frames and runs the contract's step
-        over those buffers, in place; it returns v1's (logits, packed
-        counter vector) and nothing in v2.  The key is (contract, slots,
-        chunk, ring_frames, track_sparsity)."""
-        eng, c = self.engine, self.chunk_frames
+        ring, aux_acc)`` quantizes the raw frames ``x`` and runs the
+        contract's step over those buffers, in place (``_contract_fn``);
+        ``ctrl`` is the (2, [C,] slots) word [fill mask; ring row]."""
+        eng = self.engine
+
+        def frames(x, ctrl):
+            return eng._quantize(x), ctrl[0], ctrl[1]
+
+        return self._contract_fn(eng, self.slots, frames)
+
+    def _contract_fn(self, eng: CompiledRSNN, slots: int, frames: Callable
+                     ) -> tuple[tuple, Callable]:
+        """(key, fn) of the contract's step over ``slots`` slots of
+        ``eng``: ``fn(src, ctrl, state, ring, aux_acc)`` takes the step's
+        quantized frames, fill mask and ring rows from ``frames(src,
+        ctrl)`` and updates its buffers in place; it returns v1's (logits,
+        packed counter vector) and nothing in v2.  The key is (contract,
+        slots, chunk, ring_frames, track_sparsity)."""
+        c = self.chunk_frames
         if self.pipeline_depth == 0:
             step = eng.step_masked if c == 1 else eng._masked_chunk_step
             contract = "v1" if c == 1 else "v1-chunk"
 
-            def fn(x, ctrl, state, ring, aux_acc):
-                new, logits, vec = step(state, eng._quantize(x), ctrl[0])
+            def fn(src, ctrl, state, ring, aux_acc):
+                x, active, _ = frames(src, ctrl)
+                new, logits, vec = step(state, x, active)
                 copy_state_(state, new)
                 return logits, vec
         elif self.track_sparsity:
             step = eng._ring_frame_step if c == 1 else eng._ring_chunk_step
             contract = "v2" if c == 1 else "v2-chunk"
 
-            def fn(x, ctrl, state, ring, aux_acc):
-                step(state, eng._quantize(x), ctrl[0], ring, ctrl[1],
-                     aux_acc)
+            def fn(src, ctrl, state, ring, aux_acc):
+                x, active, ring_idx = frames(src, ctrl)
+                step(state, x, active, ring, ring_idx, aux_acc)
         else:
             step = (eng._ring_frame_step_quiet if c == 1
                     else eng._ring_chunk_step_quiet)
             contract = "v2-quiet" if c == 1 else "v2-chunk-quiet"
 
-            def fn(x, ctrl, state, ring, aux_acc):
-                step(state, eng._quantize(x), ring, ctrl[1])
-        key = (contract, self.slots, c, self.ring_frames, self.track_sparsity)
+            def fn(src, ctrl, state, ring, aux_acc):
+                x, _, ring_idx = frames(src, ctrl)
+                step(state, x, ring, ring_idx)
+        key = (contract, slots, c, self.ring_frames, self.track_sparsity)
         return key, fn
 
-    def _capture(self, fn: Callable, args: tuple) -> _StepGraph:
+    def _capture(self, fn: Callable, args: tuple, dev: torch.device
+                 ) -> _StepGraph:
         """Warm the step up on a side stream over scratch copies of the
         state, ring and accumulator (the plan and occupancy caches fill,
         the live buffers do not move), then capture it over the live
@@ -951,7 +1012,6 @@ class StreamLoop(SlotScheduler):
         begun and ended by hand: ``torch.cuda.graph`` would also empty
         PyTorch's caches, the pinned host blocks of earlier harvests
         among them, and every later harvest would pin new memory."""
-        dev = self.engine.device
         saved = kernel_ops.launch_counts()
         scratch = (*args[:2], *(_tree_map(torch.clone, t) for t in args[2:]))
         with torch.cuda.device(dev):
@@ -973,7 +1033,7 @@ class StreamLoop(SlotScheduler):
                 launches = kernel_ops.launch_counts()
             finally:
                 kernel_ops.set_launch_counts(saved)
-        return _StepGraph(graph, outputs, launches)
+        return _StepGraph(graph, fn, outputs, launches)
 
     def _stage(self) -> tuple[np.ndarray, np.ndarray]:
         """The host buffers of the next step's frames and control word,
@@ -1051,6 +1111,10 @@ class StreamLoop(SlotScheduler):
         at its completion, so the new stream may overwrite them."""
         req.t_start = self.clock()
         self._flushed[i] = 0
+        self._reset_slot(i)
+
+    def _reset_slot(self, i: int) -> None:
+        """Zero slot ``i``'s recurrent state in place."""
         reset_slot_(self.state, i)
 
     def _finish_slot(self, i: int) -> StreamRequest:
@@ -1066,13 +1130,7 @@ class StreamLoop(SlotScheduler):
         rows are copied now, behind the step on the card's stream: the slot
         (or the next stream in it) overwrites them before the step
         retires, so a view would not do."""
-        rows = self._ring[i, :fill]
-        if rows.is_cuda:
-            block = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            block.copy_(rows, non_blocking=True)
-        else:
-            block = rows.clone()
-        r.pending.append((block, fill, self._fence))
+        r.pending.append((host_copy(self._ring[i, :fill]), fill, self._fence))
 
     # ------------------------------------------------------------ step path
 
@@ -1093,6 +1151,14 @@ class StreamLoop(SlotScheduler):
         logits, vec = self._dispatch()
         return logits.cpu().numpy(), vec
 
+    def _dispatch_ring_step(self, ctrl: np.ndarray) -> None:
+        """v2: dispatch one pipelined step over the (2, slots) control
+        word [active mask; ring row]; nothing crosses to the host."""
+        x, word = self._stage()
+        self._gather_host_frames(x)
+        word[:] = ctrl
+        self._dispatch()
+
     def step_once(self) -> bool:
         """One engine step over all slots; returns False when fully drained
         (empty queue, empty slots and, pipelined, no step in flight)."""
@@ -1110,13 +1176,12 @@ class StreamLoop(SlotScheduler):
         if self.chunk_frames > 1:
             return self._step_once_chunk()
 
-        x, ctrl = self._stage()  # ctrl: [active mask; ring row]
-        self._gather_host_frames(x)
+        ctrl = np.zeros((2, self.slots), np.int32)  # [active; ring row]
         ctrl[0] = active
         ctrl[1] = [self.slot_pos[i] - self._flushed[i]
                    if self.slot_req[i] is not None else 0
                    for i in range(self.slots)]
-        self._dispatch()
+        self._dispatch_ring_step(ctrl)
         self.steps += 1
         self.dispatches += 1
         self.frames_served += int(active.sum())
@@ -1145,7 +1210,7 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += 1
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                reset_slot_(self.state, i)
+                self._reset_slot(i)
         return True
 
     def _advance_slots(self) -> list[StreamRequest]:
@@ -1178,28 +1243,45 @@ class StreamLoop(SlotScheduler):
             counts.append(n)
         return counts
 
-    def _stage_chunk(self, counts: list[int]) -> tuple[np.ndarray,
-                                                       np.ndarray]:
+    def _chunk_mask(self, counts: list[int]) -> np.ndarray:
+        """The (F, slots) fill mask of a chunk: sub-step f of slot i is
+        live when ``f < counts[i]``."""
+        return np.arange(self.chunk_frames)[:, None] < np.asarray(counts)
+
+    def _stage_chunk(self, counts: list[int]) -> np.ndarray:
         """Stage the next ``counts[i]`` frames of each slot into the (F,
-        slots, input_dim) frames, idle sub-steps zero, and their fill mask
-        into row 0 of the control word; returns (fill mask, control
-        word)."""
+        slots, input_dim) frames, idle sub-steps zero; returns the staged
+        control word."""
         x, ctrl = self._stage()
         for i, r in enumerate(self.slot_req):
             if counts[i]:
                 p = self.slot_pos[i]
                 x[:counts[i], i] = r.frames[p:p + counts[i]]
-        live = np.arange(self.chunk_frames)[:, None] < np.asarray(counts)
-        ctrl[0] = live
-        return live, ctrl
+        return ctrl
+
+    def _dispatch_step_chunk(self, counts: list[int], act: np.ndarray):
+        """v1 chunked: the (F, slots) fill mask ``act`` -> (logits (F,
+        slots, fc_dim) np, packed masked counter vector)."""
+        ctrl = self._stage_chunk(counts)
+        ctrl[0] = act
+        logits, vec = self._dispatch()
+        return logits.cpu().numpy(), vec
+
+    def _dispatch_ring_chunk(self, counts: list[int],
+                             ctrl: np.ndarray) -> None:
+        """v2 chunked: dispatch one pipelined step over the (2, F, slots)
+        control word [fill mask; ring row]; nothing crosses to the
+        host."""
+        word = self._stage_chunk(counts)
+        word[:] = ctrl
+        self._dispatch()
 
     def _step_once_sync_chunk(self) -> bool:
         """v1 at ``chunk_frames > 1``: one dispatch and one logit fetch a
         chunk, the schedule otherwise that of frame-by-frame stepping."""
         counts = self._chunk_counts()
-        self._stage_chunk(counts)
-        logits, aux_vec = self._dispatch()
-        logits_np = logits.cpu().numpy()
+        logits_np, aux_vec = self._dispatch_step_chunk(
+            counts, self._chunk_mask(counts))
         self.host_syncs += 1  # per-chunk logit fetch
         self.steps += 1
         self.dispatches += 1
@@ -1217,19 +1299,21 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += counts[i]
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                reset_slot_(self.state, i)
+                self._reset_slot(i)
         return True
 
     def _step_once_chunk(self) -> bool:
         """v2 at ``chunk_frames > 1``: one pipeline entry a chunk.  Idle
         sub-steps write the spare ring row ``ring_frames``."""
         counts = self._chunk_counts()
-        live, ctrl = self._stage_chunk(counts)
+        live = self._chunk_mask(counts)
         base = np.array([self.slot_pos[i] - self._flushed[i]
                          for i in range(self.slots)])
+        ctrl = np.zeros((2, *live.shape), np.int32)  # [fill mask; ring row]
+        ctrl[0] = live
         ctrl[1] = np.where(live, base + np.arange(self.chunk_frames)[:, None],
                            self.ring_frames)
-        self._dispatch()
+        self._dispatch_ring_chunk(counts, ctrl)
         self.steps += 1
         self.dispatches += 1
         served = int(sum(counts))
@@ -1255,7 +1339,7 @@ class StreamLoop(SlotScheduler):
                 completed.append(r)
                 self._finish_slot(i)
                 self._flushed[i] = 0
-                reset_slot_(self.state, i)
+                self._reset_slot(i)
             elif fill == self.ring_frames:  # watermark flush: ring is full
                 self._harvest(r, i, fill)
                 self._flushed[i] = self.slot_pos[i]
@@ -1304,11 +1388,7 @@ class StreamLoop(SlotScheduler):
             num_ts=cfg.num_ts, hidden_dim=cfg.hidden_dim,
             input_dim=cfg.input_dim, input_bits=cfg.input_bits)
             if self.track_sparsity else None)
-        if self.track_sparsity and self.pipeline_depth >= 1:
-            if self._aux_acc is None:
-                self._aux_acc = self._zero_aux_acc()
-            else:
-                self._aux_acc.zero_()
+        self._zero_aux()
         self._frames_acc = 0.0
         self.steps = 0
         self.host_syncs = 0
@@ -1321,11 +1401,21 @@ class StreamLoop(SlotScheduler):
         if self.counters is None or self._frames_acc == 0.0:
             return
         self.counters.update(
-            unpack_step_aux(self._aux_acc, self.engine.cfg.num_ts),
+            unpack_step_aux(self._aux_total(), self.engine.cfg.num_ts),
             active_frames=self._frames_acc)
         self.host_syncs += 1
         self._frames_acc = 0.0
-        self._aux_acc.zero_()
+        self._zero_aux()
+
+    def _aux_total(self) -> torch.Tensor:
+        """The device counter accumulator to fold into ``counters``."""
+        return self._aux_acc
+
+    def _zero_aux(self) -> None:
+        """Zero the device counter accumulator in place (a captured step
+        holds it); nothing without one."""
+        if self._aux_acc is not None:
+            self._aux_acc.zero_()
 
     def _require_counters(self) -> complexity.SparsityCounters:
         if self.counters is None:

@@ -714,7 +714,8 @@ def test_init_params_shapes_dtypes_and_bounds():
             _equal(a, b)
     again = rsnn.init_params(torch.Generator().manual_seed(0), cfg)
     assert all(torch.equal(params[n], again[n]) for n in cfg.layer_shapes)
-    for a, b in zip(lif.init_lif(5, 0.75, 0.5), j_lif.init_lif(5, 0.75, 0.5)):
+    for a, b in zip(lif.init_lif(5, 0.75, 0.5, device="cpu"),
+                    j_lif.init_lif(5, 0.75, 0.5)):
         _equal(a, b)
 
 

@@ -127,7 +127,8 @@ def test_default_results_path_is_the_references():
 
 def test_main_prints_run_py_lines(results_file, capsys):
     """``main`` prints what ``benchmarks/run.py`` prints for the analytic
-    tables, then the ``bench_rsnn_forward`` row."""
+    tables, then the ``bench_rsnn_forward`` and ``bench_stream_sharded``
+    rows."""
     assert T.main(["--results", str(results_file), "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     bench_run.main("table")  # table1_dimensions, table2_..., table3_power
@@ -138,9 +139,12 @@ def test_main_prints_run_py_lines(results_file, capsys):
     want = capsys.readouterr().out.splitlines()
     assert lines[0] == want[0] == "name,us_per_call,derived"
     assert sorted(lines[1:1 + len(TABLES)]) == sorted(want[1:])
-    name, us, derived = lines[-1].split(",", 2)
+    name, us, derived = lines[-2].split(",", 2)
     assert name == "bench_rsnn_forward" and float(us) > 0
     assert set(json.loads(derived)) == {"us_per_frame", "realtime_streams"}
+    name, us, derived = lines[-1].split(",", 2)
+    assert name == "bench_stream_sharded" and float(us) > 0
+    assert json.loads(derived)["devices"] == 1
 
 
 def test_bench_rsnn_forward_on_the_cpu():
