@@ -207,6 +207,41 @@ is written and ``repro_torch.benchmarks.paper_tables`` prints the nine
 tables from it and ``bench_rsnn_forward`` on the card.  No kernel lies on
 this path: every launch counter stays 0.
 
+Then phase 6 (``check_lm_serving``): the token-LM serving path through
+``registry.get_model`` -> ``init`` -> ``generate`` / ``ServeLoop``, plain
+PyTorch (no kernel of the port lies on it: every launch counter stays
+0).  (a) gemma2-2b at its published widths (``LM_GEMMA2``; its
+2,614,341,888 parameters, the reference's count, asserted), drawn on the
+card from a seeded generator: in float32, ``LM_BATCH`` ``MarkovLMStream``
+prompts of ``LM_PROMPT`` tokens prefilled, ``pad_cache`` to ``LM_PROMPT +
+LM_STEPS`` and ``LM_STEPS`` teacher-forced decode steps, each step's
+logits within ``LM_TOL`` of the full forward (``lm_teacher_forced``); then in
+bf16 (the float32 weights rounded) the same steps, logits finite and
+their greedy agreement with float32 printed, four decode steps under
+``torch.profiler`` (``profile_decode``: busy share, device operations a
+step), ``generate`` twice with ids equal, and ``ServeLoop(batch_slots=LM_SLOTS)`` answering ``LM_REQUESTS``
+requests of 64-512 prompt tokens and 16-32 new ones.  (b) One local and
+one global gemma2 block (``layer_fwd``) at full width, float32, 2 x 128
+tokens, the card against the CPU within ``BLOCK_TOL`` (``check_block``).
+(c) deepseek-v3-671b at its published widths cut to two layers
+(``LM_DEEPSEEK``: one dense MLA layer and one MoE layer of 256 experts,
+top 8, one shared; 13,944,134,656 parameters, asserted), float32, the
+ragged router: 4 x 256 prompt tokens, ``pad_cache`` to 264, 8
+teacher-forced steps within ``LM_TOL`` of the full forward, and the
+dense_dispatch router on the same cache at each step (capacity 4 for 4
+tokens: nothing dropped) within ``LM_TOL`` of ragged.  (d) Each of the
+seven decoder-LM archs at ``reduce_config``, float32, the same seeded
+parameters on the CPU and on the card: prefill logits within
+``LM_CPU_TOL``, greedy ids equal (``check_reduced``).  Prefill ms and
+decode ms a token (CUDA events; the median of the steps), tokens/s of
+``generate`` and ``ServeLoop``, each model's peak
+``max_memory_allocated`` and the phase's seconds are printed beside the
+card's name and power limit.  Rehearse it on the CPU by setting
+``LM_GEMMA2`` and ``LM_DEEPSEEK`` to their ``reduce_config`` (bf16 and
+two ragged layers respectively), ``GEMMA2_PARAMS``/``DEEPSEEK_PARAMS`` to
+their counts and the sizes to a few tokens, and calling
+``check_lm_serving(0, torch.device("cpu"), "")`` (~3 s).
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -229,12 +264,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import functools  # noqa: E402
 import importlib.util  # noqa: E402
 import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
@@ -244,6 +281,8 @@ import warnings  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.archs import (DEEPSEEK_V3_671B,  # noqa: E402
+                                       GEMMA2_2B)
 from repro_torch.configs.rsnn_timit import BASELINE, PRUNED  # noqa: E402
 from repro_torch.core.artifact import (load_artifact,  # noqa: E402
                                        params_from_arrays, save_artifact)
@@ -255,6 +294,8 @@ from repro_torch.core.layouts.csc import sparsify_columns  # noqa: E402
 from repro_torch.core.layouts.nm import pack_nm_groups  # noqa: E402
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
 from repro_torch.core.sparse import PackedRSNN, QuantTensor  # noqa: E402
+from repro_torch.core.tree import (  # noqa: E402
+    tree_leaves, tree_map, tree_unflatten)
 
 U_RTOL = 1e-5  # teacher-forced engines against ref: near the threshold
 U_ATOL = 1e-5
@@ -2522,15 +2563,13 @@ def loss_and_grads(params: dict, batch: dict, cfg: RSNNConfig, num_ts: int
     """``rsnn.loss_fn`` and its gradient in every parameter, as
     ``make_train_step`` takes them, with the LIF steps' (u, spike)."""
     from repro_torch.core import rsnn
-    from repro_torch.training import optimizer as opt_lib
 
-    leaves = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
-                              params)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     calls: list = []
     with recorded_lif_steps(calls):
         loss, _ = rsnn.loss_fn(leaves, batch, cfg, num_ts=num_ts)
-    grads = torch.autograd.grad(loss, opt_lib.tree_leaves(leaves))
-    return (float(loss.detach()), opt_lib.tree_unflatten(params, iter(grads)),
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return (float(loss.detach()), tree_unflatten(params, iter(grads)),
             calls)
 
 
@@ -2597,7 +2636,7 @@ def check_one_step(seed: int, dev) -> None:
 
     cfg, ts = BASELINE, ONE_STEP_TS
     cpu = params_from_arrays(float_params(seed, BASELINE), BASELINE)
-    card = opt_lib.tree_map(lambda v: v.to(dev), cpu)
+    card = tree_map(lambda v: v.to(dev), cpu)
     host = TimitLikeStream(SpeechDataConfig(frames=ONE_STEP_FRAMES)).batch(
         TRAIN_BATCH, step=0)
     batches = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()}
@@ -2788,7 +2827,7 @@ def profile_train_step(seed: int, dev) -> None:
     from repro_torch.training.optimizer import OptimizerConfig
     from repro_torch.training.rsnn_pipeline import make_train_step
 
-    params = opt_lib.tree_map(lambda v: v.to(dev), params_from_arrays(
+    params = tree_map(lambda v: v.to(dev), params_from_arrays(
         float_params(seed, BASELINE), BASELINE))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in TimitLikeStream(
         SpeechDataConfig()).batch(TRAIN_BATCH, step=0).items()}
@@ -2972,6 +3011,372 @@ def check_paper_claims(seed: int, tmp: Path, dev) -> None:
         raise AssertionError(f"phase 4e launched kernels: {counts}")
     print(f"phase 4e: {time.perf_counter() - t0!r} s (training {t1 - t0!r} "
           f"s); no kernel launched")
+
+
+# ------------------------------------------- token-LM serving (phase 6)
+
+LM_TOL = 2e-3  # tests/test_arch_smoke.py: decode against the full forward
+LM_CPU_TOL = 1e-4  # tests/test_torch_lm*.py: the port against the reference
+BLOCK_TOL = 1e-4  # phase 6b: one block on the card against the CPU
+# phase 6a: gemma2-2b at its published widths; LM_BATCH prompts of
+# LM_PROMPT tokens and LM_STEPS decode steps; ServeLoop over LM_SLOTS slots
+# answering LM_REQUESTS requests, prompt and new tokens drawn from the
+# inclusive ranges
+LM_GEMMA2 = GEMMA2_2B
+GEMMA2_PARAMS = 2_614_341_888  # the reference's jax.eval_shape of its init
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 512, 32
+LM_REQUESTS, LM_SLOTS = 8, 4
+LM_REQUEST_PROMPT, LM_REQUEST_NEW = (64, 512), (16, 32)
+BLOCK_BATCH, BLOCK_TOKENS = 2, 128  # phase 6b
+# phase 6c: deepseek-v3-671b at its published widths, cut in depth to one
+# dense MLA layer and one MoE layer, float32, the dropless router
+LM_DEEPSEEK = dataclasses.replace(
+    DEEPSEEK_V3_671B, num_layers=2, dense_layers=1, dtype=torch.float32,
+    moe=dataclasses.replace(DEEPSEEK_V3_671B.moe, router_impl="ragged"))
+DEEPSEEK_PARAMS = 13_944_134_656  # the reference's jax.eval_shape, cut
+MLA_BATCH, MLA_PROMPT, MLA_STEPS = 4, 256, 8
+REDUCED_PROMPT, REDUCED_NEW = 16, 8  # phase 6d, B = 2
+
+
+def timed(dev, fn, *args, **kw):
+    """``fn``'s result and the ms of that one call: CUDA events on the card
+    (the host's clock on the CPU, where phase 6 is rehearsed)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args, **kw)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_tokens(cfg, batch: int, length: int, seed: int, step: int,
+              dev) -> torch.Tensor:
+    """``MarkovLMStream`` tokens over ``cfg``'s vocabulary, on ``dev``."""
+    from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
+
+    stream = MarkovLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                         seed=seed))
+    return torch.as_tensor(stream.batch(batch, length, step)["tokens"],
+                           device=dev)
+
+
+def full_logits(api, params, toks: torch.Tensor, prompt: int
+                ) -> torch.Tensor:
+    """The full forward's logits at the positions prefill and teacher-
+    forced decode predict from: (B, toks' length - prompt + 1, V)."""
+    logits, _ = api.forward(params, {"tokens": toks})
+    want = logits[:, prompt - 1:].clone()
+    del logits
+    return want
+
+
+def lm_teacher_forced(api, params, toks: torch.Tensor, prompt: int, dev,
+                   want: torch.Tensor | None = None, twin=None):
+    """Prefill ``toks[:, :prompt]`` (once to warm up, once timed),
+    ``pad_cache`` to the length of ``toks``, and one decode step a further
+    token, each timed.  Returns the prefill's logits and each step's,
+    stacked (B, 1 + steps, V), the prefill ms and each step's ms.  With
+    ``want`` (``full_logits``), each within ``LM_TOL``; with ``twin``, a
+    second ``ModelAPI`` run on the same cache at each step, its logits
+    within ``LM_TOL`` of ``api``'s."""
+    from repro_torch.serving.cache_utils import pad_cache
+
+    s = toks.shape[1]
+    pre = {"tokens": toks[:, :prompt]}
+    api.forward(params, pre, mode="prefill")
+    (plog, cache), prefill_ms = timed(dev, api.forward, params, pre,
+                                      mode="prefill")
+    cache = pad_cache(cache, prompt, s)
+    logits, step_ms = [plog[:, 0]], []
+    for t in range(prompt, s):
+        tok = {"tokens": toks[:, t:t + 1]}
+        if twin is not None:
+            other, _ = twin.forward(params, tok, cache=cache)
+        (dlog, cache), ms = timed(dev, api.forward, params, tok, cache=cache)
+        if twin is not None:
+            torch.testing.assert_close(other, dlog, rtol=LM_TOL, atol=LM_TOL)
+        logits.append(dlog[:, 0])
+        step_ms.append(ms)
+    logits = torch.stack(logits, dim=1)
+    if want is not None:
+        torch.testing.assert_close(logits, want, rtol=LM_TOL, atol=LM_TOL)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("teacher-forced logits are not finite")
+    return logits, prefill_ms, step_ms
+
+
+def profile_decode(api, params, toks: torch.Tensor, prompt: int, dev,
+                   steps: int = 4) -> str:
+    """Where a decode step's time goes: ``steps`` decode steps from the
+    padded prefill cache of ``toks[:, :prompt]`` under ``torch.profiler``:
+    the card's busy share of their wall time, device operations a step and
+    the most costly of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.cache_utils import pad_cache
+
+    if dev.type != "cuda":
+        return "decode profile: not measured (no card)"
+    _, cache = api.forward(params, {"tokens": toks[:, :prompt]},
+                           mode="prefill")
+    cache = pad_cache(cache, prompt, prompt + steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(prompt, prompt + steps):
+            _, cache = api.forward(params, {"tokens": toks[:, t:t + 1]},
+                                   cache=cache)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    ops = [(e.self_device_time_total, e.count, e.key)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in ops)
+    top = "; ".join(f"{k[:40]} x{c} {t / 1e3:.3f} ms"
+                    for t, c, k in sorted(ops, reverse=True)[:5])
+    return (f"decode profile: {steps} steps in {secs!r} s (profiled), device "
+            f"busy {busy_us / 1e6 / secs!r} of it, "
+            f"{sum(c for _, c, _ in ops) / steps!r} device operations and "
+            f"{busy_us / 1e3 / steps!r} device ms a step, top: {top}")
+
+
+def describe(cfg) -> str:
+    heads = (f"MLA {cfg.num_heads} heads, q/kv ranks {cfg.mla.q_lora_rank}/"
+             f"{cfg.mla.kv_lora_rank}" if cfg.mla else
+             f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+             f"{cfg.resolved_head_dim}")
+    return (f"{cfg.name}: {cfg.num_layers} layers ({cfg.dense_layers} "
+            f"dense), d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+            f"{str(cfg.dtype).removeprefix('torch.')}")
+
+
+def count_params(params, cfg, want: int) -> None:
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"lm: {describe(cfg)}: {n} parameters = "
+          f"{n * params['embed']['tok'].element_size()} B")
+    if n != want:
+        raise AssertionError(f"{cfg.name}: {n} parameters, the reference "
+                             f"has {want}")
+
+
+def check_block(params, cfg, seed: int, dev) -> None:
+    """Phase 6b: ``layer_fwd`` of the first two stacked layers (gemma2: a
+    local one, then a global one) at full width in float32, on the card
+    and on the CPU from the same weights and inputs, within ``BLOCK_TOL``."""
+    from repro_torch.models.transformer import layer_fwd, layer_windows
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((BLOCK_BATCH, BLOCK_TOKENS, cfg.d_model), generator=gen)
+    pos = torch.arange(BLOCK_TOKENS, dtype=torch.int32)[None].expand(
+        BLOCK_BATCH, -1)
+    for i, window in enumerate(layer_windows(cfg).tolist()[:2]):
+        lp = tree_map(lambda t: t[i], params["layers"])  # noqa: B023
+        got, _ = layer_fwd(x.to(dev), lp, cfg, pos.to(dev), window, None,
+                           None)
+        want, _ = layer_fwd(x, tree_map(lambda t: t.cpu(), lp), cfg, pos,
+                            window, None, None)
+        err = (got.cpu() - want).abs().max().item()
+        torch.testing.assert_close(got.cpu(), want, rtol=BLOCK_TOL,
+                                   atol=BLOCK_TOL)
+        print(f"lm block: {cfg.name} layer {cfg.dense_layers + i} (window "
+              f"{window}), {BLOCK_BATCH} x {BLOCK_TOKENS} tokens, float32: "
+              f"{dev} against cpu max |d| {err!r} (tolerance {BLOCK_TOL})")
+
+
+def serve_requests(api, params, seed: int, dev) -> tuple[float, int]:
+    """``ServeLoop(batch_slots=LM_SLOTS)`` answering ``LM_REQUESTS``
+    seeded requests: (seconds, tokens generated)."""
+    from repro_torch.serving.engine import ServeLoop
+
+    rng = np.random.default_rng(seed)
+    loop = ServeLoop(api, params, batch_slots=LM_SLOTS)
+    want = {}
+    for i in range(LM_REQUESTS):
+        n = int(rng.integers(LM_REQUEST_PROMPT[0], LM_REQUEST_PROMPT[1] + 1))
+        new = int(rng.integers(LM_REQUEST_NEW[0], LM_REQUEST_NEW[1] + 1))
+        prompt = lm_tokens(api.cfg, 1, n, seed, 100 + i, "cpu")[0].numpy()
+        want[loop.submit(prompt, new)] = new
+    t0 = time.perf_counter()
+    done = loop.run()
+    seconds = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != sorted(want) or \
+            any(not r.done or len(r.out) != want[r.rid] for r in done):
+        raise AssertionError("ServeLoop: a request is missing or cut short")
+    return seconds, sum(len(r.out) for r in done)
+
+
+def check_gemma2(seed: int, dev, smi: str) -> None:
+    """Phases 6a and 6b: gemma2-2b at its published widths."""
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import generate
+
+    cfg = dataclasses.replace(LM_GEMMA2, dtype=torch.float32)
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, GEMMA2_PARAMS)
+    toks = lm_tokens(cfg, LM_BATCH, LM_PROMPT + LM_STEPS, seed, 0, dev)
+    want = full_logits(api, params, toks, LM_PROMPT)
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks, LM_PROMPT,
+                                            dev, want)
+    print(f"lm: {cfg.name} float32, {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+          f"pad_cache to {LM_PROMPT + LM_STEPS}, {LM_STEPS} teacher-forced "
+          f"decode steps within {LM_TOL} of the full forward; prefill "
+          f"{prefill_ms!r} ms, decode {statistics.median(step_ms)!r} ms a "
+          f"token (median), on {smi}")
+    check_block(params, cfg, seed, dev)
+
+    params = tree_map(lambda t: t.to(LM_GEMMA2.dtype)
+                    if t.is_floating_point() else t, params)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    api = registry.get_model(LM_GEMMA2.name, LM_GEMMA2)
+    logits, prefill_ms, step_ms = lm_teacher_forced(api, params, toks,
+                                                 LM_PROMPT, dev)
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+    del want, logits
+    print(f"lm: {LM_GEMMA2.name} bf16 (the float32 weights rounded), the "
+          f"same {LM_STEPS} teacher-forced steps: logits finite, greedy "
+          f"agreement with float32 {agree!r} over {LM_BATCH} x "
+          f"{LM_STEPS + 1} positions; prefill {prefill_ms!r} ms, decode "
+          f"{statistics.median(step_ms)!r} ms a token (median), on {smi}")
+    print(f"lm: {LM_GEMMA2.name} bf16 "
+          f"{profile_decode(api, params, toks, LM_PROMPT, dev)}, on {smi}")
+    prompts = toks[:, :LM_PROMPT]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(generate(api, params, prompts, LM_STEPS))
+        runs.append(time.perf_counter() - t0)
+    if not np.array_equal(runs[0], runs[2]):
+        raise AssertionError("generate: greedy ids differ between two runs")
+    print(f"lm: generate {LM_BATCH} x {LM_STEPS} tokens (bf16, greedy) "
+          f"twice, ids equal; {runs[1]!r} s and {runs[3]!r} s "
+          f"({LM_BATCH * LM_STEPS / runs[3]!r} tokens/s), on {smi}")
+    seconds, tokens = serve_requests(api, params, seed, dev)
+    print(f"lm: ServeLoop(batch_slots={LM_SLOTS}) {LM_REQUESTS} requests "
+          f"(prompts {LM_REQUEST_PROMPT[0]}-{LM_REQUEST_PROMPT[1]} tokens, "
+          f"max_new {LM_REQUEST_NEW[0]}-{LM_REQUEST_NEW[1]}), {tokens} "
+          f"tokens in {seconds!r} s = {tokens / seconds!r} tokens/s, on "
+          f"{smi}")
+
+
+def check_deepseek(seed: int, dev, smi: str) -> None:
+    """Phase 6c: deepseek-v3-671b at its published widths over two
+    layers, float32."""
+    from repro_torch.models import registry
+
+    cfg = LM_DEEPSEEK
+    print(f"lm: {cfg.name} cut in depth to num_layers={cfg.num_layers}, "
+          f"dense_layers={cfg.dense_layers} (published "
+          f"{DEEPSEEK_V3_671B.num_layers} and "
+          f"{DEEPSEEK_V3_671B.dense_layers}); {cfg.moe.num_experts} experts, "
+          f"top {cfg.moe.top_k}, {cfg.moe.num_shared_experts} shared")
+    api = registry.get_model(cfg.name, cfg)
+    dense = registry.get_model(cfg.name, dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, router_impl="dense_dispatch")))
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, DEEPSEEK_PARAMS)
+    toks = lm_tokens(cfg, MLA_BATCH, MLA_PROMPT + MLA_STEPS, seed, 1, dev)
+    want = full_logits(api, params, toks, MLA_PROMPT)
+    g = min(cfg.moe.group_size, MLA_BATCH)
+    capacity = max(int(g * cfg.moe.top_k / cfg.moe.num_experts
+                       * cfg.moe.capacity_factor), 4)
+    if capacity < g:
+        raise AssertionError(f"dense_dispatch at decode could drop: "
+                             f"capacity {capacity} < {g} tokens")
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks, MLA_PROMPT,
+                                            dev, want, twin=dense)
+    print(f"lm: {cfg.name} float32 ragged, {MLA_BATCH} x {MLA_PROMPT} prompt "
+          f"tokens, pad_cache to {MLA_PROMPT + MLA_STEPS}, {MLA_STEPS} "
+          f"teacher-forced decode steps within {LM_TOL} of the full forward; "
+          f"dense_dispatch at each step (capacity {capacity} >= {g} tokens: "
+          f"nothing dropped) within {LM_TOL} of ragged; prefill "
+          f"{prefill_ms!r} ms, decode {statistics.median(step_ms)!r} ms a "
+          f"token (median), on {smi}")
+
+
+def check_reduced(seed: int, dev) -> None:
+    """Phase 6d: each decoder-LM arch at ``reduce_config``, float32, the
+    same seeded parameters on the CPU and on ``dev``: prefill logits within
+    ``LM_CPU_TOL``, greedy ``generate`` ids equal."""
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import generate
+
+    for arch in registry.list_archs():
+        if ALL_ARCHS[arch].family not in ("dense", "moe", "vlm"):
+            continue
+        cfg = registry.reduce_config(ALL_ARCHS[arch])
+        api = registry.get_model(arch, cfg)
+        cpu = api.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        toks = lm_tokens(cfg, 2, REDUCED_PROMPT, seed, 2, "cpu")
+        extra = {}
+        if cfg.frontend == "patch":
+            extra["patch_embeds"] = torch.randn(
+                (2, cfg.num_patch_tokens, cfg.d_model),
+                generator=torch.Generator().manual_seed(seed))
+        want, _ = api.forward(cpu, dict(extra, tokens=toks), mode="prefill")
+        got, _ = api.forward(card, {k: v.to(dev) for k, v in dict(
+            extra, tokens=toks).items()}, mode="prefill")
+        err = (got.cpu() - want).abs().max().item()
+        torch.testing.assert_close(got.cpu(), want, rtol=LM_CPU_TOL,
+                                   atol=LM_CPU_TOL)
+        ids = [generate(api, p, toks, REDUCED_NEW, extra_inputs=extra)
+               for p in (cpu, card)]
+        if not np.array_equal(*ids):
+            raise AssertionError(f"{arch}: greedy ids differ, {dev} against "
+                                 f"cpu")
+        print(f"lm reduced: {arch}: prefill logits {dev} against cpu max "
+              f"|d| {err!r} (tolerance {LM_CPU_TOL}), {REDUCED_NEW} greedy "
+              f"ids equal")
+
+
+def check_lm_serving(seed: int, dev, smi: str) -> None:
+    """Phase 6: the token-LM serving path on the card (``get_model`` ->
+    ``init`` -> ``generate`` / ``ServeLoop``), plain PyTorch: no kernel of
+    the port lies on it, and every launch counter stays 0.  (a) gemma2-2b
+    at its published widths: float32 prefill, ``pad_cache`` and
+    teacher-forced decode against the full forward; bf16 teacher-forced
+    (greedy agreement with float32 printed), ``generate`` twice with equal
+    ids, ``ServeLoop``.  (b) One gemma2 block, card against CPU.  (c)
+    deepseek-v3-671b over two layers, float32, ragged teacher-forced decode
+    against the full forward and dense_dispatch against ragged.  (d) Each
+    decoder-LM arch at ``reduce_config``, card against CPU.  Prefill and
+    decode ms, tokens/s and peak memory printed beside the card."""
+    t0 = time.perf_counter()
+    print(f"phase 6 on {smi}")
+    set_counts(0)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.init()  # the allocator's statistics need the context
+    with torch.no_grad():
+        for name, check in (("gemma2-2b", check_gemma2),
+                            ("deepseek-v3-671b", check_deepseek)):
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            check(seed, dev, smi)
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+            print(f"lm: {name}: {time.perf_counter() - t1!r} s, peak memory "
+                  f"{peak!r} B (max_memory_allocated), on {smi}")
+        if cuda:
+            torch.cuda.empty_cache()
+        check_reduced(seed, dev)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 6 launched kernels: {counts}")
+    print(f"phase 6: {time.perf_counter() - t0!r} s; no kernel launched")
 
 
 # ----------------------------------------------------------------- timing
@@ -3579,6 +3984,7 @@ def main(argv=None) -> int:
         run_example(Path(tmp), dev)
         check_training(args.seed, utts, Path(tmp), dev)
         check_paper_claims(args.seed, Path(tmp), dev)
+        check_lm_serving(args.seed, dev, smi)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -1,12 +1,15 @@
-"""Synthetic speech data source (numpy only).
+"""Synthetic data sources (numpy only): speech and token streams.
 
-TIMIT is licensed and not redistributable, so the stream below is a
+TIMIT is licensed and not redistributable, so the speech stream is a
 TIMIT-shaped generator: 40-dim fbank-like features at 100 frames/s (25 ms
 window, 10 ms shift), 1920 senone classes (the Kaldi tri-phone state
 inventory), with phoneme-segment temporal structure so the RSNN's
 recurrence has something to learn.  Real TIMIT features drop into the same
-interface.  The port keeps its own copy of the reference's generator; a
-batch is the reference's, bit for bit.
+interface.
+
+The LM stream is a sparse-transition Markov chain over the vocabulary —
+learnable structure for the token LMs.  The port keeps its own copy of
+the reference's generators; a batch is the reference's, bit for bit.
 """
 
 from __future__ import annotations
@@ -66,3 +69,32 @@ class TimitLikeStream:
                 t += seg
         feats += cfg.noise * rng.normal(size=feats.shape).astype(np.float32)
         return {"features": feats, "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab_size: int = 503
+    branching: int = 8  # sparse next-token choices per token
+    seed: int = 0
+
+
+class MarkovLMStream:
+    """Sparse-transition Markov chain token stream (seekable):
+    ``batch(n, seq_len, step)`` depends only on the config and ``step``."""
+
+    def __init__(self, cfg: LMDataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self.next_tokens = rng.integers(
+            0, cfg.vocab_size,
+            size=(cfg.vocab_size, cfg.branching)).astype(np.int32)
+
+    def batch(self, batch_size: int, seq_len: int, step: int) -> dict:
+        rng = np.random.default_rng((self.cfg.seed, step))
+        toks = np.empty((batch_size, seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, self.cfg.vocab_size, batch_size)
+        choices = rng.integers(0, self.cfg.branching,
+                               size=(batch_size, seq_len))
+        for t in range(1, seq_len):
+            toks[:, t] = self.next_tokens[toks[:, t - 1], choices[:, t]]
+        return {"tokens": toks}

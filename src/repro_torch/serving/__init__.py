@@ -1,2 +1,3 @@
-"""Streaming serving: backends (op tables), slot scheduling, the engine
-and its synchronous slot loop."""
+"""Serving: the streaming RSNN (backends' op tables, slot scheduling, the
+engine and its slot loops, sharded serving) and the token LMs
+(``engine.py``'s ``generate`` and ``ServeLoop``, ``cache_utils.py``)."""

@@ -13,9 +13,12 @@ a product with its reciprocal).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+
+from repro_torch.core import tree as tree_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,26 +44,9 @@ def _is_leaf(x) -> bool:
                                            and set(x) == {"q", "scale"})
 
 
-def tree_leaves(tree) -> list:
-    if _is_leaf(tree):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [leaf for sub in items for leaf in tree_leaves(sub)]
-
-
-def tree_unflatten(like, it):
-    if _is_leaf(like):
-        return next(it)
-    if isinstance(like, dict):
-        return {k: tree_unflatten(v, it) for k, v in like.items()}
-    return type(like)(*(tree_unflatten(v, it) for v in like))
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure), in ``tree``'s structure."""
-    cols = [tree_leaves(t) for t in (tree, *rest)]
-    return tree_unflatten(tree, iter([fn(*xs) for xs in zip(*cols)]))
+tree_leaves = functools.partial(tree_lib.tree_leaves, is_leaf=_is_leaf)
+tree_unflatten = functools.partial(tree_lib.tree_unflatten, is_leaf=_is_leaf)
+tree_map = functools.partial(tree_lib.tree_map, is_leaf=_is_leaf)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
