@@ -242,6 +242,46 @@ two ragged layers respectively), ``GEMMA2_PARAMS``/``DEEPSEEK_PARAMS`` to
 their counts and the sizes to a few tokens, and calling
 ``check_lm_serving(0, torch.device("cpu"), "")`` (~3 s).
 
+Then phase 7 (``check_lm_families``): the other three token-LM families,
+plain PyTorch (every launch counter stays 0), float32 with TF32 off,
+weights drawn on the card from a seeded generator, each model's parameter
+count asserted equal to the reference's ``jax.eval_shape``.  (a)
+whisper-base at its published widths (``LM_WHISPER``, 87,488,512
+parameters at ``max_dec_len`` 32768): 4 streams of 1,500 seeded N(0, 1)
+frames and 4 x 64 prompt tokens prefilled, ``pad_cache`` to 80, 16
+teacher-forced decode steps within ``LM_TOL`` of the full forward; then in
+bf16 (the float32 weights rounded; the reference's float32 leaves stay
+float32, ``cast_like_``) the encoder's ms and ``generate`` of 32 tokens
+with the frames through ``extra_inputs``, twice, ids equal (``ServeLoop``
+passes no frames, in the reference too, so it does not serve whisper).
+(b) xlstm-350m (528,555,176 parameters): 4 x 512 prompt tokens (512 = 4
+chunks of 128, so prefill takes the chunked form) prefilled in the chunked
+and the sequential form, logits and final states within ``LM_TOL``
+(``chunked_against_sequential``); 16 teacher-forced decode steps within
+``LM_TOL`` of the full forward; ``spiking=True`` through both forms with
+the sLSTM thresholds drawn from N(0, ``SPIKE_VTH_STD``^2) (at their init
+of 1 no unit can fire), logits finite, each sLSTM layer's spike rate and
+the spikes that differ between the forms printed, not asserted
+(``spiking_forms``); then bf16 teacher-forced steps (ms), four decode steps
+under ``torch.profiler``, ``generate`` twice with equal ids and
+``ServeLoop`` over 4 slots answering 8 requests.  (c) zamba2-7b
+(6,750,550,224 parameters, 27.0 GB in float32): 2 x 256 prompt tokens,
+chunked against sequential prefill within ``LM_TOL``, ``pad_cache`` to 264
+and 8 teacher-forced decode steps within ``LM_TOL``; then bf16 (13.5 GB,
+each float32 leaf freed as it is cast): teacher-forced steps (ms), four
+profiled decode steps, ``generate`` twice with equal ids, ``ServeLoop``
+over 2 slots answering 4 requests.  (d) ``check_reduced`` over all ten
+archs, whisper with seeded frames.  Prefill ms, decode ms a token (CUDA
+events, the median), tokens/s, each model's peak
+``max_memory_allocated`` and the phase's seconds are printed beside the
+card's name and power limit.  Rehearse it on the CPU by setting
+``LM_WHISPER``, ``LM_XLSTM`` and ``LM_ZAMBA2`` to their ``reduce_config``
+in bf16 (the two recurrent ones at ``chunk=4``), ``WHISPER_MAX_DEC_LEN``
+to 64, the three parameter counts to the reduced models' and the batch,
+prompt, step and request sizes to a few tokens (prompts a multiple of 4),
+``torch.cuda.synchronize`` a no-op, and calling
+``check_lm_families(0, torch.device("cpu"), "")`` (~3 s).
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -282,7 +322,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.archs import (DEEPSEEK_V3_671B,  # noqa: E402
-                                       GEMMA2_2B)
+                                       GEMMA2_2B, WHISPER_BASE, XLSTM_350M,
+                                       ZAMBA2_7B)
 from repro_torch.configs.rsnn_timit import BASELINE, PRUNED  # noqa: E402
 from repro_torch.core.artifact import (load_artifact,  # noqa: E402
                                        params_from_arrays, save_artifact)
@@ -3035,7 +3076,9 @@ LM_DEEPSEEK = dataclasses.replace(
     moe=dataclasses.replace(DEEPSEEK_V3_671B.moe, router_impl="ragged"))
 DEEPSEEK_PARAMS = 13_944_134_656  # the reference's jax.eval_shape, cut
 MLA_BATCH, MLA_PROMPT, MLA_STEPS = 4, 256, 8
-REDUCED_PROMPT, REDUCED_NEW = 16, 8  # phase 6d, B = 2
+REDUCED_PROMPT, REDUCED_NEW = 16, 8  # phases 6d and 7d, B = 2
+DECODER_FAMILIES = ("dense", "moe", "vlm")  # phase 6d's archs
+ALL_FAMILIES = (*DECODER_FAMILIES, "audio", "ssm", "hybrid")  # phase 7d
 
 
 def timed(dev, fn, *args, **kw):
@@ -3065,29 +3108,32 @@ def lm_tokens(cfg, batch: int, length: int, seed: int, step: int,
                            device=dev)
 
 
-def full_logits(api, params, toks: torch.Tensor, prompt: int
-                ) -> torch.Tensor:
+def full_logits(api, params, toks: torch.Tensor, prompt: int,
+                extra: dict | None = None) -> torch.Tensor:
     """The full forward's logits at the positions prefill and teacher-
-    forced decode predict from: (B, toks' length - prompt + 1, V)."""
-    logits, _ = api.forward(params, {"tokens": toks})
+    forced decode predict from: (B, toks' length - prompt + 1, V).
+    ``extra``: the batch's other inputs (whisper's frames)."""
+    logits, _ = api.forward(params, dict(extra or {}, tokens=toks))
     want = logits[:, prompt - 1:].clone()
     del logits
     return want
 
 
 def lm_teacher_forced(api, params, toks: torch.Tensor, prompt: int, dev,
-                   want: torch.Tensor | None = None, twin=None):
+                      want: torch.Tensor | None = None, twin=None,
+                      extra: dict | None = None):
     """Prefill ``toks[:, :prompt]`` (once to warm up, once timed),
     ``pad_cache`` to the length of ``toks``, and one decode step a further
     token, each timed.  Returns the prefill's logits and each step's,
     stacked (B, 1 + steps, V), the prefill ms and each step's ms.  With
     ``want`` (``full_logits``), each within ``LM_TOL``; with ``twin``, a
     second ``ModelAPI`` run on the same cache at each step, its logits
-    within ``LM_TOL`` of ``api``'s."""
+    within ``LM_TOL`` of ``api``'s.  ``extra``: the prefill batch's other
+    inputs (whisper's frames; decode reads them from the cache)."""
     from repro_torch.serving.cache_utils import pad_cache
 
     s = toks.shape[1]
-    pre = {"tokens": toks[:, :prompt]}
+    pre = dict(extra or {}, tokens=toks[:, :prompt])
     api.forward(params, pre, mode="prefill")
     (plog, cache), prefill_ms = timed(dev, api.forward, params, pre,
                                       mode="prefill")
@@ -3151,9 +3197,21 @@ def describe(cfg) -> str:
              f"{cfg.mla.kv_lora_rank}" if cfg.mla else
              f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
              f"{cfg.resolved_head_dim}")
+    family = ""
+    if cfg.encoder_layers:
+        family = (f", encoder {cfg.encoder_layers} layers over "
+                  f"{cfg.encoder_seq} frames")
+    elif cfg.ssm is not None and cfg.ssm.kind == "xlstm":
+        family = f", sLSTM layers {cfg.ssm.slstm_layers} (others mLSTM)"
+    elif cfg.ssm is not None:
+        family = (f", Mamba2 d_state {cfg.ssm.d_state} expand "
+                  f"{cfg.ssm.expand} head_dim {cfg.ssm.head_dim}, shared "
+                  f"attention every {cfg.attn_every} layers")
+    if cfg.ssm is not None:
+        family += f", scan {cfg.ssm.scan_impl} (chunk {cfg.ssm.chunk})"
     return (f"{cfg.name}: {cfg.num_layers} layers ({cfg.dense_layers} "
             f"dense), d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+            f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}){family}, "
             f"{str(cfg.dtype).removeprefix('torch.')}")
 
 
@@ -3190,17 +3248,19 @@ def check_block(params, cfg, seed: int, dev) -> None:
               f"{dev} against cpu max |d| {err!r} (tolerance {BLOCK_TOL})")
 
 
-def serve_requests(api, params, seed: int, dev) -> tuple[float, int]:
-    """``ServeLoop(batch_slots=LM_SLOTS)`` answering ``LM_REQUESTS``
-    seeded requests: (seconds, tokens generated)."""
+def serve_requests(api, params, seed: int, slots: int, requests: int,
+                   prompt_span: tuple, new_span: tuple) -> tuple[float, int]:
+    """``ServeLoop(batch_slots=slots)`` answering ``requests`` seeded
+    requests, prompt and new tokens drawn from the inclusive ranges
+    ``prompt_span`` and ``new_span``: (seconds, tokens generated)."""
     from repro_torch.serving.engine import ServeLoop
 
     rng = np.random.default_rng(seed)
-    loop = ServeLoop(api, params, batch_slots=LM_SLOTS)
+    loop = ServeLoop(api, params, batch_slots=slots)
     want = {}
-    for i in range(LM_REQUESTS):
-        n = int(rng.integers(LM_REQUEST_PROMPT[0], LM_REQUEST_PROMPT[1] + 1))
-        new = int(rng.integers(LM_REQUEST_NEW[0], LM_REQUEST_NEW[1] + 1))
+    for i in range(requests):
+        n = int(rng.integers(prompt_span[0], prompt_span[1] + 1))
+        new = int(rng.integers(new_span[0], new_span[1] + 1))
         prompt = lm_tokens(api.cfg, 1, n, seed, 100 + i, "cpu")[0].numpy()
         want[loop.submit(prompt, new)] = new
     t0 = time.perf_counter()
@@ -3212,10 +3272,26 @@ def serve_requests(api, params, seed: int, dev) -> tuple[float, int]:
     return seconds, sum(len(r.out) for r in done)
 
 
+def gen_twice(api, params, prompts: torch.Tensor, n: int,
+              extra: dict | None = None) -> tuple[float, float]:
+    """``generate`` of ``n`` greedy tokens twice, ids equal: each run's
+    seconds."""
+    from repro_torch.serving.engine import generate
+
+    runs, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(generate(api, params, prompts, n, extra_inputs=extra))
+        secs.append(time.perf_counter() - t0)
+    if not np.array_equal(*runs):
+        raise AssertionError(f"{api.cfg.name} generate: greedy ids differ "
+                             f"between two runs")
+    return secs[0], secs[1]
+
+
 def check_gemma2(seed: int, dev, smi: str) -> None:
     """Phases 6a and 6b: gemma2-2b at its published widths."""
     from repro_torch.models import registry
-    from repro_torch.serving.engine import generate
 
     cfg = dataclasses.replace(LM_GEMMA2, dtype=torch.float32)
     api = registry.get_model(cfg.name, cfg)
@@ -3249,18 +3325,13 @@ def check_gemma2(seed: int, dev, smi: str) -> None:
           f"{statistics.median(step_ms)!r} ms a token (median), on {smi}")
     print(f"lm: {LM_GEMMA2.name} bf16 "
           f"{profile_decode(api, params, toks, LM_PROMPT, dev)}, on {smi}")
-    prompts = toks[:, :LM_PROMPT]
-    runs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        runs.append(generate(api, params, prompts, LM_STEPS))
-        runs.append(time.perf_counter() - t0)
-    if not np.array_equal(runs[0], runs[2]):
-        raise AssertionError("generate: greedy ids differ between two runs")
+    first, second = gen_twice(api, params, toks[:, :LM_PROMPT], LM_STEPS)
     print(f"lm: generate {LM_BATCH} x {LM_STEPS} tokens (bf16, greedy) "
-          f"twice, ids equal; {runs[1]!r} s and {runs[3]!r} s "
-          f"({LM_BATCH * LM_STEPS / runs[3]!r} tokens/s), on {smi}")
-    seconds, tokens = serve_requests(api, params, seed, dev)
+          f"twice, ids equal; {first!r} s and {second!r} s "
+          f"({LM_BATCH * LM_STEPS / second!r} tokens/s), on {smi}")
+    seconds, tokens = serve_requests(api, params, seed, LM_SLOTS,
+                                     LM_REQUESTS, LM_REQUEST_PROMPT,
+                                     LM_REQUEST_NEW)
     print(f"lm: ServeLoop(batch_slots={LM_SLOTS}) {LM_REQUESTS} requests "
           f"(prompts {LM_REQUEST_PROMPT[0]}-{LM_REQUEST_PROMPT[1]} tokens, "
           f"max_new {LM_REQUEST_NEW[0]}-{LM_REQUEST_NEW[1]}), {tokens} "
@@ -3304,16 +3375,17 @@ def check_deepseek(seed: int, dev, smi: str) -> None:
           f"token (median), on {smi}")
 
 
-def check_reduced(seed: int, dev) -> None:
-    """Phase 6d: each decoder-LM arch at ``reduce_config``, float32, the
-    same seeded parameters on the CPU and on ``dev``: prefill logits within
-    ``LM_CPU_TOL``, greedy ``generate`` ids equal."""
+def check_reduced(seed: int, dev, families: tuple) -> None:
+    """Phases 6d and 7d: each arch of ``families`` at ``reduce_config``,
+    float32, the same seeded parameters (and whisper's seeded frames) on
+    the CPU and on ``dev``: prefill logits within ``LM_CPU_TOL``, greedy
+    ``generate`` ids equal."""
     from repro_torch.configs.archs import ALL_ARCHS
     from repro_torch.models import registry
     from repro_torch.serving.engine import generate
 
     for arch in registry.list_archs():
-        if ALL_ARCHS[arch].family not in ("dense", "moe", "vlm"):
+        if ALL_ARCHS[arch].family not in families:
             continue
         cfg = registry.reduce_config(ALL_ARCHS[arch])
         api = registry.get_model(arch, cfg)
@@ -3324,6 +3396,10 @@ def check_reduced(seed: int, dev) -> None:
         if cfg.frontend == "patch":
             extra["patch_embeds"] = torch.randn(
                 (2, cfg.num_patch_tokens, cfg.d_model),
+                generator=torch.Generator().manual_seed(seed))
+        if cfg.encoder_layers:
+            extra["frames"] = torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model),
                 generator=torch.Generator().manual_seed(seed))
         want, _ = api.forward(cpu, dict(extra, tokens=toks), mode="prefill")
         got, _ = api.forward(card, {k: v.to(dev) for k, v in dict(
@@ -3372,11 +3448,330 @@ def check_lm_serving(seed: int, dev, smi: str) -> None:
                   f"{peak!r} B (max_memory_allocated), on {smi}")
         if cuda:
             torch.cuda.empty_cache()
-        check_reduced(seed, dev)
+        check_reduced(seed, dev, DECODER_FAMILIES)
     counts = read_counts()
     if any(counts.values()):
         raise AssertionError(f"phase 6 launched kernels: {counts}")
     print(f"phase 6: {time.perf_counter() - t0!r} s; no kernel launched")
+
+
+# ------------------------- the remaining token-LM families (phase 7)
+
+# phase 7a: whisper-base at its published widths; WHISPER_BATCH streams of
+# encoder_seq seeded N(0, 1) frames and WHISPER_PROMPT prompt tokens,
+# WHISPER_STEPS teacher-forced decode steps, WHISPER_NEW generated tokens
+LM_WHISPER = WHISPER_BASE
+WHISPER_PARAMS = 87_488_512  # the reference's jax.eval_shape, max_dec_len
+WHISPER_MAX_DEC_LEN = 32768  # the registry's default, as the reference's
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_NEW = 4, 64, 16, 32
+# phase 7b: xlstm-350m; XLSTM_PROMPT a multiple of its chunk, so that
+# prefill takes the chunked form
+LM_XLSTM = XLSTM_350M
+XLSTM_PARAMS = 528_555_176
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS, XLSTM_NEW = 4, 512, 16, 32
+XLSTM_SLOTS, XLSTM_REQUESTS = 4, 8
+XLSTM_REQUEST_PROMPT, XLSTM_REQUEST_NEW = (64, 512), (16, 32)
+# the spiking sLSTM's threshold for phase 7b: at its init of 1 no unit can
+# fire (|c / n| < 1, since n >= 1 and |tanh| < 1), so vth is drawn from
+# N(0, SPIKE_VTH_STD^2), where units fire
+SPIKE_VTH_STD = 0.3
+# phase 7c: zamba2-7b at its published widths
+LM_ZAMBA2 = ZAMBA2_7B
+ZAMBA2_PARAMS = 6_750_550_224
+ZAMBA2_BATCH, ZAMBA2_PROMPT, ZAMBA2_STEPS, ZAMBA2_NEW = 2, 256, 8, 16
+ZAMBA2_SLOTS, ZAMBA2_REQUESTS = 2, 4
+ZAMBA2_REQUEST_PROMPT, ZAMBA2_REQUEST_NEW = (32, 128), (8, 16)
+
+
+def with_scan(cfg, scan_impl: str):
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, scan_impl=scan_impl))
+
+
+def cast_like_(tree, like):
+    """Each floating leaf of ``tree`` (dicts and lists, replaced in place)
+    cast to the dtype of ``like``'s leaf (the tree ``init`` gives on the
+    meta device at the target dtype: the reference's float32 leaves stay
+    float32), one leaf at a time, so that each old copy is freed as its
+    cast is made."""
+    keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+    for k in keys:
+        if isinstance(tree[k], (dict, list)):
+            cast_like_(tree[k], like[k])
+        elif tree[k].is_floating_point():
+            tree[k] = tree[k].to(like[k].dtype)
+    return tree
+
+
+def close_states(got, want, what: str) -> float:
+    """Every leaf of two recurrent state trees within ``LM_TOL``; the
+    largest |d| over them."""
+    err = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=LM_TOL, atol=LM_TOL,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    return err
+
+
+def chunked_against_sequential(api, params, toks: torch.Tensor, dev,
+                               what: str) -> tuple[float, float, float]:
+    """Prefill ``toks`` in the chunked form (warmed up, then timed) and in
+    the sequential one: logits and final states within ``LM_TOL``.
+    Returns (chunked ms, sequential ms, the largest |d|)."""
+    from repro_torch.models import registry
+
+    seq_api = registry.get_model(api.cfg.name, with_scan(api.cfg,
+                                                         "sequential"))
+    batch = {"tokens": toks}
+    api.forward(params, batch, mode="prefill")
+    (lc, sc), chunked_ms = timed(dev, api.forward, params, batch,
+                                 mode="prefill")
+    (ls, ss), seq_ms = timed(dev, seq_api.forward, params, batch,
+                             mode="prefill")
+    torch.testing.assert_close(lc, ls, rtol=LM_TOL, atol=LM_TOL)
+    err = max((lc - ls).abs().max().item(),
+              close_states(sc, ss, f"{what} prefill states"))
+    return chunked_ms, seq_ms, err
+
+
+def check_whisper(seed: int, dev, smi: str) -> None:
+    """Phase 7a: whisper-base at its published widths."""
+    from repro_torch.models import encdec, registry
+
+    cfg = dataclasses.replace(LM_WHISPER, dtype=torch.float32)
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev, max_dec_len=WHISPER_MAX_DEC_LEN)
+    count_params(params, cfg, WHISPER_PARAMS)
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_seq, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 1), device=dev)
+    extra = {"frames": frames}
+    toks = lm_tokens(cfg, WHISPER_BATCH, WHISPER_PROMPT + WHISPER_STEPS,
+                     seed, 3, dev)
+    want = full_logits(api, params, toks, WHISPER_PROMPT, extra)
+    _, prefill_ms, step_ms = lm_teacher_forced(
+        api, params, toks, WHISPER_PROMPT, dev, want, extra=extra)
+    del want
+    enc_ms = timed(dev, encdec.encode, params, frames, cfg)[1]
+    print(f"lm: {cfg.name} float32, {WHISPER_BATCH} streams of "
+          f"{cfg.encoder_seq} frames and {WHISPER_PROMPT} prompt tokens, "
+          f"pad_cache to {WHISPER_PROMPT + WHISPER_STEPS}, {WHISPER_STEPS} "
+          f"teacher-forced decode steps within {LM_TOL} of the full "
+          f"forward; encoder {enc_ms!r} ms, prefill (encoder included) "
+          f"{prefill_ms!r} ms, decode {statistics.median(step_ms)!r} ms a "
+          f"token (median), on {smi}")
+
+    api = registry.get_model(LM_WHISPER.name, LM_WHISPER)
+    cast_like_(params, api.init(torch.Generator(), device="meta",
+                                max_dec_len=WHISPER_MAX_DEC_LEN))
+    encdec.encode(params, frames, LM_WHISPER)
+    enc_ms = timed(dev, encdec.encode, params, frames, LM_WHISPER)[1]
+    first, second = gen_twice(api, params, toks[:, :WHISPER_PROMPT],
+                              WHISPER_NEW, extra)
+    print(f"lm: {LM_WHISPER.name} bf16 (the float32 weights rounded): "
+          f"encoder {enc_ms!r} ms; generate {WHISPER_BATCH} x "
+          f"{WHISPER_NEW} tokens (greedy, frames through extra_inputs) "
+          f"twice, ids equal; {first!r} s and {second!r} s "
+          f"({WHISPER_BATCH * WHISPER_NEW / second!r} tokens/s); ServeLoop "
+          f"passes no frames, as the reference's, so it does not serve "
+          f"whisper; on {smi}")
+
+
+def spiking_forms(params, cfg, toks: torch.Tensor, seed: int, dev,
+                  smi: str) -> None:
+    """Phase 7b's spiking sLSTM at full width: the sLSTM thresholds drawn
+    (``SPIKE_VTH_STD``), a prefill of ``toks`` in the chunked and the
+    sequential form, each ``spike_fn`` call recorded: logits finite, each
+    sLSTM layer's spike rate and the spikes that differ between the forms
+    printed (the mLSTMs' forms differ by rounding, so a unit near its
+    threshold may flip: counted, not asserted)."""
+    from repro_torch.models import registry, ssm
+    from repro_torch.models.layers import xlstm
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    layers = [dict(lp, block=dict(lp["block"], vth=torch.randn(
+        lp["block"]["vth"].shape, generator=gen, device=dev)
+        * SPIKE_VTH_STD)) if ssm.is_slstm(cfg, i) else lp
+        for i, lp in enumerate(params["layers"])]
+    spiking = dict(params, layers=layers)
+    spikes = {}
+    real = xlstm.spike_fn
+    for impl in ("chunked", "sequential"):
+        record = []
+
+        def recorded(u, vth, slope=25.0, _record=record):
+            s = real(u, vth, slope)
+            _record.append(s.bool())
+            return s
+
+        api = registry.get_model(cfg.name, dataclasses.replace(
+            with_scan(cfg, impl), spiking=True))
+        xlstm.spike_fn = recorded
+        try:
+            logits, _ = api.forward(spiking, {"tokens": toks}, mode="prefill")
+        finally:
+            xlstm.spike_fn = real
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"spiking {impl}: logits are not finite")
+        n = toks.shape[1]
+        # one call a step, n a layer, the sLSTM layers in order
+        spikes[impl] = [torch.stack(record[j * n:(j + 1) * n])
+                        for j in range(len(record) // n)]
+    rates = {impl: [s.float().mean().item() for s in per]
+             for impl, per in spikes.items()}
+    differ = [int((a != b).sum()) for a, b in zip(spikes["chunked"],
+                                                  spikes["sequential"])]
+    print(f"lm: {cfg.name} spiking=True (sLSTM layers "
+          f"{cfg.ssm.slstm_layers}, vth ~ N(0, {SPIKE_VTH_STD}^2)), float32, "
+          f"{toks.shape[0]} x {toks.shape[1]} tokens prefilled in both "
+          f"forms, logits finite; spike rate a layer chunked "
+          f"{rates['chunked']!r}, sequential {rates['sequential']!r}; "
+          f"spikes that differ between the forms {differ!r} of "
+          f"{spikes['chunked'][0].numel()!r} a layer, on {smi}")
+
+
+def check_xlstm(seed: int, dev, smi: str) -> None:
+    """Phase 7b: xlstm-350m at its published widths."""
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(LM_XLSTM, dtype=torch.float32)
+    if XLSTM_PROMPT % cfg.ssm.chunk or cfg.ssm.scan_impl != "chunked":
+        raise AssertionError("phase 7b's prompt must take the chunked form")
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, XLSTM_PARAMS)
+    toks = lm_tokens(cfg, XLSTM_BATCH, XLSTM_PROMPT + XLSTM_STEPS, seed, 4,
+                     dev)
+    chunked_ms, seq_ms, err = chunked_against_sequential(
+        api, params, toks[:, :XLSTM_PROMPT], dev, cfg.name)
+    want = full_logits(api, params, toks, XLSTM_PROMPT)
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks,
+                                               XLSTM_PROMPT, dev, want)
+    del want
+    print(f"lm: {cfg.name} float32, {XLSTM_BATCH} x {XLSTM_PROMPT} prompt "
+          f"tokens: chunked prefill ({chunked_ms!r} ms) against sequential "
+          f"({seq_ms!r} ms), logits and states max |d| {err!r} (tolerance "
+          f"{LM_TOL}); {XLSTM_STEPS} teacher-forced decode steps within "
+          f"{LM_TOL} of the full forward; prefill {prefill_ms!r} ms, decode "
+          f"{statistics.median(step_ms)!r} ms a token (median), on {smi}")
+    spiking_forms(params, cfg, toks[:, :XLSTM_PROMPT], seed, dev, smi)
+
+    api = registry.get_model(LM_XLSTM.name, LM_XLSTM)
+    cast_like_(params, api.init(torch.Generator(), device="meta"))
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks,
+                                               XLSTM_PROMPT, dev)
+    print(f"lm: {LM_XLSTM.name} bf16 (the float32 weights rounded), the "
+          f"same {XLSTM_STEPS} teacher-forced steps: logits finite; prefill "
+          f"{prefill_ms!r} ms, decode {statistics.median(step_ms)!r} ms a "
+          f"token (median), on {smi}")
+    print(f"lm: {LM_XLSTM.name} bf16 "
+          f"{profile_decode(api, params, toks, XLSTM_PROMPT, dev)}, on {smi}")
+    first, second = gen_twice(api, params, toks[:, :XLSTM_PROMPT],
+                              XLSTM_NEW)
+    seconds, tokens = serve_requests(api, params, seed, XLSTM_SLOTS,
+                                     XLSTM_REQUESTS, XLSTM_REQUEST_PROMPT,
+                                     XLSTM_REQUEST_NEW)
+    print(f"lm: {LM_XLSTM.name} bf16 generate {XLSTM_BATCH} x {XLSTM_NEW} "
+          f"tokens (greedy) twice, ids equal; {first!r} s and {second!r} s "
+          f"({XLSTM_BATCH * XLSTM_NEW / second!r} tokens/s); "
+          f"ServeLoop(batch_slots={XLSTM_SLOTS}) {XLSTM_REQUESTS} requests "
+          f"(prompts {XLSTM_REQUEST_PROMPT[0]}-{XLSTM_REQUEST_PROMPT[1]} "
+          f"tokens, max_new {XLSTM_REQUEST_NEW[0]}-{XLSTM_REQUEST_NEW[1]}), "
+          f"{tokens} tokens in {seconds!r} s = {tokens / seconds!r} "
+          f"tokens/s, on {smi}")
+
+
+def check_zamba2(seed: int, dev, smi: str) -> None:
+    """Phase 7c: zamba2-7b at its published widths, float32 then bf16."""
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(LM_ZAMBA2, dtype=torch.float32)
+    if ZAMBA2_PROMPT % cfg.ssm.chunk or cfg.ssm.scan_impl != "chunked":
+        raise AssertionError("phase 7c's prompt must take the chunked form")
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, ZAMBA2_PARAMS)
+    toks = lm_tokens(cfg, ZAMBA2_BATCH, ZAMBA2_PROMPT + ZAMBA2_STEPS, seed,
+                     5, dev)
+    chunked_ms, seq_ms, err = chunked_against_sequential(
+        api, params, toks[:, :ZAMBA2_PROMPT], dev, cfg.name)
+    want = full_logits(api, params, toks, ZAMBA2_PROMPT)
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks,
+                                               ZAMBA2_PROMPT, dev, want)
+    del want
+    print(f"lm: {cfg.name} float32, {ZAMBA2_BATCH} x {ZAMBA2_PROMPT} prompt "
+          f"tokens: chunked prefill ({chunked_ms!r} ms) against sequential "
+          f"({seq_ms!r} ms), logits and states max |d| {err!r} (tolerance "
+          f"{LM_TOL}); pad_cache to {ZAMBA2_PROMPT + ZAMBA2_STEPS}, "
+          f"{ZAMBA2_STEPS} teacher-forced decode steps within {LM_TOL} of "
+          f"the full forward; prefill {prefill_ms!r} ms, decode "
+          f"{statistics.median(step_ms)!r} ms a token (median), on {smi}")
+
+    api = registry.get_model(LM_ZAMBA2.name, LM_ZAMBA2)
+    cast_like_(params, api.init(torch.Generator(), device="meta"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _, prefill_ms, step_ms = lm_teacher_forced(api, params, toks,
+                                               ZAMBA2_PROMPT, dev)
+    print(f"lm: {LM_ZAMBA2.name} bf16 (the float32 weights rounded, each "
+          f"float32 leaf freed as it is cast), the same {ZAMBA2_STEPS} "
+          f"teacher-forced steps: logits finite; prefill {prefill_ms!r} ms, "
+          f"decode {statistics.median(step_ms)!r} ms a token (median), on "
+          f"{smi}")
+    print(f"lm: {LM_ZAMBA2.name} bf16 "
+          f"{profile_decode(api, params, toks, ZAMBA2_PROMPT, dev)}, on "
+          f"{smi}")
+    first, second = gen_twice(api, params, toks[:, :ZAMBA2_PROMPT],
+                              ZAMBA2_NEW)
+    seconds, tokens = serve_requests(api, params, seed, ZAMBA2_SLOTS,
+                                     ZAMBA2_REQUESTS, ZAMBA2_REQUEST_PROMPT,
+                                     ZAMBA2_REQUEST_NEW)
+    print(f"lm: {LM_ZAMBA2.name} bf16 generate {ZAMBA2_BATCH} x "
+          f"{ZAMBA2_NEW} tokens (greedy) twice, ids equal; {first!r} s and "
+          f"{second!r} s ({ZAMBA2_BATCH * ZAMBA2_NEW / second!r} tokens/s); "
+          f"ServeLoop(batch_slots={ZAMBA2_SLOTS}) {ZAMBA2_REQUESTS} requests "
+          f"(prompts {ZAMBA2_REQUEST_PROMPT[0]}-{ZAMBA2_REQUEST_PROMPT[1]} "
+          f"tokens, max_new {ZAMBA2_REQUEST_NEW[0]}-"
+          f"{ZAMBA2_REQUEST_NEW[1]}), {tokens} tokens in {seconds!r} s = "
+          f"{tokens / seconds!r} tokens/s, on {smi}")
+
+
+def check_lm_families(seed: int, dev, smi: str) -> None:
+    """Phase 7: the encoder-decoder, xLSTM and Mamba2-hybrid families on
+    the card, plain PyTorch: no kernel of the port lies on them, and every
+    launch counter stays 0.  (a) whisper-base, (b) xlstm-350m with the
+    spiking sLSTM, (c) zamba2-7b, each at its published widths; (d) all
+    ten archs at ``reduce_config``, card against CPU.  Prefill and decode
+    ms, tokens/s and each model's peak memory printed beside the card."""
+    t0 = time.perf_counter()
+    print(f"phase 7 on {smi}")
+    set_counts(0)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.init()  # the allocator's statistics need the context
+    with torch.no_grad():
+        for name, check in (("whisper-base", check_whisper),
+                            ("xlstm-350m", check_xlstm),
+                            ("zamba2-7b", check_zamba2)):
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            check(seed, dev, smi)
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+            print(f"lm: {name}: {time.perf_counter() - t1!r} s, peak memory "
+                  f"{peak!r} B (max_memory_allocated), on {smi}")
+        if cuda:
+            torch.cuda.empty_cache()
+        check_reduced(seed, dev, ALL_FAMILIES)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 7 launched kernels: {counts}")
+    print(f"phase 7: {time.perf_counter() - t0!r} s; no kernel launched")
 
 
 # ----------------------------------------------------------------- timing
@@ -3985,6 +4380,7 @@ def main(argv=None) -> int:
         check_training(args.seed, utts, Path(tmp), dev)
         check_paper_claims(args.seed, Path(tmp), dev)
         check_lm_serving(args.seed, dev, smi)
+        check_lm_families(args.seed, dev, smi)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

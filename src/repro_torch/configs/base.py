@@ -4,10 +4,10 @@ Every assigned architecture is a `ModelConfig`; names resolve through
 `repro_torch.models.registry`.  The port's own copy of the reference's
 `configs/base.py` (which imports `jax.numpy`): the same fields and
 defaults, `dtype` a `torch.dtype`, less what the port does not read yet:
-`remat` and `optimizer` (the LM train path), `spiking` (the xLSTM family),
-`weight_bits` (read by neither package) and the TPU benchmark grid of
-input shapes (`ShapeConfig` and its helpers).  Each comes back with the
-code that reads it.
+`remat` and `optimizer` (the LM train path), `weight_bits` (read by
+neither package) and the TPU benchmark grid of input shapes
+(`ShapeConfig` and its helpers).  Each comes back with the code that
+reads it.
 """
 
 from __future__ import annotations
@@ -98,6 +98,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # paper-technique toggle
+    spiking: bool = False  # RSNN-ified recurrence (xlstm only)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,14 +1,18 @@
 """Trees of tensors: the parameter, optimizer-state and cache trees.
 
-Dicts, lists and (Named)tuples are nodes; anything else is a leaf, unless
-``is_leaf`` says a node is one (the optimizer's int8 codec ``{"q",
-"scale"}``).  The port's counterpart of ``jax.tree``'s flatten, unflatten,
-map and ``tree_map_with_path``.
+Dicts, lists and (Named)tuples are nodes; ``None`` is a node with no
+children, as in ``jax.tree`` (a hybrid cache's absent tail); anything else
+is a leaf, unless ``is_leaf`` says a node is one (the optimizer's int8
+codec ``{"q", "scale"}``).  The port's counterpart of ``jax.tree``'s
+flatten, unflatten, map and ``tree_map_with_path``, and of indexing and
+stacking the leading layer axis of a stacked tree.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Iterator
+
+import torch
 
 
 def _node(x, is_leaf: Callable | None) -> bool:
@@ -24,6 +28,8 @@ def _rebuild(like: tuple, items):
 
 def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     """The leaves of ``tree`` in order (dicts in insertion order)."""
+    if tree is None:
+        return []
     if not _node(tree, is_leaf):
         return [tree]
     items = tree.values() if isinstance(tree, dict) else tree
@@ -32,6 +38,8 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
 
 def tree_unflatten(like, it: Iterator, is_leaf: Callable | None = None):
     """A tree of ``like``'s structure with leaves taken from ``it``."""
+    if like is None:
+        return None
     if not _node(like, is_leaf):
         return next(it)
     if isinstance(like, dict):
@@ -60,4 +68,15 @@ def tree_map_with_name(fn: Callable, tree, name: str = ""):
         keys = getattr(tree, "_fields", range(len(tree)))
         return _rebuild(tree, (tree_map_with_name(fn, v, str(k))
                                for k, v in zip(keys, tree)))
-    return fn(name, tree)
+    return None if tree is None else fn(name, tree)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree: every leaf indexed on its axis 0."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def tree_stack(trees: list):
+    """The inverse of ``tree_index``: the leaves of ``trees`` stacked on a
+    new axis 0."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)

@@ -1,2 +1,2 @@
 """Layers of the token LMs: norms, RoPE, MLPs and embeddings
-(``basic.py``), attention, MLA and MoE."""
+(``basic.py``), attention, MLA, MoE, Mamba2 and the xLSTM blocks."""

@@ -4,12 +4,13 @@ ModelAPI is the uniform interface the server uses:
   init(generator, device="cuda") -> params
   forward(params, batch, cache=None, mode="train") -> (logits, new_cache)
   init_cache(batch, max_len, device="cuda") -> cache
-`batch` always carries 'tokens' (B, S); VLM adds 'patch_embeds' (the
-stubbed frontend).  The reference's ``models/registry.py`` for the
-decoder-LM family (dense, moe, vlm); the other families are not ported yet
-and raise.  ``params_from_numpy`` / ``params_to_numpy`` carry a parameter
-or cache tree between the reference's layout (numpy leaves) and the
-port's (tensor leaves).
+`batch` always carries 'tokens' (B, S); VLM adds 'patch_embeds', audio
+adds 'frames' (the stubbed frontends).  The reference's
+``models/registry.py`` for all six families: the decoder LM (dense, moe,
+vlm), the encoder-decoder (audio), xLSTM (ssm) and the Mamba2 hybrid.
+``params_from_numpy`` / ``params_to_numpy`` carry a parameter or cache
+tree between the reference's layout (numpy leaves) and the port's (tensor
+leaves).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from repro_torch.configs.archs import ALL_ARCHS
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.core.tree import tree_map
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 
 class ModelAPI(NamedTuple):
@@ -48,19 +49,52 @@ def _lm_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg=cfg, init=init, forward=fwd, init_cache=init_cache)
 
 
-def _not_ported(what: str, item: str) -> Callable[[ModelConfig], ModelAPI]:
-    def api(cfg: ModelConfig) -> ModelAPI:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family ({what}) is not ported "
-            f"to repro_torch yet (ROADMAP.md, queue 1 item {item})")
-    return api
+def _encdec_api(cfg: ModelConfig) -> ModelAPI:
+    def fwd(params, batch, cache=None, mode="train"):
+        return encdec.encdec_forward(params, batch["tokens"], cfg,
+                                     frames=batch.get("frames"), cache=cache,
+                                     mode=mode)
+
+    def init(generator: torch.Generator, device="cuda", max_dec_len=32768):
+        return encdec.init_encdec(generator, cfg, device, max_dec_len)
+
+    def init_cache(batch: int, max_len: int, device="cuda"):
+        return encdec.init_encdec_cache(cfg, batch, max_len, device)
+
+    return ModelAPI(cfg=cfg, init=init, forward=fwd, init_cache=init_cache)
+
+
+def _xlstm_api(cfg: ModelConfig) -> ModelAPI:
+    def fwd(params, batch, cache=None, mode="train"):
+        return ssm.xlstm_forward(params, batch["tokens"], cfg, states=cache,
+                                 mode=mode)
+
+    def init(generator: torch.Generator, device="cuda"):
+        return ssm.init_xlstm_lm(generator, cfg, device)
+
+    def init_cache(batch: int, max_len: int, device="cuda"):
+        return ssm.init_xlstm_state(cfg, batch, device)
+
+    return ModelAPI(cfg=cfg, init=init, forward=fwd, init_cache=init_cache)
+
+
+def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
+    def fwd(params, batch, cache=None, mode="train"):
+        return hybrid.hybrid_forward(params, batch["tokens"], cfg,
+                                     cache=cache, mode=mode)
+
+    def init(generator: torch.Generator, device="cuda"):
+        return hybrid.init_hybrid(generator, cfg, device)
+
+    def init_cache(batch: int, max_len: int, device="cuda"):
+        return hybrid.init_hybrid_cache(cfg, batch, max_len, device)
+
+    return ModelAPI(cfg=cfg, init=init, forward=fwd, init_cache=init_cache)
 
 
 _FAMILY_API = {
     "dense": _lm_api, "moe": _lm_api, "vlm": _lm_api,
-    "audio": _not_ported("models/encdec.py", "4a"),
-    "ssm": _not_ported("models/ssm.py, models/layers/xlstm.py", "4a"),
-    "hybrid": _not_ported("models/hybrid.py, models/layers/mamba2.py", "4b"),
+    "audio": _encdec_api, "ssm": _xlstm_api, "hybrid": _hybrid_api,
 }
 
 

@@ -16,7 +16,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_index, tree_map, tree_stack
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import basic
 from repro_torch.models.layers import mla as mla_lib
@@ -129,17 +129,6 @@ def init_decode_cache(cfg, batch: int, max_len: int,
                                        device=device))
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: every leaf indexed on its axis 0."""
-    return tree_map(lambda t: t[i], tree)
-
-
-def _stack(trees: list):
-    """The inverse of ``_layer``: the leaves of ``trees`` stacked on a new
-    axis 0."""
-    return tree_map(lambda *ts: torch.stack(ts), *trees)
-
-
 def lm_forward(params, tokens, cfg, frontend_embeds=None,
                cache: DecodeCache | None = None, mode: str = "train"):
     """tokens: (B, S). mode: 'train' | 'prefill' | 'decode'.
@@ -177,16 +166,18 @@ def lm_forward(params, tokens, cfg, frontend_embeds=None,
     # --- stacked layers ------------------------------------------------------
     layer_caches = []
     for i, window in enumerate(windows):
-        c = _layer(cache.layers, i) if mode == "decode" else None
-        x, nc = layer_fwd(x, _layer(params["layers"], i), cfg, positions,
+        c = tree_index(cache.layers, i) if mode == "decode" else None
+        x, nc = layer_fwd(x, tree_index(params["layers"], i), cfg, positions,
                           window, c, cache_pos, return_kv=prefill)
         layer_caches.append(nc)
 
     if mode == "decode":
-        new_cache = DecodeCache(prefix=new_prefix, layers=_stack(layer_caches),
+        new_cache = DecodeCache(prefix=new_prefix,
+                                layers=tree_stack(layer_caches),
                                 pos=cache.pos + 1)
     elif prefill:
-        new_cache = DecodeCache(prefix=new_prefix, layers=_stack(layer_caches),
+        new_cache = DecodeCache(prefix=new_prefix,
+                                layers=tree_stack(layer_caches),
                                 pos=torch.full((b,), s, dtype=torch.int32,
                                                device=x.device))
     else:

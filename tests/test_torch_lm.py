@@ -1,7 +1,8 @@
-"""The decoder LM of repro_torch (``models/transformer.py`` through
-``models/registry.py``) against the reference on the CPU, for every
-decoder-LM arch of ``list_archs()`` at ``reduce_config``: train and
-prefill logits and the prefill cache; prefill, ``pad_cache`` and three
+"""The token LMs of repro_torch (``models/transformer.py``,
+``encdec.py``, ``ssm.py`` and ``hybrid.py`` through ``models/registry.py``)
+against the reference on the CPU, for every arch of ``list_archs()`` at
+``reduce_config`` (whisper given seeded ``frames``): train and prefill
+logits and the prefill cache; prefill, ``pad_cache`` and three
 teacher-forced decode steps for the non-VLM archs (MoE at capacity factor
 64, as the reference's ``tests/test_arch_smoke.py`` runs them); and, at
 the FULL published configs, the port's ``init`` on the meta device against
@@ -26,21 +27,19 @@ from repro.serving.cache_utils import pad_cache as j_pad_cache
 from repro_torch import configs
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.models import registry
-from repro_torch.models.transformer import DecodeCache
 from repro_torch.serving.cache_utils import pad_cache
 
 TOL = 1e-4
 DECODE_TOL = 2e-3  # tests/test_arch_smoke.py's decode-vs-forward tolerance
 B, S, N_PROMPT, STEPS = 2, 16, 8, 3
-LM_ARCHS = [a for a in registry.list_archs()
-            if ALL_ARCHS[a].family in ("dense", "moe", "vlm")]
+LM_ARCHS = registry.list_archs()
 DECODE_ARCHS = [a for a in LM_ARCHS if ALL_ARCHS[a].family != "vlm"]
 
 
 # ModelConfig fields the port leaves out until the code that reads them is
-# ported: remat and optimizer (the LM train path), spiking (the xLSTM
-# family); weight_bits is read by neither package.
-NOT_PORTED = ("remat", "optimizer", "weight_bits", "spiking")
+# ported: remat and optimizer (the LM train path); weight_bits is read by
+# neither package.
+NOT_PORTED = ("remat", "optimizer", "weight_bits")
 
 
 @pytest.mark.parametrize("arch", sorted(j_configs.ALL_ARCHS))
@@ -106,6 +105,9 @@ def _batch(cfg, seed=1):
     if cfg.frontend == "patch":
         batch["patch_embeds"] = rng.normal(
             size=(B, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -120,6 +122,25 @@ def _np(tree):
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(registry.params_to_numpy(got),
                                np.asarray(want), rtol=tol, atol=tol)
+
+
+def _close_trees(got, want, tol=TOL):
+    """The same nodes (NamedTuple types and fields, dict keys, list
+    lengths, ``None`` where the reference has it) and each leaf within
+    ``tol``."""
+    if want is None or isinstance(want, (dict, list, tuple)):
+        assert type(got).__name__ == type(want).__name__
+        if isinstance(want, dict):
+            assert list(got) == list(want)
+            want, got = list(want.values()), list(got.values())
+        elif want is not None:
+            assert getattr(got, "_fields", None) == getattr(want, "_fields",
+                                                            None)
+            assert len(got) == len(want)
+        for g, w in zip(got or (), want or ()):
+            _close_trees(g, w, tol)
+    else:
+        _close(got, want, tol)
 
 
 @pytest.fixture(scope="module")
@@ -179,16 +200,7 @@ def test_prefill_logits_and_cache(runs, arch):
         r["batch"]["tokens"][:, :N_PROMPT]))
     got, cache = r["tapi"].forward(r["tp"], pre, mode="prefill")
     _close(got, r["plog"])
-    assert isinstance(cache, DecodeCache)
-    want = r["pcache"]
-    assert len(cache.prefix) == len(want.prefix)
-    for g, w in zip([*cache.prefix, cache.layers],
-                    [*want.prefix, want.layers]):
-        assert type(g).__name__ == type(w).__name__
-        assert g._fields == w._fields
-        for gl, wl in zip(g, w):
-            _close(gl, wl)
-    np.testing.assert_array_equal(cache.pos.numpy(), want.pos)
+    _close_trees(cache, r["pcache"])  # integer leaves (pos) exact
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
@@ -196,9 +208,10 @@ def test_teacher_forced_decode(runs, arch):
     """prefill(prompt) + pad_cache + decode(token t) against the
     reference's steps and against the port's own full forward."""
     r = _run(runs, arch)
-    api, toks = r["tapi64"], torch.from_numpy(r["batch"]["tokens"])
-    full, _ = api.forward(r["tp"], {"tokens": toks})
-    _, cache = api.forward(r["tp"], {"tokens": toks[:, :N_PROMPT]},
+    api, batch = r["tapi64"], _torch(r["batch"])
+    toks = batch["tokens"]
+    full, _ = api.forward(r["tp"], batch)
+    _, cache = api.forward(r["tp"], dict(batch, tokens=toks[:, :N_PROMPT]),
                            mode="prefill")
     cache = pad_cache(cache, N_PROMPT, S)
     for i, t in enumerate(range(N_PROMPT, N_PROMPT + STEPS)):
@@ -206,8 +219,7 @@ def test_teacher_forced_decode(runs, arch):
                                   cache=cache)
         _close(dlog, r["steps"][i])
         _close(dlog[:, 0], full[:, t].numpy(), DECODE_TOL)
-    for g, w in zip(jax.tree.leaves(cache), jax.tree.leaves(r["dcache"])):
-        _close(g, w)
+    _close_trees(cache, r["dcache"])
 
 
 def _leaves(tree, path=""):

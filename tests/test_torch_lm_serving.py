@@ -4,15 +4,21 @@ reference on the CPU: ``MarkovLMStream`` batches bit-equal; ``pad_cache``
 on the port's caches equal to the reference's on its own; ``sample``
 (greedy equal, temperature + top-k drawing only from the top k);
 ``generate`` ids equal to the reference's on reduced ``yi-6b``,
-``gemma2-2b`` and ``deepseek-v3-671b``, with the reference's dropped decode
-writes (the prefill cache is prompt-sized, so every decode write lands past
-it); ``ServeLoop``'s finishing order and outputs equal to the reference's;
-and the families not ported yet raising.
+``gemma2-2b``, ``deepseek-v3-671b``, ``whisper-base`` (frames through
+``extra_inputs``), ``xlstm-350m`` and ``zamba2-7b``, with the reference's
+dropped decode writes (the prefill cache is prompt-sized, so every decode
+write lands past it; the recurrent states carry no such cache);
+``pad_cache`` growing only the k/v leaves of the encoder-decoder, hybrid
+and xLSTM caches; the chunked prefill handing decode the sequential form's
+state on xlstm and zamba2; and ``ServeLoop``'s finishing order and outputs
+equal to the reference's.
 
 The reference's parameters (``PRNGKey(0)``) are carried across with
 ``params_from_numpy``; float32 at ``reduce_config``.  Token ids exact,
 caches within ``TOL``."""
 
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +30,7 @@ from repro.data import synthetic as j_synthetic
 from repro.models import registry as j_registry
 from repro.serving import cache_utils as j_cache_utils
 from repro.serving import engine as j_engine
+from repro_torch.core.tree import tree_map_with_name
 from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
 from repro_torch.models import registry
 from repro_torch.serving.cache_utils import pad_cache
@@ -61,6 +68,23 @@ def _prompts(b, s, seed=1):
         np.int32)
 
 
+def _extra(api, b, seed=2):
+    """The batch's inputs beside the tokens: whisper's seeded frames."""
+    cfg = api.cfg
+    if not cfg.encoder_layers:
+        return {}
+    return {"frames": np.random.default_rng(seed).normal(
+        size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+
+
+def _named(cache, names=("k", "v")) -> list:
+    """The leaves of ``cache`` whose names are in ``names``, in order."""
+    out = []
+    tree_map_with_name(lambda n, x: out.append(x) if n in names else None,
+                       cache)
+    return out
+
+
 @pytest.mark.parametrize("seed,vocab,batch,seq,step",
                          [(0, 503, 4, 32, 0), (3, 503, 2, 17, 5),
                           (1, 256000, 8, 64, 2)])
@@ -94,20 +118,32 @@ def test_pad_cache_named_leaves():
     assert got["state"].shape == (2, 8, 3)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b",
+                                  "whisper-base", "xlstm-350m", "zamba2-7b"])
 def test_pad_cache_on_prefill_caches(setups, arch):
+    """Against the reference's padded cache; only the k/v (and MLA
+    latent) leaves grow, and every other leaf (recurrent states,
+    ``enc_out``, ``pos``) is the prefill's own tensor."""
     _, jp, jfwd, tapi, tp = _setup(setups, arch)
     toks = _prompts(2, 8)
-    _, jcache = jfwd(jp, {"tokens": toks}, mode="prefill")
-    _, tcache = tapi.forward(tp, {"tokens": torch.from_numpy(toks)},
-                             mode="prefill")
+    extra = _extra(tapi, 2)
+    _, jcache = jfwd(jp, dict(extra, tokens=toks), mode="prefill")
+    _, tcache = tapi.forward(tp, {k: torch.from_numpy(v) for k, v in dict(
+        extra, tokens=toks).items()}, mode="prefill")
     want = jax.tree.leaves(j_cache_utils.pad_cache(jcache, 8, 20))
-    got = jax.tree.leaves(pad_cache(tcache, 8, 20))
+    padded = pad_cache(tcache, 8, 20)
+    got = jax.tree.leaves(padded)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL)
-    assert any(20 in g.shape for g in got)
+    seq = ("k", "v", "kv_latent", "k_rope")
+    grown = _named(padded, seq)
+    assert all(20 in g.shape for g in grown)
+    assert bool(grown) == (arch != "xlstm-350m")  # xlstm: states only
+    for before, after in zip(jax.tree.leaves(tcache), got):
+        if not any(after is g for g in grown):
+            assert after is before
 
 
 def test_sample_greedy_equal():
@@ -129,34 +165,67 @@ def test_sample_temperature_topk():
     assert draws == {1, 2}  # only the top-2 ids, and both of them
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-2b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-2b", "deepseek-v3-671b",
+                                  "whisper-base", "xlstm-350m", "zamba2-7b"])
 def test_generate_matches_reference(setups, arch):
     japi, jp, _, tapi, tp = _setup(setups, arch)
     prompts = _prompts(3, 8)
-    want = j_engine.generate(japi, jp, jnp.asarray(prompts), 6)
-    got = generate(tapi, tp, prompts, 6)
+    extra = _extra(tapi, 3)
+    want = j_engine.generate(japi, jp, jnp.asarray(prompts), 6,
+                             extra_inputs={k: jnp.asarray(v)
+                                           for k, v in extra.items()})
+    got = generate(tapi, tp, prompts, 6, extra_inputs=extra)
     assert got.shape == (3, 6)
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(generate(tapi, tp, prompts, 6), got)
+    np.testing.assert_array_equal(
+        generate(tapi, tp, prompts, 6, extra_inputs=extra), got)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_generate_chunked_prefill_decode_consistency(setups, arch):
+    """The reference's ``tests/test_serving.py``
+    ``test_generate_ssm_chunked_prefill_decode_consistency``, on xlstm and
+    zamba2: at ``chunk=4`` an 8-token prompt takes the chunked prefill,
+    which hands decode the state the sequential form would; the ids equal
+    the sequential form's and the reference's."""
+    _, jp, _, tapi, tp = _setup(setups, arch)
+    prompts = _prompts(2, 8, seed=3)
+    out = {}
+    for impl in ("chunked", "sequential"):
+        cfg = dataclasses.replace(tapi.cfg, ssm=dataclasses.replace(
+            tapi.cfg.ssm, chunk=4, scan_impl=impl))
+        out[impl] = generate(registry.get_model(arch, cfg), tp, prompts, 5)
+    np.testing.assert_array_equal(out["chunked"], out["sequential"])
+    jc = j_registry.reduce_config(j_registry.get_model(arch).cfg)
+    jc = dataclasses.replace(jc, ssm=dataclasses.replace(
+        jc.ssm, chunk=4, scan_impl="chunked"))
+    want = j_engine.generate(j_registry.get_model(arch, jc), jp,
+                             jnp.asarray(prompts), 5)
+    np.testing.assert_array_equal(out["chunked"], want)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b",
+                                  "whisper-base", "zamba2-7b"])
 def test_generate_drops_decode_writes(setups, arch):
     """The reference's generate decodes into the prompt-sized prefill
     cache: the write at pos = S is past its end and dropped, on both
-    sides, and only ``pos`` moves."""
+    sides; ``pos`` moves, and so do zamba2's Mamba2 states, which hold no
+    sequence axis."""
     _, jp, jfwd, tapi, tp = _setup(setups, arch)
     toks = _prompts(2, 8)
-    _, jpre = jfwd(jp, {"tokens": toks}, mode="prefill")
+    extra = _extra(tapi, 2)
+    _, jpre = jfwd(jp, dict(extra, tokens=toks), mode="prefill")
     _, jdec = jfwd(jp, {"tokens": toks[:, :1]}, cache=jpre)
-    _, tpre = tapi.forward(tp, {"tokens": torch.from_numpy(toks)},
-                           mode="prefill")
+    _, tpre = tapi.forward(tp, {k: torch.from_numpy(v) for k, v in dict(
+        extra, tokens=toks).items()}, mode="prefill")
     _, tdec = tapi.forward(tp, {"tokens": torch.from_numpy(toks[:, :1])},
                            cache=tpre)
+    seq = ("k", "v", "kv_latent", "k_rope")
     for before, after in ((jpre, jdec), (tpre, tdec)):
         np.testing.assert_array_equal(np.asarray(after.pos), [9, 9])
-        for b, a in zip(jax.tree.leaves((before.prefix, before.layers)),
-                        jax.tree.leaves((after.prefix, after.layers))):
+        kv = list(zip(_named(before, seq), _named(after, seq)))
+        assert kv
+        for b, a in kv:
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -167,13 +236,17 @@ def _serve(loop_cls, api, params, scfg, requests):
     return [(r.rid, [int(t) for t in r.out], r.done) for r in loop.run()]
 
 
-def test_serve_loop_matches_reference(setups):
-    """5 requests over 2 slots, prompts of 3-8 tokens and 2-5 new tokens,
-    then again with an EOS id that cuts an output short."""
-    japi, jp, _, tapi, tp = _setup(setups, "gemma2-2b")
+@pytest.mark.parametrize("arch,n", [("gemma2-2b", 5), ("xlstm-350m", 3),
+                                    ("zamba2-7b", 3)])
+def test_serve_loop_matches_reference(setups, arch, n):
+    """``n`` requests over 2 slots (a slot refilled at least once), prompts
+    of 3-8 tokens and 2-5 new tokens, then again with an EOS id that cuts
+    an output short.  The reference compiles its steps anew for every
+    prompt width, so the recurrent archs take 3 requests, not 5."""
+    japi, jp, _, tapi, tp = _setup(setups, arch)
     rng = np.random.default_rng(0)
     requests = [(rng.integers(0, 503, size=rng.integers(3, 9)),
-                 int(rng.integers(2, 6))) for _ in range(5)]
+                 int(rng.integers(2, 6))) for _ in range(n)]
     want = _serve(j_engine.ServeLoop, japi, jp, j_engine.SamplerConfig(),
                   requests)
     got = _serve(ServeLoop, tapi, tp, SamplerConfig(), requests)
@@ -187,7 +260,12 @@ def test_serve_loop_matches_reference(setups):
     assert len(got[0][1]) == 2 and got[0][1][-1] == eos
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "xlstm-350m", "zamba2-7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_model(arch)
+def test_serve_loop_whisper_needs_frames(setups):
+    """``ServeLoop`` calls ``generate`` with no frames, so whisper's
+    prefill has nothing to encode, in the reference as in the port."""
+    japi, jp, _, tapi, tp = _setup(setups, "whisper-base")
+    for loop_cls, api, params, scfg in (
+            (j_engine.ServeLoop, japi, jp, j_engine.SamplerConfig()),
+            (ServeLoop, tapi, tp, SamplerConfig())):
+        with pytest.raises(AttributeError):
+            _serve(loop_cls, api, params, scfg, [(_prompts(1, 4)[0], 2)])
