@@ -282,6 +282,66 @@ prompt, step and request sizes to a few tokens (prompts a multiple of 4),
 ``torch.cuda.synchronize`` a no-op, and calling
 ``check_lm_families(0, torch.device("cpu"), "")`` (~3 s).
 
+Then phase 8 (``check_lm_training``): the token-LM train path
+(``launch/steps.py`` ``make_train_step`` and ``loss_and_grads``,
+``data/pipeline.py`` ``PrefetchIterator``, ``training/trainer.py``
+``Trainer``), plain PyTorch (every launch counter stays 0), weights drawn
+on the card from a seeded generator, each model's parameter count
+asserted equal to the reference's ``jax.eval_shape``.  (b) gemma2-2b at
+its published widths in float32 (TF32 off): ``layer_fwd`` of a local and
+a global block, 2 x 128 tokens, forward and backward on the card and on
+the CPU, every gradient within ``LM_GRAD_TOL`` of its leaf's largest
+element (``check_train_block``); the whole model's loss and gradients
+with ``remat="full"`` against ``"none"`` on the card, the loss within rel
+1e-6 and the gradients within ``LM_GRAD_TOL`` (``check_remat``).  (a)
+gemma2-2b at its published widths and config (bf16, remat ``"full"``,
+AdamW), ``make_train_step(..., donate=True)`` fed by ``PrefetchIterator``,
+``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` ``MarkovLMStream``
+tokens: loss and grad norm finite every step, the parameters moved; the
+loss curve, ms a step (CUDA events; the median after the first), tokens/s
+trained, and one more step under ``torch.profiler`` (busy share, device
+operations).  (c) xlstm-350m with the spiking sLSTM (bf16, vth ~ N(0,
+``SPIKE_VTH_STD``^2)), 4 x 512 tokens (the chunked mLSTM form): the
+gradients finite and d loss / d vth nonzero in every sLSTM layer, then
+``XLSTM_TRAIN_STEPS`` steps; each sLSTM layer's spike rate on a held-out
+batch before and after.  (d) zamba2-7b at its published widths cut to
+two shared-attention groups (``TRAIN_ZAMBA2``, 12 Mamba2 layers), bf16,
+remat ``"full"``, 2 x 256 tokens (two chunks of 128): the first loss
+finite; the gradients finite, or not finite only within the reach of a
+Mamba2 layer whose chunk's masked ``exp`` overflowed, and NaN in each such
+layer's a_log (``masked_spans`` records each chunk's largest masked
+exponent: past ``F32_LOG_MAX`` the backward's inf x 0 is the NaN the
+reference's ``jax.grad`` gives too, tests/test_torch_lm_remat.py;
+``nan_out_of_reach``); the finite gradients are not compared with a
+reference at this width (8f compares the reduced zamba2 with the CPU);
+then ``ZAMBA2_TRAIN_STEPS`` steps, timed (once the gradients hold NaN the
+steps spread it through the parameters, and the line says so).  (e)
+whisper-base at its published widths (bf16) through ``Trainer``: seeded
+N(0, 1) frames, checkpoints every ``WHISPER_CKPT_EVERY`` steps, a
+preemption at call ``WHISPER_PREEMPT``
+(``t.preempt.trigger()``), an auto-resume; the final loss within
+``RESUME_RTOL`` of an uninterrupted run's, ``metrics.jsonl`` and the
+checkpoints written, the heartbeat fresh at every step; SIGTERM's
+handler given back after each run (``restore_sigterm``).  (f) Each of the
+ten archs at ``reduce_config``, float32: ``loss_and_grads`` on the card
+against the CPU from the same seeded parameters (the loss within rel
+1e-5, each gradient within ``LM_GRAD_TOL``), then one ``make_train_step``
+step: each updated parameter within ``UPDATE_TOL`` lr of the CPU's, or
+2 lr more where the CPU's clipped gradient is under ``G_FLOOR``
+(``check_reduced_training``).  (g) ``examples/serve_lm_torch.py``'s
+``run`` on the card: fit, then ``ServeLoop``; the last fit loss below
+the first.  Each model's seconds and peak ``max_memory_allocated`` are
+printed beside the card's name and power limit.  Rehearse it on the CPU
+by setting ``TRAIN_GEMMA2``, ``TRAIN_XLSTM`` (``spiking=True``),
+``TRAIN_ZAMBA2`` and ``TRAIN_WHISPER`` to their ``reduce_config`` in
+bf16 (remat ``"full"`` but xlstm's, the recurrent ones at ``chunk=4``),
+``WHISPER_MAX_DEC_LEN`` to 64, ``GEMMA2_PARAMS``, ``XLSTM_PARAMS``,
+``ZAMBA2_CUT_PARAMS`` and ``WHISPER_PARAMS`` to the reduced models'
+counts (``init`` on the meta device), the batch, sequence and step sizes
+to a few tokens (sequences a multiple of 4), ``torch.cuda.synchronize`` a
+no-op, and calling ``check_lm_training(0, torch.device("cpu"), "",
+tmp)`` (~8 s).
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -3774,6 +3834,691 @@ def check_lm_families(seed: int, dev, smi: str) -> None:
     print(f"phase 7: {time.perf_counter() - t0!r} s; no kernel launched")
 
 
+# ------------------------------------------ token-LM training (phase 8)
+
+# phase 8a: gemma2-2b at its published widths and dtype (bf16, remat
+# "full", AdamW: its config's), TRAIN_STEPS steps of TRAIN_BATCH x
+# TRAIN_SEQ MarkovLMStream tokens, the first a warm-up
+TRAIN_GEMMA2 = GEMMA2_2B
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_LR = 3e-3  # launch/train.py's default
+# phase 8b: the block and the whole model, float32, card against CPU and
+# remat "full" against "none" on the card: a gradient leaf within
+# LM_GRAD_TOL of its largest |element| (the CPU tests hold the port to the
+# reference at this bound; the largest seen there is 3.9e-6 of it)
+LM_GRAD_TOL = 1e-4
+REMAT_BATCH, REMAT_SEQ = 2, 128
+# phase 8c: xlstm-350m with the spiking sLSTM, vth ~ N(0, SPIKE_VTH_STD^2)
+TRAIN_XLSTM = dataclasses.replace(XLSTM_350M, spiking=True)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 4, 512, 4
+# phase 8d: zamba2-7b at its published widths cut in depth to two
+# shared-attention groups (12 Mamba2 layers); 2 x 256 tokens = two chunks
+TRAIN_ZAMBA2 = dataclasses.replace(ZAMBA2_7B, num_layers=12)
+ZAMBA2_CUT_PARAMS = 1_370_558_400  # the reference's jax.eval_shape, cut
+ZAMBA2_TRAIN_BATCH, ZAMBA2_TRAIN_SEQ, ZAMBA2_TRAIN_STEPS = 2, 256, 3
+F32_LOG_MAX = math.log(torch.finfo(torch.float32).max)  # exp overflows past
+# phase 8e: whisper-base at its published widths through the Trainer,
+# preempted at call WHISPER_PREEMPT and resumed; checkpoints every
+# WHISPER_CKPT_EVERY steps
+TRAIN_WHISPER = WHISPER_BASE
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 64, 6
+WHISPER_CKPT_EVERY, WHISPER_PREEMPT = 3, 4
+RESUME_RTOL = 1e-4  # tests/test_training.py: resumed against uninterrupted
+# phase 8f: the ten reduced archs, one step card against CPU; an updated
+# parameter within UPDATE_TOL x lr of the CPU's, or 2 lr + UPDATE_TOL lr
+# where the CPU's clipped |gradient| is below G_FLOOR (= 1e3 eps: there
+# the first Adam step's lr g / (|g| + eps) moves by up to its whole size
+# under the gradient's rounding)
+UPDATE_TOL, G_FLOOR, STEP_LR = 0.05, 1e-5, 1e-3
+# phase 8g: examples/serve_lm_torch.py's flow
+EXAMPLE_FIT_STEPS, EXAMPLE_REQUESTS = 40, 6
+
+
+def lm_batch(cfg, batch: int, seq: int, seed: int, step: int) -> dict:
+    """A numpy training batch: ``MarkovLMStream`` tokens, and for whisper
+    seeded N(0, 1) frames, for a VLM seeded patch embeddings."""
+    out = {"tokens": lm_tokens(cfg, batch, seq, seed, step, "cpu").numpy()}
+    rng = np.random.default_rng((seed, step))
+    if cfg.encoder_layers:
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    if cfg.frontend == "patch":
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.num_patch_tokens, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """Each leaf's path (``/layers/3/block/vth``), in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [] if tree is None else [prefix]
+
+
+def on(dev, batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def close_leaves(got: list, want: list, tol: float, what: str) -> float:
+    """Each pair of leaves within ``tol`` of ``want``'s largest |element|;
+    the largest such ratio."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{what}: leaf {i} is not finite")
+        scale = max(w.abs().max().item(), 1e-30)
+        ratio = (g - w).abs().max().item() / scale
+        if ratio > tol:
+            raise AssertionError(f"{what}: leaf {i} {tuple(w.shape)} off "
+                                 f"by {ratio!r} of its largest (> {tol})")
+        worst = max(worst, ratio)
+    return worst
+
+
+def train_steps(step, state, batches, dev):
+    """``step`` over ``batches`` (an iterator of (index, batch)), each
+    timed (``timed``): (state, losses, grad norms, ms a step)."""
+    losses, norms, ms = [], [], []
+    for _, batch in batches:
+        (state, m), t = timed(dev, step, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(t)
+    return state, losses, norms, ms
+
+
+def profile_step(step, state, batch, dev) -> tuple[object, str]:
+    """One step under ``torch.profiler``: the card's busy share of its wall
+    time, its device operations and the most costly of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return step(state, batch)[0], "step profile: not measured (no card)"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        secs = time.perf_counter() - t0
+    ops = [(e.self_device_time_total, e.count, e.key)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in ops)
+    top = "; ".join(f"{k[:40]} x{c} {t / 1e3:.2f} ms"
+                    for t, c, k in sorted(ops, reverse=True)[:5])
+    return state, (f"step profile: {secs!r} s (profiled), device busy "
+                   f"{busy_us / 1e6 / secs!r} of it, "
+                   f"{sum(c for _, c, _ in ops)} device operations, "
+                   f"{busy_us / 1e3!r} device ms, top: {top}")
+
+
+def check_train_block(params, cfg, seed: int, dev) -> None:
+    """Phase 8b: forward and backward of ``layer_fwd`` for the first two
+    stacked layers (a local one, a global one) at full width, float32,
+    2 x 128 tokens, on the card and on the CPU from the same weights, input
+    and cotangent: d<out, cot>/d(x, weights) within ``LM_GRAD_TOL``."""
+    from repro_torch.models.transformer import layer_fwd, layer_windows
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    x = torch.randn((REMAT_BATCH, REMAT_SEQ, cfg.d_model), generator=gen)
+    cot = torch.randn((REMAT_BATCH, REMAT_SEQ, cfg.d_model), generator=gen)
+    pos = torch.arange(REMAT_SEQ, dtype=torch.int32)[None].expand(
+        REMAT_BATCH, -1)
+
+    def grads(lp, device):
+        leaves = [t.detach().to(device).requires_grad_()
+                  for t in tree_leaves(lp)]
+        xs = x.detach().to(device).requires_grad_()
+        with torch.enable_grad():
+            out, _ = layer_fwd(xs, tree_unflatten(lp, iter(leaves)), cfg,
+                               pos.to(device), window, None, None)
+            return torch.autograd.grad((out * cot.to(device)).sum(),
+                                       [xs, *leaves])
+
+    for i, window in enumerate(layer_windows(cfg).tolist()[:2]):
+        lp = tree_map(lambda t: t[i], params["layers"])  # noqa: B023
+        worst = close_leaves(grads(lp, dev), grads(lp, "cpu"), LM_GRAD_TOL,
+                             f"block {i} gradients")
+        print(f"lm train block: {cfg.name} layer {i} (window {window}), "
+              f"{REMAT_BATCH} x {REMAT_SEQ} tokens, float32: {dev} against "
+              f"cpu, d<out, cot>/d(x, {len(tree_leaves(lp))} weights) "
+              f"within {worst!r} of each leaf's largest (tolerance "
+              f"{LM_GRAD_TOL})")
+
+
+def check_remat(seed: int, dev, smi: str) -> None:
+    """Phase 8b: gemma2-2b at full width in float32: the block against the
+    CPU (``check_train_block``), then the whole model's loss and gradients
+    with ``remat="full"`` against ``"none"`` on the card, each form run
+    twice in turns (the first calls include the card's first-call set-up)
+    and the second runs compared."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(TRAIN_GEMMA2, dtype=torch.float32)
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, GEMMA2_PARAMS)
+    check_train_block(params, cfg, seed, dev)
+    batch = on(dev, lm_batch(cfg, REMAT_BATCH, REMAT_SEQ, seed, 0))
+    got, ms = {}, {"none": [], "full": []}
+    for remat in ("none", "full", "none", "full"):  # the first two warm up
+        api = registry.get_model(cfg.name, dataclasses.replace(
+            cfg, remat=remat))
+        got.pop(remat, None)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        (loss, grads), t = timed(dev, loss_and_grads, api, params, batch)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+            else None
+        ms[remat].append(t)
+        got[remat] = (float(loss), grads, peak)
+        del grads
+    if not math.isclose(got["none"][0], got["full"][0], rel_tol=1e-6):
+        raise AssertionError(f"remat changed the loss: {got['none'][0]!r} "
+                             f"against {got['full'][0]!r}")
+    worst = close_leaves(got["full"][1], got["none"][1], LM_GRAD_TOL,
+                         "remat full against none")
+    print(f"lm train remat: {cfg.name} float32, {REMAT_BATCH} x {REMAT_SEQ} "
+          f"tokens: loss {got['full'][0]!r} / {got['none'][0]!r} (full / "
+          f"none, tolerance rel 1e-6), remat full against none "
+          f"within {worst!r} of each leaf's largest (tolerance "
+          f"{LM_GRAD_TOL}); loss and gradients (none / full) first calls "
+          f"{ms['none'][0]!r} / {ms['full'][0]!r} ms, then {ms['none'][1]!r} "
+          f"/ {ms['full'][1]!r} ms, peak {got['none'][2]!r} / "
+          f"{got['full'][2]!r} B (each with the other's gradients held), on "
+          f"{smi}")
+
+
+def check_gemma2_training(seed: int, dev, smi: str) -> None:
+    """Phase 8a: gemma2-2b trained at its published widths."""
+    from repro_torch.data.pipeline import PrefetchIterator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    cfg = TRAIN_GEMMA2
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, GEMMA2_PARAMS)
+    ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR,
+                           warmup_steps=max(TRAIN_STEPS // 20, 2),
+                           decay_steps=TRAIN_STEPS)
+    state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
+    before = [t.clone() for t in (params["final_norm"]["scale"],
+                                  params["embed"]["tok"][:64])]
+    step = make_train_step(api, ocfg, donate=True)
+    data = PrefetchIterator(lambda i: lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                               seed, i), device=dev)
+    try:
+        state, losses, norms, ms = train_steps(
+            step, state, itertools.islice(data, TRAIN_STEPS), dev)
+        _, batch = next(data)
+    finally:
+        data.close()
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{cfg.name}: loss or grad_norm not finite: "
+                             f"{losses} {norms}")
+    after = (state["params"]["final_norm"]["scale"],
+             state["params"]["embed"]["tok"][:64])
+    if any(torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError(f"{cfg.name}: the parameters did not move")
+    secs = statistics.median(ms[1:]) / 1e3
+    print(f"lm train: {describe(cfg)}, remat {cfg.remat}, {ocfg.name} "
+          f"(donated, in place), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} MarkovLMStream tokens through PrefetchIterator: "
+          f"loss {losses!r}, grad_norm {norms!r}, parameters moved; "
+          f"{ms!r} ms a step, median after the first {secs!r} s = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / secs!r} tokens/s trained, on {smi}")
+    _, prof = profile_step(step, state, batch, dev)
+    print(f"lm train: {cfg.name} bf16 {prof}, on {smi}")
+
+
+def spike_rates(api, params, toks: torch.Tensor) -> list[float]:
+    """Each sLSTM layer's spike rate over a train-mode forward of
+    ``toks`` (``spike_fn``'s calls recorded: one a step, a layer's in
+    order)."""
+    from repro_torch.models.layers import xlstm
+
+    record = []
+    real = xlstm.spike_fn
+
+    def recorded(u, vth, slope=25.0):
+        s = real(u, vth, slope)
+        record.append(s.detach().float().mean())
+        return s
+
+    xlstm.spike_fn = recorded
+    try:
+        with torch.no_grad():
+            api.forward(params, {"tokens": toks})
+    finally:
+        xlstm.spike_fn = real
+    n = toks.shape[1]
+    return [torch.stack(record[j * n:(j + 1) * n]).mean().item()
+            for j in range(len(record) // n)]
+
+
+def check_xlstm_training(seed: int, dev, smi: str) -> None:
+    """Phase 8c: xlstm-350m with the spiking sLSTM, trained at its
+    published widths (bf16, its config's dtype; remat "none", its
+    config's)."""
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    cfg = TRAIN_XLSTM
+    if XLSTM_TRAIN_SEQ % cfg.ssm.chunk or cfg.ssm.scan_impl != "chunked":
+        raise AssertionError("phase 8c's batch must take the chunked form")
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, XLSTM_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    for i in cfg.ssm.slstm_layers:
+        vth = params["layers"][i]["block"]["vth"]
+        vth.copy_(torch.randn(vth.shape, generator=gen, device=dev)
+                  * SPIKE_VTH_STD)
+    batches = [on(dev, lm_batch(cfg, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+                                seed, i))
+               for i in range(XLSTM_TRAIN_STEPS + 1)]
+    held = batches.pop()["tokens"]
+    rate0 = spike_rates(api, params, held)
+    vth0 = [params["layers"][i]["block"]["vth"].clone()
+            for i in cfg.ssm.slstm_layers]
+    loss, grads = loss_and_grads(api, params, batches[0])
+    bad = [i for i, g in enumerate(grads) if not torch.isfinite(g).all()]
+    if bad or not math.isfinite(float(loss)):
+        raise AssertionError(f"{cfg.name} spiking: gradients not finite at "
+                             f"leaves {bad}")
+    paths = leaf_paths(params)
+    vth_grad = [grads[paths.index(f"/layers/{i}/block/vth")].abs().max()
+                .item() for i in cfg.ssm.slstm_layers]
+    if not all(g > 0 for g in vth_grad):
+        raise AssertionError(f"{cfg.name}: no gradient reaches vth")
+    del grads
+    ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR, warmup_steps=2,
+                           decay_steps=XLSTM_TRAIN_STEPS)
+    state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
+    step = make_train_step(api, ocfg, donate=True)
+    state, losses, norms, ms = train_steps(step, state,
+                                           enumerate(batches), dev)
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{cfg.name}: loss or grad_norm not finite")
+    rate1 = spike_rates(api, state["params"], held)
+    moved = [(state["params"]["layers"][i]["block"]["vth"] - v).abs().max()
+             .item() for i, v in zip(cfg.ssm.slstm_layers, vth0)]
+    secs = statistics.median(ms[1:]) / 1e3
+    print(f"lm train: {describe(cfg)}, spiking sLSTM (vth ~ N(0, "
+          f"{SPIKE_VTH_STD}^2)), {ocfg.name}, {XLSTM_TRAIN_STEPS} steps of "
+          f"{XLSTM_TRAIN_BATCH} x {XLSTM_TRAIN_SEQ} tokens: gradients "
+          f"finite, max |d loss / d vth| a layer {vth_grad!r}; loss "
+          f"{losses!r}, grad_norm {norms!r}; spike rate a layer (layers "
+          f"{cfg.ssm.slstm_layers}) before "
+          f"{rate0!r}, after {rate1!r}, max |d vth| {moved!r}; {ms!r} ms a "
+          f"step, median after the first {secs!r} s = "
+          f"{XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ / secs!r} tokens/s, on "
+          f"{smi}")
+
+
+def masked_spans(record: list):
+    """Wrap ``mamba2._mamba2_chunked`` so that each call appends the
+    largest exponent its masked entries reach, max over chunks and heads
+    of cum_0 - cum_(L-1) (the log-decay summed over a chunk): past
+    ``F32_LOG_MAX`` exp overflows to inf, and the backward's inf x 0 is
+    NaN.  Returns the real function."""
+    from repro_torch.models.layers import mamba2
+
+    real = mamba2._mamba2_chunked
+
+    def recorded(xs, bs, cs, dt, a, chunk):
+        with torch.no_grad():
+            b, seq, h = dt.shape
+            cum = torch.cumsum((dt * a).reshape(b, seq // chunk, chunk, h),
+                               dim=2)
+            record.append((cum[:, :, 0] - cum[:, :, -1]).max().item())
+        return real(xs, bs, cs, dt, a, chunk)
+
+    mamba2._mamba2_chunked = recorded
+    return real
+
+
+def nan_out_of_reach(params: dict, grads: list, cfg,
+                     overflowed: list[bool]) -> tuple[list[str], list[str]]:
+    """Phase 8d's hold on a hybrid's non-finite gradients.  Mamba2 layer l
+    (``groups`` element (i, j) is l = i attn_every + j, then ``tail``)
+    whose masked exp overflowed has NaN in its own a_log gradient (the
+    backward's inf x 0, tests/test_torch_lm_remat.py), and the NaN can
+    reach its dt_bias and w_in, its norm, and everything upstream of its
+    input: the layers before it, the shared block's applications before
+    it, the embedding.  Past the last such layer, and in that layer's
+    other leaves, every gradient is finite.  Returns the leaf elements
+    (path and layer) that are not finite out of that reach, and the
+    overflowed layers whose a_log gradient holds no NaN."""
+    g, first_tail = cfg.attn_every, cfg.num_layers // cfg.attn_every * \
+        cfg.attn_every
+    last = max((i for i, o in enumerate(overflowed) if o), default=-1)
+    stray, missing = [], []
+    for path, grad in zip(leaf_paths(params), grads):
+        top, *rest = path.strip("/").split("/")
+        if top not in ("groups", "tail"):
+            reach = {"embed": last >= 0, "shared_attn": last >= g}
+            if not torch.isfinite(grad).all() and not reach.get(top, False):
+                stray.append(path)
+            continue
+        first = 0 if top == "groups" else first_tail
+        own = rest[0] == "norm" or rest[-1] in ("a_log", "dt_bias", "w_in")
+        for k, layer in enumerate(grad.flatten(0, 1) if top == "groups"
+                                  else grad):
+            i = first + k
+            if not torch.isfinite(layer).all() and \
+                    not (i < last or (i == last and own)):
+                stray.append(f"{path} layer {i}")
+            if overflowed[i] and rest[-1] == "a_log" and \
+                    not layer.isnan().any():
+                missing.append(f"{path} layer {i}")
+    return stray, missing
+
+
+def check_zamba2_training(seed: int, dev, smi: str) -> None:
+    """Phase 8d: zamba2-7b at its published widths over two groups (12
+    Mamba2 layers, two shared-attention applications), bf16, remat
+    "full", the chunked scan."""
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import registry
+    from repro_torch.models.layers import mamba2
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    cfg = TRAIN_ZAMBA2
+    if ZAMBA2_TRAIN_SEQ % cfg.ssm.chunk or cfg.ssm.scan_impl != "chunked":
+        raise AssertionError("phase 8d's batch must take the chunked form")
+    print(f"lm train: {cfg.name} cut in depth to num_layers="
+          f"{cfg.num_layers} (published {ZAMBA2_7B.num_layers}), "
+          f"{cfg.num_layers // cfg.attn_every} shared-attention groups")
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, ZAMBA2_CUT_PARAMS)
+    batches = [on(dev, lm_batch(cfg, ZAMBA2_TRAIN_BATCH, ZAMBA2_TRAIN_SEQ,
+                                seed, i)) for i in range(ZAMBA2_TRAIN_STEPS)]
+    spans = []
+    real = masked_spans(spans)
+    try:
+        loss, grads = loss_and_grads(api, params, batches[0])
+    finally:
+        mamba2._mamba2_chunked = real
+    names = leaf_paths(params)
+    nan = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(names, grads)}
+    nan = {n: c for n, c in nan.items() if c}
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{cfg.name}: the loss is not finite")
+    if len(spans) < cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: {len(spans)} chunked scans for "
+                             f"{cfg.num_layers} Mamba2 layers")
+    # the forward's scans, layer by layer (remat's recomputation follows)
+    layer_spans = spans[:cfg.num_layers]
+    overflowed = [x > F32_LOG_MAX for x in layer_spans]
+    stray, missing = nan_out_of_reach(params, grads, cfg, overflowed)
+    if stray or missing:
+        raise AssertionError(
+            f"{cfg.name}: gradients not finite out of the masked exp's "
+            f"reach {stray}, or finite in an overflowed layer's a_log "
+            f"{missing} (layers overflowed {overflowed})")
+    del grads
+    verdict = (f"gradients not finite at {len(nan)} of {len(names)} leaves "
+               f"({sum(nan.values())} elements), all within the reach of "
+               f"the overflowed layers' NaN (the reference's: "
+               f"tests/test_torch_lm_remat.py "
+               f"test_mamba2_strong_decay_gradient); the finite gradients "
+               f"are not compared at this width" if nan
+               else "gradients finite")
+    ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR, warmup_steps=2,
+                           decay_steps=ZAMBA2_TRAIN_STEPS)
+    state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
+    step = make_train_step(api, ocfg, donate=True)
+    state, losses, norms, ms = train_steps(step, state, enumerate(batches),
+                                           dev)
+    if not nan and not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{cfg.name}: loss or grad_norm not finite")
+    secs = statistics.median(ms[1:]) / 1e3
+    print(f"lm train: {describe(cfg)}, remat {cfg.remat}, {ocfg.name}, "
+          f"{ZAMBA2_TRAIN_STEPS} steps of {ZAMBA2_TRAIN_BATCH} x "
+          f"{ZAMBA2_TRAIN_SEQ} tokens: first loss {float(loss)!r}; largest "
+          f"masked exponent of a chunk, layer by layer, {layer_spans!r} "
+          f"(exp overflows past {F32_LOG_MAX!r}); {verdict}; loss "
+          f"{losses!r}, grad_norm {norms!r}; {ms!r} ms a step"
+          f"{' (the steps spread the NaN)' if nan else ''}, median after "
+          f"the first {secs!r} s = "
+          f"{ZAMBA2_TRAIN_BATCH * ZAMBA2_TRAIN_SEQ / secs!r} tokens/s, on "
+          f"{smi}")
+
+
+def restore_sigterm(trainer) -> None:
+    """Give SIGTERM back the handler it had before ``trainer``'s
+    ``PreemptionHandler`` took it."""
+    import signal
+
+    for sig, prev in trainer.preempt._prev.items():
+        signal.signal(sig, prev)
+
+
+def whisper_trainer(out: Path, seed: int, dev, ckpt_every: int):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = TRAIN_WHISPER
+    api = registry.get_model(cfg.name, cfg)
+    ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR, warmup_steps=2,
+                           decay_steps=WHISPER_TRAIN_STEPS)
+
+    def init_state():
+        params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev, max_dec_len=WHISPER_MAX_DEC_LEN)
+        return {"params": params, "opt": opt_lib.init_opt_state(params,
+                                                                ocfg)}
+
+    tcfg = TrainerConfig(total_steps=WHISPER_TRAIN_STEPS, log_every=1,
+                         ckpt_every=ckpt_every, out_dir=str(out))
+    return Trainer(tcfg, make_train_step(api, ocfg, donate=True), init_state,
+                   lambda i: lm_batch(cfg, WHISPER_TRAIN_BATCH,
+                                      WHISPER_TRAIN_SEQ, seed, i),
+                   device=dev)
+
+
+def check_whisper_trainer(seed: int, dev, smi: str, tmp: Path) -> None:
+    """Phase 8e: whisper-base at its published widths (bf16) through the
+    port's ``Trainer``: preempted at call ``WHISPER_PREEMPT``
+    (``t.preempt.trigger()``, as tests/test_training.py does), then
+    auto-resumed; the final loss within ``RESUME_RTOL`` of an uninterrupted
+    run's, ``metrics.jsonl`` and the checkpoints written, the heartbeat
+    fresh at every step."""
+    runs = {}
+    for name, preempt in (("resumed", WHISPER_PREEMPT), ("whole", None)):
+        out = tmp / f"whisper_{name}"
+        t0 = time.perf_counter()
+        t = whisper_trainer(out, seed, dev, WHISPER_CKPT_EVERY)
+        if preempt is not None:
+            count_params(t._init_state()["params"], TRAIN_WHISPER,
+                         WHISPER_PARAMS)
+            orig, calls = t.step_fn, {"n": 0}
+
+            def wrapped(state, batch, _t=t, _orig=orig, _calls=calls):
+                _calls["n"] += 1
+                if _calls["n"] == preempt:
+                    _t.preempt.trigger()
+                return _orig(state, batch)
+
+            t.step_fn = wrapped
+            try:
+                t.run()
+            finally:
+                restore_sigterm(t)
+            stopped = t.ckpt.latest_step()
+            if stopped != preempt:
+                raise AssertionError(f"preempted run checkpointed step "
+                                     f"{stopped}, not {preempt}")
+            t = whisper_trainer(out, seed, dev, WHISPER_CKPT_EVERY)
+        stale = []
+        try:
+            result = t.run(hooks=[lambda *_, _t=t: stale.append(
+                _t.heartbeat.stale())])
+        finally:
+            restore_sigterm(t)
+        if any(stale):
+            raise AssertionError(f"{name}: the heartbeat went stale")
+        lines = (out / "metrics.jsonl").read_text().splitlines()
+        steps = [json.loads(x)["step"] for x in lines]
+        if steps != list(range(WHISPER_TRAIN_STEPS)):
+            raise AssertionError(f"{name}: metrics.jsonl steps {steps}")
+        runs[name] = (result["metrics"]["loss"], t.ckpt.steps(),
+                      time.perf_counter() - t0, len(stale))
+    (got, ckpts, secs, n), (want, whole_ckpts, whole_secs, _) = \
+        runs["resumed"], runs["whole"]
+    if not math.isclose(got, want, rel_tol=RESUME_RTOL):
+        raise AssertionError(f"resumed loss {got!r} against {want!r}")
+    print(f"lm train: {describe(TRAIN_WHISPER)} through Trainer "
+          f"({WHISPER_TRAIN_STEPS} steps of {WHISPER_TRAIN_BATCH} streams x "
+          f"{TRAIN_WHISPER.encoder_seq} N(0, 1) frames and "
+          f"{WHISPER_TRAIN_SEQ} tokens, checkpoints every "
+          f"{WHISPER_CKPT_EVERY}): preempted at call {WHISPER_PREEMPT}, "
+          f"auto-resumed, final loss {got!r} against {want!r} uninterrupted "
+          f"(rel {abs(got - want) / abs(want)!r}, tolerance {RESUME_RTOL}); "
+          f"checkpoints {ckpts} and {whole_ckpts}, metrics.jsonl steps "
+          f"0-{WHISPER_TRAIN_STEPS - 1}, heartbeat fresh at all {n} "
+          f"resumed steps; {secs!r} s (both legs, checkpoints included) and "
+          f"{whole_secs!r} s uninterrupted, on {smi}")
+
+
+def check_reduced_training(seed: int, dev) -> None:
+    """Phase 8f: each arch at ``reduce_config``, float32: the loss and
+    every gradient leaf on the card against the CPU (``LM_GRAD_TOL``),
+    then one ``make_train_step`` step from the same parameters: the loss
+    and each updated parameter (``UPDATE_TOL``, ``G_FLOOR``)."""
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    for arch in registry.list_archs():
+        cfg = registry.reduce_config(ALL_ARCHS[arch])
+        api = registry.get_model(arch, cfg)
+        cpu = api.init(torch.Generator().manual_seed(seed), device="cpu")
+        batch = lm_batch(cfg, 2, REDUCED_PROMPT, seed, 2)
+        out = {}
+        for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            p = tree_map(lambda t: t.to(device), cpu)  # noqa: B023
+            loss, grads = loss_and_grads(api, p, on(device, batch))
+            ocfg = OptimizerConfig(lr=STEP_LR, warmup_steps=0,
+                                   decay_steps=10)
+            state, m = make_train_step(api, ocfg)(
+                {"params": p, "opt": opt_lib.init_opt_state(p, ocfg)},
+                on(device, batch))
+            out[where] = (float(loss), grads, float(m["loss"]),
+                          tree_leaves(state["params"]),
+                          min(1.0, ocfg.grad_clip / float(m["grad_norm"])))
+        (l_cpu, g_cpu, s_cpu, p_cpu, clip), (l_dev, g_dev, s_dev, p_dev, _) \
+            = out["cpu"], out["card"]
+        if not (math.isclose(l_dev, l_cpu, rel_tol=1e-5)
+                and math.isclose(s_dev, s_cpu, rel_tol=1e-5)):
+            raise AssertionError(f"{arch}: loss {l_dev!r} / {s_dev!r} on "
+                                 f"{dev}, {l_cpu!r} / {s_cpu!r} on cpu")
+        worst = close_leaves(g_dev, g_cpu, LM_GRAD_TOL, f"{arch} gradients")
+        near = 0
+        for g, a, b in zip(g_cpu, p_dev, p_cpu, strict=True):
+            d = (a.cpu() - b).abs()
+            zero = g.abs() * clip < G_FLOOR
+            near += int(zero.sum())
+            if torch.where(zero, 0.0, d).max() > UPDATE_TOL * STEP_LR or \
+                    d.max() > (2 + UPDATE_TOL) * STEP_LR:
+                raise AssertionError(f"{arch}: an updated parameter is off "
+                                     f"by {d.max().item()!r}")
+        print(f"lm train reduced: {arch}: loss {dev} against cpu rel "
+              f"{abs(l_dev - l_cpu) / l_cpu!r}, gradients within {worst!r} "
+              f"of each leaf's largest (tolerance {LM_GRAD_TOL}); one step "
+              f"(adamw, lr {STEP_LR}): parameters within {UPDATE_TOL} lr, "
+              f"{near} of {sum(t.numel() for t in p_cpu)} near-zero-"
+              f"gradient elements within {2 + UPDATE_TOL} lr")
+
+
+def check_example_training(dev, smi: str) -> None:
+    """Phase 8g: examples/serve_lm_torch.py's flow (``run``) on the card:
+    the reduced gemma2 fitted for ``EXAMPLE_FIT_STEPS`` steps, then
+    ``ServeLoop`` answering ``EXAMPLE_REQUESTS`` requests; the last fit
+    loss below the first."""
+    path = Path(__file__).resolve().parent / "examples" / "serve_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    out = example.run("gemma2-2b", EXAMPLE_FIT_STEPS, EXAMPLE_REQUESTS, dev)
+    secs = time.perf_counter() - t0
+    losses = out["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"serve_lm_torch: fit loss {losses[0]!r} -> "
+                             f"{losses[-1]!r}")
+    tokens = sum(len(r.out) for r in out["done"])
+    print(f"lm train example: serve_lm_torch.run on {dev}: fit loss "
+          f"{losses[0]!r} -> {losses[-1]!r} over {EXAMPLE_FIT_STEPS} steps, "
+          f"{len(out['done'])} requests served, {tokens} tokens in "
+          f"{out['seconds']!r} s; {secs!r} s in all, on {smi}")
+
+
+def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> None:
+    """Phase 8: the token-LM train path on the card (``launch/steps.py``
+    ``make_train_step``, ``data/pipeline.py``, ``training/trainer.py``),
+    plain PyTorch: no kernel of the port lies on it, and every launch
+    counter stays 0.  (b) gemma2 float32: a block card against CPU, remat
+    against none; (a) gemma2-2b bf16 trained at full width; (c) the
+    spiking xlstm-350m; (d) zamba2-7b over 12 layers; (e) whisper-base
+    through the Trainer, preempted and resumed; (f) the ten reduced archs,
+    card against CPU; (g) the example.  Seconds a step, tokens/s and peak
+    memory printed beside the card."""
+    t0 = time.perf_counter()
+    print(f"phase 8 on {smi}")
+    set_counts(0)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.init()  # the allocator's statistics need the context
+    for name, check in (("8b gemma2-2b float32", check_remat),
+                        ("8a gemma2-2b", check_gemma2_training),
+                        ("8c xlstm-350m", check_xlstm_training),
+                        ("8d zamba2-7b", check_zamba2_training),
+                        ("8e whisper-base", functools.partial(
+                            check_whisper_trainer, tmp=tmp))):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        check(seed, dev, smi)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        print(f"lm train: {name}: {time.perf_counter() - t1!r} s, peak "
+              f"memory {peak!r} B (max_memory_allocated), on {smi}")
+    if cuda:
+        torch.cuda.empty_cache()
+    check_reduced_training(seed, dev)
+    check_example_training(dev, smi)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 8 launched kernels: {counts}")
+    print(f"phase 8: {time.perf_counter() - t0!r} s; no kernel launched")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -4381,6 +5126,7 @@ def main(argv=None) -> int:
         check_paper_claims(args.seed, Path(tmp), dev)
         check_lm_serving(args.seed, dev, smi)
         check_lm_families(args.seed, dev, smi)
+        check_lm_training(args.seed, dev, smi, Path(tmp))
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

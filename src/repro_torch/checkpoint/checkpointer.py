@@ -15,7 +15,9 @@ package restores in the other.  ``save`` copies every leaf to the host
 before it returns, then writes on a background thread into a temporary
 directory that one rename commits: a save that dies leaves the latest
 checkpoint whole.  ``restore`` puts each leaf on its template leaf's device
-with its dtype.
+with its dtype; ``restore_into`` copies each leaf into a tree of tensors
+in place.  bfloat16 leaves are written as the reference writes them (two
+raw bytes an element, ``bfloat16`` in the manifest).
 """
 
 from __future__ import annotations
@@ -60,12 +62,33 @@ def _unflatten(template, it):
     return next(it)
 
 
+# bfloat16 leaves are stored as the reference stores its numpy bfloat16
+# arrays: two raw bytes an element (``|V2`` in the archive), ``bfloat16`` in
+# the manifest
+_BF16 = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` (a CPU tensor's ``numpy()`` would share its
     memory)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().copy().view(_BF16)
     return np.array(leaf)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == _BF16 else str(a.dtype)
+
+
+def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``a`` as a tensor of ``like``'s dtype, on the CPU."""
+    if a.dtype == _BF16:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(like.dtype)
 
 
 def _process() -> tuple[int, int]:
@@ -105,7 +128,7 @@ class Checkpointer:
         rank, count = _process()
         tmp = self.dir / f".tmp_step_{step}_{time.time_ns()}"
         tmp.mkdir(parents=True)
-        manifest = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+        manifest = {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
                     for k, v in host}
         (tmp / "manifest.json").write_text(json.dumps({
             "step": step, "leaves": manifest, "process_count": count}))
@@ -145,9 +168,29 @@ class Checkpointer:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        rank, _ = _process()
-        d = self.dir / f"step_{step}"
-        with np.load(d / f"shard_{rank}.npz") as data:
-            leaves = [torch.from_numpy(np.array(data[k])).to(
-                device=t.device, dtype=t.dtype) for k, t in _flatten(template)]
+        with self._open(step) as data:
+            leaves = [_from_host(data[k], t).to(t.device)
+                      for k, t in _flatten(template)]
         return _unflatten(template, iter(leaves)), step
+
+    def restore_into(self, tree, step: int | None = None) -> int:
+        """The checkpoint at ``step`` (default the latest) copied into the
+        tensors of ``tree`` in place, one leaf at a time, so that restoring
+        a state holds one copy of it on its device and one leaf on the
+        host.  A stored leaf whose shape is not its tensor's raises
+        ``ValueError`` (``copy_`` would broadcast it).  Returns the step."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        with torch.no_grad(), self._open(step) as data:
+            for k, t in _flatten(tree):
+                if tuple(data[k].shape) != tuple(t.shape):
+                    raise ValueError(f"checkpoint leaf {k} has shape "
+                                     f"{tuple(data[k].shape)}, the tree's "
+                                     f"{tuple(t.shape)}")
+                t.copy_(_from_host(data[k], t))
+        return step
+
+    def _open(self, step: int):
+        rank, _ = _process()
+        return np.load(self.dir / f"step_{step}" / f"shard_{rank}.npz")

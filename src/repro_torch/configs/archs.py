@@ -3,8 +3,7 @@ RSNN is ``configs/rsnn_timit.py``).
 
 Sources are the public configs cited in the assignment; [unverified] entries
 follow the assignment's stated dimensions.  The port's copy of the
-reference's ``configs/archs.py``, number for number, less the fields
-that ``configs/base.py`` leaves out.
+reference's ``configs/archs.py``, number for number.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ INTERNVL2_26B = ModelConfig(
     num_layers=48, d_model=6144, num_heads=48, num_kv_heads=8,
     d_ff=16384, vocab_size=92553, rope_theta=1_000_000.0,
     mlp_type="swiglu", frontend="patch", num_patch_tokens=256,
+    optimizer="adamw8bit",
 )
 
 GEMMA2_2B = ModelConfig(
@@ -72,6 +72,7 @@ DEEPSEEK_V3_671B = ModelConfig(
     moe=MoEConfig(num_experts=256, top_k=8, d_ff=2048, num_shared_experts=1,
                   capacity_factor=1.25, group_size=512),
     dense_layers=3, dense_d_ff=18432,
+    optimizer="adafactor",
 )
 
 KIMI_K2_1T = ModelConfig(
@@ -84,6 +85,7 @@ KIMI_K2_1T = ModelConfig(
     moe=MoEConfig(num_experts=384, top_k=8, d_ff=2048, num_shared_experts=1,
                   capacity_factor=1.25, group_size=512),
     dense_layers=1, dense_d_ff=18432,
+    optimizer="adafactor",
 )
 
 XLSTM_350M = ModelConfig(
@@ -92,6 +94,7 @@ XLSTM_350M = ModelConfig(
     num_layers=24, d_model=1024, num_heads=4, num_kv_heads=4,
     d_ff=0, vocab_size=50304,
     ssm=SSMConfig(kind="xlstm", slstm_layers=(3, 11, 19)),
+    remat="none",
 )
 
 ZAMBA2_7B = ModelConfig(

@@ -3,11 +3,11 @@
 Every assigned architecture is a `ModelConfig`; names resolve through
 `repro_torch.models.registry`.  The port's own copy of the reference's
 `configs/base.py` (which imports `jax.numpy`): the same fields and
-defaults, `dtype` a `torch.dtype`, less what the port does not read yet:
-`remat` and `optimizer` (the LM train path), `weight_bits` (read by
-neither package) and the TPU benchmark grid of input shapes
-(`ShapeConfig` and its helpers).  Each comes back with the code that
-reads it.
+defaults, `dtype` a `torch.dtype`, and the grid of input shapes that
+`launch/steps.py` `batch_shapes` reads (`ShapeConfig`, `LM_SHAPES`,
+`shape_by_name`).  Left out, since no module of the port reads them yet:
+`weight_bits` (read by neither package), and `LONG_CONTEXT_SKIP` and
+`cell_is_runnable`, which only the reference's `launch/dryrun.py` reads.
 """
 
 from __future__ import annotations
@@ -98,6 +98,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    remat: str = "full"  # activation checkpointing policy on the layer scan
+    optimizer: str = "adamw"  # adamw | adamw8bit | adafactor
     # paper-technique toggle
     spiking: bool = False  # RSNN-ified recurrence (xlstm only)
 
@@ -109,3 +111,27 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 so it shards over 16-way TP."""
         return (self.vocab_size + 255) // 256 * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+LM_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; options: "
+                   f"{[s.name for s in LM_SHAPES]}")

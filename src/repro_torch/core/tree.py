@@ -5,7 +5,8 @@ children, as in ``jax.tree`` (a hybrid cache's absent tail); anything else
 is a leaf, unless ``is_leaf`` says a node is one (the optimizer's int8
 codec ``{"q", "scale"}``).  The port's counterpart of ``jax.tree``'s
 flatten, unflatten, map and ``tree_map_with_path``, and of indexing and
-stacking the leading layer axis of a stacked tree.
+stacking the leading layer axis of a stacked tree (``tree_index``,
+``tree_unstack``, ``tree_stack``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,17 @@ def tree_map_with_name(fn: Callable, tree, name: str = ""):
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree: every leaf indexed on its axis 0."""
     return tree_map(lambda t: t[i], tree)
+
+
+def tree_unstack(tree) -> list:
+    """Every layer of a stacked tree at once: each leaf unbound on axis 0.
+    In a backward pass one ``unbind`` a leaf stacks the layers'
+    gradients into the stacked leaf's gradient, as ``jax.lax.scan``
+    writes them; ``tree_index`` layer by layer would make each layer's
+    gradient a zero-filled tensor of the whole stack and add them up."""
+    cols = [torch.unbind(t) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, iter([c[i] for c in cols]))
+            for i in range(len(cols[0]))]
 
 
 def tree_stack(trees: list):

@@ -1,0 +1,3 @@
+"""Entry points and step factories of the token-LM train path:
+``steps.py`` (train / prefill / decode steps, ``batch_shapes``) and
+``train.py`` (``python -m repro_torch.launch.train``)."""

@@ -4,20 +4,25 @@ The batch supplies precomputed frame embeddings (B, encoder_seq, D), the
 conv1d x 2 + GELU frontend's output, so the transformer backbone is what
 runs.
 
-The reference's ``models/encdec.py`` in plain PyTorch, serving path only:
-the stacked encoder and decoder layers keep their leading layer axis and a
-Python loop over it replaces ``jax.lax.scan``; train mode runs without the
-reference's ``remat`` checkpointing, which changes no value.
+The reference's ``models/encdec.py`` in plain PyTorch: the stacked
+encoder and decoder layers keep their leading layer axis and a Python loop
+over it replaces ``jax.lax.scan``.  ``cfg.remat == "full"`` checkpoints
+each decoder layer in train mode (``torch.utils.checkpoint`` where the
+reference calls ``jax.checkpoint``; the encoder is not checkpointed, in
+the reference either).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.tree import tree_index, tree_map, tree_stack
+from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
+                                   tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import basic
 
@@ -78,8 +83,7 @@ def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None].expand(b, t)
-    for i in range(cfg.encoder_layers):
-        lp = tree_index(params["enc_layers"], i)
+    for lp in tree_unstack(params["enc_layers"]):
         h = basic.apply_norm(x, lp["attn_norm"], cfg)
         # bidirectional: no mask, no rope (whisper uses abs pos)
         a, _ = attn_lib.attention(h, lp["attn"], cfg, positions, rope=False,
@@ -135,12 +139,14 @@ def encdec_forward(params, tokens, cfg, frames=None, enc_out=None,
 
     x = basic.embed_tokens(tokens, params["embed"], cfg) + pos_emb
 
+    fwd = decode_layer
+    if cfg.remat == "full" and mode == "train":
+        fwd = functools.partial(checkpoint, decode_layer, use_reentrant=False)
     layer_caches = []
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(tree_unstack(params["dec_layers"])):
         c = tree_index(cache.self_caches, i) if cache is not None else None
-        x, nc = decode_layer(x, tree_index(params["dec_layers"], i), cfg,
-                             positions, enc_out, c, cache_pos,
-                             return_kv=prefill)
+        x, nc = fwd(x, lp, cfg, positions, enc_out, c, cache_pos,
+                    return_kv=prefill)
         layer_caches.append(nc)
 
     if cache is not None:

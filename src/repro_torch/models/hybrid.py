@@ -7,11 +7,13 @@ layers + one application of the shared attention/MLP block; plus a tail
 of leftover Mamba2 layers.  Decode carries Mamba2 states per layer + one KV
 cache per shared-block application.
 
-The reference's ``models/hybrid.py`` in plain PyTorch, serving path only:
-the ``groups`` leaves keep their two stacked axes (n_groups, g, ...) and
-the ``tail`` leaves one, and Python loops over them replace the nested
-``jax.lax.scan``; train mode runs without the reference's ``remat``
-checkpointing, which changes no value.
+The reference's ``models/hybrid.py`` in plain PyTorch: the ``groups``
+leaves keep their two stacked axes (n_groups, g, ...) and the ``tail``
+leaves one, and Python loops over them replace the nested
+``jax.lax.scan``.  ``cfg.remat == "full"`` checkpoints each Mamba2 layer
+in train mode, called with no state (``torch.utils.checkpoint`` where the
+reference calls ``jax.checkpoint``; the shared attention block is not
+checkpointed, in the reference either).
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.tree import tree_index, tree_map, tree_stack
+from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
+                                   tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import basic
 from repro_torch.models.layers import mamba2 as m2
@@ -101,7 +105,7 @@ def _shared_attn(x, p, cfg, positions, cache, cache_pos, return_kv=False):
 
 def hybrid_forward(params, tokens, cfg, cache: HybridCache | None = None,
                    mode: str = "train"):
-    g, n_groups, tail = _split(cfg)
+    _, _, tail = _split(cfg)
     b, s = tokens.shape
     x = basic.embed_tokens(tokens, params["embed"], cfg)
     decode = cache is not None
@@ -115,24 +119,26 @@ def hybrid_forward(params, tokens, cfg, cache: HybridCache | None = None,
                                  device=x.device)[None].expand(b, s)
         cache_pos = None
 
-    def mamba_stack(x, layers, states, n):
-        """``n`` stacked Mamba2 layers; their new states stacked."""
+    def mamba_stack(x, layers, states):
+        """Stacked Mamba2 layers; their new states stacked."""
         new = []
-        for j in range(n):
-            lp = tree_index(layers, j)
+        for j, lp in enumerate(tree_unstack(layers)):
             h = basic.apply_norm(x, lp["norm"], cfg)
-            out, ns = m2.mamba2_layer(
-                h, lp["mamba"], cfg,
-                tree_index(states, j) if states is not None else None)
+            if cfg.remat == "full" and mode == "train":
+                out, ns = checkpoint(m2.mamba2_layer, h, lp["mamba"], cfg,
+                                     None, use_reentrant=False)
+            else:
+                out, ns = m2.mamba2_layer(
+                    h, lp["mamba"], cfg,
+                    tree_index(states, j) if states is not None else None)
             x = x + out
             new.append(ns)
         return x, tree_stack(new)
 
     group_states, kvs = [], []
-    for i in range(n_groups):
+    for i, group in enumerate(tree_unstack(params["groups"])):
         x, ns = mamba_stack(
-            x, tree_index(params["groups"], i),
-            tree_index(cache.group_states, i) if decode else None, g)
+            x, group, tree_index(cache.group_states, i) if decode else None)
         x, kv = _shared_attn(
             x, params["shared_attn"], cfg, positions,
             tree_index(cache.attn_caches, i) if decode else None, cache_pos,
@@ -143,8 +149,7 @@ def hybrid_forward(params, tokens, cfg, cache: HybridCache | None = None,
     new_tail = None
     if tail:
         x, new_tail = mamba_stack(x, params["tail"],
-                                  cache.tail_states if decode else None,
-                                  tail)
+                                  cache.tail_states if decode else None)
 
     if prefill:
         x = x[:, -1:]

@@ -151,7 +151,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         num_layers=4 if cfg.attn_every or cfg.ssm else 3,
         d_model=64, num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
         d_ff=128, vocab_size=503, head_dim=16,
-        dtype=torch.float32,
+        remat="none", dtype=torch.float32,
     )
     if cfg.num_kv_heads == cfg.num_heads:
         upd["num_kv_heads"] = 4

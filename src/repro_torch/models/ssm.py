@@ -5,14 +5,15 @@ list, not a stacked tree.  Decode carries O(1) recurrent state per block.
 With cfg.spiking=True the sLSTM blocks emit binary spikes through a
 learnable threshold (the paper's RSNN technique applied to this family).
 
-The reference's ``models/ssm.py`` in plain PyTorch, serving path only:
-train mode runs the blocks without the reference's ``remat`` checkpointing,
-which changes no value.
+The reference's ``models/ssm.py`` in plain PyTorch.  ``cfg.remat ==
+"full"`` checkpoints each block in train mode (``torch.utils.checkpoint``
+where the reference calls ``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import basic
 from repro_torch.models.layers import xlstm as xl
@@ -54,8 +55,12 @@ def xlstm_forward(params, tokens, cfg, states: list | None = None,
     for i, lp in enumerate(params["layers"]):
         h = basic.apply_norm(x, lp["norm"], cfg)
         block = xl.slstm_block if is_slstm(cfg, i) else xl.mlstm_block
-        out, ns = block(h, lp["block"], cfg,
-                        states[i] if states is not None else None)
+        st = states[i] if states is not None else None
+        if cfg.remat == "full" and mode == "train":
+            out, ns = checkpoint(block, h, lp["block"], cfg, st,
+                                 use_reentrant=False)
+        else:
+            out, ns = block(h, lp["block"], cfg, st)
         x = x + out
         new_states.append(ns)
     if mode == "prefill":

@@ -6,17 +6,23 @@ and the MLA+MoE archs (deepseek-v3, kimi-k2).  The reference's
 the leaves of ``params["layers"]`` carry a leading layer axis, and a small
 dense prefix (deepseek: 3, kimi: 1) stays a list; a Python loop over that
 axis replaces ``jax.lax.scan``.  Gemma2's local/global alternation is
-``layer_windows``, one window a stacked layer.
+``layer_windows``, one window a stacked layer.  ``cfg.remat == "full"``
+checkpoints each stacked layer in train mode, as the reference's
+``jax.checkpoint`` on its scan body does (``torch.utils.checkpoint``:
+the layer's activations are recomputed in the backward pass).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.tree import tree_index, tree_map, tree_stack
+from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
+                                   tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import basic
 from repro_torch.models.layers import mla as mla_lib
@@ -164,11 +170,15 @@ def lm_forward(params, tokens, cfg, frontend_embeds=None,
         new_prefix.append(nc)
 
     # --- stacked layers ------------------------------------------------------
+    fwd = layer_fwd
+    if cfg.remat == "full" and mode == "train":
+        fwd = functools.partial(checkpoint, layer_fwd, use_reentrant=False)
     layer_caches = []
-    for i, window in enumerate(windows):
+    for i, (window, lp) in enumerate(zip(windows,
+                                         tree_unstack(params["layers"]))):
         c = tree_index(cache.layers, i) if mode == "decode" else None
-        x, nc = layer_fwd(x, tree_index(params["layers"], i), cfg, positions,
-                          window, c, cache_pos, return_kv=prefill)
+        x, nc = fwd(x, lp, cfg, positions, window, c, cache_pos,
+                    return_kv=prefill)
         layer_caches.append(nc)
 
     if mode == "decode":

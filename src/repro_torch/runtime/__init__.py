@@ -1,0 +1,2 @@
+"""Runtime support of the train loop: preemption, heartbeat and straggler
+detection (``fault_tolerance.py``)."""

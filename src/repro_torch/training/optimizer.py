@@ -3,8 +3,9 @@
 Pure functions over a parameter tree: a dict of tensors whose ``lif*``
 leaves are ``LIFParams`` (the RSNN's parameter dict), with optimizer state
 of the same structure.  ``apply_updates`` returns new tensors and leaves
-its inputs as they were; it runs under ``torch.no_grad()`` on the
-parameters' device.  The formulas are the reference's, in its order of
+its inputs as they were; ``apply_updates_`` writes the same values into
+the parameter and state tensors it is given (the reference's donated
+state).  Both run under ``torch.no_grad()`` on the parameters' device.  The formulas are the reference's, in its order of
 float operations, and every division by a constant divides by a tensor
 on the operand's device (PyTorch divides a CUDA tensor by a host scalar as
 a product with its reciprocal).
@@ -143,77 +144,109 @@ def _global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-@torch.no_grad()
-def apply_updates(params, grads, state: dict, ocfg: OptimizerConfig):
-    """Returns (new_params, new_state, metrics: ``grad_norm``, ``lr``)."""
+# the per-leaf state trees of each optimizer, in the state dict's order
+_SLOTS = {"adamw": ("m", "v"), "adamw8bit": ("m", "v"),
+          "adafactor": ("m", "vr", "vc")}
+
+
+def _prologue(grads, state: dict, ocfg: OptimizerConfig):
+    """The step's scalars: (step, lr, grad_norm, clip, bc1, bc2)."""
+    if ocfg.name not in _SLOTS:
+        raise ValueError(ocfg.name)
     step = state["step"] + 1
     lr = schedule(ocfg, step)
     gnorm = _global_norm(grads)
     clip = torch.clamp(torch.full_like(gnorm, ocfg.grad_clip)
                        / torch.clamp(gnorm, min=1e-12), max=1.0)
-    grads = tree_map(lambda g: g.to(torch.float32) * clip, grads)
     t = step.to(torch.float32)
-    bc1 = 1.0 - ocfg.b1 ** t
-    bc2 = 1.0 - ocfg.b2 ** t
+    return step, lr, gnorm, clip, 1.0 - ocfg.b1 ** t, 1.0 - ocfg.b2 ** t
 
-    def upd_param(p, u):
-        wd = ocfg.weight_decay * p.to(torch.float32) if p.dim() >= 2 else 0.0
-        return (p.to(torch.float32) - lr * (u + wd)).to(p.dtype)
 
+def _update_leaf(ocfg: OptimizerConfig, p, g, slots: tuple, lr, clip, bc1,
+                 bc2):
+    """One parameter leaf's update: (new parameter, new slot leaves)."""
+    g = g.to(torch.float32) * clip
     if ocfg.name == "adamw":
-        m = tree_map(lambda m, g: ocfg.b1 * m + (1 - ocfg.b1) * g,
-                     state["m"], grads)
-        v = tree_map(lambda v, g: ocfg.b2 * v + (1 - ocfg.b2) * g * g,
-                     state["v"], grads)
-        upd = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2)
-                                                 + ocfg.eps), m, v)
-        new_state = {"step": step, "m": m, "v": v}
+        m, v = slots
+        m = ocfg.b1 * m + (1 - ocfg.b1) * g
+        v = ocfg.b2 * v + (1 - ocfg.b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+        new = (m, v)
     elif ocfg.name == "adamw8bit":
-        m = tree_map(lambda mq, g: _q8(ocfg.b1 * _dq8(mq)
-                                       + (1 - ocfg.b1) * g),
-                     state["m"], grads)
-        v = tree_map(lambda vq, g: _q8log(ocfg.b2 * _dq8log(vq)
-                                          + (1 - ocfg.b2) * g * g),
-                     state["v"], grads)
-        upd = tree_map(lambda mq, vq: (_dq8(mq) / bc1)
-                       / (torch.sqrt(_dq8log(vq) / bc2) + ocfg.eps), m, v)
-        new_state = {"step": step, "m": m, "v": v}
-    elif ocfg.name == "adafactor":
-        d = 1.0 - ocfg.b2 ** t
+        mq, vq = slots
+        mq = _q8(ocfg.b1 * _dq8(mq) + (1 - ocfg.b1) * g)
+        vq = _q8log(ocfg.b2 * _dq8log(vq) + (1 - ocfg.b2) * g * g)
+        u = (_dq8(mq) / bc1) / (torch.sqrt(_dq8log(vq) / bc2) + ocfg.eps)
+        new = (mq, vq)
+    else:  # adafactor; bc2 is its d = 1 - b2^t
+        mq, vr, vc = slots
+        factored = g.dim() >= 2 and vc.dim() > 0
+        if factored:
+            vr = ocfg.b2 * vr + (1 - ocfg.b2) * torch.mean(g * g, dim=-1)
+            vc = ocfg.b2 * vc + (1 - ocfg.b2) * torch.mean(g * g, dim=-2)
+            r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                 min=1e-30)
+            vhat = r[..., None] * vc[..., None, :]
+            u = g / (torch.sqrt(vhat / bc2) + ocfg.eps)
+        else:
+            vr = ocfg.b2 * vr + (1 - ocfg.b2) * g * g
+            u = g / (torch.sqrt(vr / bc2) + ocfg.eps)
+        mq = _q8(ocfg.b1 * _dq8(mq) + (1 - ocfg.b1) * u)
+        u = _dq8(mq)
+        new = (mq, vr, vc)
+    wd = ocfg.weight_decay * p.to(torch.float32) if p.dim() >= 2 else 0.0
+    return (p.to(torch.float32) - lr * (u + wd)).to(p.dtype), new
 
-        def factored(g, vc):
-            return g.dim() >= 2 and vc.dim() > 0
 
-        def upd_vr(g, vr, vc):
-            if factored(g, vc):
-                return ocfg.b2 * vr + (1 - ocfg.b2) * torch.mean(g * g,
-                                                                 dim=-1)
-            return ocfg.b2 * vr + (1 - ocfg.b2) * g * g
+@torch.no_grad()
+def apply_updates(params, grads, state: dict, ocfg: OptimizerConfig):
+    """Returns (new_params, new_state, metrics: ``grad_norm``, ``lr``)."""
+    step, lr, gnorm, clip, bc1, bc2 = _prologue(grads, state, ocfg)
+    names = _SLOTS[ocfg.name]
+    new_params, cols = [], [[] for _ in names]
+    for p, g, *slots in zip(tree_leaves(params), tree_leaves(grads),
+                            *(tree_leaves(state[n]) for n in names)):
+        p, new = _update_leaf(ocfg, p, g, tuple(slots), lr, clip, bc1, bc2)
+        new_params.append(p)
+        for col, x in zip(cols, new):
+            col.append(x)
+    new_state = {"step": step}
+    for n, col in zip(names, cols):
+        new_state[n] = tree_unflatten(state[n], iter(col))
+    return (tree_unflatten(params, iter(new_params)), new_state,
+            {"grad_norm": gnorm, "lr": lr})
 
-        def upd_vc(g, vc):
-            if factored(g, vc):
-                return ocfg.b2 * vc + (1 - ocfg.b2) * torch.mean(g * g,
-                                                                 dim=-2)
-            return vc
 
-        vr = tree_map(upd_vr, grads, state["vr"], state["vc"])
-        vc = tree_map(upd_vc, grads, state["vc"])
-
-        def precond(g, vr_, vc_):
-            if factored(g, vc_):
-                r = vr_ / torch.clamp(torch.mean(vr_, dim=-1, keepdim=True),
-                                      min=1e-30)
-                vhat = r[..., None] * vc_[..., None, :]
-                return g / (torch.sqrt(vhat / d) + ocfg.eps)
-            return g / (torch.sqrt(vr_ / d) + ocfg.eps)
-
-        upd = tree_map(precond, grads, vr, vc)
-        m = tree_map(lambda mq, u: _q8(ocfg.b1 * _dq8(mq)
-                                       + (1 - ocfg.b1) * u),
-                     state["m"], upd)
-        upd = tree_map(_dq8, m)
-        new_state = {"step": step, "m": m, "vr": vr, "vc": vc}
+def _copy_leaf_(dst, src) -> None:
+    if isinstance(dst, dict):  # an int8 codec
+        for k in dst:
+            dst[k].copy_(src[k])
     else:
-        raise ValueError(ocfg.name)
-    new_params = tree_map(upd_param, params, upd)
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+        dst.copy_(src)
+
+
+@torch.no_grad()
+def apply_updates_(params, grads: list, state: dict, ocfg: OptimizerConfig):
+    """``apply_updates`` in place, the port's counterpart of the
+    reference's donated state: each parameter and optimizer-state leaf is
+    overwritten with its new value, leaf by leaf after the global norm, so
+    that at most one leaf's float32 temporaries are alive at once.
+    ``grads`` is the list of gradient leaves in ``tree_leaves(params)``'s
+    order; each entry is set to ``None`` once applied, freeing it if the
+    caller holds no other reference.  Bit-equal to ``apply_updates`` (the
+    same operations on each leaf).  Returns (params, state, metrics), the
+    objects it was given."""
+    step, lr, gnorm, clip, bc1, bc2 = _prologue(grads, state, ocfg)
+    names = _SLOTS[ocfg.name]
+    slot_leaves = [tree_leaves(state[n]) for n in names]
+    for i, p in enumerate(tree_leaves(params)):
+        slots = tuple(col[i] for col in slot_leaves)
+        new_p, new = _update_leaf(ocfg, p, grads[i], slots, lr, clip, bc1,
+                                  bc2)
+        grads[i] = None
+        p.copy_(new_p)
+        del new_p
+        for dst, src in zip(slots, new):
+            _copy_leaf_(dst, src)
+    state["step"].copy_(step)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

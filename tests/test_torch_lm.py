@@ -36,10 +36,9 @@ LM_ARCHS = registry.list_archs()
 DECODE_ARCHS = [a for a in LM_ARCHS if ALL_ARCHS[a].family != "vlm"]
 
 
-# ModelConfig fields the port leaves out until the code that reads them is
-# ported: remat and optimizer (the LM train path); weight_bits is read by
-# neither package.
-NOT_PORTED = ("remat", "optimizer", "weight_bits")
+# ModelConfig fields the port leaves out: weight_bits is read by neither
+# package.
+NOT_PORTED = ("weight_bits",)
 
 
 @pytest.mark.parametrize("arch", sorted(j_configs.ALL_ARCHS))
