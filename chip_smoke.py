@@ -296,7 +296,8 @@ with ``remat="full"`` against ``"none"`` on the card, the loss within rel
 1e-6 and the gradients within ``LM_GRAD_TOL`` (``check_remat``).  (a)
 gemma2-2b at its published widths and config (bf16, remat ``"full"``,
 AdamW), ``make_train_step(..., donate=True)`` fed by ``PrefetchIterator``,
-``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` ``MarkovLMStream``
+``GEMMA2_TRAIN_STEPS`` steps of ``GEMMA2_TRAIN_BATCH`` x
+``GEMMA2_TRAIN_SEQ`` ``MarkovLMStream``
 tokens: loss and grad norm finite every step, the parameters moved; the
 loss curve, ms a step (CUDA events; the median after the first), tokens/s
 trained, and one more step under ``torch.profiler`` (busy share, device
@@ -312,8 +313,12 @@ Mamba2 layer whose chunk's masked ``exp`` overflowed, and NaN in each such
 layer's a_log (``masked_spans`` records each chunk's largest masked
 exponent: past ``F32_LOG_MAX`` the backward's inf x 0 is the NaN the
 reference's ``jax.grad`` gives too, tests/test_torch_lm_remat.py;
-``nan_out_of_reach``); the finite gradients are not compared with a
-reference at this width (8f compares the reduced zamba2 with the CPU);
+``nan_out_of_reach``); then the same loss and gradients at float32 on
+the card (the parameters upcast, the same batch,
+``zamba2_float32_grads``): leaf by leaf, a stacked leaf layer by layer
+(``layer_units``), the bf16 gradient finite exactly where the float32 one
+is, and the finite elements within ``BF16_GRAD_RTOL`` relative L2 error
+of it (``against_float32``; each unit's error printed, the worst first);
 then ``ZAMBA2_TRAIN_STEPS`` steps, timed (once the gradients hold NaN the
 steps spread it through the parameters, and the line says so).  (e)
 whisper-base at its published widths (bf16) through ``Trainer``: seeded
@@ -341,6 +346,32 @@ counts (``init`` on the meta device), the batch, sequence and step sizes
 to a few tokens (sequences a multiple of 4), ``torch.cuda.synchronize`` a
 no-op, and calling ``check_lm_training(0, torch.device("cpu"), "",
 tmp)`` (~8 s).
+
+Then phase 9 (``check_examples``): the two examples and the LM
+yardstick.  (a) ``examples/quickstart_torch.py``'s ``main`` with
+``--device cuda`` (``check_quickstart``): 30 QAT steps (the first and the
+last loss finite, the last below the first), the Fig. 12/13/17
+accounting, then K1 and K3 on the trained weights, each launched exactly
+once (every other counter 0), K1 held against its plain version on the
+same card tensors (a spike may differ only where the chain, replayed in
+float64, comes within ``TOL`` (1 + |u|) of the threshold; u within
+it elsewhere) and K3 within ``TOL`` (1 + |y|).  (b)
+``examples/compress_pipeline_torch.py``'s ``main`` at its default, yi-6b
+reduced (``check_compress``): K2 launched exactly once and within
+``TOL`` (1 + |y|) of the dequantized product; then its ``compress``
+and ``drift`` on gemma2-2b at its published widths (``EXAMPLE_GEMMA2``,
+bf16, 2,614,341,888 parameters asserted) drawn on the card, 40% pruned:
+the leaves selected, bytes, pruned count, logit drift, seconds and peak
+memory printed, no kernel launched.  (c) ``analysis/model_flops.py``
+``param_counts`` of the ten archs (meta device), and 8a's gemma2-2b step
+(``GEMMA2_TRAIN_BATCH`` x ``GEMMA2_TRAIN_SEQ``) as ``model_flops`` (6 N T)
+over the
+H100's 989 TFLOP/s dense bf16 beside 8a's median step
+(``check_yardstick``), no kernel launched.  Rehearse it on the CPU in ~5
+s by setting ``EXAMPLE_GEMMA2`` to gemma2-2b's ``reduce_config`` in
+bf16 and ``GEMMA2_PARAMS`` to its count, ``torch.cuda.synchronize`` a
+no-op, and calling ``check_examples(0, torch.device("cpu"), "", 0.5)``
+(on the CPU the plain versions run, and every counter stays 0).
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
@@ -402,6 +433,8 @@ U_RTOL = 1e-5  # teacher-forced engines against ref: near the threshold
 U_ATOL = 1e-5
 EPS32 = 2.0 ** -24  # float32 unit roundoff: the u rule's unit (``gamma``)
 TOL = 1e-5  # K8 recomputed rows, K9: |d| <= TOL * (1 + |y|), float32 sums
+# (phase 9: the rule and value of tests/test_torch_kernels.py's U_TOL,
+# K1's u off the threshold, and its FP32_TOL, K2 and K3)
 LOGIT_ATOL = 1e-4  # kernel backends vs ref backend, teacher-forced frames
 STREAMS = 512  # utterances served per configuration
 SLOTS = 256  # StreamLoop batch slots
@@ -2583,14 +2616,19 @@ def serve_in_process_and_reloaded(label: str, in_process, reloaded,
           f"logits bit-equal")
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
 def run_example_main(argv: list[str]) -> str:
     """``examples/stream_asr_torch.py``'s ``main(argv)``; its output is
     printed and returned.  A nonzero exit raises."""
-    spec = importlib.util.spec_from_file_location(
-        "stream_asr_torch",
-        Path(__file__).resolve().parent / "examples" / "stream_asr_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("stream_asr_torch")
     print(f"example: stream_asr_torch.py {' '.join(argv)}")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3837,10 +3875,11 @@ def check_lm_families(seed: int, dev, smi: str) -> None:
 # ------------------------------------------ token-LM training (phase 8)
 
 # phase 8a: gemma2-2b at its published widths and dtype (bf16, remat
-# "full", AdamW: its config's), TRAIN_STEPS steps of TRAIN_BATCH x
-# TRAIN_SEQ MarkovLMStream tokens, the first a warm-up
+# "full", AdamW: its config's), GEMMA2_TRAIN_STEPS steps of
+# GEMMA2_TRAIN_BATCH x GEMMA2_TRAIN_SEQ MarkovLMStream tokens, the first a
+# warm-up (named apart from phase 4d's TRAIN_BATCH, the RSNN's batch)
 TRAIN_GEMMA2 = GEMMA2_2B
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_STEPS = 4, 512, 6
 TRAIN_LR = 3e-3  # launch/train.py's default
 # phase 8b: the block and the whole model, float32, card against CPU and
 # remat "full" against "none" on the card: a gradient leaf within
@@ -3857,6 +3896,15 @@ TRAIN_ZAMBA2 = dataclasses.replace(ZAMBA2_7B, num_layers=12)
 ZAMBA2_CUT_PARAMS = 1_370_558_400  # the reference's jax.eval_shape, cut
 ZAMBA2_TRAIN_BATCH, ZAMBA2_TRAIN_SEQ, ZAMBA2_TRAIN_STEPS = 2, 256, 3
 F32_LOG_MAX = math.log(torch.finfo(torch.float32).max)  # exp overflows past
+# the bf16 gradients against a float32 run of the same cut, parameters and
+# batch: each finite leaf (a stacked leaf layer by layer) within this
+# relative L2 error.  bf16 keeps 8 significand bits, a rounding error of
+# up to 2^-9 = 1.95e-3 a value.  A gradient element ends a chain of about
+# 10^3 dependent roundings (some 30 rounded operations a layer, 12 layers,
+# in the forward, the recomputed forward and the backward), whose errors
+# add like a random walk: sqrt(10^3) 2^-9 = 6.2e-2.  1e-1 leaves a margin
+# of 1.6 over that; a wrong gradient is off by its own size
+BF16_GRAD_RTOL = 1e-1
 # phase 8e: whisper-base at its published widths through the Trainer,
 # preempted at call WHISPER_PREEMPT and resumed; checkpoints every
 # WHISPER_CKPT_EVERY steps
@@ -4038,8 +4086,9 @@ def check_remat(seed: int, dev, smi: str) -> None:
           f"{smi}")
 
 
-def check_gemma2_training(seed: int, dev, smi: str) -> None:
-    """Phase 8a: gemma2-2b trained at its published widths."""
+def check_gemma2_training(seed: int, dev, smi: str) -> float:
+    """Phase 8a: gemma2-2b trained at its published widths.  Returns the
+    median seconds of a step after the first."""
     from repro_torch.data.pipeline import PrefetchIterator
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import registry
@@ -4052,17 +4101,18 @@ def check_gemma2_training(seed: int, dev, smi: str) -> None:
                       device=dev)
     count_params(params, cfg, GEMMA2_PARAMS)
     ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR,
-                           warmup_steps=max(TRAIN_STEPS // 20, 2),
-                           decay_steps=TRAIN_STEPS)
+                           warmup_steps=max(GEMMA2_TRAIN_STEPS // 20, 2),
+                           decay_steps=GEMMA2_TRAIN_STEPS)
     state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
     before = [t.clone() for t in (params["final_norm"]["scale"],
                                   params["embed"]["tok"][:64])]
     step = make_train_step(api, ocfg, donate=True)
-    data = PrefetchIterator(lambda i: lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+    data = PrefetchIterator(lambda i: lm_batch(cfg, GEMMA2_TRAIN_BATCH,
+                                               GEMMA2_TRAIN_SEQ,
                                                seed, i), device=dev)
     try:
         state, losses, norms, ms = train_steps(
-            step, state, itertools.islice(data, TRAIN_STEPS), dev)
+            step, state, itertools.islice(data, GEMMA2_TRAIN_STEPS), dev)
         _, batch = next(data)
     finally:
         data.close()
@@ -4075,13 +4125,16 @@ def check_gemma2_training(seed: int, dev, smi: str) -> None:
         raise AssertionError(f"{cfg.name}: the parameters did not move")
     secs = statistics.median(ms[1:]) / 1e3
     print(f"lm train: {describe(cfg)}, remat {cfg.remat}, {ocfg.name} "
-          f"(donated, in place), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} MarkovLMStream tokens through PrefetchIterator: "
+          f"(donated, in place), {GEMMA2_TRAIN_STEPS} steps of "
+          f"{GEMMA2_TRAIN_BATCH} x {GEMMA2_TRAIN_SEQ} MarkovLMStream tokens "
+          f"through PrefetchIterator: "
           f"loss {losses!r}, grad_norm {norms!r}, parameters moved; "
           f"{ms!r} ms a step, median after the first {secs!r} s = "
-          f"{TRAIN_BATCH * TRAIN_SEQ / secs!r} tokens/s trained, on {smi}")
+          f"{GEMMA2_TRAIN_BATCH * GEMMA2_TRAIN_SEQ / secs!r} tokens/s "
+          f"trained, on {smi}")
     _, prof = profile_step(step, state, batch, dev)
     print(f"lm train: {cfg.name} bf16 {prof}, on {smi}")
+    return secs
 
 
 def spike_rates(api, params, toks: torch.Tensor) -> list[float]:
@@ -4194,10 +4247,25 @@ def masked_spans(record: list):
     return real
 
 
+def layer_units(params: dict, grads: list, cfg):
+    """(path, layer, gradient) of every leaf of a hybrid: its stacked
+    Mamba2 leaves one unit a layer (``groups`` element (i, j) is layer
+    l = i attn_every + j, then ``tail``), ``layer`` None for the others."""
+    first_tail = cfg.num_layers // cfg.attn_every * cfg.attn_every
+    for path, grad in zip(leaf_paths(params), grads):
+        top = path.strip("/").split("/")[0]
+        if top not in ("groups", "tail"):
+            yield path, None, grad
+            continue
+        first = 0 if top == "groups" else first_tail
+        for k, layer in enumerate(grad.flatten(0, 1) if top == "groups"
+                                  else grad):
+            yield path, first + k, layer
+
+
 def nan_out_of_reach(params: dict, grads: list, cfg,
                      overflowed: list[bool]) -> tuple[list[str], list[str]]:
     """Phase 8d's hold on a hybrid's non-finite gradients.  Mamba2 layer l
-    (``groups`` element (i, j) is l = i attn_every + j, then ``tail``)
     whose masked exp overflowed has NaN in its own a_log gradient (the
     backward's inf x 0, tests/test_torch_lm_remat.py), and the NaN can
     reach its dt_bias and w_in, its norm, and everything upstream of its
@@ -4206,29 +4274,69 @@ def nan_out_of_reach(params: dict, grads: list, cfg,
     other leaves, every gradient is finite.  Returns the leaf elements
     (path and layer) that are not finite out of that reach, and the
     overflowed layers whose a_log gradient holds no NaN."""
-    g, first_tail = cfg.attn_every, cfg.num_layers // cfg.attn_every * \
-        cfg.attn_every
     last = max((i for i, o in enumerate(overflowed) if o), default=-1)
+    reach = {"embed": last >= 0, "shared_attn": last >= cfg.attn_every}
     stray, missing = [], []
-    for path, grad in zip(leaf_paths(params), grads):
+    for path, i, grad in layer_units(params, grads, cfg):
         top, *rest = path.strip("/").split("/")
-        if top not in ("groups", "tail"):
-            reach = {"embed": last >= 0, "shared_attn": last >= g}
-            if not torch.isfinite(grad).all() and not reach.get(top, False):
+        finite = bool(torch.isfinite(grad).all())
+        if i is None:
+            if not finite and not reach.get(top, False):
                 stray.append(path)
             continue
-        first = 0 if top == "groups" else first_tail
         own = rest[0] == "norm" or rest[-1] in ("a_log", "dt_bias", "w_in")
-        for k, layer in enumerate(grad.flatten(0, 1) if top == "groups"
-                                  else grad):
-            i = first + k
-            if not torch.isfinite(layer).all() and \
-                    not (i < last or (i == last and own)):
-                stray.append(f"{path} layer {i}")
-            if overflowed[i] and rest[-1] == "a_log" and \
-                    not layer.isnan().any():
-                missing.append(f"{path} layer {i}")
+        if not finite and not (i < last or (i == last and own)):
+            stray.append(f"{path} layer {i}")
+        if overflowed[i] and rest[-1] == "a_log" and not grad.isnan().any():
+            missing.append(f"{path} layer {i}")
     return stray, missing
+
+
+def against_float32(params: dict, grads: list, grads32: list, cfg):
+    """Phase 8d's hold of the bf16 gradients on a float32 run: unit by unit
+    (``layer_units``) the elements finite in bf16 must be those finite in
+    float32, and where any is, the relative L2 error of the finite ones is
+    at most ``BF16_GRAD_RTOL``.  Returns (the units whose patterns differ,
+    (unit, relative error) of every unit with a finite element, the
+    largest error first)."""
+    differ, errs = [], []
+    for (path, i, g), (_, _, g32) in zip(layer_units(params, grads, cfg),
+                                         layer_units(params, grads32, cfg),
+                                         strict=True):
+        name = path if i is None else f"{path} layer {i}"
+        fin, fin32 = torch.isfinite(g), torch.isfinite(g32)
+        if not torch.equal(fin, fin32):
+            differ.append(f"{name}: {int((fin != fin32).sum())} of "
+                          f"{fin.numel()} elements")
+        both = fin & fin32
+        if not both.any():
+            continue
+        want = g32[both].double()
+        err = torch.linalg.vector_norm(g[both].double() - want).item()
+        errs.append((name, err / max(torch.linalg.vector_norm(want).item(),
+                                     1e-30)))
+    return differ, sorted(errs, key=lambda e: -e[1])
+
+
+def zamba2_float32_grads(api, params: dict, batch: dict):
+    """The loss, gradients and largest masked exponents of each layer's
+    chunks of ``api``'s model at float32: the parameters upcast, the same
+    batch, TF32 off (``main``)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import registry
+    from repro_torch.models.layers import mamba2
+
+    cfg32 = dataclasses.replace(api.cfg, dtype=torch.float32)
+    api32 = registry.get_model(cfg32.name, cfg32)
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+    spans = []
+    real = masked_spans(spans)
+    try:
+        loss, grads = loss_and_grads(api32, p32, batch)
+    finally:
+        mamba2._mamba2_chunked = real
+    return loss, grads, spans[:cfg32.num_layers]
 
 
 def check_zamba2_training(seed: int, dev, smi: str) -> None:
@@ -4276,14 +4384,30 @@ def check_zamba2_training(seed: int, dev, smi: str) -> None:
             f"{cfg.name}: gradients not finite out of the masked exp's "
             f"reach {stray}, or finite in an overflowed layer's a_log "
             f"{missing} (layers overflowed {overflowed})")
-    del grads
+    loss32, grads32, spans32 = zamba2_float32_grads(api, params, batches[0])
+    differ, errs = against_float32(params, grads, grads32, cfg)
+    del grads, grads32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if differ or not errs or errs[0][1] > BF16_GRAD_RTOL:
+        raise AssertionError(
+            f"{cfg.name}: bf16 gradients against float32: finite elements "
+            f"differ in {differ}, or a finite unit off by more than "
+            f"{BF16_GRAD_RTOL} (relative L2): {errs[:5]}")
+    units = ", ".join(f"{n} {e!r}" for n, e in errs)
+    compared = (f"the finite gradients held against a float32 run of the "
+                f"same cut, parameters (upcast) and batch (loss "
+                f"{float(loss32)!r}, largest masked exponents "
+                f"{spans32!r}): finite where float32's are, unit by unit "
+                f"(a stacked leaf a layer); {len(errs)} units with finite "
+                f"elements, relative L2 error at most {errs[0][1]!r} "
+                f"({errs[0][0]}; bound {BF16_GRAD_RTOL}): {units}")
     verdict = (f"gradients not finite at {len(nan)} of {len(names)} leaves "
                f"({sum(nan.values())} elements), all within the reach of "
                f"the overflowed layers' NaN (the reference's: "
                f"tests/test_torch_lm_remat.py "
-               f"test_mamba2_strong_decay_gradient); the finite gradients "
-               f"are not compared at this width" if nan
-               else "gradients finite")
+               f"test_mamba2_strong_decay_gradient); {compared}" if nan
+               else f"gradients finite; {compared}")
     ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR, warmup_steps=2,
                            decay_steps=ZAMBA2_TRAIN_STEPS)
     state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
@@ -4461,10 +4585,7 @@ def check_example_training(dev, smi: str) -> None:
     the reduced gemma2 fitted for ``EXAMPLE_FIT_STEPS`` steps, then
     ``ServeLoop`` answering ``EXAMPLE_REQUESTS`` requests; the last fit
     loss below the first."""
-    path = Path(__file__).resolve().parent / "examples" / "serve_lm_torch.py"
-    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("serve_lm_torch")
     t0 = time.perf_counter()
     out = example.run("gemma2-2b", EXAMPLE_FIT_STEPS, EXAMPLE_REQUESTS, dev)
     secs = time.perf_counter() - t0
@@ -4479,7 +4600,7 @@ def check_example_training(dev, smi: str) -> None:
           f"{out['seconds']!r} s; {secs!r} s in all, on {smi}")
 
 
-def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> None:
+def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> dict:
     """Phase 8: the token-LM train path on the card (``launch/steps.py``
     ``make_train_step``, ``data/pipeline.py``, ``training/trainer.py``),
     plain PyTorch: no kernel of the port lies on it, and every launch
@@ -4488,13 +4609,15 @@ def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> None:
     spiking xlstm-350m; (d) zamba2-7b over 12 layers; (e) whisper-base
     through the Trainer, preempted and resumed; (f) the ten reduced archs,
     card against CPU; (g) the example.  Seconds a step, tokens/s and peak
-    memory printed beside the card."""
+    memory printed beside the card.  Returns each check's result by name
+    (8a's: the median seconds of a gemma2-2b step)."""
     t0 = time.perf_counter()
     print(f"phase 8 on {smi}")
     set_counts(0)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.init()  # the allocator's statistics need the context
+    results = {}
     for name, check in (("8b gemma2-2b float32", check_remat),
                         ("8a gemma2-2b", check_gemma2_training),
                         ("8c xlstm-350m", check_xlstm_training),
@@ -4505,7 +4628,7 @@ def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> None:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         t1 = time.perf_counter()
-        check(seed, dev, smi)
+        results[name] = check(seed, dev, smi)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else None
         print(f"lm train: {name}: {time.perf_counter() - t1!r} s, peak "
               f"memory {peak!r} B (max_memory_allocated), on {smi}")
@@ -4517,6 +4640,204 @@ def check_lm_training(seed: int, dev, smi: str, tmp: Path) -> None:
     if any(counts.values()):
         raise AssertionError(f"phase 8 launched kernels: {counts}")
     print(f"phase 8: {time.perf_counter() - t0!r} s; no kernel launched")
+    return results
+
+
+# ------------------------------------------ examples, yardstick (phase 9)
+
+# phase 9b: the compression example's functions at gemma2-2b's published
+# widths and config (bf16), at the example's prune fraction
+EXAMPLE_GEMMA2 = GEMMA2_2B
+EXAMPLE_PRUNE, EXAMPLE_TOKENS = 0.4, (2, 16)
+H100_BF16_FLOPS = 989e12  # dense bf16, the H100 SXM data sheet
+
+
+def run_recorded(example, argv: list[str]) -> dict:
+    """``example.main(argv)``, which calls ``example.run`` once; returns
+    what ``run`` returned.  A nonzero exit raises."""
+    got = []
+    real = example.run
+    example.run = lambda *a, **kw: got.append(real(*a, **kw))
+    try:
+        code = example.main(argv)
+    finally:
+        example.run = real
+    if code != 0 or len(got) != 1:
+        raise AssertionError(f"{example.__name__} {argv}: exit {code}, "
+                             f"{len(got)} runs")
+    return got[0]
+
+
+def expect_launches(what: str, dev, want: dict) -> dict:
+    """Every launch counter as ``want`` says, the others 0 (on the CPU,
+    where the plain versions run, all 0)."""
+    counts = read_counts()
+    want = {n: want.get(n, 0) if dev.type == "cuda" else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+    return {n: c for n, c in counts.items() if c}
+
+
+@torch.no_grad()
+def cell_near_threshold(stim, s_prev, w, u0, h0, beta, vth) -> torch.Tensor:
+    """(B, H) elements whose potential comes within ``TOL`` of
+    the threshold at some time step, the chain replayed in float64."""
+    stim, s_prev, w, u, h, beta, vth = (
+        t.double() for t in (stim, s_prev, w, u0, h0, beta, vth))
+    near = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    for t in range(s_prev.shape[0]):
+        u = stim[t] + s_prev[t] @ w + beta * u * (1.0 - h)
+        near |= (u - vth).abs() <= TOL * (1.0 + u.abs())
+        h = (u >= vth).double()
+    return near
+
+
+def check_quickstart(dev, smi: str) -> None:
+    """Phase 9a: ``examples/quickstart_torch.py``'s ``main``: 30 QAT steps,
+    the accounting, then K1 and K3 once each on the trained weights, held
+    against their plain versions on the same tensors."""
+    from repro_torch.kernels import ref
+
+    example = load_example("quickstart_torch")
+    set_counts(0)
+    t0 = time.perf_counter()
+    out = run_recorded(example, ["--device", dev.type])
+    secs = time.perf_counter() - t0
+    launched = expect_launches("9a quickstart", dev,
+                               {"rsnn_cell": 1, "merged_spike_fc": 1})
+    losses = [loss for loss, _ in out["history"]]
+    if len(losses) != example.STEPS or not (
+            math.isfinite(losses[0]) and math.isfinite(losses[-1])
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"9a quickstart: losses {losses}")
+    k = out["kernels"]
+    spikes, u = ref.rsnn_cell_ref(*k["cell_args"])
+    near = cell_near_threshold(*k["cell_args"])
+    flipped = (k["spikes"] != spikes).any(dim=0)
+    ok = ~(flipped | near)
+    du = ((k["u"] - u).abs() / (1.0 + u.abs()))[ok].max().item()
+    if (flipped & ~near).any() or du > TOL:
+        raise AssertionError(f"9a quickstart: K1 against its plain version: "
+                             f"{int((flipped & ~near).sum())} spikes off "
+                             f"the threshold differ, |du| / (1 + |u|) "
+                             f"{du!r}")
+    logits = ref.merged_spike_fc_ref(*k["fc_args"])
+    dl = ((k["logits"] - logits).abs() / (1.0 + logits.abs())).max().item()
+    if dl > TOL:
+        raise AssertionError(f"9a quickstart: K3 off its plain version by "
+                             f"{dl!r} of (1 + |y|)")
+    acc = out["accounting"]
+    print(f"examples: quickstart_torch.py --device {dev.type}: loss "
+          f"{losses[0]!r} -> {losses[-1]!r} over {len(losses)} steps, frame "
+          f"error rate {out['history'][0][1]!r} -> "
+          f"{out['history'][-1][1]!r}; {acc['size_kb']!r} KB, "
+          f"{acc['mmac']!r} MMAC/s, {acc['cycles']!r} cycles a frame; "
+          f"launches {launched}; K1 spike rate "
+          f"{k['spikes'].mean().item()!r}, spikes equal to the plain "
+          f"version's off {int(near.sum())} near-threshold elements, "
+          f"largest |du| / (1 + |u|) {du!r}; K3 logits "
+          f"{tuple(k['logits'].shape)}, largest |d| / (1 + |y|) {dl!r} "
+          f"(tolerance {TOL}); {secs!r} s, on {smi}")
+
+
+def check_compress(seed: int, dev, smi: str) -> None:
+    """Phase 9b: ``examples/compress_pipeline_torch.py``'s ``main`` at its
+    default (yi-6b reduced), K2 launched once and within ``TOL`` of
+    the dequantized product; then its ``compress`` and ``drift`` on
+    gemma2-2b at its published widths, drawn on the card."""
+    from repro_torch.models import registry
+
+    example = load_example("compress_pipeline_torch")
+    set_counts(0)
+    t0 = time.perf_counter()
+    out = run_recorded(example, ["--device", dev.type])
+    secs = time.perf_counter() - t0
+    launched = expect_launches("9b compress_pipeline", dev,
+                               {"int4_matmul": 1})
+    bound = TOL * (1.0 + out["int4_y"].abs().max().item())
+    if not out["int4_err"] <= bound:
+        raise AssertionError(f"9b compress_pipeline: K2 off the dequantized "
+                             f"product by {out['int4_err']!r} (> {bound!r})")
+    print(f"examples: compress_pipeline_torch.py --device {dev.type} (yi-6b "
+          f"reduced): {out['fp32_bytes']!r} B fp32 -> "
+          f"{out['quant_bytes']!r} B int4+prune, {out['pruned']} pruned, "
+          f"drift {out['drift']!r} (scale {out['scale']!r}); launches "
+          f"{launched}, K2 largest |d| {out['int4_err']!r} (bound "
+          f"{bound!r}); {secs!r} s, on {smi}")
+
+    cfg = EXAMPLE_GEMMA2
+    api = registry.get_model(cfg.name, cfg)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    set_counts(0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    params = api.init(gen.manual_seed(seed), device=dev)
+    count_params(params, cfg, GEMMA2_PARAMS)
+    cparams, rep = example.compress(params, EXAMPLE_PRUNE)
+    tokens = torch.randint(0, cfg.vocab_size, EXAMPLE_TOKENS, device=dev,
+                           generator=gen.manual_seed(seed + 1))
+    drift, scale = example.drift(api, params, cparams,
+                                 example.make_batch(cfg, tokens))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    del params, cparams
+    if cuda:
+        torch.cuda.empty_cache()
+    expect_launches("9b gemma2-2b", dev, {})
+    selected = (rep["fp32_bytes"] - rep["quant_bytes"]) / 3.5
+    if rep["fp32_bytes"] != 4 * GEMMA2_PARAMS or not (
+            0 < rep["pruned"] <= EXAMPLE_PRUNE * selected) or not (
+            math.isfinite(drift) and drift > 0):
+        raise AssertionError(f"9b gemma2-2b: {rep['fp32_bytes']} fp32 B, "
+                             f"{rep['pruned']} of {selected} pruned, drift "
+                             f"{drift}")
+    print(f"examples: compress and drift on {describe(cfg)}, prune "
+          f"{EXAMPLE_PRUNE}: {len(rep['paths'])} leaves selected "
+          f"({selected!r} weights), {rep['fp32_bytes']!r} B fp32 -> "
+          f"{rep['quant_bytes']!r} B int4+prune, {rep['pruned']} pruned "
+          f"(ties of the threshold kept); logit drift {drift!r} (scale "
+          f"{scale!r}) over {EXAMPLE_TOKENS[0]} x {EXAMPLE_TOKENS[1]} "
+          f"tokens; {secs!r} s, peak memory {peak!r} B "
+          f"(max_memory_allocated); no kernel launched, on {smi}")
+
+
+def check_yardstick(dev, smi: str, step_s: float) -> None:
+    """Phase 9c: ``analysis/model_flops.py`` for the ten archs (on the meta
+    device) and phase 8a's gemma2-2b step against its 6 N T bound."""
+    from repro_torch.analysis.model_flops import model_flops, param_counts
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import registry
+
+    set_counts(0)
+    for arch in registry.list_archs():
+        print(f"yardstick: {arch} param_counts {param_counts(arch)}")
+    shape = ShapeConfig("phase_8a", GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_BATCH,
+                        "train")
+    flops = model_flops(TRAIN_GEMMA2.name, shape)
+    bound = flops / H100_BF16_FLOPS
+    expect_launches("9c yardstick", dev, {})
+    print(f"yardstick: {TRAIN_GEMMA2.name} train step of "
+          f"{GEMMA2_TRAIN_BATCH} x {GEMMA2_TRAIN_SEQ} tokens (phase 8a): "
+          f"model_flops {flops!r} (6 N_active T, remat's recomputed forward "
+          f"not counted) = {bound!r} s at "
+          f"{H100_BF16_FLOPS!r} FLOP/s dense bf16; 8a's median step "
+          f"{step_s!r} s, {bound / step_s!r} of it the bound; no kernel "
+          f"launched, on {smi}")
+
+
+def check_examples(seed: int, dev, smi: str, step_s: float) -> None:
+    """Phase 9: the two examples on the card (9a quickstart: K1, K3; 9b
+    compress_pipeline: K2, then gemma2-2b at its published widths) and the
+    LM yardstick (9c)."""
+    t0 = time.perf_counter()
+    print(f"phase 9 on {smi}")
+    check_quickstart(dev, smi)
+    check_compress(seed, dev, smi)
+    check_yardstick(dev, smi, step_s)
+    print(f"phase 9: {time.perf_counter() - t0!r} s")
 
 
 # ----------------------------------------------------------------- timing
@@ -5126,7 +5447,8 @@ def main(argv=None) -> int:
         check_paper_claims(args.seed, Path(tmp), dev)
         check_lm_serving(args.seed, dev, smi)
         check_lm_families(args.seed, dev, smi)
-        check_lm_training(args.seed, dev, smi, Path(tmp))
+        lm = check_lm_training(args.seed, dev, smi, Path(tmp))
+        check_examples(args.seed, dev, smi, lm["8a gemma2-2b"])
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -72,6 +72,26 @@ def tree_map_with_name(fn: Callable, tree, name: str = ""):
     return None if tree is None else fn(name, tree)
 
 
+def tree_leaves_with_path(tree, path: str = "") -> list[tuple[str, object]]:
+    """``(path, leaf)`` for every leaf in ``tree_leaves`` order; ``path``
+    is written as ``jax.tree_util.keystr`` writes it: ``['key']`` for a
+    dict key, ``[i]`` for a list or tuple index, ``.field`` for a
+    NamedTuple field."""
+    if tree is None:
+        return []
+    if not _node(tree, None):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        keys = [f"[{k!r}]" for k in tree]
+    elif hasattr(tree, "_fields"):
+        keys = [f".{f}" for f in tree._fields]
+    else:
+        keys = [f"[{i}]" for i in range(len(tree))]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [pair for key, sub in zip(keys, items)
+            for pair in tree_leaves_with_path(sub, path + key)]
+
+
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree: every leaf indexed on its axis 0."""
     return tree_map(lambda t: t[i], tree)

@@ -8,6 +8,8 @@ artifacts ``chip_smoke.py`` writes with numpy load in the reference reader
 as well as the port's.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import importlib.util
 import json

@@ -9,6 +9,8 @@ sums float32 dequantized weights in another order, within ``|d| <= TOL *
 (1 + |y|)``.  Served frames follow ``test_torch_spike.assert_frames_match``.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import math
 import re

@@ -7,6 +7,8 @@ doctests.  Timeouts guard every wait, so a hang fails instead of stalling
 the suite.  Exact: the featurizer copies arrays and the quantizer is
 elementwise."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import doctest
 import itertools
 import threading

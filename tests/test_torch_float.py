@@ -18,6 +18,8 @@ held against on the card).  Tolerances:
   the L1 and logit checks; counters and the input bit sparsity exact.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import ctypes
 import dataclasses
 import importlib.util

@@ -10,6 +10,8 @@ potential is within ``U_TOL`` of the threshold.  Widths: ``small_cfg``'s
 and the paper's PRUNED model's.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import ctypes
 import math
 import re

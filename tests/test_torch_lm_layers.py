@@ -10,6 +10,8 @@ across with ``params_from_numpy``.  float32 throughout, ``rtol = atol =
 TOL``: the two sides sum in different orders; exact where nothing is
 summed (the embedding, the cache rows a decode step leaves alone)."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

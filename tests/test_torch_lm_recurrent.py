@@ -13,6 +13,8 @@ the zero-initialised decay and bias leaves drawn instead, so the test sees
 them), carried across with ``params_from_numpy``.  float32 ``rtol = atol
 = TOL``; bf16 within ``BF16_TOL`` of a tensor's largest magnitude."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

@@ -9,6 +9,8 @@ elements in both packages, the mLSTM's ``-inf`` mask stays finite.
 The same seeded parameters and tolerances as
 ``tests/test_torch_lm_training.py``."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -5,18 +5,20 @@ on the port's caches equal to the reference's on its own; ``sample``
 (greedy equal, temperature + top-k drawing only from the top k);
 ``generate`` ids equal to the reference's on reduced ``yi-6b``,
 ``gemma2-2b``, ``deepseek-v3-671b``, ``whisper-base`` (frames through
-``extra_inputs``), ``xlstm-350m`` and ``zamba2-7b``, with the reference's
-dropped decode writes (the prefill cache is prompt-sized, so every decode
-write lands past it; the recurrent states carry no such cache);
-``pad_cache`` growing only the k/v leaves of the encoder-decoder, hybrid
-and xLSTM caches; the chunked prefill handing decode the sequential form's
-state on xlstm and zamba2; and ``ServeLoop``'s finishing order and outputs
-equal to the reference's.
+``extra_inputs``), ``xlstm-350m`` and ``zamba2-7b``; ``pad_cache``
+growing only the k/v leaves of the encoder-decoder, hybrid and xLSTM
+caches; and the chunked prefill handing decode the sequential form's
+state on xlstm and zamba2.  ``tests/test_torch_lm_decode_writes.py``
+holds the reference's dropped decode writes and
+``tests/test_torch_lm_serve_loop.py`` ``ServeLoop``, with the helpers of
+this file.
 
 The reference's parameters (``PRNGKey(0)``) are carried across with
 ``params_from_numpy``; float32 at ``reduce_config``.  Token ids exact,
 caches within ``TOL``."""
 
+
+import torch_test_env  # noqa: F401  (first: one torch thread)
 
 import dataclasses
 
@@ -34,7 +36,7 @@ from repro_torch.core.tree import tree_map_with_name
 from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
 from repro_torch.models import registry
 from repro_torch.serving.cache_utils import pad_cache
-from repro_torch.serving.engine import (SamplerConfig, ServeLoop, generate,
+from repro_torch.serving.engine import (SamplerConfig, generate,
                                         sample)
 
 TOL = 1e-4
@@ -203,69 +205,3 @@ def test_generate_chunked_prefill_decode_consistency(setups, arch):
                              jnp.asarray(prompts), 5)
     np.testing.assert_array_equal(out["chunked"], want)
 
-
-@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b",
-                                  "whisper-base", "zamba2-7b"])
-def test_generate_drops_decode_writes(setups, arch):
-    """The reference's generate decodes into the prompt-sized prefill
-    cache: the write at pos = S is past its end and dropped, on both
-    sides; ``pos`` moves, and so do zamba2's Mamba2 states, which hold no
-    sequence axis."""
-    _, jp, jfwd, tapi, tp = _setup(setups, arch)
-    toks = _prompts(2, 8)
-    extra = _extra(tapi, 2)
-    _, jpre = jfwd(jp, dict(extra, tokens=toks), mode="prefill")
-    _, jdec = jfwd(jp, {"tokens": toks[:, :1]}, cache=jpre)
-    _, tpre = tapi.forward(tp, {k: torch.from_numpy(v) for k, v in dict(
-        extra, tokens=toks).items()}, mode="prefill")
-    _, tdec = tapi.forward(tp, {"tokens": torch.from_numpy(toks[:, :1])},
-                           cache=tpre)
-    seq = ("k", "v", "kv_latent", "k_rope")
-    for before, after in ((jpre, jdec), (tpre, tdec)):
-        np.testing.assert_array_equal(np.asarray(after.pos), [9, 9])
-        kv = list(zip(_named(before, seq), _named(after, seq)))
-        assert kv
-        for b, a in kv:
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def _serve(loop_cls, api, params, scfg, requests):
-    loop = loop_cls(api, params, batch_slots=2, scfg=scfg)
-    for prompt, max_new in requests:
-        loop.submit(prompt, max_new)
-    return [(r.rid, [int(t) for t in r.out], r.done) for r in loop.run()]
-
-
-@pytest.mark.parametrize("arch,n", [("gemma2-2b", 5), ("xlstm-350m", 3),
-                                    ("zamba2-7b", 3)])
-def test_serve_loop_matches_reference(setups, arch, n):
-    """``n`` requests over 2 slots (a slot refilled at least once), prompts
-    of 3-8 tokens and 2-5 new tokens, then again with an EOS id that cuts
-    an output short.  The reference compiles its steps anew for every
-    prompt width, so the recurrent archs take 3 requests, not 5."""
-    japi, jp, _, tapi, tp = _setup(setups, arch)
-    rng = np.random.default_rng(0)
-    requests = [(rng.integers(0, 503, size=rng.integers(3, 9)),
-                 int(rng.integers(2, 6))) for _ in range(n)]
-    want = _serve(j_engine.ServeLoop, japi, jp, j_engine.SamplerConfig(),
-                  requests)
-    got = _serve(ServeLoop, tapi, tp, SamplerConfig(), requests)
-    assert got == want
-    assert [len(out) for _, out, _ in got] == [m for _, m in requests]
-    eos = got[0][1][1]
-    want = _serve(j_engine.ServeLoop, japi, jp,
-                  j_engine.SamplerConfig(eos_id=eos), requests)
-    got = _serve(ServeLoop, tapi, tp, SamplerConfig(eos_id=eos), requests)
-    assert got == want
-    assert len(got[0][1]) == 2 and got[0][1][-1] == eos
-
-
-def test_serve_loop_whisper_needs_frames(setups):
-    """``ServeLoop`` calls ``generate`` with no frames, so whisper's
-    prefill has nothing to encode, in the reference as in the port."""
-    japi, jp, _, tapi, tp = _setup(setups, "whisper-base")
-    for loop_cls, api, params, scfg in (
-            (j_engine.ServeLoop, japi, jp, j_engine.SamplerConfig()),
-            (ServeLoop, tapi, tp, SamplerConfig())):
-        with pytest.raises(AttributeError):
-            _serve(loop_cls, api, params, scfg, [(_prompts(1, 4)[0], 2)])

@@ -14,6 +14,8 @@ gradient leaf within ``GRAD_TOL`` of the leaf's largest magnitude (the
 two packages sum in different orders: the largest deviation seen over
 the eleven cases is 3.9e-6 of it)."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 import os
@@ -40,6 +42,10 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4  # of the leaf's largest |gradient|
 B, S = 2, 16
 ARCHS = registry.list_archs()
+# the MLA + MoE, encoder-decoder and hybrid archs take their loss-and-
+# gradient case in tests/test_torch_lm_training_moe.py, the others here
+SPLIT_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b", "whisper-base",
+               "zamba2-7b")
 # the spiking sLSTM's thresholds: at their init of 1 no unit fires, so
 # they are drawn from N(0, SPIKE_VTH_STD^2), as chip_smoke.py's phase 7b
 SPIKE_VTH_STD = 0.3
@@ -152,7 +158,8 @@ def test_ce_next_token_loss_matches_reference(vocab, padded):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,spiking", [(a, False) for a in ARCHS]
+@pytest.mark.parametrize("arch,spiking", [(a, False) for a in ARCHS
+                                          if a not in SPLIT_ARCHS]
                          + [("xlstm-350m", True)])
 def test_loss_and_grads_match_reference(arch, spiking):
     tc, params, batch, loss, want = _reference(arch, spiking=spiking)

@@ -21,6 +21,8 @@ No case relies on the reference's own bit-identity claims between its
 backends, some of which fail on this JAX build.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -10,6 +10,8 @@ one ``examples/train_rsnn_timit_torch.py`` writes on the CPU at a tiny
 size.  ``bench_rsnn_forward`` runs on the CPU only when asked to.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import importlib.util
 import json

@@ -14,6 +14,8 @@ sparsity and MMAC/s are equal; logits as in ``test_torch_stream.py``
 pipeline and chunk edge cases run as cases of one test.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -16,6 +16,8 @@ specs, the async front end, ``place_weights``, the validation errors and
 ``bench_stream_sharded``'s row.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import ast
 import dataclasses
 from pathlib import Path

@@ -18,6 +18,8 @@ kernels are held against on the card).  Tolerances:
   logits bit-equal where the readout is K4's integer sum.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import math
 import re

@@ -12,6 +12,8 @@ These seeds put no membrane potential within rounding of a threshold, so
 spikes and counters agree exactly.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import importlib.util
 import os

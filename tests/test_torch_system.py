@@ -20,6 +20,8 @@ back-propagation.  ``chip_smoke.py`` holds the same claims at the paper's
 widths (256/128) on the card.  Slow tier: run with ``--runslow``.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import pytest
 
 from repro_torch.data.synthetic import SpeechDataConfig

@@ -12,6 +12,8 @@ and a u off by 1e-3.  The float64 replay equals the plain chain run in
 float64.
 """
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

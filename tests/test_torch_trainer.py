@@ -24,6 +24,8 @@ size, so those elements (3.5% here) are counted and held only within
 Resumed runs end within rel 1e-4 of the uninterrupted run's loss, as
 ``tests/test_training.py`` asks of the reference."""
 
+import torch_test_env  # noqa: F401  (first: one torch thread)
+
 import functools
 import importlib.util
 import json
