@@ -373,6 +373,38 @@ bf16 and ``GEMMA2_PARAMS`` to its count, ``torch.cuda.synchronize`` a
 no-op, and calling ``check_examples(0, torch.device("cpu"), "", 0.5)``
 (on the CPU the plain versions run, and every counter stays 0).
 
+Then phase 10 (``check_distributed``): the distributed layer, plain
+PyTorch, every launch counter 0.  (a) ``check_specs``: the ten archs at
+full width on the meta device, on the 16 x 16 and 2 x 16 x 16
+production meshes (``launch/mesh.py`` over meta devices): parameter
+specs, ``state_specs`` for the arch's optimizer, ``train_4k`` batch and
+``decode_32k`` cache specs; every sharded dimension divides
+(``runtime/elastic.py`` ``shard_slices`` raises otherwise); each arch's
+per-device bytes of parameters plus optimizer state, and of the cache,
+printed against the card's 80 GB.  (b) ``check_placement``: gemma2-2b at
+its published widths (bf16, 2,614,341,888 parameters) with its AdamW
+state on the card, placed through ``reshard_state`` on
+``make_elastic_mesh(devices=[dev])``, (1, 1): every leaf the same
+tensor, ``memory_allocated`` unchanged; then ``launch/train.py``
+``main`` (reduced, ``MAIN_STEPS`` steps) with losses and final state
+bit-equal to a direct ``Trainer`` run of the same seed.  (c)
+``check_codec``: ``compress_grads`` over one gemma2-2b gradient at phase
+8a's batch: ``CODEC_LEAVES``' q and scale bit-equal to the codec on the
+CPU, each residual exactly ``g - dq``, two identical steps shrink every
+leaf's accumulated error, the per-leaf relative error range printed (not
+held to the reference test's 0.02).  (d) ``check_psum``:
+``compressed_psum`` over the embedding gradient on a one-rank NCCL group
+started from a ``HashStore`` (no network), bit-equal to
+``dequantize_leaf(*quantize_leaf(x))``; the group destroyed.  Seconds and
+``max_memory_allocated`` printed.  Rehearse it on the CPU in ~8 s by
+setting ``PLACE_GEMMA2`` to gemma2-2b's ``reduce_config`` in bf16 and
+``GEMMA2_PARAMS`` to its count, ``GEMMA2_TRAIN_BATCH`` /
+``GEMMA2_TRAIN_SEQ`` to 2 / 16, ``PSUM_BACKEND`` to ``"gloo"`` (with
+``GLOO_SOCKET_IFNAME=lo``), one ``torch`` thread (the CPU's
+multi-threaded ``index_put_`` backward of the embedding is not
+reproducible), and calling ``check_distributed(0, torch.device("cpu"),
+"", tmp)``.
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -427,7 +459,7 @@ from repro_torch.core.layouts.nm import pack_nm_groups  # noqa: E402
 from repro_torch.core.rsnn import RSNNConfig  # noqa: E402
 from repro_torch.core.sparse import PackedRSNN, QuantTensor  # noqa: E402
 from repro_torch.core.tree import (  # noqa: E402
-    tree_leaves, tree_map, tree_unflatten)
+    tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten)
 
 U_RTOL = 1e-5  # teacher-forced engines against ref: near the threshold
 U_ATOL = 1e-5
@@ -4840,6 +4872,337 @@ def check_examples(seed: int, dev, smi: str, step_s: float) -> None:
     print(f"phase 9: {time.perf_counter() - t0!r} s")
 
 
+# ------------------------------------------------ distributed layer (phase 10)
+
+# phase 10a: the rules on the production meshes, over meta devices
+DIST_MESHES = {"16x16": False, "2x16x16": True}  # name: multi_pod
+H100_MEMORY_BYTES = 80e9  # the card's 80 GB, what the dry run holds against
+# phase 10b: gemma2-2b at its published widths (bf16) with its AdamW state,
+# placed on the card's (1, 1) elastic mesh; then launch/train.py's main,
+# reduced as the reference forces, against a direct Trainer run
+PLACE_GEMMA2 = GEMMA2_2B
+MAIN_STEPS, MAIN_BATCH, MAIN_SEQ = 3, 8, 128
+# phase 10c: the int8 codec over one gemma2-2b gradient at phase 8a's
+# batch; these leaves also through the codec on the CPU, bit for bit
+CODEC_LEAVES = ("['embed']['tok']", "['layers']['mlp']['w_down']",
+                "['final_norm']['scale']")
+# phase 10d: compressed_psum over a one-rank process group of this backend
+PSUM_BACKEND = "nccl"
+
+
+def device_bytes(tree, specs, mesh) -> tuple[int, int]:
+    """The largest and the smallest bytes a device of ``mesh`` holds of
+    ``tree`` placed by ``specs``: each leaf's block from
+    ``runtime/elastic.py`` ``shard_slices``, which raises on a sharded
+    dimension that does not divide."""
+    from repro_torch.runtime.elastic import shard_slices
+
+    total = np.zeros(mesh.devices.shape, dtype=np.int64)
+    for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs), strict=True):
+        size = leaf.element_size()
+        for coord, sl in shard_slices(tuple(leaf.shape), spec,
+                                      mesh).items():
+            total[coord] += size * math.prod(
+                len(range(*s.indices(d))) for s, d in zip(sl, leaf.shape))
+    return int(total.max()), int(total.min())
+
+
+def check_specs(smi: str) -> None:
+    """Phase 10a: for the ten archs at full width on the meta device, on
+    the 16 x 16 and 2 x 16 x 16 production meshes (meta devices): the
+    parameter specs, ``state_specs`` for the arch's optimizer, the
+    ``train_4k`` batch specs and the ``decode_32k`` cache specs; every
+    sharded dimension divides; per-device bytes of parameters plus
+    optimizer state, and of the cache."""
+    from repro_torch.configs.base import DECODE_32K, TRAIN_4K
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import batch_shapes
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+
+    meta = torch.device("meta")
+    for arch in registry.list_archs():
+        t0 = time.perf_counter()
+        api = registry.get_model(arch)
+        params = api.init(torch.Generator(), device=meta)
+        ocfg = opt_lib.OptimizerConfig(name=api.cfg.optimizer)
+        opt = opt_lib.init_opt_state(params, ocfg)
+        cache = api.init_cache(DECODE_32K.global_batch, DECODE_32K.seq_len,
+                               device=meta)
+        batch = batch_shapes(api.cfg, TRAIN_4K)
+        line = []
+        for name, multi_pod in DIST_MESHES.items():
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                        devices=[meta] * (512 if multi_pod
+                                                          else 256))
+            pspecs = shd.tree_param_specs(params, mesh)
+            state = {"params": params, "opt": opt}
+            sspecs = {"params": pspecs,
+                      "opt": opt_lib.state_specs(pspecs, params, ocfg)}
+            hi, lo = device_bytes(state, sspecs, mesh)
+            c_hi, _ = device_bytes(cache, shd.tree_cache_specs(
+                cache, mesh, DECODE_32K.global_batch), mesh)
+            bspecs = shd.batch_specs(batch, mesh)
+            device_bytes(batch, bspecs, mesh)
+            line.append(f"{name}: params+{ocfg.name} {hi!r} B a device (min "
+                        f"{lo!r}; {hi / H100_MEMORY_BYTES!r} of 80 GB), "
+                        f"decode_32k cache {c_hi!r} B a device "
+                        f"({c_hi / H100_MEMORY_BYTES!r} of 80 GB), train_4k "
+                        f"tokens {tuple(bspecs['tokens'])}")
+        n = sum(t.numel() for t in tree_leaves(params))
+        print(f"specs: {arch} ({n} parameters, {len(tree_leaves(params))} "
+              f"leaves): " + "; ".join(line) + f"; every sharded dim "
+              f"divides; {time.perf_counter() - t0!r} s")
+
+
+def train_losses(out: Path) -> dict:
+    """``{step: loss}`` of a Trainer's ``metrics.jsonl``."""
+    recs = [json.loads(ln) for ln in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    return {r["step"]: r["loss"] for r in recs}
+
+
+def check_train_main(dev, smi: str, tmp: Path) -> None:
+    """Phase 10b (second half): ``launch/train.py`` ``main`` on the card
+    (its host mesh, specs and ``reshard_state``), losses and final state
+    bit-equal to a direct ``Trainer`` run of the same seed without them."""
+    from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    arch = PLACE_GEMMA2.name
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = train.main(["--arch", arch, "--steps", str(MAIN_STEPS),
+                          "--batch", str(MAIN_BATCH), "--seq", str(MAIN_SEQ),
+                          "--out", str(tmp / "train_main"), "--no-resume",
+                          "--device", dev.type])
+    t_main = time.perf_counter() - t0
+    axes = {a: shd.axis_size(a) for a in ("data", "model")}
+    shd.set_activation_axes(None)
+    cfg = registry.reduce_config(registry.get_model(arch).cfg)
+    api = registry.get_model(arch, cfg)
+    ocfg = opt_lib.OptimizerConfig(name="adamw", lr=TRAIN_LR,
+                                   warmup_steps=max(MAIN_STEPS // 20, 2),
+                                   decay_steps=MAIN_STEPS)
+    stream = MarkovLMStream(LMDataConfig(vocab_size=cfg.vocab_size))
+
+    def init_state():
+        params = api.init(torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+        return {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
+
+    tcfg = TrainerConfig(total_steps=MAIN_STEPS, log_every=1, ckpt_every=10,
+                         out_dir=str(tmp / "train_direct"), resume=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = Trainer(tcfg, steps_lib.make_train_step(api, ocfg,
+                                                       donate=True),
+                       init_state, lambda s: {"tokens": stream.batch(
+                           MAIN_BATCH, MAIN_SEQ, s)["tokens"]},
+                       device=dev).run()
+    got_l, want_l = train_losses(tmp / "train_main"), train_losses(
+        tmp / "train_direct")
+    if not got_l or any(got_l[s] != want_l[s] for s in got_l):
+        raise AssertionError(f"launch/train.py main: losses {got_l}, direct "
+                             f"Trainer {want_l}")
+    differ = [p for (p, a), b in zip(tree_leaves_with_path(got["state"]),
+                                     tree_leaves(want["state"]), strict=True)
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"launch/train.py main: final state differs from "
+                             f"the direct Trainer's at {differ}")
+    print(f"distributed: launch/train.py main --arch {arch} (reduced) "
+          f"--steps {MAIN_STEPS} --batch {MAIN_BATCH} --seq {MAIN_SEQ} on "
+          f"{dev}: mesh axes {axes}, losses {got_l!r} bit-equal to a direct "
+          f"Trainer's {want_l!r}, final state bit-equal; main {t_main!r} s, "
+          f"on {smi}")
+
+
+def check_placement(seed: int, dev, smi: str, tmp: Path):
+    """Phase 10b: gemma2-2b at its published widths, bf16 parameters and
+    AdamW state on the card, placed through ``reshard_state`` on
+    ``make_elastic_mesh(devices=[dev])``, (1, 1): every leaf the same
+    tensor, ``memory_allocated`` unchanged.  Returns the parameters."""
+    from repro_torch.models import registry
+    from repro_torch.runtime.elastic import make_elastic_mesh, reshard_state
+    from repro_torch.training import optimizer as opt_lib
+
+    cfg = PLACE_GEMMA2
+    api = registry.get_model(cfg.name, cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    count_params(params, cfg, GEMMA2_PARAMS)
+    ocfg = opt_lib.OptimizerConfig(name=cfg.optimizer)
+    state = {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
+    mesh = make_elastic_mesh(devices=[dev])
+    if mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"elastic mesh of one card: {mesh.shape}")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev) if cuda else None
+    t0 = time.perf_counter()
+    (placed,) = reshard_state(state, mesh)
+    secs = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated(dev) if cuda else None
+    pairs = list(zip(tree_leaves(placed), tree_leaves(state), strict=True))
+    if not all(a is b and a.data_ptr() == b.data_ptr() for a, b in pairs):
+        raise AssertionError("reshard_state on a (1, 1) mesh copied a leaf")
+    if before != after:
+        raise AssertionError(f"reshard_state allocated: {before} -> {after}")
+    n_opt = sum(t.numel() * t.element_size()
+                for t in tree_leaves(state["opt"]))
+    n_par = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"distributed: {cfg.name} bf16 {n_par!r} B parameters + "
+          f"{ocfg.name} {n_opt!r} B state ({len(pairs)} leaves) placed on "
+          f"make_elastic_mesh([{dev}]) {mesh.shape}: every leaf the same "
+          f"storage, memory_allocated {before!r} B before and after; "
+          f"{secs!r} s, on {smi}")
+    del state, placed, pairs
+    check_train_main(dev, smi, tmp)
+    return params
+
+
+def check_codec(params, seed: int, dev, smi: str):
+    """Phase 10c: ``compress_grads`` over one gemma2-2b gradient at phase
+    8a's batch: three leaves' q and scale bit-equal to the codec on the
+    CPU, each residual exactly ``g - dq``, two identical steps shrink each
+    leaf's accumulated error (the reference's test), and the per-leaf
+    relative error range.  Returns the gradient tree."""
+    from repro_torch.distributed import compression as gc
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import registry
+
+    cfg = PLACE_GEMMA2
+    api = registry.get_model(cfg.name, cfg)
+    batch = on(dev, lm_batch(cfg, GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ,
+                             seed, 0))
+    loss, grads = loss_and_grads(api, params, batch)
+    grads = tree_unflatten(params, iter(grads))
+    t0 = time.perf_counter()
+    comp, res = gc.compress_grads(grads, gc.init_error_feedback(grads))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    paths = [p for p, _ in tree_leaves_with_path(grads)]
+    g_by = dict(tree_leaves_with_path(grads))
+    c_by = {p: c for p, c in zip(paths, tree_leaves(
+        comp, is_leaf=lambda x: isinstance(x, dict) and set(x) == {
+            "q", "scale"}), strict=True)}
+    for p in CODEC_LEAVES:
+        g = g_by[p].cpu()
+        c_cpu, _ = gc.compress_grads([g], gc.init_error_feedback([g]))
+        q, s = c_by[p]["q"].cpu(), c_by[p]["scale"].cpu()
+        if not (torch.equal(q, c_cpu[0]["q"])
+                and torch.equal(s, c_cpu[0]["scale"])):
+            raise AssertionError(f"codec of {p}: card and CPU differ")
+    back = gc.decompress_grads(comp)
+    rels = {}
+    for p, r, b in zip(paths, tree_leaves(res), tree_leaves(back),
+                       strict=True):
+        g = g_by[p].to(torch.float32)
+        if not torch.equal(r, g - b):
+            raise AssertionError(f"residual of {p} is not g - dq")
+        rels[p] = (torch.linalg.norm(b - g) / torch.linalg.norm(g)).item()
+    del back
+    comp2, res2 = gc.compress_grads(grads, res)
+    shrink = {}
+    for p, c1, c2 in zip(paths, tree_leaves(comp, is_leaf=lambda x: isinstance(
+            x, dict) and set(x) == {"q", "scale"}), tree_leaves(
+            comp2, is_leaf=lambda x: isinstance(x, dict) and set(x) == {
+                "q", "scale"}), strict=True):
+        g = g_by[p].to(torch.float32)
+        total = gc.dequantize_leaf(c1["q"], c1["scale"]) + \
+            gc.dequantize_leaf(c2["q"], c2["scale"])
+        shrink[p] = (torch.linalg.norm(total - 2 * g)
+                     / torch.linalg.norm(2 * g)).item()
+        if not (shrink[p] < rels[p] or shrink[p] == rels[p] == 0.0):
+            raise AssertionError(f"error feedback on {p}: {shrink[p]} after "
+                                 f"two steps, {rels[p]} after one")
+    n_res = sum(t.numel() * t.element_size() for t in tree_leaves(res))
+    n_q = sum(c["q"].numel() for c in c_by.values())
+    worst = max(rels, key=rels.get)
+    print(f"distributed: compress_grads over {cfg.name}'s gradient of "
+          f"{GEMMA2_TRAIN_BATCH} x {GEMMA2_TRAIN_SEQ} tokens (loss "
+          f"{loss.item()!r}): {n_q!r} B int8, {n_res!r} B float32 residual, "
+          f"{t_comp!r} s; {', '.join(CODEC_LEAVES)} q and scale bit-equal "
+          f"to the CPU's; every residual exactly g - dq; per-leaf relative "
+          f"error {min(rels.values())!r} to {rels[worst]!r} ({worst}; "
+          f"{sum(v > 0.02 for v in rels.values())} of {len(rels)} leaves "
+          f"above the reference test's 0.02), after two steps "
+          f"{min(shrink.values())!r} to {max(shrink.values())!r}, smaller on "
+          f"every leaf, on {smi}")
+    for p in paths:
+        print(f"distributed: codec {p}: relative error {rels[p]!r}, two "
+              f"steps {shrink[p]!r}")
+    return grads
+
+
+def check_psum(grads, dev, smi: str) -> None:
+    """Phase 10d: ``compressed_psum`` over the embedding gradient on a
+    one-rank ``PSUM_BACKEND`` process group (a ``HashStore``: no network),
+    bit-equal to the leaf's own codec round trip; the group destroyed."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as gc
+
+    x = grads["embed"]["tok"]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(PSUM_BACKEND, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        got = gc.compressed_psum(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = gc.dequantize_leaf(*gc.quantize_leaf(x))
+        if not torch.equal(got, want):
+            raise AssertionError("compressed_psum at world size 1 differs "
+                                 "from the codec's round trip")
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed: compressed_psum of {tuple(x.shape)} {x.dtype} "
+          f"over a {PSUM_BACKEND} group of world size 1: bit-equal to "
+          f"dequantize_leaf(*quantize_leaf(x)); {secs!r} s; group "
+          f"destroyed, on {smi}")
+
+
+def check_distributed(seed: int, dev, smi: str, tmp: Path) -> None:
+    """Phase 10: the distributed layer (``distributed/sharding.py``,
+    ``training/optimizer.py`` ``state_specs``, ``launch/mesh.py``,
+    ``runtime/elastic.py``, ``distributed/compression.py``,
+    ``launch/train.py``'s placement); plain PyTorch, no kernel launched."""
+    t0 = time.perf_counter()
+    print(f"phase 10 on {smi}")
+    set_counts(0)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.init()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    check_specs(smi)
+    t_a = time.perf_counter() - t0
+    params = check_placement(seed, dev, smi, tmp)
+    grads = check_codec(params, seed, dev, smi)
+    del params
+    check_psum(grads, dev, smi)
+    del grads
+    expect_launches("phase 10", dev, {})
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t0!r} s (10a {t_a!r} s), peak "
+          f"memory {peak!r} B (max_memory_allocated); no kernel launched, "
+          f"on {smi}")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -5449,6 +5812,7 @@ def main(argv=None) -> int:
         check_lm_families(args.seed, dev, smi)
         lm = check_lm_training(args.seed, dev, smi, Path(tmp))
         check_examples(args.seed, dev, smi, lm["8a gemma2-2b"])
+        check_distributed(args.seed, dev, smi, Path(tmp))
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

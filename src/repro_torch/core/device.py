@@ -1,6 +1,7 @@
 """The device an entry point runs on: ``cuda`` unless the caller asks for
 ``cpu``, and a CUDA device with no GPU present raises instead of carrying
-on on the CPU."""
+on on the CPU.  Functions that only allocate a tree (a parameter init, a
+cache) also take ``meta``: shapes and dtypes, nothing allocated."""
 
 from __future__ import annotations
 
@@ -20,3 +21,10 @@ def resolve_device(device: torch.device | str) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use cuda or cpu")
     return device
+
+
+def resolve_alloc_device(device: torch.device | str) -> torch.device:
+    """``resolve_device`` for a function that only allocates: ``meta`` is
+    also taken (the port's ``jax.eval_shape``)."""
+    device = torch.device(device)
+    return device if device.type == "meta" else resolve_device(device)

@@ -3,10 +3,12 @@
 Dicts, lists and (Named)tuples are nodes; ``None`` is a node with no
 children, as in ``jax.tree`` (a hybrid cache's absent tail); anything else
 is a leaf, unless ``is_leaf`` says a node is one (the optimizer's int8
-codec ``{"q", "scale"}``).  The port's counterpart of ``jax.tree``'s
-flatten, unflatten, map and ``tree_map_with_path``, and of indexing and
-stacking the leading layer axis of a stacked tree (``tree_index``,
-``tree_unstack``, ``tree_stack``).
+codec ``{"q", "scale"}``).  A ``PartitionSpec`` is a tuple but always a
+leaf, so a tree of specs has the structure of the tree it describes.
+The port's counterpart of ``jax.tree``'s flatten, unflatten, map and
+``tree_map_with_path``, and of indexing and stacking the leading layer
+axis of a stacked tree (``tree_index``, ``tree_unstack``,
+``tree_stack``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,25 @@ from typing import Callable, Iterator
 import torch
 
 
+class PartitionSpec(tuple):
+    """The mesh axes each dimension of a leaf shards over, one entry a
+    dimension: an axis name, a tuple of names (the first one major) or
+    ``None`` (not split).  ``tuple(PartitionSpec(...))`` is
+    ``tuple(jax.sharding.PartitionSpec(...))`` of the same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self) -> tuple:  # copy and pickle: the entries
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
 def _node(x, is_leaf: Callable | None) -> bool:
-    return isinstance(x, (dict, list, tuple)) and not (is_leaf and is_leaf(x))
+    return isinstance(x, (dict, list, tuple)) and \
+        not isinstance(x, PartitionSpec) and not (is_leaf and is_leaf(x))
 
 
 def _rebuild(like: tuple, items):
@@ -65,7 +84,7 @@ def tree_map_with_name(fn: Callable, tree, name: str = ""):
         return {k: tree_map_with_name(fn, v, str(k)) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_map_with_name(fn, v, str(i)) for i, v in enumerate(tree)]
-    if isinstance(tree, tuple):
+    if isinstance(tree, tuple) and not isinstance(tree, PartitionSpec):
         keys = getattr(tree, "_fields", range(len(tree)))
         return _rebuild(tree, (tree_map_with_name(fn, v, str(k))
                                for k, v in zip(keys, tree)))

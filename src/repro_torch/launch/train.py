@@ -4,11 +4,15 @@
       --steps 100 [--reduced] [--batch 8] [--seq 128] [--out runs/lm] \
       [--device cuda|cpu]
 
-Runs the fault-tolerant Trainer (prefetch, async checkpoints, auto-resume,
-straggler monitor) on the synthetic LM stream.  The reference's
-``launch/train.py`` on one device (``--device``, default ``cuda``, raising
-without a GPU): no mesh and no parameter specs.  ``--reduced`` is on and
-cannot be turned off, as in the reference (``store_true`` with
+Builds the host mesh, shards params per the rules in
+repro_torch.distributed.sharding, and runs the fault-tolerant Trainer
+(prefetch, async checkpoints, auto-resume, straggler monitor) on the
+synthetic LM stream.  The reference's ``launch/train.py`` on one device
+(``--device``, default ``cuda``, raising without a GPU): the ``Trainer``
+runs one process on one device, so the mesh is that device alone, (1, 1),
+and placing the parameters by their specs (``runtime/elastic.py``
+``reshard_state``, one part) hands back the same tensors.  ``--reduced``
+is on and cannot be turned off, as in the reference (``store_true`` with
 ``default=True``).
 """
 
@@ -20,8 +24,11 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.trainer import Trainer, TrainerConfig
@@ -45,6 +52,8 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = registry.reduce_config(cfg)
     api = registry.get_model(args.arch, cfg)
+    mesh = make_host_mesh([device])
+    shd.set_activation_axes(mesh)
     stream = MarkovLMStream(LMDataConfig(vocab_size=cfg.vocab_size))
     ocfg = OptimizerConfig(name=cfg.optimizer if not args.reduced else "adamw",
                            lr=args.lr, warmup_steps=max(args.steps // 20, 2),
@@ -53,6 +62,7 @@ def main(argv=None) -> dict:
     def init_state():
         params = api.init(torch.Generator(device=device).manual_seed(0),
                           device=device)
+        (params,) = reshard_state(params, mesh)  # by tree_param_specs
         return {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
 
     def make_batch(step: int) -> dict:

@@ -20,7 +20,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
                                    tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
@@ -168,7 +168,7 @@ def encdec_forward(params, tokens, cfg, frames=None, enc_out=None,
 
 def init_encdec_cache(cfg, batch: int, max_len: int,
                       device: torch.device | str = "cuda") -> EncDecCache:
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     one = attn_lib.init_kv_cache(cfg, batch, max_len, device=device)
     return EncDecCache(
         self_caches=tree_map(

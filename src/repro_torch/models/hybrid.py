@@ -23,7 +23,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
                                    tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
@@ -78,7 +78,7 @@ class HybridCache(NamedTuple):
 def init_hybrid_cache(cfg, batch: int, max_len: int,
                       device: torch.device | str = "cuda") -> HybridCache:
     g, n_groups, tail = _split(cfg)
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     one = m2.init_mamba2_state(cfg, batch, device)
 
     def stack(n, tree):

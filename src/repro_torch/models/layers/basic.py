@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 
 
 class ParamInit:
@@ -26,9 +26,7 @@ class ParamInit:
 
     def __init__(self, generator: torch.Generator,
                  device: torch.device | str = "cuda", lead: tuple = ()):
-        device = torch.device(device)
-        self.device = device if device.type == "meta" else \
-            resolve_device(device)
+        self.device = resolve_alloc_device(device)
         self.generator = generator
         self.lead = tuple(lead)
 

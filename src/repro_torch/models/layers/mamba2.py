@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.models.layers import basic
 
 
@@ -188,7 +188,7 @@ def _mamba2_chunked(xs, bs, cs, dt, a, chunk: int):
 def init_mamba2_state(cfg, batch: int,
                       device: torch.device | str = "cuda") -> Mamba2State:
     s = cfg.ssm
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     d_inner, heads, conv_dim = _dims(cfg)
     return Mamba2State(
         conv=torch.zeros((batch, conv_dim, s.d_conv - 1), dtype=cfg.dtype,

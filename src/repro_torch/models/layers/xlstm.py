@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.lif import spike_fn
 from repro_torch.models.layers import basic
 from repro_torch.models.layers.mamba2 import _causal_conv
@@ -149,7 +149,7 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg,
 def init_mlstm_state(cfg, batch: int,
                      device: torch.device | str = "cuda") -> MLSTMState:
     h, d_inner, d_v, d_qk = _mlstm_dims(cfg)
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     f32 = torch.float32
     return MLSTMState(
         c=torch.zeros((batch, h, d_qk, d_v), dtype=f32, device=device),
@@ -302,7 +302,7 @@ def init_slstm_state(cfg, batch: int,
                      device: torch.device | str = "cuda") -> SLSTMState:
     h = cfg.num_heads
     hd = cfg.d_model // h
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     z = torch.zeros((batch, h, hd), dtype=torch.float32, device=device)
     return SLSTMState(c=z, n=z, h=z,
                       m=torch.full((batch, h, hd), M_INIT,

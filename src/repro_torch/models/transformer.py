@@ -20,7 +20,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
                                    tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
@@ -120,7 +120,7 @@ class DecodeCache(NamedTuple):
 
 def init_decode_cache(cfg, batch: int, max_len: int,
                       device: torch.device | str = "cuda") -> DecodeCache:
-    device = resolve_device(device)
+    device = resolve_alloc_device(device)  # meta: shapes only
     n_scan = cfg.num_layers - cfg.dense_layers
     if cfg.mla is not None:
         def one():

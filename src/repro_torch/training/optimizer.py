@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.tree import PartitionSpec as P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,3 +251,46 @@ def apply_updates_(params, grads: list, state: dict, ocfg: OptimizerConfig):
             _copy_leaf_(dst, src)
     state["step"].copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# PartitionSpecs for optimizer state
+# ---------------------------------------------------------------------------
+
+
+def state_specs(param_specs, params_shapes, ocfg: OptimizerConfig) -> dict:
+    """The specs of ``init_opt_state``'s tree from the parameters' specs
+    (``distributed/sharding.py`` ``tree_param_specs``) and shapes (tensors,
+    meta ones included): the reference's rules."""
+    scalar = P()
+
+    def drop_last(spec):
+        return P(*tuple(spec)[:-1]) if len(tuple(spec)) else spec
+
+    def drop_second_last(spec):
+        t = tuple(spec)
+        return P(*(t[:-2] + t[-1:])) if len(t) >= 2 else spec
+
+    def q(spec):
+        return {"q": spec, "scale": scalar}
+
+    if ocfg.name == "adamw":
+        return {"step": scalar, "m": param_specs, "v": param_specs}
+    if ocfg.name == "adamw8bit":
+        return {"step": scalar, "m": tree_lib.tree_map(q, param_specs),
+                "v": tree_lib.tree_map(q, param_specs)}
+    if ocfg.name == "adafactor":
+        def vr_spec(spec, p):
+            return drop_last(spec) if _spec_factored(p.shape) else spec
+
+        def vc_spec(spec, p):
+            return drop_second_last(spec) if _spec_factored(p.shape) \
+                else scalar
+        return {"step": scalar, "m": tree_lib.tree_map(q, param_specs),
+                "vr": tree_lib.tree_map(vr_spec, param_specs, params_shapes),
+                "vc": tree_lib.tree_map(vc_spec, param_specs, params_shapes)}
+    raise ValueError(ocfg.name)
+
+
+def _spec_factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
