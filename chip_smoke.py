@@ -405,6 +405,38 @@ multi-threaded ``index_put_`` backward of the embedding is not
 reproducible), and calling ``check_distributed(0, torch.device("cpu"),
 "", tmp)``.
 
+Then phase 11 (``check_dry_run``): the dry run, plain PyTorch, every
+launch counter 0.  (a) ``launch/dryrun.py`` for every arch and shape of
+``LM_SHAPES`` at ``--mesh both`` and ``launch/rsnn_cells.py --both``, as
+child processes on the CPU (``DryRunLanes``: no GPU, one ``torch``
+thread; each child runs the module as ``python -m`` would, once for each
+of its cells, and then exits non-zero if it imported JAX or the JAX
+package), started before phase 1 and run beside phases 1-10 in three
+lanes, each on a core of its own, this process on the others until the
+join (xlstm-350m's ``prefill_32k`` and ``train_4k``, whose traces step
+the sLSTM a token at a time, one lane each; the other 38 cells, then the
+RSNN cells, in the third); joined here (``check_dryrun``): every child
+exits 0, every runnable cell's two records are ``ok``, every other cell
+is ``cell_is_runnable``'s skip and wrote none, the twenty RSNN records
+are ``ok``; each cell's trace seconds, per-device argument bytes against
+the card's 80 GB and roofline row at the H100's rates printed, with each
+child's and lane's seconds.  (b) ``check_prediction``: 8a's gemma2-2b
+train step (``GEMMA2_TRAIN_BATCH`` x ``GEMMA2_TRAIN_SEQ``, AdamW,
+donated) and the paper's RSNN serve step at 65,536 streams, each through
+the dry run's ``input_specs`` on a (1, 1) mesh, first of meta devices
+and then of the card (``predict_cell``): the op counter's FLOPs and
+bytes on the card against the meta trace's (each op that differs named),
+the predicted argument bytes against ``memory_allocated`` (each tensor
+rounded to ``ALLOC_ROUND``, a large one up to ``ALLOC_SLACK`` more),
+arguments + temp against ``max_memory_allocated`` over a step within
+``PEAK_BAND``, and the median step (CUDA events, ``PREDICT_STEPS``
+after the first) beside the roofline's larger term.  Rehearse it on the
+CPU by setting ``PREDICT_LM`` to ``("whisper-base", "small")``,
+``GEMMA2_TRAIN_BATCH`` / ``GEMMA2_TRAIN_SEQ`` to 2 / 16,
+``rsnn_cells.SERVE_BATCH`` to 1,024, ``torch.cuda.synchronize`` a no-op,
+and calling ``check_dry_run(DryRunLanes(out), torch.device("cpu"),
+"")`` (the xlstm lane takes ~17 min on one core; 11b ~1 min).
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -434,6 +466,7 @@ import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -5203,6 +5236,368 @@ def check_distributed(seed: int, dev, smi: str, tmp: Path) -> None:
           f"on {smi}")
 
 
+# --------------------------------------------------- the dry run (phase 11)
+
+# phase 11a: launch/dryrun.py for every cell at --mesh both and
+# launch/rsnn_cells.py --both, as child processes on the CPU (no GPU, one
+# torch thread, no JAX), started before phase 1 and joined here.
+# xlstm-350m's two long cells step the sLSTM a token at a time in the
+# trace: each gets a lane of its own; a third lane runs the other 38 cells
+# in one child, then the RSNN cells in another.  Each lane runs on a core
+# of its own, phases 1-10 on the others (``DryRunLanes``).
+DRYRUN_ALONE = (("xlstm-350m", "prefill_32k"), ("xlstm-350m", "train_4k"))
+# the child: argv[1] a module, argv[2] a JSON list of argument lists,
+# argv[3] the cores to run on (JSON, null: any); the module run as
+# ``python -m module ARGS`` would run it, once for each, then the check
+# that it imported neither JAX nor the JAX package
+DRYRUN_CHILD = """
+import json, os, runpy, sys
+module, runs, cores = sys.argv[1], *map(json.loads, sys.argv[2:4])
+if cores:
+    os.sched_setaffinity(0, cores)
+for args in runs:
+    sys.argv[:] = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+sys.exit(f"imported {bad}" if bad else 0)
+"""
+# phase 11b: the dry run's prediction of two cells held against the card,
+# each on a (1, 1) mesh: 8a's gemma2-2b train step and the paper's RSNN
+# serve step at 65,536 streams
+PREDICT_LM = ("gemma2-2b", "phase8a")  # shape: GEMMA2_TRAIN_BATCH x _SEQ
+PREDICT_RSNN = ("rsnn_serve", "paper")
+PREDICT_STEPS = 7  # timed steps after the counted one; the median is kept
+PEAK_BAND = (0.95, 1.10, 64 * 2 ** 20)  # measured within [lo p, hi p + B]
+ALLOC_ROUND = 512  # the CUDA caching allocator's rounding of a tensor
+ALLOC_SLACK = 2 ** 20  # a large block keeps up to 1 MiB of unsplit slack
+
+
+def dryrun_lanes(out: Path) -> list[list[tuple[str, list[list[str]]]]]:
+    """Phase 11a's lanes, each a list of children run one after the
+    other: (module, the argument lists the child runs it with)."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import registry
+
+    def cell(arch, shape):
+        return ["--arch", arch, "--shape", shape, "--mesh", "both", "--out",
+                str(out / "dryrun_torch")]
+
+    dryrun = "repro_torch.launch.dryrun"
+    rest = [cell(a, s.name) for a in registry.list_archs() for s in LM_SHAPES
+            if (a, s.name) not in DRYRUN_ALONE]
+    return [[(dryrun, [cell(*c)])] for c in DRYRUN_ALONE] + \
+        [[(dryrun, rest), ("repro_torch.launch.rsnn_cells", [["--both"]])]]
+
+
+def pin_process(cores) -> None:
+    """Every thread of this process on ``cores`` (threads it starts later
+    inherit the set)."""
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(ProcessLookupError):  # a thread that ended
+            os.sched_setaffinity(int(tid), cores)
+
+
+class DryRunLanes:
+    """Phase 11a's children, started at the top of the script and run
+    beside phases 1-10: one thread a lane starts its children one after
+    the other, each child pinned to the lane's core; this process keeps
+    the other cores (and as many ``torch`` threads) until ``release``.
+    ``stop`` kills what still runs."""
+
+    def __init__(self, out: Path):
+        import threading
+
+        self.out = out
+        self.results: list[dict] = []
+        self.lane_secs: dict[int, float] = {}
+        self.procs: dict[int, subprocess.Popen] = {}
+        self.stopped = False
+        self.env = dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src"), CUDA_VISIBLE_DEVICES="",
+            OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        self.env.pop("XLA_FLAGS", None)
+        lanes = dryrun_lanes(out)
+        self.cores = sorted(os.sched_getaffinity(0))
+        self.threads_before = torch.get_num_threads()
+        # a core a lane, from the last; none if that leaves this process
+        # fewer than two
+        own = len(self.cores) - len(lanes) >= 2
+        self.lane_cores = [{self.cores[-1 - i]} if own else None
+                           for i in range(len(lanes))]
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._lane,
+                                         args=(i, cmds), daemon=True)
+                        for i, cmds in enumerate(lanes)]
+        for t in self.threads:
+            t.start()
+        if own:
+            keep = self.cores[:len(self.cores) - len(lanes)]
+            pin_process(keep)
+            torch.set_num_threads(len(keep))
+
+    def _lane(self, lane: int, cmds) -> None:
+        t_lane = time.perf_counter()
+        cores = self.lane_cores[lane]
+        for module, runs in cmds:
+            if self.stopped:
+                return
+            t0 = time.perf_counter()
+            p = subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD, module,
+                 json.dumps(runs), json.dumps(cores and sorted(cores))],
+                cwd=self.out, env=self.env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            self.procs[lane] = p
+            out, _ = p.communicate()
+            self.results.append({
+                "lane": lane, "module": module, "cells": len(runs),
+                "argv": runs[0], "rc": p.returncode,
+                "secs": time.perf_counter() - t0, "out": out})
+        self.lane_secs[lane] = time.perf_counter() - t_lane
+
+    def join(self) -> list[dict]:
+        for t in self.threads:
+            t.join()
+        return self.results
+
+    def release(self) -> None:
+        """This process back on every core it had, at its thread count."""
+        pin_process(set(self.cores))
+        torch.set_num_threads(self.threads_before)
+
+    def stop(self) -> None:
+        self.stopped = True
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def roofline_terms(rec: dict) -> str:
+    """A record's roofline row at the H100's rates
+    (``benchmarks/roofline.py``); an RSNN cell has no ``model_flops``, so
+    its compute and memory terms only."""
+    from repro_torch.benchmarks import roofline
+
+    t = rec["tripaware"]
+    if rec["arch"] == "rsnn-timit":
+        return (f"compute {t['flops'] / roofline.PEAK_FLOPS!r} s, memory "
+                f"{t['hbm_bytes'] / roofline.HBM_BW!r} s, collective —")
+    r = roofline.roofline_row(rec)
+    return (f"compute {r['compute_s']!r} s, memory {r['memory_s']!r} s, "
+            f"collective —, dominant {r['dominant']}, MODEL/FLOPs "
+            f"{r['useful_fraction']!r}, roofline fraction "
+            f"{r['roofline_fraction']!r}")
+
+
+def check_dryrun(lanes: DryRunLanes, smi: str) -> None:
+    """Phase 11a: join the children; every child exited 0 (its import
+    check included), every runnable LM cell wrote an ``ok`` record at both
+    meshes, every other cell is ``cell_is_runnable``'s skip and wrote
+    none, and the twenty RSNN records are ``ok``; each cell's trace
+    seconds, per-device argument bytes against the card's 80 GB and
+    roofline row printed."""
+    from repro_torch.benchmarks import report
+    from repro_torch.configs.base import LM_SHAPES, cell_is_runnable
+    from repro_torch.launch.rsnn_cells import RSNN_VARIANTS
+    from repro_torch.models import registry
+
+    t_wait = time.perf_counter()
+    results = lanes.join()
+    waited = time.perf_counter() - t_wait
+    lanes.release()
+    for r in results:
+        print(f"dryrun child (lane {r['lane']}, core "
+              f"{lanes.lane_cores[r['lane']]}): {r['module']} "
+              f"{' '.join(r['argv'])}" + (f" and {r['cells'] - 1} more"
+                                          if r["cells"] > 1 else "")
+              + f": exit {r['rc']}, {r['secs']!r} s")
+    for lane, secs in sorted(lanes.lane_secs.items()):
+        print(f"dryrun lane {lane}: {secs!r} s")
+    failed = [r for r in results if r["rc"] != 0]
+    if failed:
+        raise AssertionError("dry-run children failed: " + "; ".join(
+            f"{r['module']} {' '.join(r['argv'])}: exit {r['rc']}: "
+            f"{r['out'][-2000:]}" for r in failed))
+    stdout = "".join(r["out"] for r in results)
+    recs, n_ok, n_skip = {}, 0, 0
+    for arch in registry.list_archs():
+        for shape in LM_SHAPES:
+            runnable, why = cell_is_runnable(arch, shape)
+            for mesh in ("pod", "multipod"):
+                tag = f"{arch}__{shape.name}__{mesh}"
+                path = lanes.out / "dryrun_torch" / f"{tag}.json"
+                if not runnable:
+                    if path.exists() or f"{tag}: SKIP {why[:40]}" \
+                            not in stdout:
+                        raise AssertionError(f"{tag}: not skipped as "
+                                             f"cell_is_runnable says")
+                    n_skip += 1
+                    continue
+                rec = json.loads(path.read_text())
+                if not rec.get("ok") or rec.get("error"):
+                    raise AssertionError(f"{tag}: {rec.get('error')}")
+                recs[tag] = rec
+                n_ok += 1
+    for kind in ("rsnn_train", "rsnn_serve"):
+        for variant in RSNN_VARIANTS:
+            for mesh in ("pod", "multipod"):
+                tag = f"rsnn-timit__{kind}__{mesh}__{variant}"
+                rec = json.loads((lanes.out / "results" / "hillclimb_torch"
+                                  / f"{tag}.json").read_text())
+                if not rec.get("ok"):
+                    raise AssertionError(f"{tag}: {rec.get('error')}")
+                recs[tag] = rec
+    for tag, rec in recs.items():
+        ma = rec["memory_analysis"]
+        arg = ma["argument_size_in_bytes"]
+        print(f"dryrun {tag}: trace {rec['lower_s']!r} s, "
+              f"{rec['num_devices']} devices, arguments {arg!r} B a device "
+              f"({arg / H100_MEMORY_BYTES!r} of 80 GB), temp "
+              f"{ma['temp_size_in_bytes']!r} B, FLOPs "
+              f"{rec['tripaware']['flops']!r} a device, "
+              f"{roofline_terms(rec)}")
+    report.BASE = lanes.out  # the tables of benchmarks/report.py
+    report.main()
+    print(f"phase 11a: {n_ok} LM records ok ({n_ok // 2} cells x 2 meshes), "
+          f"{n_skip // 2} cells skipped as cell_is_runnable says, "
+          f"{len(recs) - n_ok} RSNN records ok; {len(results)} children, "
+          f"all exit 0, none imported JAX or the JAX package; "
+          f"{time.perf_counter() - lanes.t0!r} s since their start, "
+          f"{waited!r} s of it waited for here, on {smi}")
+
+
+def predict_cell(name: str, specs, dev, smi: str) -> None:
+    """Phase 11b for one cell: ``specs(mesh)`` is the dry run's
+    ``input_specs`` on a (1, 1) mesh.  The meta trace's counts against
+    the same counter around the step on ``dev``; the predicted argument
+    bytes against ``memory_allocated``; arguments + temp against
+    ``max_memory_allocated`` over a step; the measured step (CUDA events,
+    median) against the roofline's larger term."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    step, args, _, sh = specs(make_mesh((1, 1), ("data", "model"),
+                                        ["meta"]))
+    _, meta, secs = dryrun.trace(step, args)
+    del step, args
+    leaves = tree_leaves(sh)
+    arg_bytes = sum(s.block_bytes for s in leaves)
+    rounded = sum(-(-s.block_bytes // ALLOC_ROUND) * ALLOC_ROUND
+                  for s in leaves)
+    n_large = sum(s.block_bytes > ALLOC_SLACK for s in leaves)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+    step, args, _, _ = specs(make_mesh((1, 1), ("data", "model"), [dev]))
+    if cuda:
+        torch.cuda.synchronize()
+        built = torch.cuda.memory_allocated(dev) - base
+        if not rounded <= built <= rounded + n_large * ALLOC_SLACK:
+            raise AssertionError(
+                f"{name}: memory_allocated rose {built} B for predicted "
+                f"arguments of {arg_bytes} B ({rounded} B rounded to "
+                f"{ALLOC_ROUND} B a tensor, {n_large} tensors over 1 MiB)")
+        torch.cuda.reset_peak_memory_stats(dev)
+    out, card, _ = dryrun.trace(step, args)
+    del out
+    diff = {op: (meta.by_op.get(op), card.by_op.get(op))
+            for op in sorted(set(meta.by_op) | set(card.by_op))
+            if meta.by_op.get(op) != card.by_op.get(op)}
+    same = meta.flops == card.flops and meta.hbm_bytes == card.hbm_bytes
+    print(f"predict {name}: meta trace {secs!r} s, {meta.ops} ops: FLOPs "
+          f"{meta.flops!r}, bytes {meta.hbm_bytes!r}, peak {meta.peak_bytes!r}"
+          f" B; on {dev}: FLOPs {card.flops!r}, bytes {card.hbm_bytes!r}, "
+          f"peak {card.peak_bytes!r} B, {card.ops} ops: "
+          + ("equal" if same else "differ, by op (calls, FLOPs, bytes) "
+             "meta / card: " + "; ".join(f"{op} {a} / {b}" for op, (a, b)
+                                        in diff.items())))
+    if not same and not diff:
+        raise AssertionError(f"{name}: counts differ with no op named")
+    ms = []
+    for i in range(PREDICT_STEPS + 1):
+        if cuda:
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        out = step(*args)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated(dev) - base
+        else:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    med = statistics.median(ms[1:])
+    compute_s = meta.flops / roofline.PEAK_FLOPS
+    memory_s = meta.hbm_bytes / roofline.HBM_BW
+    bound_s = max(compute_s, memory_s)
+    line = (f"predict {name}: arguments {arg_bytes!r} B predicted "
+            f"({rounded!r} B rounded)")
+    if cuda:
+        predicted = rounded + meta.peak_bytes
+        lo, hi, extra = PEAK_BAND
+        line += (f", memory_allocated +{built!r} B; peak predicted "
+                 f"{predicted!r} B (arguments + temp), measured {peak!r} B "
+                 f"(max_memory_allocated over a step), "
+                 f"{peak / predicted!r} of it, band [{lo}, {hi}] + "
+                 f"{extra} B")
+        if not lo * predicted <= peak <= hi * predicted + extra:
+            raise AssertionError(line)
+    print(line + f"; step {med!r} ms (median of {PREDICT_STEPS} after the "
+          f"first: {ms!r}), roofline max(compute {compute_s!r} s, memory "
+          f"{memory_s!r} s) = {bound_s!r} s, {bound_s * 1e3 / med!r} of the "
+          f"step, on {smi}")
+    del step, args
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def check_prediction(dev, smi: str) -> None:
+    """Phase 11b: ``PREDICT_LM`` (8a's gemma2-2b step) and
+    ``PREDICT_RSNN`` (the paper's serve step at 65,536 streams)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, rsnn_cells
+
+    arch, shape = PREDICT_LM
+    lm_shape = ShapeConfig(shape, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_BATCH,
+                           "train")
+    predict_cell(f"{arch} {shape} ({GEMMA2_TRAIN_BATCH} x "
+                 f"{GEMMA2_TRAIN_SEQ} train, donated)",
+                 lambda mesh: dryrun.input_specs(arch, lm_shape, mesh), dev,
+                 smi)
+    kind, variant = PREDICT_RSNN
+    predict_cell(f"rsnn-timit {kind} {variant} "
+                 f"({rsnn_cells.SERVE_BATCH} streams)",
+                 lambda mesh: rsnn_cells.input_specs(kind, variant, mesh),
+                 dev, smi)
+
+
+def check_dry_run(lanes: DryRunLanes, dev, smi: str) -> None:
+    """Phase 11: the dry run (11a) and its prediction against the card
+    (11b); plain PyTorch, no kernel launched."""
+    t0 = time.perf_counter()
+    print(f"phase 11 on {smi}")
+    set_counts(0)
+    check_dryrun(lanes, smi)
+    t_a = time.perf_counter() - t0
+    check_prediction(dev, smi)
+    expect_launches("phase 11", dev, {})
+    print(f"phase 11: {time.perf_counter() - t0!r} s (11a {t_a!r} s); no "
+          f"kernel launched, on {smi}")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -5727,8 +6122,6 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA GPU", file=sys.stderr)
         return 1
-    from repro_torch.kernels import _build
-
     # the plain versions' products on the card run in IEEE float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5740,6 +6133,21 @@ def main(argv=None) -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
+    if args.kernels_only:
+        return run_phases(args, dev, smi, None)
+    with tempfile.TemporaryDirectory(prefix="dryrun") as out:
+        lanes = DryRunLanes(Path(out))  # phase 11a, beside phases 1-10
+        try:
+            return run_phases(args, dev, smi, lanes)
+        finally:
+            lanes.stop()
+
+
+def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
+    """Phases 1-11, the kernel line and the last line."""
+    t_script = time.perf_counter()
+    from repro_torch.kernels import _build
+
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0!r} s (nvcc "
@@ -5813,6 +6221,8 @@ def main(argv=None) -> int:
         lm = check_lm_training(args.seed, dev, smi, Path(tmp))
         check_examples(args.seed, dev, smi, lm["8a gemma2-2b"])
         check_distributed(args.seed, dev, smi, Path(tmp))
+        print(f"phases 1-10: {time.perf_counter() - t_script!r} s, on {smi}")
+        check_dry_run(lanes, dev, smi)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -5,9 +5,8 @@ Every assigned architecture is a `ModelConfig`; names resolve through
 `configs/base.py` (which imports `jax.numpy`): the same fields and
 defaults, `dtype` a `torch.dtype`, and the grid of input shapes that
 `launch/steps.py` `batch_shapes` reads (`ShapeConfig`, `LM_SHAPES`,
-`shape_by_name`).  Left out, since no module of the port reads them yet:
-`weight_bits` (read by neither package), and `LONG_CONTEXT_SKIP` and
-`cell_is_runnable`, which only the reference's `launch/dryrun.py` reads.
+`shape_by_name`), and the cells the dry run skips (`LONG_CONTEXT_SKIP`,
+`cell_is_runnable`).  Left out: `weight_bits`, read by neither package.
 """
 
 from __future__ import annotations
@@ -135,3 +134,19 @@ def shape_by_name(name: str) -> ShapeConfig:
             return s
     raise KeyError(f"unknown shape {name!r}; options: "
                    f"{[s.name for s in LM_SHAPES]}")
+
+
+# Archs for which long_500k is skipped (pure full attention; see DESIGN.md
+# §Arch-applicability). gemma2 runs it (alternating 4k sliding-window layers);
+# xlstm/zamba2 run it (bounded recurrent state).
+LONG_CONTEXT_SKIP = frozenset({
+    "internvl2-26b", "yi-6b", "stablelm-3b", "gemma-7b", "whisper-base",
+    "deepseek-v3-671b", "kimi-k2-1t-a32b",
+})
+
+
+def cell_is_runnable(arch: str, shape: ShapeConfig) -> tuple[bool, str]:
+    if shape.name == "long_500k" and arch in LONG_CONTEXT_SKIP:
+        return False, ("pure full-attention arch: 500k context needs "
+                       "sub-quadratic attention (DESIGN.md)")
+    return True, ""

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_alloc_device
 
 
 class LIFParams(NamedTuple):
@@ -47,8 +47,9 @@ def init_lif(num_neurons: int, beta_init: float = 0.9, vth_init: float = 1.0,
     """Learnable LIF parameters at the requested beta and vth:
     ``raw_beta = logit(beta_init)``, ``raw_vth = softplus^-1(vth_init)``,
     computed in double precision and rounded once to ``dtype``, on
-    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
-    device = resolve_device(device)
+    ``device`` (``cuda`` unless the caller asks for ``cpu``; ``meta``:
+    shapes only)."""
+    device = resolve_alloc_device(device)
     raw_beta = math.log(beta_init / (1.0 - beta_init))
     raw_vth = math.log(math.expm1(vth_init))
     return LIFParams(
@@ -62,8 +63,8 @@ def init_lif_state(batch: int, num_neurons: int,
                    dtype: torch.dtype = torch.float32,
                    device: torch.device | str = "cuda") -> LIFState:
     """Zero LIF carries on ``device`` (``cuda`` unless the caller asks
-    for ``cpu``)."""
-    device = resolve_device(device)
+    for ``cpu``; ``meta``: shapes only)."""
+    device = resolve_alloc_device(device)
     return LIFState(
         u=torch.zeros((batch, num_neurons), dtype=dtype, device=device),
         spike=torch.zeros((batch, num_neurons), dtype=dtype, device=device))

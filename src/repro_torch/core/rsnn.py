@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import lif as lif_lib
 from repro_torch.core import spike_ops
+from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.lif import LIFParams, LIFState
 
 
@@ -66,18 +67,23 @@ class RSNNState(NamedTuple):
     lif1: LIFState
 
 
-def init_params(generator: torch.Generator, cfg: RSNNConfig) -> dict:
+def init_params(generator: torch.Generator, cfg: RSNNConfig,
+                device: torch.device | str | None = None) -> dict:
     """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) weights, PyTorch-RNN style,
     drawn from ``generator`` on its device, and the LIF parameters at
     ``cfg``'s beta and vth.  The values are not the reference's, whose
-    draws come from a JAX key."""
-    device = generator.device
+    draws come from a JAX key.  ``device="meta"`` gives the tree's shapes
+    and dtypes and draws nothing (the reference's ``jax.eval_shape`` of
+    it); any other ``device`` must be the generator's."""
+    device = generator.device if device is None else \
+        resolve_alloc_device(device)
+    draw = device.type != "meta"
     params: dict = {}
     for name, shape in cfg.layer_shapes.items():
         bound = 1.0 / math.sqrt(shape[0])
-        params[name] = torch.empty(shape, dtype=torch.float32,
-                                   device=device).uniform_(
-            -bound, bound, generator=generator)
+        params[name] = torch.empty(shape, dtype=torch.float32, device=device)
+        if draw:
+            params[name].uniform_(-bound, bound, generator=generator)
     for i in (0, 1):
         params[f"lif{i}"] = lif_lib.init_lif(cfg.hidden_dim, cfg.beta_init,
                                              cfg.vth_init, device=device)
@@ -86,6 +92,9 @@ def init_params(generator: torch.Generator, cfg: RSNNConfig) -> dict:
 
 def init_state(cfg: RSNNConfig, batch: int, num_ts: int | None = None, *,
                device: torch.device | str) -> RSNNState:
+    """Zero carries for ``batch`` streams on ``device`` (``meta``: shapes
+    only)."""
+    device = resolve_alloc_device(device)
     ts = num_ts or cfg.num_ts
     h = cfg.hidden_dim
 

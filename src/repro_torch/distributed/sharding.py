@@ -29,6 +29,8 @@ with them; the weights are replicated (``CompiledRSNN.place_weights``).
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import re
 from typing import Any, Sequence
 
@@ -185,6 +187,43 @@ def batch_specs(batch_tree, mesh):
         dax = _data_axes_for(leaf.shape[0], mesh)
         return P(dax, *([None] * (leaf.dim() - 1)))
     return tree_map(spec, batch_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """A dry-run input: the reference's ``jax.ShapeDtypeStruct`` with a
+    ``NamedSharding``.  ``shape``/``dtype`` the global leaf's, ``spec``
+    its ``PartitionSpec``, ``block`` the shape a device holds.  Not a
+    tuple, so that the tree walkers take it as a leaf."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: P
+    block: tuple[int, ...]
+
+    @property
+    def block_bytes(self) -> int:
+        return math.prod(self.block) * self.dtype.itemsize
+
+
+def with_shardings(shapes_tree, specs_tree, mesh):
+    """Each leaf of ``shapes_tree`` (tensors, meta ones included) as a
+    ``Sharded`` record under its spec in ``specs_tree`` on ``mesh``, in
+    the tree's structure (dry-run inputs).  A device's block divides each
+    dimension by the product of the mesh axes its spec entry names: the
+    block ``runtime/elastic.py`` ``shard_slices`` gives every device when
+    the dimension divides, and the largest block (the size rounded up, as
+    XLA pads) when it does not."""
+    from repro_torch.runtime.elastic import _parts
+
+    def record(leaf, spec):
+        shape = tuple(leaf.shape)
+        entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+        block = tuple(-(-size // _parts(e, mesh)[0])
+                      for size, e in zip(shape, entries))
+        return Sharded(shape, leaf.dtype, spec, block)
+
+    return tree_map(record, shapes_tree, specs_tree)
 
 
 # --- activation hints ---------------------------------------------------------

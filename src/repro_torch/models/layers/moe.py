@@ -58,7 +58,10 @@ def _group_dispatch(probs: torch.Tensor, k: int, capacity: int
     Returns combine (N, G, E, C) fp32."""
     n, g, e = probs.shape
     gate_vals, idx = _top_k_gates(probs, k)  # (N, G, k)
-    onehot = F.one_hot(idx, e).float()  # (N, G, k, E)
+    # jax.nn.one_hot's iota compare (F.one_hot checks the indices' range
+    # first on a device with data, so that its ops differ from meta's)
+    experts = torch.arange(e, device=probs.device)
+    onehot = (idx[..., None] == experts).float()  # (N, G, k, E)
     # Slot-major priority: all tokens' slot-0 choices first (GShard).
     slot_major = onehot.transpose(1, 2).reshape(n, k * g, e)
     pos = slot_major.cumsum(1) - slot_major  # position within expert
@@ -114,20 +117,36 @@ def moe_layer(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
 def _ragged_dot(xs: torch.Tensor, w: torch.Tensor, sizes: list[int]
                 ) -> torch.Tensor:
     """``jax.lax.ragged_dot``: rows of ``xs`` in consecutive groups of
-    ``sizes``, group i times ``w[i]``."""
-    out = xs.new_empty((xs.shape[0], w.shape[-1]))
-    start = 0
-    for i, n in enumerate(sizes):
+    ``sizes``, group i times ``w[i]``; differentiable (one product a
+    non-empty group, joined; ``w``'s gradient one stack of the
+    experts')."""
+    parts, start = [], 0
+    for wi, n in zip(w.unbind(0), sizes):
         if n:
-            torch.matmul(xs[start:start + n], w[i], out=out[start:start + n])
+            parts.append(xs[start:start + n] @ wi)
             start += n
-    return out
+    return torch.cat(parts)
+
+
+def _even_sizes(rows: int, e: int) -> list[int]:
+    """``rows`` split as evenly as it goes over ``e`` groups, the
+    remainder one row each to the first groups."""
+    q, r = divmod(rows, e)
+    return [q + 1] * r + [q] * (e - r)
 
 
 def moe_layer_ragged(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     """Sort tokens by expert and run one product a group of rows — no
     dispatch-einsum FLOPs, no capacity drops. Used when
-    cfg.moe.router_impl == 'ragged'."""
+    cfg.moe.router_impl == 'ragged'.
+
+    On ``meta`` tensors (the dry run) there is no routing to count, so the
+    N k routed rows are split evenly over the E experts
+    (``_even_sizes``).  ``_ragged_dot`` does 2 rows D F FLOPs however the
+    rows split, so a trace counts the FLOPs exactly; its bytes differ from
+    a real routing's only by the weights of the experts that routing
+    leaves empty (and by the routing count, which ``meta`` skips).  On
+    the CPU and the card the sizes are the data's own."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
@@ -142,7 +161,10 @@ def moe_layer_ragged(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     inv_order = torch.argsort(order, stable=True)
     xs = tokens.repeat_interleave(k, dim=0)[order]
     # the group sizes steer the host's loop: one read of e counts a layer
-    sizes = torch.bincount(flat_expert, minlength=e).tolist()
+    if x.device.type == "meta":
+        sizes = _even_sizes(flat_expert.shape[0], e)
+    else:
+        sizes = torch.bincount(flat_expert, minlength=e).tolist()
 
     h = F.silu(_ragged_dot(xs, p["w_gate"], sizes)) * \
         _ragged_dot(xs, p["w_up"], sizes)
