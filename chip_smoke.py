@@ -415,7 +415,8 @@ package), started before phase 1 and run beside phases 1-10 in three
 lanes, each on a core of its own, this process on the others until the
 join (xlstm-350m's ``prefill_32k`` and ``train_4k``, whose traces step
 the sLSTM a token at a time, one lane each; the other 38 cells, then the
-RSNN cells, in the third); joined here (``check_dryrun``): every child
+RSNN cells, then phase 12's timed rows on the CPU, in the third); joined
+here (``check_dryrun``): every child
 exits 0, every runnable cell's two records are ``ok``, every other cell
 is ``cell_is_runnable``'s skip and wrote none, the twenty RSNN records
 are ``ok``; each cell's trace seconds, per-device argument bytes against
@@ -436,6 +437,35 @@ CPU by setting ``PREDICT_LM`` to ``("whisper-base", "small")``,
 ``rsnn_cells.SERVE_BATCH`` to 1,024, ``torch.cuda.synchronize`` a no-op,
 and calling ``check_dry_run(DryRunLanes(out), torch.device("cpu"),
 "")`` (the xlstm lane takes ~17 min on one core; 11b ~1 min).
+
+Then phase 12 (``check_bench_rows``): ``repro_torch.benchmarks.run`` on
+the card, ``run.main(name)`` an entry at a time (the nine analytic
+tables, the eleven timed rows, ``roofline_summary``), every launch
+counter set to 0 before each and each row printed.  (a) Each entry
+launches exactly the kernels ``BENCH_LAUNCHES`` names (K3; K4; K4 and
+K5; K1, K2, K4 and K6 for ``bench_megastep``; K8 and K10 for
+``bench_delta``; K4, K6, K7, K9 and K10 for ``bench_spike_broadcast``;
+none for the others); each timed row's deterministic fields
+(``bench_fields``: sizes, counts, host syncs and dispatches a frame, the
+input's densities, the bit-identities the rows raise on) equal those of
+the same rows run on the CPU on the same CPU-drawn weights, by a child
+of 11a's third lane (``BENCH_CPU``, after its dry-run cells, one
+thread); ``roofline_summary`` over phase 11's records
+(``roofline.RESULTS`` pointed there) counts every single-pod record as a
+cell, all ``ok``.  (b) The three rows of the reduced 20 -> 64 -> 192
+model again, their loops eager (``paper_tables.StreamLoop`` with
+``aot_warmup=False``), with every launch of K1, K2, K4, K6/K7, K8, K9
+and K10 held against its plain version on the same inputs by phase 2's
+rules (``HeldLaunches``: ``check_call``, the u rule; ``megastep_replay``
+and ``check_mega``): the first run of K1, K6/K7, K8 and K10 at H =
+64.  Rehearse it on the CPU in ~15 s by replacing each kernel wrapper
+(``rsnn_cell.rsnn_cell``, ..., ``megastep.megastep``) with its plain
+version plus one on its counter, ``kernels/ops.py`` ``_plain`` with
+``lambda op, t: False``, ``torch.cuda.synchronize`` with a no-op and
+``dryrun_lanes`` with a lane of the ``BENCH_CPU`` child alone, writing
+two single-pod records under ``out / "dryrun_torch"``, and calling
+``check_bench_rows(DryRunLanes(out), torch.device("cpu"), "")`` after
+the lanes' ``join``.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
@@ -5262,6 +5292,11 @@ bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 sys.exit(f"imported {bad}" if bad else 0)
 """
+# the timed rows on the CPU: a child of phase 11a's third lane, after its
+# dry-run cells (``python -m repro_torch.benchmarks.run`` with these
+# arguments), whose CSV lines phase 12 holds the card's rows against
+BENCH_CPU = ("repro_torch.benchmarks.run",
+             ["--device", "cpu", "--only", "bench_"])
 # phase 11b: the dry run's prediction of two cells held against the card,
 # each on a (1, 1) mesh: 8a's gemma2-2b train step and the paper's RSNN
 # serve step at 65,536 streams
@@ -5275,7 +5310,8 @@ ALLOC_SLACK = 2 ** 20  # a large block keeps up to 1 MiB of unsplit slack
 
 def dryrun_lanes(out: Path) -> list[list[tuple[str, list[list[str]]]]]:
     """Phase 11a's lanes, each a list of children run one after the
-    other: (module, the argument lists the child runs it with)."""
+    other: (module, the argument lists the child runs it with); the third
+    ends with phase 12's timed rows on the CPU (``BENCH_CPU``)."""
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.models import registry
 
@@ -5287,7 +5323,8 @@ def dryrun_lanes(out: Path) -> list[list[tuple[str, list[list[str]]]]]:
     rest = [cell(a, s.name) for a in registry.list_archs() for s in LM_SHAPES
             if (a, s.name) not in DRYRUN_ALONE]
     return [[(dryrun, [cell(*c)])] for c in DRYRUN_ALONE] + \
-        [[(dryrun, rest), ("repro_torch.launch.rsnn_cells", [["--both"]])]]
+        [[(dryrun, rest), ("repro_torch.launch.rsnn_cells", [["--both"]]),
+          (BENCH_CPU[0], [BENCH_CPU[1]])]]
 
 
 def pin_process(cores) -> None:
@@ -5404,7 +5441,7 @@ def check_dryrun(lanes: DryRunLanes, smi: str) -> None:
     from repro_torch.models import registry
 
     t_wait = time.perf_counter()
-    results = lanes.join()
+    results = [r for r in lanes.join() if r["module"] != BENCH_CPU[0]]
     waited = time.perf_counter() - t_wait
     lanes.release()
     for r in results:
@@ -5596,6 +5633,201 @@ def check_dry_run(lanes: DryRunLanes, dev, smi: str) -> None:
     expect_launches("phase 11", dev, {})
     print(f"phase 11: {time.perf_counter() - t0!r} s (11a {t_a!r} s); no "
           f"kernel launched, on {smi}")
+
+
+# ------------------------------------------------------------- phase 12
+
+# the kernels each timed row of ``benchmarks/run.py`` launches on the card
+# (every other entry launches none)
+BENCH_LAUNCHES = {
+    "bench_merged_spike_fc": ("merged_spike_fc",),
+    "bench_sparse_fc": ("sparse_fc",),
+    "bench_nm_fc": ("sparse_fc", "nm_fc"),
+    "bench_stream_engine": ("sparse_fc",),
+    "bench_megastep": ("rsnn_cell", "int4_matmul", "sparse_fc", "megastep"),
+    "bench_delta": ("delta_step", "spike_cell"),
+    "bench_spike_broadcast": ("spike_cell", "spike_broadcast", "sparse_fc",
+                              "megastep", "megastep_spike"),
+}
+# the fields of a timed row that do not depend on where it ran (sizes,
+# counts, the input's densities, the bit-identities the rows raise on)
+BENCH_FIELDS = {
+    "bench_sparse_fc": ("sparsity_profile",),
+    "bench_nm_fc": ("nnz", "nm_group_bytes", "padded_csc_bytes",
+                    "bytes_saved_vs_csc", "bit_identical_to_csc"),
+    "bench_stream_sharded": ("devices", "slots", "frames"),
+    "bench_stream_pipeline": ("workload", "sync_host_syncs_per_frame",
+                              "pipelined_host_syncs_per_frame",
+                              "host_syncs_saved_per_frame",
+                              "pipelined_dispatches_per_frame",
+                              "chunked_dispatches_per_frame"),
+    "bench_artifact_roundtrip": ("bit_identical_vs_in_memory", "disk_bytes",
+                                 "broadcast_total_bytes", "schema_version"),
+    "bench_spike_broadcast": ("analytic_density",
+                              "accumulates_per_frame_analytic"),
+}
+# the rows of the reduced model (H = 64) whose launches 12b holds
+BENCH_REDUCED = ("bench_megastep", "bench_delta", "bench_spike_broadcast")
+
+
+def bench_fields(name: str, derived: dict) -> dict:
+    """A timed row's fields that must be the same on the card and on the
+    CPU (``BENCH_FIELDS``; the op-table dispatches a frame of
+    ``bench_megastep``; the delta input density at each threshold of
+    ``bench_delta``)."""
+    if name == "bench_megastep":
+        return {b: derived[b]["dispatches_per_frame"]
+                for b in ("jnp", "pallas", "fused")}
+    if name == "bench_delta":
+        return {t: v["delta_input_density"]
+                for t, v in derived["thresholds"].items()}
+    return {k: derived[k] for k in BENCH_FIELDS.get(name, ())}
+
+
+def csv_rows(text: str) -> dict[str, tuple[float, dict]]:
+    """The CSV lines of ``benchmarks/run.py`` in ``text`` (other lines,
+    such as a child's warnings, are passed over): name -> (us,
+    derived)."""
+    from repro_torch.benchmarks import run
+
+    rows = {}
+    for line in text.splitlines():
+        name, _, rest = line.partition(",")
+        if name in run.all_names():
+            us, derived = rest.split(",", 1)
+            rows[name] = (float(us), json.loads(derived))
+    return rows
+
+
+class HeldLaunches:
+    """While entered, each call of a kernel wrapper (K1, K2, K4, K6/K7,
+    K8, K9, K10) runs the kernel, then its plain version on the same
+    inputs, and holds the two by phase 2's rules (``check_call``; K6/K7
+    by ``megastep_replay`` and ``check_mega``).  ``held`` counts the
+    calls held a kernel; ``errs`` keeps each one's largest |kernel -
+    plain|."""
+
+    def __init__(self):
+        from repro_torch.kernels import (delta_step, int4_matmul, megastep,
+                                         ref, rsnn_cell, sparse_fc,
+                                         spike_broadcast)
+
+        self.targets = {
+            "rsnn_cell": (rsnn_cell, "rsnn_cell", ref.rsnn_cell_ref),
+            "int4_matmul": (int4_matmul, "int4_matmul", ref.int4_matmul_ref),
+            "sparse_fc": (sparse_fc, "sparse_fc", ref.sparse_fc_ref),
+            "delta_step": (delta_step, "delta_step", ref.delta_step_ref),
+            "spike_broadcast": (spike_broadcast, "spike_broadcast",
+                                ref.spike_broadcast_ref),
+            "spike_cell": (spike_broadcast, "spike_cell",
+                           ref.spike_cell_ref),
+            "megastep": (megastep, "megastep", ref.megastep_ref)}
+        self.held: dict[str, int] = {}
+        self.errs: dict[str, float] = {}
+        self.saved = {}
+
+    def _wrap(self, name: str, kernel, plain):
+        def held(*args, **kw):
+            got = kernel(*args, **kw)
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            if name == "megastep":
+                row = "megastep_spike" if kw.get("spike") else "megastep"
+                fc_mode = kw["fc_mode"]
+                e = max(check_mega(f"12b {row} fc_mode={fc_mode}", got,
+                                   want, megastep_replay(args)).values())
+            else:
+                row = name
+                e = check_call(name, got, want, args, kw.get("capacity"))
+            self.held[row] = self.held.get(row, 0) + 1
+            self.errs[row] = max(self.errs.get(row, 0.0), e)
+            return got
+
+        return held
+
+    def __enter__(self):
+        for name, (module, attr, plain) in self.targets.items():
+            self.saved[name] = getattr(module, attr)
+            setattr(module, attr, self._wrap(name, self.saved[name], plain))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (module, attr, _) in self.targets.items():
+            setattr(module, attr, self.saved[name])
+
+
+def check_bench_rows(lanes: DryRunLanes, dev, smi: str) -> None:
+    """Phase 12: ``benchmarks/run.py`` on the card, an entry at a time
+    (``run.main(name)``, every launch counter set to 0 before it), each
+    row printed.  (a) Each entry launches exactly the kernels
+    ``BENCH_LAUNCHES`` names; the deterministic fields of each timed row
+    (``bench_fields``) equal those of the same row run on the CPU on the
+    same CPU-drawn weights (the ``BENCH_CPU`` child); ``roofline_summary``
+    reads phase 11's records (``roofline.RESULTS`` pointed there) and
+    counts one cell an ``ok`` single-pod record.  (b) The three rows of
+    the reduced model again, their loops eager, every launch of K1, K2,
+    K4, K6/K7, K8, K9 and K10 at H = 64 held against its plain version
+    (``HeldLaunches``)."""
+    from repro_torch.benchmarks import paper_tables, roofline, run
+
+    t0 = time.perf_counter()
+    print(f"phase 12 on {smi}")
+    child = [r for r in lanes.results if r["module"] == BENCH_CPU[0]]
+    if len(child) != 1 or child[0]["rc"] != 0:
+        raise AssertionError(f"12: the CPU rows' child: {child}")
+    cpu = csv_rows(child[0]["out"])
+    print(f"12: the CPU rows (child, lane {child[0]['lane']}): "
+          f"{child[0]['secs']!r} s")
+    roofline.RESULTS = lanes.out / "dryrun_torch"
+    pod = len(list(roofline.RESULTS.glob("*__pod.json")))
+    timed = dict(run.TIMED)
+    for name in run.all_names():
+        set_counts(0)
+        out = io.StringIO()
+        t_row = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if run.main(name, dev) != 1:
+                raise AssertionError(f"12 {name}: not one entry")
+        secs = time.perf_counter() - t_row
+        (us, derived), = csv_rows(out.getvalue()).values()
+        print(out.getvalue().splitlines()[1])
+        launched = {n: c for n, c in read_counts().items() if c}
+        if set(launched) != set(BENCH_LAUNCHES.get(name, ())):
+            raise AssertionError(f"12 {name}: launched {launched}, want "
+                                 f"{BENCH_LAUNCHES.get(name, ())}")
+        note = ""
+        if name in timed:
+            got = bench_fields(name, derived)
+            want = bench_fields(name, cpu[name][1])
+            if got != want:
+                raise AssertionError(f"12 {name}: card {got}, CPU {want}")
+            note = (f"; {list(got) or 'no fields'} equal to the CPU's "
+                    f"({cpu[name][0]!r} us there)")
+        if name == "roofline_summary" and (
+                derived.get("cells") != pod or derived.get("ok") != pod):
+            raise AssertionError(f"12 roofline_summary: {derived}, want "
+                                 f"{pod} cells, all ok")
+        print(f"12 {name}: {secs!r} s, {us!r} us, launches {launched}"
+              f"{note}")
+    set_counts(0)
+    t_b = time.perf_counter()
+    graph_loop = paper_tables.StreamLoop
+    # eager loops: every launch a Python call that can be held
+    paper_tables.StreamLoop = functools.partial(graph_loop, aot_warmup=False)
+    try:
+        with HeldLaunches() as held:
+            for row in BENCH_REDUCED:
+                getattr(paper_tables, row)(dev)
+    finally:
+        paper_tables.StreamLoop = graph_loop
+    launched = {n: c for n, c in read_counts().items() if c}
+    if held.held != launched:
+        raise AssertionError(f"12b: held {held.held}, launched {launched}")
+    print(f"12b: {BENCH_REDUCED} with eager loops, every launch at H = 64 "
+          f"held against its plain version: {held.held}, largest "
+          f"|kernel - plain| {held.errs} (away from the threshold for "
+          f"K1, K10 and K6/K7); {time.perf_counter() - t_b!r} s")
+    print(f"phase 12: {time.perf_counter() - t0!r} s, on {smi}")
 
 
 # ----------------------------------------------------------------- timing
@@ -6144,7 +6376,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
-    """Phases 1-11, the kernel line and the last line."""
+    """Phases 1-12, the kernel line and the last line."""
     t_script = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -6223,6 +6455,7 @@ def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
         check_distributed(args.seed, dev, smi, Path(tmp))
         print(f"phases 1-10: {time.perf_counter() - t_script!r} s, on {smi}")
         check_dry_run(lanes, dev, smi)
+        check_bench_rows(lanes, dev, smi)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules
