@@ -98,7 +98,15 @@ Phases, each printed on its own line:
      slot's spikes may differ only where the ``ref`` engine's potential
      lies within ``U_RTOL``/``U_ATOL`` of the threshold (those slots are
      counted and printed), and the other slots' logits and potentials
-     must agree within ``LOGIT_ATOL``.  Frames/s, the measured densities,
+     must agree within ``LOGIT_ATOL``.  For ``pallas`` and ``fused float``
+     (``FIRST_FLIP``), whose free-running argmax differed from ``ref``'s,
+     the teacher-forced run covers every frame of all 512 streams (in
+     batches of ``SLOTS``, a slot masked once its stream has ended), and
+     each stream whose argmax differs from ``ref``'s is named with its
+     first flip in a free-running run (``first_flips``: the first frame
+     with a differing spike, L0 before L1, the earliest time step, and
+     ``ref``'s |u - vth| there), which must lie inside the u rule
+     (``check_first_flips``).  Frames/s, the measured densities,
      ``delta_input_density`` and ``mmac_per_second()`` are printed.  The
      chunk axis: ``CompiledRSNN._chunk_step`` over ``MEGA_FRAMES`` frames
      of ``fused`` and ``fused_spike`` equals as many ``step`` calls bit
@@ -466,6 +474,35 @@ version plus one on its counter, ``kernels/ops.py`` ``_plain`` with
 two single-pod records under ``out / "dryrun_torch"``, and calling
 ``check_bench_rows(DryRunLanes(out), torch.device("cpu"), "")`` after
 the lanes' ``join``.
+
+Then phase 13 (``check_loadgen``): ``repro_torch/benchmarks/loadgen.py``
+on the card at ``PRUNED``'s width (``LOADGEN_CFG``: 40 -> 128 -> 128 ->
+1920, TS 2, int4, the FC pruned 2:4), ``SLOTS`` slots, the closed and open
+loops over ``Workload(0, 512 streams of 12-48 frames)``.  (a)
+``loadgen.run_sweep`` over layouts {csc, nm} x backends {jnp, pallas,
+fused, delta, spike} x pipeline depth {0, 2} x chunk {1, ``MEGA_FRAMES``}
+x mesh {1}, 40 cells, ``LOADGEN_SAT_ITERS`` bisection steps and
+``LOADGEN_REPS`` closed-loop repetitions; the document written to
+``results/loadgen_torch/BENCH_1.json`` and validated by the port's
+``trajectory``; each cell's frame latency p50/p95/p99, frames/s, service
+and saturation streams/s, dispatches and host syncs a frame and MMAC/s
+printed.  (b) Each cell launches exactly the kernels
+``LOADGEN_LAUNCHES`` names for its backend and layout (K1, K2 and K4 or
+K5 for ``pallas``; K6 for ``fused``; K8 and K10 for ``delta``; K9, K10
+and K4 or K5 for ``spike``; none for ``jnp``): every counter set to 0
+before ``run_cell`` and read after it, each graph replay crediting its
+launches.  (c) Each (layout, backend) serves the closed-loop workload
+once more through ``build_loop`` + ``run_workload`` in each (depth,
+chunk) loop: each kernel's launches dispatches x (1 for the mega-step,
+else the chunk's frames) x a frame's, the logits bit-equal across the
+four loops and between csc and nm; each backend's largest |d logit| and
+argmax agreement against ``jnp`` printed, not asserted.  Rehearse it on
+the CPU in ~50 s by setting ``LOADGEN_CFG`` to the reference's smoke
+config (20 -> 64 -> 192), ``SLOTS`` to 2, ``LOADGEN_STREAMS`` to (6, 4,
+10), ``LOADGEN_SAT_ITERS`` and ``LOADGEN_REPS`` to 1, every entry of
+``LOADGEN_LAUNCHES`` empty (the plain versions count no launches) and
+``trajectory.RESULTS`` to a scratch directory, and calling
+``check_loadgen(torch.device("cpu"), "")``.
 
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
@@ -1989,16 +2026,15 @@ def compare_free_running(eng, ref_eng, utts, frames: int):
     return flips / total
 
 
-def near_threshold(ref_eng, state, xq, ref_next) -> list[torch.Tensor]:
-    """Per slot, for L0 and L1: whether the ``ref`` engine's step from
-    ``state`` on ``xq`` brings some neuron within ``U_RTOL``/``U_ATOL`` of
-    its threshold at some time step.  Recomputes the step's membrane
-    trace with the engine's own plain operations and checks that its
-    spikes are those of ``ref_next``, the engine's next state."""
+def ref_traces(ref_eng, state, xq, ref_next) -> list[tuple]:
+    """The ``ref`` engine's step from ``state`` on ``xq``, recomputed with
+    its own plain operations: for L0 and L1, (membrane trace (TS, B, H),
+    threshold (H,)).  Checks that the traces' spikes are those of
+    ``ref_next``, the engine's next state."""
     ff, w, lif = ref_eng.ops.ff_matmul, ref_eng._w, ref_eng._lif
     ts, b, h = state.h0.shape[0], xq.shape[0], ref_eng.cfg.hidden_dim
     stim = ff(xq, "l0_wx").unsqueeze(0).expand(ts, b, h)
-    near = []
+    out = []
     for i, (h_prev, lif_prev, s_next) in enumerate(
             ((state.h0, state.lif0, ref_next.h0),
              (state.h1, state.lif1, ref_next.h1))):
@@ -2007,28 +2043,56 @@ def near_threshold(ref_eng, state, xq, ref_next) -> list[torch.Tensor]:
                           lif_prev.u, lif_prev.spike, beta, vth)
         spikes = (trace >= vth).float()
         if not torch.equal(spikes, s_next):
-            raise AssertionError(f"near_threshold: the L{i} trace does not "
+            raise AssertionError(f"ref_traces: the L{i} trace does not "
                                  f"reproduce the ref engine's spikes")
-        near.append(((trace - vth).abs() <= U_ATOL + U_RTOL * vth.abs())
-                    .any(dim=0).any(dim=1))
+        out.append((trace, vth))
         stim = ff(spikes.reshape(ts * b, h), "l1_wx").reshape(ts, b, h)
-    return near
+    return out
 
 
-def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
+def u_limit(vth: torch.Tensor) -> torch.Tensor:
+    """The u rule's band around a threshold: ``U_ATOL + U_RTOL |vth|``."""
+    return U_ATOL + U_RTOL * vth.abs()
+
+
+def near_threshold(ref_eng, state, xq, ref_next) -> list[torch.Tensor]:
+    """Per slot, for L0 and L1: whether the ``ref`` engine's step from
+    ``state`` on ``xq`` brings some neuron within ``U_RTOL``/``U_ATOL`` of
+    its threshold at some time step (``ref_traces``)."""
+    return [((trace - vth).abs() <= u_limit(vth)).any(dim=0).any(dim=1)
+            for trace, vth in ref_traces(ref_eng, state, xq, ref_next)]
+
+
+def padded_frames(utts, frames: int | None) -> tuple[torch.Tensor, np.ndarray]:
+    """The first ``frames`` frames of each utterance (every frame with
+    ``None``) as a (T, B, D) batch, zero past a stream's end, and each
+    stream's frame count in it."""
+    lens = np.array([len(u) if frames is None else min(len(u), frames)
+                     for u in utts])
+    x = np.zeros((int(lens.max()), len(utts), utts[0].shape[1]), np.float32)
+    for i, (u, n) in enumerate(zip(utts, lens)):
+        x[:n, i] = u[:n]
+    return torch.from_numpy(x), lens
+
+
+def teacher_forced(eng, ref_eng, utts, frames: int | None
+                   ) -> tuple[float, int]:
     """Each frame, both engines start from the ref engine's state (a delta
-    engine keeps its own held input and cached pre-activation around it).
-    A slot's spikes may differ only where the ref engine's potential is
-    within tolerance of the threshold (in L0, or in L1 with equal L0
-    spikes); every other slot's logits and u must agree within tolerance.
-    Returns (largest logit difference, slot-frames let through near the
+    engine keeps its own held input and cached pre-activation around it),
+    over the first ``frames`` frames of each utterance, or all of them
+    (``None``); a slot whose stream has ended is masked out.  A slot's
+    spikes may differ only where the ref engine's potential is within
+    tolerance of the threshold (in L0, or in L1 with equal L0 spikes);
+    every other slot's logits and u must agree within tolerance.  Returns
+    (largest logit difference, slot-frames let through near the
     threshold)."""
     b = len(utts)
-    x = torch.from_numpy(np.stack([u[:frames] for u in utts], 1))
+    x, lens = padded_frames(utts, frames)
     state, own = ref_eng.init_state(b), eng.init_state(b)
     worst, let_through = 0.0, 0
-    for t in range(frames):
+    for t in range(x.shape[0]):
         xq = ref_eng.quantize_features(x[t])
+        live = torch.from_numpy(t < lens).to(xq.device)
         own = own._replace(rsnn=state) if hasattr(own, "rsnn") else state
         own, la, _ = eng.step(own, xq)
         sa = core(own)
@@ -2036,13 +2100,13 @@ def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
         near0, near1 = near_threshold(ref_eng, state, xq, sb)
         diff0 = (sa.h0 != sb.h0).any(dim=0).any(dim=1)
         diff1 = (sa.h1 != sb.h1).any(dim=0).any(dim=1)
-        bad = (diff0 & ~near0) | (diff1 & ~diff0 & ~near1)
+        bad = ((diff0 & ~near0) | (diff1 & ~diff0 & ~near1)) & live
         if bool(bad.any()):
             raise AssertionError(
                 f"teacher-forced frame {t}: spikes differ away from the "
                 f"threshold in {int(bad.sum())} of {b} slots")
-        same = ~(diff0 | diff1)
-        let_through += int((~same).sum())
+        same = ~(diff0 | diff1) & live
+        let_through += int(((diff0 | diff1) & live).sum())
         if bool(same.any()):
             d = float((la - lb)[same].abs().max())
             du = max(float((p.u - q.u)[same].abs().max())
@@ -2053,6 +2117,105 @@ def teacher_forced(eng, ref_eng, utts, frames: int) -> tuple[float, int]:
             worst = max(worst, d)
         state = sb
     return worst, let_through
+
+
+class FirstFlip(NamedTuple):
+    """A stream's first spike that differs from ``ref``'s in a
+    free-running run: its frame, layer and time step, the largest |u -
+    vth| of ``ref``'s potential over the neurons that flipped there, and
+    the u rule's band at that neuron."""
+
+    frame: int
+    layer: int
+    ts: int
+    margin: float
+    limit: float
+
+
+def first_flips(eng, ref_eng, utts) -> tuple[np.ndarray, list]:
+    """Both engines free-running, each from its own state, over every frame
+    of ``utts`` (one slot a stream, masked past its end).  Returns each
+    stream's count of frames whose argmax differs from ``ref``'s and its
+    first flip (``FirstFlip``, or None where every spike agreed).  At the
+    first frame with a differing spike the two states' spikes are still
+    equal, so ``ref``'s trace from its own state (``ref_traces``) is that
+    step's; a flip in L0 is taken before one in L1 (L1 reads L0's
+    spikes), and within a layer the earliest time step (a flip resets the
+    potential of the next)."""
+    b = len(utts)
+    x, lens = padded_frames(utts, None)
+    sa, sb = eng.init_state(b), ref_eng.init_state(b)
+    disagree = np.zeros(b, np.int64)
+    flips: list = [None] * b
+    for t in range(x.shape[0]):
+        xq = ref_eng.quantize_features(x[t])
+        live = t < lens
+        na, la, _ = eng.step(sa, xq)
+        nb, lb, _ = ref_eng.step(sb, xq)
+        disagree += live & (la.argmax(1) != lb.argmax(1)).cpu().numpy()
+        pa = core(na)
+        diffs = [(pa.h0 != nb.h0), (pa.h1 != nb.h1)]  # (TS, B, H) each
+        new = live & np.array([f is None for f in flips]) & (
+            (diffs[0] | diffs[1]).any(dim=0).any(dim=1).cpu().numpy())
+        if new.any():
+            traces = ref_traces(ref_eng, core(sb), xq, nb)
+            for i in np.flatnonzero(new):
+                layer = 0 if bool(diffs[0][:, i].any()) else 1
+                d = diffs[layer][:, i]  # (TS, H)
+                ts = int(d.any(dim=1).nonzero()[0, 0])
+                trace, vth = traces[layer]
+                n = d[ts].nonzero()[:, 0]
+                gap = (trace[ts, i, n] - vth[n]).abs()
+                j = int(gap.argmax())
+                flips[i] = FirstFlip(t, layer, ts, float(gap[j]),
+                                     float(u_limit(vth[n][j])))
+        sa, sb = na, nb
+    return disagree, flips
+
+
+def check_first_flips(name: str, eng, ref_eng, utts, logits, ref_logits
+                      ) -> None:
+    """ROADMAP queue 3's argmax flips: ``teacher_forced`` over every frame
+    of every utterance (in batches of ``SLOTS`` streams), then each stream
+    whose served argmax differs from ``ref``'s in phase 4 named with its
+    first flip in a free-running run (``first_flips``).  Every first flip
+    must lie inside the u rule: a flip that does not is a port fault."""
+    t0 = time.perf_counter()
+    worst, near, flips, disagree = 0.0, 0, [], []
+    for k in range(0, len(utts), SLOTS):
+        w, n = teacher_forced(eng, ref_eng, utts[k:k + SLOTS], None)
+        worst, near = max(worst, w), near + n
+        d, f = first_flips(eng, ref_eng, utts[k:k + SLOTS])
+        disagree.append(d)
+        flips += f
+    disagree = np.concatenate(disagree)
+    frames = sum(map(len, utts))
+    served = np.array([int((a.argmax(1) != b.argmax(1)).sum())
+                       for a, b in zip(logits, ref_logits)])
+    print(f"first flips {name}: teacher-forced over all {frames} frames of "
+          f"{len(utts)} streams: max |dlogit| {worst!r}, slot-frames let "
+          f"through near the threshold {near}; argmax differs from ref in "
+          f"{int(served.sum())} served frames of {int((served > 0).sum())} "
+          f"streams, free-running in {int(disagree.sum())} frames of "
+          f"{int((disagree > 0).sum())} streams; streams with a spike flip "
+          f"{sum(f is not None for f in flips)}")
+    outside = []
+    for i in np.flatnonzero((served > 0) | (disagree > 0)):
+        f = flips[i]
+        text = ("no spike flip" if f is None else
+                f"first flip frame {f.frame} L{f.layer} ts {f.ts}: ref |u - "
+                f"vth| {f.margin!r}, u rule {f.limit!r}")
+        print(f"first flips {name} stream {i} ({len(utts[i])} frames, "
+              f"argmax differs in {served[i]} served / {disagree[i]} "
+              f"free-running frames): {text}")
+        if f is None or f.margin > f.limit:
+            outside.append(int(i))
+    if outside:
+        raise AssertionError(f"{name}: streams {outside} flip away from the "
+                             f"threshold (or not at all) where the argmax "
+                             f"differs from ref")
+    print(f"first flips {name}: every first flip within the u rule; "
+          f"{time.perf_counter() - t0!r} s")
 
 
 def device_busy(engine, utts, name: str, **loop_kw) -> None:
@@ -2151,6 +2314,11 @@ LAYOUT_PARITY = {
 }
 
 
+# ROADMAP queue 3's configurations whose free-running argmax differs from
+# ref's: every frame teacher-forced and each first flip named
+FIRST_FLIP = ("pallas", "fused float")
+
+
 def serve_counted(name: str, path, art, fields: dict, per_step: dict, utts,
                   launches: dict):
     """Serve ``utts`` once through an engine over ``path`` with ``fields``;
@@ -2213,6 +2381,8 @@ def serve_all(paths: dict, arts: dict, utts) -> tuple[dict, dict]:
             tf, tf_near = teacher_forced(eng, ref, utts[:SLOTS], 16)
             forced_text = (f"max |dlogit| {tf!r}, slot-frames let through "
                            f"near the threshold {tf_near}")
+        if name in FIRST_FLIP:
+            check_first_flips(name, eng, ref, utts, logits, ref_logits)
         prof = loop.sparsity_profile()
         print(f"serve {name}: {len(utts)} streams, {loop.steps} steps, "
               f"{loop.frames_served} frames in {secs!r} s = "
@@ -5830,6 +6000,176 @@ def check_bench_rows(lanes: DryRunLanes, dev, smi: str) -> None:
     print(f"phase 12: {time.perf_counter() - t0!r} s, on {smi}")
 
 
+# Phase 13: the load generator's sweep at PRUNED's width, every backend of
+# the reference's sweep over both layouts of the 2:4 FC
+LOADGEN_CFG = RSNNConfig(hidden_dim=128, fc_dim=1920)
+LOADGEN_LAYOUTS = ("csc", "nm")
+LOADGEN_BACKENDS = ("jnp", "pallas", "fused", "delta", "spike")
+LOADGEN_DEPTHS = (0, 2)
+LOADGEN_CHUNKS = (1, MEGA_FRAMES)
+LOADGEN_STREAMS = (512, 12, 48)  # streams, their fewest and most frames
+LOADGEN_SAT_ITERS = 2
+# closed-loop repetitions a cell (the fastest kept): 2, not run_cell's 3,
+# to hold the phase near 150 s on a slow host (159.6 s at 3); the
+# saturation search never bisects here (512 streams cannot pass the
+# backlog bound of 512), so LOADGEN_SAT_ITERS costs nothing
+LOADGEN_REPS = 2
+# launches of each kernel a frame (the mega-step's: a dispatch), by
+# (backend, layout): ``sparse_fc`` routes the FC to K4 or K5
+LOADGEN_LAUNCHES = {
+    **{("jnp", lay): {} for lay in LOADGEN_LAYOUTS},
+    **{("fused", lay): {"megastep": 1} for lay in LOADGEN_LAYOUTS},
+    **{("delta", lay): {"spike_cell": 2, "delta_step": 1}
+       for lay in LOADGEN_LAYOUTS},
+    ("pallas", "csc"): {"rsnn_cell": 2, "int4_matmul": 2, "sparse_fc": 1},
+    ("pallas", "nm"): {"rsnn_cell": 2, "int4_matmul": 2, "nm_fc": 1},
+    ("spike", "csc"): {"spike_cell": 2, "spike_broadcast": 1,
+                       "sparse_fc": 1},
+    ("spike", "nm"): {"spike_cell": 2, "spike_broadcast": 1, "nm_fc": 1},
+}
+
+
+def loadgen_workload():
+    from repro_torch.benchmarks import loadgen
+
+    streams, lo, hi = LOADGEN_STREAMS
+    return loadgen.Workload(seed=0, num_streams=streams, min_frames=lo,
+                            max_frames=hi)
+
+
+def loadgen_sweep(dev, smi: str) -> dict:
+    """13a-b: ``loadgen.run_sweep`` over every cell on ``dev`` at
+    ``SLOTS`` slots, the document written to ``results/loadgen_torch/`` and
+    validated by the port's ``trajectory``; each cell's kernels (every
+    counter set to 0 before ``run_cell``, read after it: warm-up, the
+    closed and open runs and the saturation probes, each step a graph
+    replay that credits its launches) exactly ``LOADGEN_LAUNCHES``'."""
+    from repro_torch.benchmarks import loadgen, trajectory
+
+    launched = []
+    cell = loadgen.run_cell
+
+    def counted(engine, layout, backend, *args, **kw):
+        set_counts(0)
+        out = cell(engine, layout, backend, *args, **kw)
+        got = {n: c for n, c in read_counts().items() if c}
+        want = LOADGEN_LAUNCHES[backend, layout]
+        if set(got) != set(want):
+            raise AssertionError(f"13b {out['key']}: launched {got}, want "
+                                 f"{sorted(want)}")
+        launched.append((out["key"], got))
+        return out
+
+    loadgen.run_cell = counted
+    try:
+        doc = loadgen.run_sweep(
+            LOADGEN_CFG, [SLOTS], LOADGEN_DEPTHS, LOADGEN_LAYOUTS, [1],
+            loadgen_workload(), LOADGEN_SAT_ITERS, backends=LOADGEN_BACKENDS,
+            chunks=LOADGEN_CHUNKS, device=dev, latency_reps=LOADGEN_REPS)
+    finally:
+        loadgen.run_cell = cell
+    out = trajectory.RESULTS / f"BENCH_{loadgen.BENCH_INDEX}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(doc, indent=2) + "\n")
+    doc = trajectory.load_doc(out)  # raises on a schema error
+    want = (len(LOADGEN_LAYOUTS) * len(LOADGEN_BACKENDS)
+            * len(LOADGEN_DEPTHS) * len(LOADGEN_CHUNKS))
+    if len(doc["cells"]) != want:
+        raise AssertionError(f"13a: {len(doc['cells'])} cells, want {want}")
+    print(f"13a: {len(doc['cells'])} cells written to {out} and validated; "
+          f"machine {doc['machine']}")
+    for c, (key, got) in zip(doc["cells"], launched):
+        f = c["frame_latency_us"]
+        print(f"13a {key}: frame p50/p95/p99 {f['p50']!r}/{f['p95']!r}/"
+              f"{f['p99']!r} us, {c['throughput_frames_per_s']!r} frames/s, "
+              f"service {c['service_streams_per_s']!r} / saturation "
+              f"{c['saturation_streams_per_s']!r} streams/s, dispatches "
+              f"{c['dispatches_per_frame']!r} / host syncs "
+              f"{c['host_syncs_per_frame']!r} a frame, "
+              f"{c['measured_mmac_per_s']!r} MMAC/s; open-loop completion "
+              f"p50/p99 {c['stream_completion_ms']['p50']!r}/"
+              f"{c['stream_completion_ms']['p99']!r} ms; launches {got}")
+    return doc
+
+
+def loadgen_logits(dev) -> dict:
+    """13c: each (layout, backend) engine serves the closed-loop workload
+    once more through ``build_loop`` + ``run_workload`` in every (depth,
+    chunk) loop: each kernel's launches exactly dispatches x (1 for the
+    mega-step, else the chunk's frames) x its launches a frame, and the
+    per-stream logits bit-equal across the loops.  Returns the logits of
+    each (layout, backend)."""
+    from repro_torch.benchmarks import loadgen
+
+    wl = loadgen_workload()
+    logits = {}
+    for layout in LOADGEN_LAYOUTS:
+        for backend in LOADGEN_BACKENDS:
+            engine = loadgen.build_engine(LOADGEN_CFG, layout,
+                                          backend=backend, device=dev)
+            per_frame = LOADGEN_LAUNCHES[backend, layout]
+            runs = {}
+            for depth in LOADGEN_DEPTHS:
+                for chunk in LOADGEN_CHUNKS:
+                    loop = loadgen.build_loop(engine, SLOTS, depth, 1,
+                                              wl.max_frames, chunk)
+                    set_counts(0)
+                    res = loadgen.run_workload(loop, wl)
+                    a_dispatch = 1 if backend == "fused" else chunk
+                    got = {n: c for n, c in read_counts().items() if c}
+                    want = {n: loop.dispatches * a_dispatch * k
+                            for n, k in per_frame.items()}
+                    if got != want:
+                        raise AssertionError(
+                            f"13c {layout} {backend} depth {depth} chunk "
+                            f"{chunk}: launched {got}, want {want}")
+                    done = sorted(loop.finished, key=lambda r: r.sid)
+                    if res.streams != wl.num_streams or loop.pending_steps:
+                        raise AssertionError(f"13c {layout} {backend}: "
+                                             f"{res.streams} streams done, "
+                                             f"{loop.pending_steps} steps "
+                                             f"in flight")
+                    runs[depth, chunk] = [r.stacked_logits() for r in done]
+            first, *rest = runs.values()
+            for key, lg in runs.items():
+                if not all(np.array_equal(a, b) for a, b in zip(lg, first)):
+                    raise AssertionError(f"13c {layout} {backend}: loop "
+                                         f"{key} logits differ")
+            logits[layout, backend] = first
+    for backend in LOADGEN_BACKENDS:
+        csc, nm = (logits[lay, backend] for lay in LOADGEN_LAYOUTS)
+        if not all(np.array_equal(a, b) for a, b in zip(csc, nm)):
+            raise AssertionError(f"13c {backend}: csc and nm logits differ")
+    loops = len(LOADGEN_DEPTHS) * len(LOADGEN_CHUNKS)
+    print(f"13c: logits bit-equal over the {loops} loops (depth x chunk) of "
+          f"every backend and layout, and between csc and nm within every "
+          f"backend; launches dispatches x a dispatch's in every loop")
+    return logits
+
+
+def check_loadgen(dev, smi: str) -> None:
+    """Phase 13: ``repro_torch/benchmarks/loadgen.py`` on the card
+    (``loadgen_sweep``, ``loadgen_logits``), then each backend's logits
+    against ``jnp``'s over the same workload (largest |d logit| and
+    argmax agreement, printed, not asserted: only ``jnp`` runs no
+    kernel)."""
+    t0 = time.perf_counter()
+    print(f"phase 13 on {smi}")
+    loadgen_sweep(dev, smi)
+    t_c = time.perf_counter()
+    print(f"13a-b: {t_c - t0!r} s")
+    logits = loadgen_logits(dev)
+    print(f"13c: {time.perf_counter() - t_c!r} s")
+    for backend in LOADGEN_BACKENDS[1:]:
+        got = np.concatenate(logits["csc", backend])
+        base = np.concatenate(logits["csc", "jnp"])
+        print(f"13c {backend} against jnp on {dev} over "
+              f"{len(got)} frames: max |d logit| "
+              f"{float(np.abs(got - base).max())!r}, argmax agreement "
+              f"{float(np.mean(got.argmax(1) == base.argmax(1)))!r}")
+    print(f"phase 13: {time.perf_counter() - t0!r} s, on {smi}")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -6376,7 +6716,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
-    """Phases 1-12, the kernel line and the last line."""
+    """Phases 1-13, the kernel line and the last line."""
     t_script = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -6456,6 +6796,7 @@ def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
         print(f"phases 1-10: {time.perf_counter() - t_script!r} s, on {smi}")
         check_dry_run(lanes, dev, smi)
         check_bench_rows(lanes, dev, smi)
+        check_loadgen(dev, smi)
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

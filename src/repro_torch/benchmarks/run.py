@@ -11,6 +11,9 @@ the kernels its docstring names through ``kernels/ops.py``.  The analytic
 tables read ``paper_tables.RESULTS``; ``roofline_summary`` reads the dry
 run's records (``benchmarks/roofline.py`` ``RESULTS``).
 
+For persisted latency/throughput trajectories (rather than one-off CSV
+rows), see ``loadgen.py`` / ``trajectory.py`` beside this module.
+
   python -m repro_torch.benchmarks.run [--only SUBSTR] [--list] \\
       [--device cuda|cpu]
 """
