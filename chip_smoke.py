@@ -504,6 +504,39 @@ config (20 -> 64 -> 192), ``SLOTS`` to 2, ``LOADGEN_STREAMS`` to (6, 4,
 ``trajectory.RESULTS`` to a scratch directory, and calling
 ``check_loadgen(torch.device("cpu"), "")``.
 
+Then phase 14 (``check_spmd``): the token-LM train step SPMD over a
+``("data", "model")`` mesh of ranks (``launch/steps.py`` on DTensor
+leaves), plain PyTorch, every launch counter 0.  (b) starts first, a CPU
+child (``SpmdRanks``) of ``SPMD_RANKS`` gloo ranks (``SPMD_CHILD``: one
+``sys.executable -c`` process a rank over a ``FileStore``, no GPU, one
+``torch`` thread, pinned to the last cores while this process keeps the
+others, each exiting non-zero if it imported JAX or the JAX package):
+each arch of ``SPMD_CHILD_ARCHS`` at ``reduce_config`` placed on a
+``SPMD_MESH`` mesh of ranks, ``SPMD_STEPS`` donated AdamW steps against
+the one-device step, losses and grad norms within ``SPMD_LOSS_TOL``,
+parameters within ``SPMD_PARAM_TOL`` x lr, every parameter and AdamW leaf
+placed by its spec, rank 0's resident bytes its ``with_shardings`` blocks
+and fewer than the whole tree's; for zamba2 (its ``groups`` leaves split
+on their inner layer axis) one gathered layer alive at a time in a
+``loss_and_grads`` with remat "full", more with none.  (a) On the card, a
+one-rank
+``SPMD_BACKEND`` (NCCL) group from a ``HashStore`` and its (1, 1) mesh of
+ranks (``spmd_world``): 8a's gemma2-2b (published widths, bf16, remat
+"full", AdamW) for ``SPMD_STEPS`` steps plain, then sharded
+(``place_state`` on the mesh: DTensors even on one rank, where
+``reshard_state`` keeps the plain leaves; ``make_train_step``), the
+losses, grad
+norms and every leaf bit-equal, every leaf placed by its spec; one more
+step of each profiled (busy share); then at ``SPMD_TRAINER_LAYERS``
+layers, plain and through the ``Trainer`` (its checkpoint gathered and
+written by rank 0), bit-equal.  Seconds a step, seconds in all and
+``max_memory_allocated`` of each run printed.  Rehearse it on the CPU in
+~60 s: ``SPMD_GEMMA2`` set to gemma2-2b's ``reduce_config`` in bf16 with
+remat "full", ``GEMMA2_TRAIN_BATCH`` / ``GEMMA2_TRAIN_SEQ`` to 2 / 16,
+``SPMD_BACKEND`` to ``"gloo"`` (with ``GLOO_SOCKET_IFNAME=lo``), one
+``torch`` thread, ``torch.cuda.synchronize`` a no-op, then
+``check_spmd(0, torch.device("cpu"), "", tmp)``.
+
 Then the kernel JSON line, and last ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 2; with ``--sweep-tiles`` it first
 times every tile plan of K6/K7 (``sweep_megastep``), K1, K10, K8, K5, K9,
@@ -5198,8 +5231,10 @@ def train_losses(out: Path) -> dict:
 
 def check_train_main(dev, smi: str, tmp: Path) -> None:
     """Phase 10b (second half): ``launch/train.py`` ``main`` on the card
-    (its host mesh, specs and ``reshard_state``), losses and final state
-    bit-equal to a direct ``Trainer`` run of the same seed without them."""
+    (a world of one NCCL rank: its host mesh of ranks, specs and
+    ``reshard_state``, which keeps one rank's leaves plain), losses and
+    final state bit-equal to a direct ``Trainer`` run of the same seed
+    without them."""
     from repro_torch.data.synthetic import LMDataConfig, MarkovLMStream
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as steps_lib
@@ -5225,9 +5260,9 @@ def check_train_main(dev, smi: str, tmp: Path) -> None:
                                    decay_steps=MAIN_STEPS)
     stream = MarkovLMStream(LMDataConfig(vocab_size=cfg.vocab_size))
 
-    def init_state():
-        params = api.init(torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
+    def init_state():  # main's draw: the CPU generator, then the card
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
+        params = tree_map(lambda t: t.to(dev), params)
         return {"params": params, "opt": opt_lib.init_opt_state(params, ocfg)}
 
     tcfg = TrainerConfig(total_steps=MAIN_STEPS, log_every=1, ckpt_every=10,
@@ -5243,9 +5278,10 @@ def check_train_main(dev, smi: str, tmp: Path) -> None:
     if not got_l or any(got_l[s] != want_l[s] for s in got_l):
         raise AssertionError(f"launch/train.py main: losses {got_l}, direct "
                              f"Trainer {want_l}")
+    # main's state on its (1, 1) mesh of one rank: the plain leaves
     differ = [p for (p, a), b in zip(tree_leaves_with_path(got["state"]),
                                      tree_leaves(want["state"]), strict=True)
-              if not torch.equal(a, b)]
+              if type(a) is not torch.Tensor or not torch.equal(a, b)]
     if differ:
         raise AssertionError(f"launch/train.py main: final state differs from "
                              f"the direct Trainer's at {differ}")
@@ -6170,6 +6206,416 @@ def check_loadgen(dev, smi: str) -> None:
     print(f"phase 13: {time.perf_counter() - t0!r} s, on {smi}")
 
 
+# ------------------------------------ the sharded LM train step (phase 14)
+
+# phase 14a: 8a's gemma2-2b step (published widths, bf16, remat "full",
+# AdamW) on a (1, 1) mesh of ranks over one NCCL rank (a HashStore group):
+# SPMD_STEPS steps plain, then sharded (DTensor leaves) through
+# make_train_step, from the same seeded init; then the same at
+# SPMD_TRAINER_LAYERS layers, plain and sharded through the Trainer
+SPMD_GEMMA2 = TRAIN_GEMMA2
+SPMD_STEPS = 2
+SPMD_BACKEND = "nccl"
+# the Trainer's run cut in depth to SPMD_TRAINER_LAYERS (published widths):
+# its final checkpoint gathers every leaf to the host and writes it, 26 GB
+# and ~50 s at full depth
+SPMD_TRAINER_LAYERS = 2
+# phase 14b: one CPU child of SPMD_RANKS gloo ranks, the reduced archs
+# SPMD_CHILD_ARCHS each on a (2, 2) mesh of ranks: SPMD_STEPS sharded AdamW
+# steps against the one-device step (losses and grad norms within
+# SPMD_LOSS_TOL, parameters within SPMD_PARAM_TOL x lr: an AdamW step
+# divides each gradient element by its running magnitude, so an element
+# whose gradient is near zero moves by up to lr whatever its rounding)
+SPMD_RANKS, SPMD_MESH = 4, (2, 2)
+SPMD_CHILD_ARCHS = ("deepseek-v3-671b", "xlstm-350m", "zamba2-7b")
+SPMD_LOSS_TOL, SPMD_PARAM_TOL, SPMD_LR = 1e-5, 0.1, 3e-4
+SPMD_CHILD_TIMEOUT = 600
+# one rank of the child: argv[1] the rank, argv[2] the FileStore's path,
+# argv[3] a JSON [archs, mesh shape, steps, lr, loss tol, param tol],
+# argv[4] the cores to run on (JSON, null: any); rank
+# 0 prints one JSON line of results; every rank exits non-zero if it
+# imported JAX or the JAX package
+SPMD_CHILD = r'''
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import os
+rank, store = int(sys.argv[1]), sys.argv[2]
+archs, shape, steps, lr, loss_tol, param_tol = json.loads(sys.argv[3])
+if json.loads(sys.argv[4]) is not None:
+    os.sched_setaffinity(0, json.loads(sys.argv[4]))
+world = int(np.prod(shape))
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_rank_mesh
+from repro_torch.models import registry
+from repro_torch.runtime.elastic import reshard_state
+from repro_torch.training import optimizer as opt_lib
+
+mesh = make_rank_mesh(tuple(shape), ("data", "model"), "cpu")
+shd.set_activation_axes(mesh)
+
+
+def gathered(arch, batch):
+    """The most bytes of gathered layers alive at once (at each gather)
+    in one sharded loss_and_grads with remat "full" and with none, and
+    one gathered layer's bytes (the groups leaves split on their inner
+    layer axis)."""
+    import dataclasses
+    from torch.distributed.tensor import Shard
+    from repro_torch.core import tree
+    from repro_torch.core.tree import tree_leaves_with_path
+    real, res = tree._gather_layer, {}
+    for remat in ("full", "none"):
+        cfg = dataclasses.replace(registry.reduce_config(
+            registry.get_model(arch).cfg), remat=remat)
+        api = registry.get_model(arch, cfg)
+        (placed,) = reshard_state(api.init(torch.Generator().manual_seed(0),
+                                           device="cpu"), mesh)
+        held, most = [], [0]
+
+        def tracked(t, i):
+            got = real(t, i)
+            held.append(got.to_local().untyped_storage())
+            most[0] = max(most[0], sum(
+                s.nbytes() for s in held
+                if torch._C._storage_Use_Count(s._cdata) > 1))
+            return got
+
+        tree._gather_layer = tracked
+        try:
+            steps_lib.loss_and_grads(api, placed, batch)
+        finally:
+            tree._gather_layer = real
+        res[remat] = most[0]
+    res["layer"] = sum(
+        t.numel() // (t.shape[0] * t.shape[1]) * t.element_size()
+        for p, t in tree_leaves_with_path(placed)
+        if p.startswith("['groups']") and Shard(1) in t.placements)
+    return res
+
+
+out = {}
+for arch in archs:
+    cfg = registry.reduce_config(registry.get_model(arch).cfg)
+    api = registry.get_model(arch, cfg)
+    ocfg = opt_lib.OptimizerConfig(name="adamw", lr=lr, warmup_steps=1,
+                                   decay_steps=10)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (8, 16)).astype(np.int32))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(8, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    step = steps_lib.make_train_step(api, ocfg, donate=True)
+    runs = {}
+    for kind in ("plain", "sharded"):
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
+        if kind == "sharded":
+            pspecs = shd.tree_param_specs(params, mesh)
+            ospecs = opt_lib.state_specs(pspecs, params, ocfg)
+            (params,) = reshard_state(params, mesh)
+        state = {"params": params, "opt": opt_lib.init_opt_state(params,
+                                                                  ocfg)}
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[kind] = (state, metrics, time.perf_counter() - t0)
+    (plain, pm, tp), (sh, sm, ts) = runs["plain"], runs["sharded"]
+    dparam = max(float((a.full_tensor() - b).abs().max()) for a, b in zip(
+        tree_leaves(sh["params"]), tree_leaves(plain["params"])))
+    got = [shd.placements_spec(t.placements, mesh.axis_names, t.dim())
+           for t in tree_leaves(sh)]
+    want = tree_leaves({"params": pspecs, "opt": ospecs})
+    blocks = shd.with_shardings(sh, {"params": pspecs, "opt": ospecs}, mesh)
+    local = sum(t.to_local().nbytes for t in tree_leaves(sh))
+    out[arch] = {
+        "losses": [l for l, _ in sm], "plain_losses": [l for l, _ in pm],
+        "dloss": max(abs(a[0] - b[0]) for a, b in zip(sm, pm)),
+        "dgrad_norm": max(abs(a[1] - b[1]) for a, b in zip(sm, pm)),
+        "dparam": dparam, "param_bound": param_tol * lr,
+        "placed_by_specs": [tuple(a) for a in got] == [tuple(b) for b in want],
+        "local_bytes": local,
+        "block_bytes": sum(s.block_bytes for s in tree_leaves(blocks)),
+        "global_bytes": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(sh)),
+        "sharded_s": ts, "plain_s": tp}
+    if arch == "zamba2-7b":
+        out[arch]["gathered"] = gathered(arch, batch)
+dist.destroy_process_group()
+bad = [m for m in sys.modules if m in ("jax", "repro")
+       or m.startswith(("jax.", "repro."))]
+if rank == 0:
+    print(json.dumps(out))
+sys.exit(3 if bad else 0)
+'''
+
+
+class SpmdRanks:
+    """Phase 14b's child: ``SPMD_RANKS`` gloo ranks of ``SPMD_CHILD`` on
+    the CPU (no GPU, one ``torch`` thread each, loopback only), pinned to
+    the last cores while this process keeps the others (as
+    ``DryRunLanes``); ``join`` waits for them (killing them at
+    ``SPMD_CHILD_TIMEOUT``) and restores this process's cores."""
+
+    def __init__(self, tmp: Path):
+        self.cores = sorted(os.sched_getaffinity(0))
+        self.threads_before = torch.get_num_threads()
+        own = len(self.cores) - SPMD_RANKS >= 2
+        env = dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src"), CUDA_VISIBLE_DEVICES="",
+            OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+            GLOO_SOCKET_IFNAME="lo")
+        arg = json.dumps([list(SPMD_CHILD_ARCHS), list(SPMD_MESH),
+                          SPMD_STEPS, SPMD_LR, SPMD_LOSS_TOL,
+                          SPMD_PARAM_TOL])
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for r in range(SPMD_RANKS):
+            cores = [self.cores[-1 - r]] if own else None
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", SPMD_CHILD, str(r),
+                 str(tmp / "spmd_store"), arg, json.dumps(cores)], env=env,
+                text=True, cwd=tmp, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+        if own:
+            keep = self.cores[:len(self.cores) - SPMD_RANKS]
+            pin_process(keep)
+            torch.set_num_threads(len(keep))
+
+    def join(self) -> tuple[dict, float]:
+        try:
+            outs = [p.communicate(timeout=SPMD_CHILD_TIMEOUT)
+                    for p in self.procs]
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            pin_process(set(self.cores))
+            torch.set_num_threads(self.threads_before)
+        secs = time.perf_counter() - self.t0
+        for r, (p, (_, err)) in enumerate(zip(self.procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"phase 14b rank {r} exited "
+                                     f"{p.returncode} (3: it imported JAX "
+                                     f"or the JAX package): {err[-3000:]}")
+        return json.loads(outs[0][0].strip().splitlines()[-1]), secs
+
+
+def spmd_world(dev):
+    """A one-rank ``SPMD_BACKEND`` process group from a ``HashStore`` (no
+    network) and its (1, 1) mesh of ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(SPMD_BACKEND, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return make_rank_mesh((1, 1), ("data", "model"), dev.type)
+
+
+def spmd_run(kind: str, cfg, ocfg, mesh, seed: int, dev, tmp: Path):
+    """``SPMD_STEPS`` steps of 8a's batches from 8a's seeded init of
+    ``cfg``: ``plain`` (tensors through ``make_train_step``), ``sharded``
+    (``place_state`` on ``mesh``, then ``make_train_step``) or
+    ``trainer`` (the sharded state through a ``Trainer`` in ``tmp``, which
+    checkpoints at the end).  Returns (state, the step function, [losses,
+    grad norms, seconds a step, peak bytes, seconds in all])."""
+    from repro_torch.data.pipeline import PrefetchIterator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import registry
+    from repro_torch.distributed.sharding import tree_param_specs
+    from repro_torch.runtime.elastic import place_state
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    api = registry.get_model(cfg.name, cfg)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def init_state():
+        params = api.init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        if kind != "plain":
+            params = place_state(params, mesh,
+                                 tree_param_specs(params, mesh))
+        return {"params": params, "opt": opt_lib.init_opt_state(params,
+                                                                 ocfg)}
+
+    def make_batch(i: int) -> dict:
+        return lm_batch(cfg, GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, seed, i)
+
+    step = make_train_step(api, ocfg, donate=True)
+    t0 = time.perf_counter()
+    if kind == "trainer":
+        tcfg = TrainerConfig(total_steps=SPMD_STEPS, log_every=1,
+                             ckpt_every=SPMD_STEPS + 1, out_dir=str(tmp),
+                             resume=False)
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = Trainer(tcfg, step, init_state, make_batch,
+                            device=dev).run()["state"]
+        recs = [json.loads(ln) for ln in
+                (tmp / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in recs]
+        norms = [r["grad_norm"] for r in recs]
+        secs = [r["sec_per_step"] for r in recs]
+    else:
+        state = init_state()
+        data = PrefetchIterator(make_batch, device=dev)
+        try:
+            state, losses, norms, ms = train_steps(
+                step, state, itertools.islice(data, SPMD_STEPS), dev)
+        finally:
+            data.close()
+        secs = [t / 1e3 for t in ms]
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    return state, step, [losses, norms, secs, peak, total]
+
+
+def spmd_placed(state, mesh, ocfg) -> tuple[list[str], int, int]:
+    """The leaves of a sharded state whose placements are not their
+    spec's (``tree_param_specs``, ``state_specs``), this rank's resident
+    bytes and its ``with_shardings`` block bytes."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training import optimizer as opt_lib
+
+    pspecs = shd.tree_param_specs(state["params"], mesh)
+    specs = {"params": pspecs, "opt": opt_lib.state_specs(
+        pspecs, state["params"], ocfg)}
+    wrong = [p for (p, t), spec in zip(tree_leaves_with_path(state),
+                                       tree_leaves(specs), strict=True)
+             if tuple(shd.placements_spec(t.placements, mesh.axis_names,
+                                          t.dim())) != tuple(spec)]
+    blocks = shd.with_shardings(state, specs, mesh)
+    return (wrong, sum(t.to_local().nbytes for t in tree_leaves(state)),
+            sum(s.block_bytes for s in tree_leaves(blocks)))
+
+
+def spmd_against(kind: str, state, plain, runs: dict, mesh, ocfg) -> None:
+    """A sharded run's state and metrics against the plain run's, bit for
+    bit, and its leaves placed by their specs."""
+    wrong, local, block = spmd_placed(state, mesh, ocfg)
+    if wrong or local != block:
+        raise AssertionError(f"phase 14a {kind}: leaves placed off their "
+                             f"specs {wrong[:5]}, {local} B resident "
+                             f"against {block} B of blocks")
+    differ = [p for (p, a), b in zip(tree_leaves_with_path(state),
+                                     tree_leaves(plain), strict=True)
+              if not torch.equal(a.to_local(), b)]
+    want = runs["plain" if kind == "sharded" else "plain cut"][:2]
+    if differ or runs[kind][:2] != want:
+        raise AssertionError(f"phase 14a {kind}: losses and grad norms "
+                             f"{runs[kind][:2]} against the plain step's "
+                             f"{want}; leaves differ: {differ[:5]}")
+
+
+def check_spmd(seed: int, dev, smi: str, tmp: Path) -> None:
+    """Phase 14: the sharded token-LM train step; plain PyTorch on
+    DTensors, no kernel launched.  (b) starts first and runs beside (a)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    t0 = time.perf_counter()
+    print(f"phase 14 on {smi}")
+    set_counts(0)
+    ranks = SpmdRanks(tmp)
+    try:
+        cfg = SPMD_GEMMA2
+        cut = dataclasses.replace(cfg, num_layers=SPMD_TRAINER_LAYERS)
+        ocfg = OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR,
+                               warmup_steps=max(SPMD_STEPS // 20, 2),
+                               decay_steps=SPMD_STEPS)
+        batch = on(dev, lm_batch(cfg, GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ,
+                                 seed, SPMD_STEPS))
+        mesh = spmd_world(dev)
+        runs, profiles = {}, {}
+        try:
+            # the plain final state stays on the card beside each sharded
+            # run (8a's peak plus one state: ~77 of the card's 85 GB)
+            plain, plain_step, runs["plain"] = spmd_run(
+                "plain", cfg, ocfg, mesh, seed, dev, tmp)
+            state, step, runs["sharded"] = spmd_run(
+                "sharded", cfg, ocfg, mesh, seed, dev, tmp)
+            spmd_against("sharded", state, plain, runs, mesh, ocfg)
+            state, profiles["sharded"] = profile_step(step, state, batch,
+                                                      dev)
+            del state
+            _, profiles["plain"] = profile_step(plain_step, plain, batch,
+                                                dev)
+            del plain, _
+            plain, _, runs["plain cut"] = spmd_run("plain", cut, ocfg, mesh,
+                                                   seed, dev, tmp)
+            out = tmp / "spmd_trainer"
+            state, _, runs["trainer"] = spmd_run("trainer", cut, ocfg, mesh,
+                                                 seed, dev, out)
+            spmd_against("trainer", state, plain, runs, mesh, ocfg)
+            del state, plain
+            shutil.rmtree(out, ignore_errors=True)
+        finally:
+            dist.destroy_process_group()
+        for kind, (losses, norms, secs, peak, total) in runs.items():
+            shown = cut if kind in ("plain cut", "trainer") else cfg
+            print(f"spmd: {describe(shown)}, remat {cfg.remat}, {ocfg.name}, {SPMD_STEPS} steps of "
+                  f"{GEMMA2_TRAIN_BATCH} x {GEMMA2_TRAIN_SEQ} tokens, {kind}"
+                  + ("" if kind.startswith("plain") else
+                     f" on a (1, 1) mesh of one {SPMD_BACKEND} rank") +
+                  f": loss {losses!r}, grad_norm {norms!r}, {secs!r} s a "
+                  f"step, {total!r} s in all, max_memory_allocated "
+                  f"{peak!r} B, on {smi}")
+        for kind, prof in profiles.items():
+            print(f"spmd: {kind} {prof}, on {smi}")
+        print("spmd: the sharded step bit-equal to the plain one over "
+              f"{SPMD_STEPS} steps at full depth, and the Trainer's run at "
+              f"{SPMD_TRAINER_LAYERS} layers (checkpoint included) to the "
+              "plain step at that depth: losses, grad norms and every "
+              "parameter and AdamW leaf; every leaf placed by its spec, "
+              "resident bytes its with_shardings blocks")
+    finally:
+        results, child_secs = ranks.join()
+    for arch, r in results.items():
+        if not (r["dloss"] <= SPMD_LOSS_TOL and r["dgrad_norm"]
+                <= SPMD_LOSS_TOL * max(1.0, max(r["plain_losses"]))
+                and r["dparam"] <= r["param_bound"] and r["placed_by_specs"]
+                and r["local_bytes"] == r["block_bytes"]
+                < r["global_bytes"]):
+            raise AssertionError(f"phase 14b {arch}: {r}")
+        g = r.get("gathered")
+        if g and not 0 < g["layer"] == g["full"] < g["none"]:
+            raise AssertionError(f"phase 14b {arch}: gathered layers alive "
+                                 f"at once {g}, not one with remat")
+        print(f"spmd ranks: {arch} (reduced) on a {SPMD_MESH} mesh of "
+              f"{SPMD_RANKS} gloo ranks on the CPU, {SPMD_STEPS} AdamW "
+              f"steps: losses {r['losses']!r} (one device "
+              f"{r['plain_losses']!r}), |d loss| {r['dloss']!r}, |d "
+              f"grad_norm| {r['dgrad_norm']!r}, |d param| {r['dparam']!r} "
+              f"(bound {r['param_bound']!r}); placed by the specs, rank 0 "
+              f"{r['local_bytes']!r} of {r['global_bytes']!r} B; sharded "
+              f"{r['sharded_s']!r} s, one device {r['plain_s']!r} s"
+              + (f"; gathered layers alive at once, rank 0: {g['full']!r} B"
+                 f" with remat \"full\" (one layer {g['layer']!r} B), "
+                 f"{g['none']!r} B with none" if g else ""))
+    expect_launches("phase 14", dev, {})
+    print(f"phase 14: {time.perf_counter() - t0!r} s (14b's child "
+          f"{child_secs!r} s beside 14a); no kernel launched, on {smi}")
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -6716,7 +7162,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
-    """Phases 1-13, the kernel line and the last line."""
+    """Phases 1-14, the kernel line and the last line."""
     t_script = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -6797,6 +7243,7 @@ def run_phases(args, dev, smi: str, lanes: DryRunLanes | None) -> int:
         check_dry_run(lanes, dev, smi)
         check_bench_rows(lanes, dev, smi)
         check_loadgen(dev, smi)
+        check_spmd(args.seed, dev, smi, Path(tmp))
         rows = time_kernels(packs, floats, dev, args.seed, launches, errs)
 
     leaked = [m for m in sys.modules

@@ -3,8 +3,8 @@ collection, in the reference's on-disk layout.
 
 Layout: <dir>/step_<n>/
   manifest.json          — ``step``, ``leaves`` (flattened key -> {shape,
-                           dtype}), ``process_count``
-  shard_<process>.npz    — this process's leaves
+                           dtype}), ``process_count`` (1: one writer)
+  shard_0.npz            — every leaf, whole
 
 A tree is a nest of dicts, tuples and ``NamedTuple``s (``LIFParams``)
 over tensors, numpy arrays or Python numbers.  Leaves are keyed as
@@ -18,6 +18,17 @@ checkpoint whole.  ``restore`` puts each leaf on its template leaf's device
 with its dtype; ``restore_into`` copies each leaf into a tree of tensors
 in place.  bfloat16 leaves are written as the reference writes them (two
 raw bytes an element, ``bfloat16`` in the manifest).
+
+Under a process group every rank calls ``save``, ``restore`` and
+``restore_into``.  A DTensor leaf (a state on a mesh of ranks) is gathered
+to whole for the save, one leaf at a time, with every rank taking part;
+rank 0 alone copies the leaves to the host and writes them, as the
+reference's one process writes a state on its host mesh, so that a
+checkpoint is the same files whatever the world size that wrote it: one
+writer (``process_count`` 1), which the reference restores in one process.
+Every rank restores from ``shard_0.npz`` and keeps its own block of each
+DTensor leaf (``runtime/elastic.py``): a job resumes on another mesh, the
+reference's elastic restart.
 """
 
 from __future__ import annotations
@@ -30,6 +41,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import placements_spec
+from repro_torch.launch.mesh import mesh_of
+from repro_torch.runtime.elastic import local_slices, place_leaf
 
 
 def _is_namedtuple(x) -> bool:
@@ -91,7 +107,7 @@ def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(like.dtype)
 
 
-def _process() -> tuple[int, int]:
+def process() -> tuple[int, int]:
     """(this process's index, the process count)."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return torch.distributed.get_rank(), torch.distributed.get_world_size()
@@ -109,8 +125,17 @@ class Checkpointer:
     # ----------------------------------------------------------- save ----
     def save(self, step: int, tree, blocking: bool = False) -> None:
         # snapshot to the host BEFORE returning: the caller may go on to
-        # update the tensors in place
-        host = [(k, _to_host(v)) for k, v in _flatten(tree)]
+        # update the tensors in place.  Every rank gathers (a collective);
+        # rank 0 copies and writes.
+        rank, _ = process()
+        host = []
+        for k, v in _flatten(tree):
+            if isinstance(v, DTensor):
+                v = v.full_tensor()
+            if rank == 0:
+                host.append((k, _to_host(v)))
+        if rank != 0:
+            return
         self.wait()
         self._thread = threading.Thread(
             target=self._write_guarded, args=(step, host), daemon=True)
@@ -125,14 +150,13 @@ class Checkpointer:
             self._error = e
 
     def _write(self, step: int, host: list) -> None:
-        rank, count = _process()
         tmp = self.dir / f".tmp_step_{step}_{time.time_ns()}"
         tmp.mkdir(parents=True)
         manifest = {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
                     for k, v in host}
         (tmp / "manifest.json").write_text(json.dumps({
-            "step": step, "leaves": manifest, "process_count": count}))
-        np.savez(tmp / f"shard_{rank}.npz", **dict(host))
+            "step": step, "leaves": manifest, "process_count": 1}))
+        np.savez(tmp / "shard_0.npz", **dict(host))
         final = self.dir / f"step_{step}"
         if final.exists():
             shutil.rmtree(final)
@@ -164,21 +188,32 @@ class Checkpointer:
     def restore(self, template, step: int | None = None):
         """The checkpoint at ``step`` (default the latest) in
         ``template``'s structure, each leaf a tensor on its template
-        tensor's device with its dtype.  Returns (tree, step)."""
+        tensor's device with its dtype; for a DTensor template leaf, a
+        DTensor placed as it is (this rank's block).  Returns (tree,
+        step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        leaves = []
         with self._open(step) as data:
-            leaves = [_from_host(data[k], t).to(t.device)
-                      for k, t in _flatten(template)]
+            for k, t in _flatten(template):
+                a = _from_host(data[k], t)
+                if isinstance(t, DTensor):
+                    mesh = mesh_of(t.device_mesh)
+                    leaves.append(place_leaf(a, placements_spec(
+                        t.placements, mesh.axis_names, t.dim()), mesh))
+                else:
+                    leaves.append(a.to(t.device))
         return _unflatten(template, iter(leaves)), step
 
     def restore_into(self, tree, step: int | None = None) -> int:
         """The checkpoint at ``step`` (default the latest) copied into the
         tensors of ``tree`` in place, one leaf at a time, so that restoring
         a state holds one copy of it on its device and one leaf on the
-        host.  A stored leaf whose shape is not its tensor's raises
-        ``ValueError`` (``copy_`` would broadcast it).  Returns the step."""
+        host.  A DTensor leaf takes this rank's block of the stored leaf
+        into its local tensor.  A stored leaf whose shape is not its
+        tensor's (global) shape raises ``ValueError`` (``copy_`` would
+        broadcast it).  Returns the step."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -188,9 +223,12 @@ class Checkpointer:
                     raise ValueError(f"checkpoint leaf {k} has shape "
                                      f"{tuple(data[k].shape)}, the tree's "
                                      f"{tuple(t.shape)}")
-                t.copy_(_from_host(data[k], t))
+                a = _from_host(data[k], t)
+                if isinstance(t, DTensor):
+                    t.to_local().copy_(a[local_slices(t)])
+                else:
+                    t.copy_(a)
         return step
 
     def _open(self, step: int):
-        rank, _ = _process()
-        return np.load(self.dir / f"step_{step}" / f"shard_{rank}.npz")
+        return np.load(self.dir / f"step_{step}" / "shard_0.npz")

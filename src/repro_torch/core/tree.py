@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 class PartitionSpec(tuple):
@@ -117,14 +119,81 @@ def tree_index(tree, i: int):
 
 
 def tree_unstack(tree) -> list:
-    """Every layer of a stacked tree at once: each leaf unbound on axis 0.
-    In a backward pass one ``unbind`` a leaf stacks the layers'
-    gradients into the stacked leaf's gradient, as ``jax.lax.scan``
-    writes them; ``tree_index`` layer by layer would make each layer's
-    gradient a zero-filled tensor of the whole stack and add them up."""
-    cols = [torch.unbind(t) for t in tree_leaves(tree)]
+    """Every layer of a stacked tree: each leaf unbound on axis 0.  In a
+    backward pass one ``unbind`` a leaf stacks the layers' gradients into
+    the stacked leaf's gradient, as ``jax.lax.scan`` writes them;
+    ``tree_index`` layer by layer would make each layer's gradient a
+    zero-filled tensor of the whole stack and add them up.  A DTensor leaf
+    whose axis 0 is sharded (a stacked axis its spec splits over a mesh
+    axis: zamba2's ``groups`` leaves on their inner layer axis) cannot be
+    unbound: its layer i is a ``LayerOf``, gathered by ``tree_gather`` in
+    the layer function, so that under ``checkpoint`` the backward pass
+    gathers the layer again and one gathered layer is alive at a time."""
+    cols = [[LayerOf(t, i) for i in range(t.shape[0])]
+            if isinstance(t, DTensor) and Shard(0) in t.placements
+            else torch.unbind(t) for t in tree_leaves(tree)]
     return [tree_unflatten(tree, iter([c[i] for c in cols]))
             for i in range(len(cols[0]))]
+
+
+class LayerOf:
+    """Layer ``i`` of ``stack``, a DTensor whose axis 0 is sharded, not
+    gathered yet (a leaf of a tree: not a tuple)."""
+
+    __slots__ = ("stack", "i")
+
+    def __init__(self, stack: DTensor, i: int):
+        self.stack, self.i = stack, i
+
+
+def tree_gather(layer):
+    """A layer of ``tree_unstack`` with each ``LayerOf`` leaf gathered
+    (``_gather_layer``); the other leaves as they are."""
+    return tree_map(lambda t: _gather_layer(t.stack, t.i)
+                    if isinstance(t, LayerOf) else t, layer)
+
+
+class _BroadcastLayer(torch.autograd.Function):
+    """Layer ``j`` of the local block ``local`` on the rank that owns it,
+    broadcast from there over ``group``; the gradient of the whole layer
+    goes back into the owner's block (zeros elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, local, j, src, group):
+        ctx.j, ctx.mine, ctx.shape = j, dist.get_rank() == src, local.shape
+        out = local[j].clone() if ctx.mine else local.new_empty(
+            local.shape[1:])
+        if dist.get_world_size(group) > 1:
+            dist.broadcast(out, src=src, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.new_zeros(ctx.shape)
+        if ctx.mine:
+            out[ctx.j] = grad
+        return out, None, None, None
+
+
+def _gather_layer(t: DTensor, i: int):
+    """Layer ``i`` of a DTensor whose axis 0 is sharded over one mesh
+    axis, replicated over that axis and placed as ``t`` on the others."""
+    mesh = t.device_mesh
+    axes = [k for k, p in enumerate(t.placements) if p == Shard(0)]
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"a stacked axis split over {len(axes)} mesh axes")
+    (k,) = axes
+    block = t.shape[0] // mesh.size(k)
+    owner = i // block
+    group = mesh.get_group(k)
+    src = dist.get_global_rank(group, owner)
+    layer = _BroadcastLayer.apply(t.to_local(), i - owner * block, src,
+                                  group)
+    placements = [Replicate() if isinstance(p, Shard) and p.dim == 0 else
+                  Shard(p.dim - 1) if isinstance(p, Shard) else p
+                  for p in t.placements]
+    return DTensor.from_local(layer, mesh, placements, run_check=False)
 
 
 def tree_stack(trees: list):

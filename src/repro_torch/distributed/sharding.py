@@ -15,7 +15,9 @@ Every rule degrades to replication when a dim does not divide.  A spec is
 ``core.tree.PartitionSpec``, a tuple equal to ``tuple(P(...))`` of the
 reference's; a mesh is anything with ``axis_names`` and a ``shape``
 mapping (``launch/mesh.py`` ``Mesh``, or a stand-in with the sizes only).
-``runtime/elastic.py`` places a tree by these specs, one part a device.
+``runtime/elastic.py`` places a tree by these specs: one part a device
+on a mesh of one process's devices, DTensors (``spec_placements``) on a
+mesh of ranks.
 
 The stream half (``stream_state_specs``, ``stream_shardings``,
 ``stream_ring_spec``) places the streaming engine's slot state.  The
@@ -35,6 +37,7 @@ import re
 from typing import Any, Sequence
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.tree import (PartitionSpec as P, tree_leaves_with_path,
                                    tree_map, tree_unflatten)
@@ -189,6 +192,49 @@ def batch_specs(batch_tree, mesh):
     return tree_map(spec, batch_tree)
 
 
+def _axes(entry) -> tuple[str, ...]:
+    return () if entry is None else \
+        tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_placements(spec: P, mesh) -> tuple:
+    """``spec`` as DTensor placements on ``mesh``, one a mesh axis:
+    ``Shard(dim)`` on each axis that ``dim``'s entry names (an axis or a
+    tuple of axes), ``Replicate()`` on the others.  DTensor splits a
+    dimension over several axes in the mesh's order, the first one major,
+    so a tuple entry must name its axes in that order (the reference's
+    ``("pod", "data")``); another order, an axis the mesh lacks or an axis
+    named twice raises."""
+    placements = [Replicate()] * len(mesh.axis_names)
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        ks = [mesh.axis_names.index(a) if a in mesh.axis_names else None
+              for a in axes]
+        if None in ks or ks != sorted(set(ks)):
+            raise ValueError(f"spec {spec} entry {entry!r}: not axes of "
+                             f"{mesh.axis_names} in the mesh's order")
+        for k in ks:
+            if placements[k] != Replicate():
+                raise ValueError(f"spec {spec} names axis "
+                                 f"{mesh.axis_names[k]!r} twice")
+            placements[k] = Shard(dim)
+    return tuple(placements)
+
+
+def placements_spec(placements, axis_names: Sequence[str], ndim: int) -> P:
+    """The inverse of ``spec_placements``: the spec of a DTensor of
+    ``ndim`` dimensions with ``placements`` on a mesh of ``axis_names``
+    (``Shard`` and ``Replicate`` only)."""
+    entries: list[list[str]] = [[] for _ in range(ndim)]
+    for name, pl in zip(axis_names, placements):
+        if isinstance(pl, Shard):
+            entries[pl.dim].append(name)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"placement {pl} has no PartitionSpec")
+    return P(*(None if not e else e[0] if len(e) == 1 else tuple(e)
+               for e in entries))
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharded:
     """A dry-run input: the reference's ``jax.ShapeDtypeStruct`` with a
@@ -264,9 +310,10 @@ def shardable(n: int, axis: str) -> bool:
 
 
 # The reference's activation sharding hints (``with_sharding_constraint``
-# under its SPMD partitioner).  The port runs one process with no
-# partitioner, so a hint has nothing to act on: each returns ``x`` as it
-# is, with or without registered axes.  The forwards do not call them.
+# under its SPMD partitioner).  Each returns ``x`` as it is, with or
+# without registered axes: on a mesh of ranks DTensor's sharding
+# propagation places the activations from the parameters' and the batch's
+# placements, and the forwards do not call the hints.
 
 
 def constrain(x, spec: P):

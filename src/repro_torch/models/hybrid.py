@@ -24,8 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_alloc_device
-from repro_torch.core.tree import (tree_index, tree_map, tree_stack,
-                                   tree_unstack)
+from repro_torch.core.tree import (tree_gather, tree_index, tree_map,
+                                   tree_stack, tree_unstack)
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import basic
 from repro_torch.models.layers import mamba2 as m2
@@ -119,19 +119,23 @@ def hybrid_forward(params, tokens, cfg, cache: HybridCache | None = None,
                                  device=x.device)[None].expand(b, s)
         cache_pos = None
 
+    def mamba_block(x, lp, state):
+        lp = tree_gather(lp)
+        h = basic.apply_norm(x, lp["norm"], cfg)
+        out, ns = m2.mamba2_layer(h, lp["mamba"], cfg, state)
+        return x + out, ns
+
     def mamba_stack(x, layers, states):
         """Stacked Mamba2 layers; their new states stacked."""
         new = []
         for j, lp in enumerate(tree_unstack(layers)):
-            h = basic.apply_norm(x, lp["norm"], cfg)
             if cfg.remat == "full" and mode == "train":
-                out, ns = checkpoint(m2.mamba2_layer, h, lp["mamba"], cfg,
-                                     None, use_reentrant=False)
+                x, ns = checkpoint(mamba_block, x, lp, None,
+                                   use_reentrant=False)
             else:
-                out, ns = m2.mamba2_layer(
-                    h, lp["mamba"], cfg,
+                x, ns = mamba_block(
+                    x, lp,
                     tree_index(states, j) if states is not None else None)
-            x = x + out
             new.append(ns)
         return x, tree_stack(new)
 

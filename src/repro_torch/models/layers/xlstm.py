@@ -9,7 +9,9 @@ The reference's ``models/layers/xlstm.py`` in plain PyTorch: Python loops
 over the steps (and, in the chunked mLSTM, over the chunks) replace
 ``jax.lax.scan``; gates, scans and stabilisers run in float32 and ``h``
 goes back to ``cfg.dtype`` where the reference casts.  The reference's
-sharding hints are the identity on one device and have no counterpart.
+sharding hints have no counterpart (DTensor places the activations of a
+sharded step).  On DTensors the log-sigmoid's backward is written out
+(``_logsigmoid``): ``aten.log_sigmoid_backward`` has no sharding strategy.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.device import resolve_alloc_device
 from repro_torch.core.lif import spike_fn
@@ -25,6 +28,37 @@ from repro_torch.models.layers import basic
 from repro_torch.models.layers.mamba2 import _causal_conv
 
 M_INIT = -1e30  # the stabiliser's start, float32
+
+
+class _LogSigmoid(torch.autograd.Function):
+    """``F.logsigmoid`` with its backward in the formula of ATen's
+    ``log_sigmoid_backward`` kernels, op by op in float32 (their
+    arithmetic type): g (1 - q) where x < 0, g q elsewhere, q = z / (1 +
+    z), z = exp(-|x|) as the CPU forward buffers it (the CUDA kernel
+    computes it again, as here when the buffer is empty)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out, buffer = torch.ops.aten.log_sigmoid_forward(x)
+        ctx.save_for_backward(x, buffer)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z = ctx.saved_tensors
+        x = x.float()
+        local = z.to_local() if isinstance(z, DTensor) else z
+        z = z.float() if local.numel() else torch.exp(-x.abs())
+        q = z / (1 + z)
+        return (g.float() * torch.where(x < 0, 1 - q, q)).to(g.dtype)
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid(x)``; on a DTensor through ``_LogSigmoid``, whose
+    backward has sharding strategies where ``aten.log_sigmoid_backward``
+    has none.  The forward is the same op either way."""
+    return _LogSigmoid.apply(x) if isinstance(x, DTensor) else \
+        F.logsigmoid(x)
 
 
 class MLSTMState(NamedTuple):
@@ -116,7 +150,7 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg,
     v = (xc @ p["w_v"]).reshape(b, seq, h, d_v)
     gates = xc.to(f32) @ p["w_if"] + p["b_if"]
     i_t, f_t = gates.reshape(b, seq, 2 * h).chunk(2, dim=-1)
-    f_t = F.logsigmoid(f_t)
+    f_t = _logsigmoid(f_t)
 
     ssm = cfg.ssm
     chunk = ssm.chunk if ssm else 128
@@ -259,7 +293,7 @@ def _slstm_step_fn(p, cfg):
         rh = torch.einsum("bhd,hde->bhe", carry.h, p["r_gates"])  # (B,H,4hd)
         g = wx_t.reshape(*wx_t.shape[:-1], h, 4 * hd) + rh
         z_t, i_t, f_t, o_t = g.chunk(4, dim=-1)
-        f_log = F.logsigmoid(f_t)
+        f_log = _logsigmoid(f_t)
         m_new = torch.maximum(f_log + carry.m, i_t)
         i = torch.exp(i_t - m_new)
         f = torch.exp(f_log + carry.m - m_new)

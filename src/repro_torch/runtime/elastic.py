@@ -14,6 +14,12 @@ returns one part a device of the mesh, each in the state's structure and
 holding that device's block of every leaf (``shard_slices``, the
 counterpart of ``NamedSharding.devices_indices_map``), as
 ``distributed/sharding.py`` ``shard_state`` does for the stream state.
+On a mesh of several ranks (``launch/mesh.py`` ``make_rank_mesh``) the
+process holds one part: every leaf a DTensor whose local tensor is this
+rank's block (``place_state``), the reference's ``device_put`` over a
+multi-process job; on a mesh of one rank, the plain leaves.  Every rank
+holds the same global tree (the same seeded draw, or a checkpoint's
+leaves) and keeps its block; nothing is scattered.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.tree import tree_leaves, tree_unflatten
+from torch.distributed.tensor import DTensor
+
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.distributed import sharding as shd
-from repro_torch.launch.mesh import Mesh, cuda_devices, make_mesh
+from repro_torch.launch.mesh import Mesh, cuda_devices, make_mesh, mesh_of
 
 
 def make_elastic_mesh(preferred_model: int = 16,
@@ -56,7 +64,7 @@ def shard_slices(shape: Sequence[int], spec, mesh) -> dict:
     ``spec``: ``slice(None)`` for a dimension it holds whole.  Raises on a
     dimension that its axes do not divide."""
     spec = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
-    grid = mesh.devices.shape
+    grid = tuple(mesh.shape[a] for a in mesh.axis_names)
     coords = list(np.ndindex(grid))
     index = np.indices(grid)
     cols = []
@@ -81,26 +89,71 @@ def shard_slices(shape: Sequence[int], spec, mesh) -> dict:
 
 def reshard_state(state, mesh) -> list:
     """Re-derive specs for ``state`` on ``mesh`` (``tree_param_specs``)
-    and place every leaf: one part a device of ``mesh.devices.flat``, each
-    in the state's structure and holding that device's block of every
-    leaf.  A block that is a whole leaf already on its device is that leaf
-    itself (no copy, as ``jax.device_put``); any other block is a
-    contiguous copy on the device."""
+    and place every leaf, one part a device of this process.  On a mesh of
+    one process's devices, and on a mesh of one rank, one part a device of
+    ``mesh.devices.flat``, each in the state's structure and holding that
+    device's block of every leaf; a block that is a whole leaf already on
+    its device is that leaf itself (no copy, as ``jax.device_put``), any
+    other block a contiguous copy on the device.  A rank that holds every
+    block whole runs the plain step on plain tensors (DTensor would add
+    host work to every operation and change none).  On a mesh of several
+    ranks, one part: ``place_state``."""
     specs = shd.tree_param_specs(state, mesh)
+    if getattr(mesh, "device_mesh", None) is not None and \
+            mesh.devices.size > 1:
+        return [place_state(state, mesh, specs)]
     leaves = tree_leaves(state)
     blocks = [[] for _ in range(mesh.devices.size)]
     for leaf, spec in zip(leaves, tree_leaves(specs), strict=True):
         by_coord = shard_slices(tuple(leaf.shape), spec, mesh)
         for k, (coord, dev) in enumerate(zip(np.ndindex(mesh.devices.shape),
                                              mesh.devices.flat)):
-            sl = by_coord[coord]
-            whole = all(s == slice(None) for s in sl)
-            if whole and leaf.device == dev:
-                blocks[k].append(leaf)
-            else:
-                blocks[k].append(leaf[sl].to(
-                    dev, copy=True, memory_format=torch.contiguous_format))
+            blocks[k].append(_block(leaf, by_coord[coord], dev))
     return [tree_unflatten(state, iter(b)) for b in blocks]
+
+
+def _block(leaf: torch.Tensor, sl: tuple, dev: torch.device):
+    """``leaf[sl]`` on ``dev``: ``leaf`` itself when that is the whole
+    leaf, already there; else a contiguous copy."""
+    if all(s == slice(None) for s in sl) and leaf.device == dev:
+        return leaf
+    return leaf[sl].to(dev, copy=True, memory_format=torch.contiguous_format)
+
+
+def place_leaf(leaf: torch.Tensor, spec, mesh) -> DTensor:
+    """``leaf``, the whole tensor on any device, as a DTensor on the mesh
+    of ranks ``mesh`` with ``spec``'s placements
+    (``sharding.spec_placements``): the local tensor is this rank's block
+    (``shard_slices`` at this rank's coordinate) on this rank's device,
+    ``leaf`` itself when that is all of it.  Raises on a dimension that
+    its axes do not divide."""
+    # here, not at import: the strategies lean on DTensor's private modules
+    from repro_torch.distributed import dtensor_ops
+    dtensor_ops.register()
+    coord = tuple(mesh.device_mesh.get_coordinate())
+    sl = shard_slices(tuple(leaf.shape), spec, mesh)[coord]
+    return DTensor.from_local(_block(leaf, sl, mesh.devices[coord]),
+                              mesh.device_mesh,
+                              shd.spec_placements(spec, mesh),
+                              run_check=False)
+
+
+def place_state(state, mesh, specs):
+    """``state`` on the mesh of ranks ``mesh``, every leaf placed by its
+    spec in ``specs`` with ``place_leaf``, in the state's structure: the
+    counterpart of ``jax.device_put`` with a ``NamedSharding`` a leaf.
+    Every rank calls it with the same global tree."""
+    return tree_map(lambda leaf, spec: place_leaf(leaf, spec, mesh), state,
+                    specs)
+
+
+def local_slices(t: DTensor) -> tuple:
+    """The slices of ``t``'s global shape that this rank's local tensor
+    holds (``shard_slices`` at its coordinate)."""
+    mesh = mesh_of(t.device_mesh)
+    spec = shd.placements_spec(t.placements, mesh.axis_names, t.dim())
+    return shard_slices(tuple(t.shape), spec, mesh)[
+        tuple(t.device_mesh.get_coordinate())]
 
 
 def per_host_batch(global_batch: int, mesh) -> int:

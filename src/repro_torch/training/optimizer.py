@@ -9,6 +9,15 @@ state).  Both run under ``torch.no_grad()`` on the parameters' device.  The form
 float operations, and every division by a constant divides by a tensor
 on the operand's device (PyTorch divides a CUDA tensor by a host scalar as
 a product with its reciprocal).
+
+The token-LM train step's leaves may be DTensors on a mesh of ranks
+(``launch/steps.py``): ``init_opt_state`` then places the state as
+``state_specs`` says (each slot leaf like its parameter, a scalar
+replicated, an Adafactor factor with the dropped dimension's axis
+replicated), the updates run on DTensors (the caller holds
+``implicit_replication``), and each new leaf is redistributed to its old
+leaf's placements before it replaces it.  The values are those of the
+one-device update up to the reassociation of the global norm's sum.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import functools
 import math
 
 import torch
+import torch.distributed.tensor as dtensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import PartitionSpec as P
@@ -94,8 +105,7 @@ def _q8log(x: torch.Tensor) -> dict:
     q = torch.round(_div(torch.clamp(l, _LOG_LO, _LOG_HI) - _LOG_LO,
                          _LOG_HI - _LOG_LO) * 254.0) - 127.0
     q = torch.where(x <= 0.0, -128.0, q).to(torch.int8)  # exact zero: -128
-    return {"q": q, "scale": torch.ones((), dtype=torch.float32,
-                                        device=x.device)}
+    return {"q": q, "scale": _full(x, (), 1.0)}
 
 
 def _dq8log(t: dict) -> torch.Tensor:
@@ -111,13 +121,30 @@ def _is_factored(x: torch.Tensor) -> bool:
 # ------------------------------------------------------- init / update
 
 
+def _full(like, shape, value: float, dtype=torch.float32, drop=None):
+    """``value`` in a tensor of ``shape`` beside ``like``: on its device,
+    or, for a DTensor ``like``, a DTensor on its mesh, all replicated when
+    ``drop`` is ``None``, else placed as ``like`` with dimension ``drop``
+    taken out (``state_specs``' ``drop_last`` / ``drop_second_last``)."""
+    if not isinstance(like, DTensor):
+        return torch.full(shape, value, dtype=dtype, device=like.device)
+    mesh = like.device_mesh
+    if drop is None:
+        placements = [Replicate()] * mesh.ndim
+    else:
+        drop %= like.dim()
+        placements = [p if not isinstance(p, Shard) or p.dim < drop else
+                      Replicate() if p.dim == drop else Shard(p.dim - 1)
+                      for p in like.placements]
+    return dtensor.full(tuple(shape), value, dtype=dtype, device_mesh=mesh,
+                        placements=placements)
+
+
 def init_opt_state(params, ocfg: OptimizerConfig) -> dict:
-    dev = tree_leaves(params)[0].device
-
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
-    step = torch.zeros((), dtype=torch.int32, device=dev)
+    step = _full(tree_leaves(params)[0], (), 0, torch.int32)
     if ocfg.name == "adamw":
         return {"step": step, "m": tree_map(f32, params),
                 "v": tree_map(f32, params)}
@@ -126,14 +153,12 @@ def init_opt_state(params, ocfg: OptimizerConfig) -> dict:
                 "v": tree_map(lambda p: _q8log(f32(p)), params)}
     if ocfg.name == "adafactor":
         def vrow(p):
-            return (torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                device=p.device)
+            return (_full(p, p.shape[:-1], 0.0, drop=-1)
                     if _is_factored(p) else f32(p))
 
         def vcol(p):
-            return torch.zeros(p.shape[:-2] + p.shape[-1:]
-                               if _is_factored(p) else (),
-                               dtype=torch.float32, device=p.device)
+            return (_full(p, p.shape[:-2] + p.shape[-1:], 0.0, drop=-2)
+                    if _is_factored(p) else _full(p, (), 0.0))
 
         return {"step": step, "m": tree_map(lambda p: _q8(f32(p)), params),
                 "vr": tree_map(vrow, params), "vc": tree_map(vcol, params)}
@@ -207,18 +232,30 @@ def apply_updates(params, grads, state: dict, ocfg: OptimizerConfig):
     new_params, cols = [], [[] for _ in names]
     for p, g, *slots in zip(tree_leaves(params), tree_leaves(grads),
                             *(tree_leaves(state[n]) for n in names)):
-        p, new = _update_leaf(ocfg, p, g, tuple(slots), lr, clip, bc1, bc2)
-        new_params.append(p)
-        for col, x in zip(cols, new):
-            col.append(x)
-    new_state = {"step": step}
+        new_p, new = _update_leaf(ocfg, p, g, tuple(slots), lr, clip, bc1,
+                                  bc2)
+        new_params.append(_placed_like(new_p, p))
+        for col, x, old in zip(cols, new, slots):
+            col.append(_placed_like(x, old))
+    new_state = {"step": _placed_like(step, state["step"])}
     for n, col in zip(names, cols):
         new_state[n] = tree_unflatten(state[n], iter(col))
     return (tree_unflatten(params, iter(new_params)), new_state,
             {"grad_norm": gnorm, "lr": lr})
 
 
+def _placed_like(new, old):
+    """``new`` with ``old``'s placements (a DTensor update may come out
+    placed otherwise, e.g. a reduction's result replicated)."""
+    if isinstance(old, dict):  # an int8 codec
+        return {k: _placed_like(new[k], old[k]) for k in old}
+    if isinstance(old, DTensor) and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def _copy_leaf_(dst, src) -> None:
+    src = _placed_like(src, dst)
     if isinstance(dst, dict):  # an int8 codec
         for k in dst:
             dst[k].copy_(src[k])
@@ -245,7 +282,7 @@ def apply_updates_(params, grads: list, state: dict, ocfg: OptimizerConfig):
         new_p, new = _update_leaf(ocfg, p, grads[i], slots, lr, clip, bc1,
                                   bc2)
         grads[i] = None
-        p.copy_(new_p)
+        _copy_leaf_(p, new_p)
         del new_p
         for dst, src in zip(slots, new):
             _copy_leaf_(dst, src)
