@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed.sharding import shard_state
+from repro_torch.serving import spans
 from repro_torch.serving.stream import (CompiledRSNN, StreamLoop,
                                         StreamRequest, host_copy,
                                         reset_slot_)
@@ -301,14 +302,21 @@ class ShardedStreamLoop(StreamLoop):
         """Upload each shard's part of the (3, [C,] slots) control word
         [cursor; fill mask; ring row] through the next pinned word, then
         run every shard's step; returns their outputs.  On CUDA the step's
-        fence is created here (recorded after the harvests)."""
+        fence is created here (recorded after the harvests).  The word's
+        staging and the shards' dispatch are the ``loop.stage`` and
+        ``loop.dispatch`` spans, as in the single-device loop."""
+        t = spans.now()
         pinned, landed = self._words[self._word_next]
         self._word_next = (self._word_next + 1) % len(self._words)
         if landed is not None:
+            t_wait = spans.now()
             landed.synchronize()
+            spans.end(spans.WAIT_UPLOAD, t_wait)
         n, b = len(self._shards), self._per
         pinned.numpy()[:] = np.moveaxis(
             word.reshape(*word.shape[:-1], n, b), -2, 0)
+        spans.end(spans.STAGE, t)
+        t = spans.now()
         outs = []
         for k, sh in enumerate(self._shards):
             with sh.guard():
@@ -318,6 +326,7 @@ class ShardedStreamLoop(StreamLoop):
             landed.record()
             if self.pipeline_depth >= 1:
                 self._fence = _Fence(self._cuda)
+        spans.end(spans.DISPATCH, t)
         return outs
 
     def _cursors(self) -> np.ndarray:

@@ -66,7 +66,7 @@ from repro_torch.core.compression.compress import (CompressionConfig,
 from repro_torch.core.sparse import (PackedRSNN, SparseColumns, dequantize,
                                      pack_model)
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.serving import backends
+from repro_torch.serving import backends, spans
 from repro_torch.serving.slots import SlotScheduler
 
 WARMUP_STEPS = 2  # eager steps on scratch buffers before a graph capture
@@ -836,9 +836,14 @@ class StreamLoop(SlotScheduler):
     ``_zero_aux``.
 
     ``host_syncs`` counts the device->host transfers the loop makes,
-    ``dispatches`` its step dispatches (one a chunk) and ``frames_served``
-    the slot-frames advanced.  ``track_sparsity=False`` detaches the
-    counter sink: no counter fetch and no accumulator.
+    ``dispatches`` its step dispatches (one a chunk), ``frames_served``
+    the slot-frames advanced, ``resets`` the slot resets (one at a fill
+    and one at a finish, so two a stream) and ``finishes`` the streams
+    that left a slot.  ``track_sparsity=False`` detaches the counter sink: no
+    counter fetch and no accumulator.  Each ``step_once`` is the root
+    span of its dispatch, and the parts of the host path its children
+    (``serving/spans.py``), recorded while a profiler runs or inside
+    ``spans.recording()``.
     """
 
     def __init__(self, engine: CompiledRSNN, batch_slots: int = 4,
@@ -1041,7 +1046,9 @@ class StreamLoop(SlotScheduler):
         last read it has landed (CUDA), or the step's own inputs (CPU)."""
         hx, hc, landed = self._staging[self._stage_next]
         if landed is not None:
+            t = spans.now()
             landed.synchronize()
+            spans.end(spans.WAIT_UPLOAD, t)
         x, ctrl = hx.numpy(), hc.numpy()
         x.fill(0)
         ctrl.fill(0)
@@ -1052,6 +1059,7 @@ class StreamLoop(SlotScheduler):
         run it eagerly).  On a CUDA engine the pinned pair is uploaded
         first, asynchronously, and the step's fence is created, which the
         caller records after its harvests.  Returns the step's outputs."""
+        t = spans.now()
         hx, hc, landed = self._staging[self._stage_next]
         self._stage_next = (self._stage_next + 1) % len(self._staging)
         if landed is not None:
@@ -1060,7 +1068,9 @@ class StreamLoop(SlotScheduler):
             landed.record()
             if self.pipeline_depth >= 1:
                 self._fence = torch.cuda.Event()
-        return self._entry()
+        out = self._entry()
+        spans.end(spans.DISPATCH, t)
+        return out
 
     def _push_inflight(self, completed: list[StreamRequest]) -> None:
         """Fence the step just dispatched (and its harvest copies) and
@@ -1111,7 +1121,15 @@ class StreamLoop(SlotScheduler):
         at its completion, so the new stream may overwrite them."""
         req.t_start = self.clock()
         self._flushed[i] = 0
+        self._reset(i, req.sid)
+
+    def _reset(self, i: int, sid: int) -> None:
+        """Reset slot ``i`` for request ``sid`` (``_reset_slot``): counted
+        in ``resets``, spanned as ``loop.reset``."""
+        t = spans.now()
         self._reset_slot(i)
+        self.resets += 1
+        spans.end(spans.RESET, t, sid)
 
     def _reset_slot(self, i: int) -> None:
         """Zero slot ``i``'s recurrent state in place."""
@@ -1119,6 +1137,7 @@ class StreamLoop(SlotScheduler):
 
     def _finish_slot(self, i: int) -> StreamRequest:
         req = super()._finish_slot(i)
+        self.finishes += 1
         req.t_done = self.clock()
         if self.pipeline_depth == 0:
             # synchronous contract: the logits were fetched this step
@@ -1145,54 +1164,79 @@ class StreamLoop(SlotScheduler):
     def _dispatch_step(self, active: np.ndarray):
         """v1: advance every slot one frame.  Returns (logits (slots,
         fc_dim) np, packed masked counter vector)."""
+        t = spans.now()
         x, ctrl = self._stage()
         self._gather_host_frames(x)
         ctrl[0] = active
+        spans.end(spans.STAGE, t)
         logits, vec = self._dispatch()
         return logits.cpu().numpy(), vec
 
     def _dispatch_ring_step(self, ctrl: np.ndarray) -> None:
         """v2: dispatch one pipelined step over the (2, slots) control
         word [active mask; ring row]; nothing crosses to the host."""
+        t = spans.now()
         x, word = self._stage()
         self._gather_host_frames(x)
         word[:] = ctrl
+        spans.end(spans.STAGE, t)
         self._dispatch()
 
     def step_once(self) -> bool:
         """One engine step over all slots; returns False when fully drained
-        (empty queue, empty slots and, pipelined, no step in flight)."""
+        (empty queue, empty slots and, pipelined, no step in flight).  The
+        call is the root span ``loop.step`` of its dispatch."""
+        t = spans.open_step(self.dispatches)
+        try:
+            return self._step_once()
+        finally:
+            if t:
+                spans.close_step(t, (self.dispatches, self.frames_served,
+                                     self.resets, self.finishes))
+
+    def _step_once(self) -> bool:
+        """``step_once`` inside its root span."""
+        t = spans.now()
         self._refill()
+        spans.end(spans.REFILL, t)
+        plan = spans.now()
         active = self.active_mask()
         if not active.any():
+            spans.end(spans.PLAN, plan)
             if self._inflight:  # shutdown drain: retire without dispatching
                 self._retire()
                 return True
             return False
         if self.pipeline_depth == 0:
             if self.chunk_frames == 1:
-                return self._step_once_sync(active)
-            return self._step_once_sync_chunk()
+                return self._step_once_sync(active, plan)
+            return self._step_once_sync_chunk(plan)
         if self.chunk_frames > 1:
-            return self._step_once_chunk()
+            return self._step_once_chunk(plan)
 
         ctrl = np.zeros((2, self.slots), np.int32)  # [active; ring row]
         ctrl[0] = active
         ctrl[1] = [self.slot_pos[i] - self._flushed[i]
                    if self.slot_req[i] is not None else 0
                    for i in range(self.slots)]
+        spans.end(spans.PLAN, plan)
         self._dispatch_ring_step(ctrl)
         self.steps += 1
         self.dispatches += 1
         self.frames_served += int(active.sum())
         if self.counters is not None:
             self._frames_acc += float(active.sum())
-        self._push_inflight(self._advance_slots())
+        t = spans.now()
+        completed = self._advance_slots()
+        spans.end(spans.ADVANCE, t)
+        self._push_inflight(completed)
         return True
 
-    def _step_once_sync(self, active: np.ndarray) -> bool:
+    def _step_once_sync(self, active: np.ndarray, plan: int) -> bool:
         """v1: fetch the logits (and the counters, when a sink is
-        attached) to the host every step."""
+        attached) to the host every step.  ``plan`` is the start of the
+        step's ``loop.plan`` span."""
+        spans.end(spans.PLAN, plan)
         logits_np, aux_vec = self._dispatch_step(active)
         self.host_syncs += 1  # per-frame logit fetch
         self.steps += 1
@@ -1210,7 +1254,7 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += 1
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                self._reset_slot(i)
+                self._reset(i, r.sid)
         return True
 
     def _advance_slots(self) -> list[StreamRequest]:
@@ -1262,8 +1306,10 @@ class StreamLoop(SlotScheduler):
     def _dispatch_step_chunk(self, counts: list[int], act: np.ndarray):
         """v1 chunked: the (F, slots) fill mask ``act`` -> (logits (F,
         slots, fc_dim) np, packed masked counter vector)."""
+        t = spans.now()
         ctrl = self._stage_chunk(counts)
         ctrl[0] = act
+        spans.end(spans.STAGE, t)
         logits, vec = self._dispatch()
         return logits.cpu().numpy(), vec
 
@@ -1272,16 +1318,19 @@ class StreamLoop(SlotScheduler):
         """v2 chunked: dispatch one pipelined step over the (2, F, slots)
         control word [fill mask; ring row]; nothing crosses to the
         host."""
+        t = spans.now()
         word = self._stage_chunk(counts)
         word[:] = ctrl
+        spans.end(spans.STAGE, t)
         self._dispatch()
 
-    def _step_once_sync_chunk(self) -> bool:
+    def _step_once_sync_chunk(self, plan: int) -> bool:
         """v1 at ``chunk_frames > 1``: one dispatch and one logit fetch a
         chunk, the schedule otherwise that of frame-by-frame stepping."""
         counts = self._chunk_counts()
-        logits_np, aux_vec = self._dispatch_step_chunk(
-            counts, self._chunk_mask(counts))
+        act = self._chunk_mask(counts)
+        spans.end(spans.PLAN, plan)
+        logits_np, aux_vec = self._dispatch_step_chunk(counts, act)
         self.host_syncs += 1  # per-chunk logit fetch
         self.steps += 1
         self.dispatches += 1
@@ -1299,10 +1348,10 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += counts[i]
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                self._reset_slot(i)
+                self._reset(i, r.sid)
         return True
 
-    def _step_once_chunk(self) -> bool:
+    def _step_once_chunk(self, plan: int) -> bool:
         """v2 at ``chunk_frames > 1``: one pipeline entry a chunk.  Idle
         sub-steps write the spare ring row ``ring_frames``."""
         counts = self._chunk_counts()
@@ -1313,6 +1362,7 @@ class StreamLoop(SlotScheduler):
         ctrl[0] = live
         ctrl[1] = np.where(live, base + np.arange(self.chunk_frames)[:, None],
                            self.ring_frames)
+        spans.end(spans.PLAN, plan)
         self._dispatch_ring_chunk(counts, ctrl)
         self.steps += 1
         self.dispatches += 1
@@ -1320,7 +1370,10 @@ class StreamLoop(SlotScheduler):
         self.frames_served += served
         if self.counters is not None:
             self._frames_acc += float(served)
-        self._push_inflight(self._advance_slots_chunk(counts))
+        t = spans.now()
+        completed = self._advance_slots_chunk(counts)
+        spans.end(spans.ADVANCE, t)
+        self._push_inflight(completed)
         return True
 
     def _advance_slots_chunk(self, counts: list[int]) -> list[StreamRequest]:
@@ -1335,25 +1388,35 @@ class StreamLoop(SlotScheduler):
             fill = self.slot_pos[i] - self._flushed[i]
             if self.slot_pos[i] == len(r.frames):  # stream complete
                 if fill > 0:
+                    t = spans.now()
                     self._harvest(r, i, fill)
+                    spans.end(spans.HARVEST, t, r.sid)
                 completed.append(r)
                 self._finish_slot(i)
                 self._flushed[i] = 0
-                self._reset_slot(i)
+                self._reset(i, r.sid)
             elif fill == self.ring_frames:  # watermark flush: ring is full
+                t = spans.now()
                 self._harvest(r, i, fill)
+                spans.end(spans.HARVEST, t, r.sid)
                 self._flushed[i] = self.slot_pos[i]
         return completed
 
     def _retire(self) -> None:
         """Retire the oldest in-flight step: wait on its fence, then move
         the logits of the streams it completed to the host."""
+        t_retire = spans.now()
         step = self._inflight.popleft()
         if step.fence is not None:
+            t = spans.now()
             step.fence.synchronize()  # a fence, not a transfer
+            spans.end(spans.WAIT_FENCE, t)
         for r in step.completed:
+            t = spans.now()
             self.host_syncs += r._materialize()
             r.t_harvest = self.clock()
+            spans.end(spans.MATERIALIZE, t, r.sid)
+        spans.end(spans.RETIRE, t_retire)
 
     @property
     def pending_steps(self) -> int:
@@ -1394,6 +1457,8 @@ class StreamLoop(SlotScheduler):
         self.host_syncs = 0
         self.dispatches = 0  # step dispatches (one a chunk)
         self.frames_served = 0  # slot-frames advanced
+        self.resets = 0  # slot resets
+        self.finishes = 0  # streams that left a slot
 
     def _drain_aux(self) -> None:
         """Fold the device counter accumulator into ``counters``: one host
