@@ -17,8 +17,9 @@ reference's ``serving/sharded.py`` does over a ``data`` mesh:
     max_frames, input_dim)`` buffer of pre-quantized frames, written once
     when the slot is filled.  Each step gathers its frames on the device
     by a per-slot cursor and zeroes idle slots, inside the shard's
-    captured step; the host sends only the ``(3, [C,] slots / n)`` int32
-    control word (cursor, fill mask, ring row) from pinned memory.
+    captured step; the host sends only the ``(4, [C,] slots / n)`` int32
+    control word (cursor, fill mask, ring row, fresh) from pinned memory,
+    and each shard's step zeroes the state of its fresh slots first.
   * **Graphs.**  With ``aot_warmup`` each shard's step is captured as one
     CUDA graph at construction, so ``capture_count`` rises by the number
     of shards; every step replays each shard's graph.
@@ -27,10 +28,10 @@ reference's ``serving/sharded.py`` does over a ``data`` mesh:
     quantized=True)`` takes its output as it is, raw frames are quantized
     once, at submit.
 
-Scheduling (queue order, refill, reset on finish, pipeline retirement) is
-inherited from ``StreamLoop``, which routes its data path through hooks
-(``_build_data_path``, ``_dispatch_step``, ``_dispatch_ring_step``,
-``_dispatch_step_chunk``, ``_dispatch_ring_chunk``, ``_reset_slot``,
+Scheduling (queue order, refill, the fresh flag at a fill, pipeline
+retirement) is inherited from ``StreamLoop``, which routes its data path
+through hooks (``_build_data_path``, ``_dispatch_step``,
+``_dispatch_ring_step``, ``_dispatch_step_chunk``, ``_dispatch_ring_chunk``,
 ``_harvest``, ``_aux_total``, ``_zero_aux``); only those are overridden
 here, and each shard runs the engine's own step functions, so the logits
 are the single-device loop's.
@@ -51,8 +52,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.distributed.sharding import shard_state
 from repro_torch.serving import spans
 from repro_torch.serving.stream import (CompiledRSNN, StreamLoop,
-                                        StreamRequest, host_copy,
-                                        reset_slot_)
+                                        StreamRequest, host_copy)
 
 
 def stream_mesh(devices: Sequence[torch.device | str] | None = None
@@ -175,7 +175,7 @@ class ShardedStreamLoop(StreamLoop):
                 ring=self._init_ring(b, dev) if v2 else None,
                 aux_acc=(self._zero_aux_acc(dev)
                          if v2 and self.track_sparsity else None),
-                ctrl=torch.zeros((3, *lead, b), dtype=torch.int32,
+                ctrl=torch.zeros((4, *lead, b), dtype=torch.int32,
                                  device=dev))
             self._key, fn = self._contract_fn(eng, b, self._gather_fn(dev))
             with sh.guard():
@@ -184,7 +184,7 @@ class ShardedStreamLoop(StreamLoop):
             self._shards.append(sh)
         # the control word goes up through pipeline_depth + 1 pinned words
         # in rotation, each with the fence after which its uploads landed
-        shape = (n, 3, *lead, b)
+        shape = (n, 4, *lead, b)
         if self._cuda:
             self._words = [(torch.zeros(shape, dtype=torch.int32,
                                         pin_memory=True), _Fence(self._cuda))
@@ -196,17 +196,17 @@ class ShardedStreamLoop(StreamLoop):
 
     def _gather_fn(self, dev: torch.device) -> Callable:
         """A shard's step inputs from its frame buffer and control word
-        (3, [C,] b) [cursor; fill mask; ring row] on ``dev``: each slot's
-        frame at its cursor, clipped to ``max_frames - 1``, and zero for
-        an idle slot or sub-step.  The frames are already quantized."""
+        (4, [C,] b) [cursor; fill mask; ring row; fresh] on ``dev``: each
+        slot's frame at its cursor, clipped to ``max_frames - 1``, and zero
+        for an idle slot or sub-step.  The frames are already quantized."""
         last = self.max_frames - 1
         rows = torch.arange(self._per, device=dev)
 
         def frames(buf, ctrl):
-            pos, active, ring_idx = ctrl[0], ctrl[1], ctrl[2]
+            pos, active, ring_idx, fresh = ctrl
             x = buf[rows, pos.clamp(0, last).long()]
             x = torch.where(active.bool().unsqueeze(-1), x, 0.0)
-            return x, active, ring_idx
+            return x, active, ring_idx, fresh
 
         return frames
 
@@ -290,18 +290,14 @@ class ShardedStreamLoop(StreamLoop):
 
     # ------------------------------------------------------------ step path
 
-    def _reset_slot(self, i: int) -> None:
-        sh, j = self._shard_of(i)
-        reset_slot_(sh.state, j)
-
     def _harvest(self, r: StreamRequest, i: int, fill: int) -> None:
         sh, j = self._shard_of(i)
         r.pending.append((host_copy(sh.ring[j, :fill]), fill, self._fence))
 
     def _dispatch_shards(self, word: np.ndarray) -> list:
-        """Upload each shard's part of the (3, [C,] slots) control word
-        [cursor; fill mask; ring row] through the next pinned word, then
-        run every shard's step; returns their outputs.  On CUDA the step's
+        """Upload each shard's part of the (4, [C,] slots) control word
+        [cursor; fill mask; ring row; fresh] through the next pinned word,
+        then run every shard's step; returns their outputs.  On CUDA the step's
         fence is created here (recorded after the harvests).  The word's
         staging and the shards' dispatch are the ``loop.stage`` and
         ``loop.dispatch`` spans, as in the single-device loop."""
@@ -338,11 +334,12 @@ class ShardedStreamLoop(StreamLoop):
             return pos
         return pos + np.arange(self.chunk_frames, dtype=np.int32)[:, None]
 
-    def _word(self, mask: np.ndarray, ring_rows=0) -> np.ndarray:
-        word = np.empty((3, *mask.shape), np.int32)
+    def _word(self, ctrl: np.ndarray) -> np.ndarray:
+        """The (4, [C,] slots) word [cursor; fill mask; ring row; fresh]:
+        the cursors above the loop's control word ``ctrl``."""
+        word = np.empty((4, *ctrl.shape[1:]), np.int32)
         word[0] = self._cursors()
-        word[1] = mask
-        word[2] = ring_rows
+        word[1:] = ctrl
         return word
 
     def _v1(self, word: np.ndarray):
@@ -352,18 +349,18 @@ class ShardedStreamLoop(StreamLoop):
         logits = np.concatenate([lg.cpu().numpy() for lg, _ in outs], -2)
         return logits, self._sum_first([v for _, v in outs])
 
-    def _dispatch_step(self, active: np.ndarray):
-        return self._v1(self._word(active))
+    def _dispatch_step(self, ctrl: np.ndarray):
+        return self._v1(self._word(ctrl))
 
-    def _dispatch_step_chunk(self, counts: list[int], act: np.ndarray):
-        return self._v1(self._word(act))
+    def _dispatch_step_chunk(self, counts: list[int], ctrl: np.ndarray):
+        return self._v1(self._word(ctrl))
 
     def _dispatch_ring_step(self, ctrl: np.ndarray) -> None:
-        self._dispatch_shards(self._word(ctrl[0], ctrl[1]))
+        self._dispatch_shards(self._word(ctrl))
 
     def _dispatch_ring_chunk(self, counts: list[int],
                              ctrl: np.ndarray) -> None:
-        self._dispatch_shards(self._word(ctrl[0], ctrl[1]))
+        self._dispatch_shards(self._word(ctrl))
 
     # ------------------------------------------------------------- counters
 

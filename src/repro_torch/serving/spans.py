@@ -6,14 +6,13 @@ the parts of its host path are its children::
 
     loop.step              step_once; its record carries the counters
     ├─ loop.refill         _refill -> _on_slot_filled
-    │   └─ loop.reset      each slot reset, whoever calls it (sid)
+    │   └─ loop.reset      a filled slot flagged fresh (sid)
     ├─ loop.plan           fill counts, fill mask, the control word
     ├─ loop.stage          the step's host buffers staged
     │   └─ loop.wait_upload    the pinned pair's last upload waited on
     ├─ loop.dispatch       the uploads queued, the graph replayed
     ├─ loop.advance        cursors advanced, completions decided
-    │   ├─ loop.harvest    each harvest: a pinned block, a D2H queued (sid)
-    │   └─ loop.reset      (sid)
+    │   └─ loop.harvest    each harvest: a pinned block, a D2H queued (sid)
     └─ loop.retire         each retirement of an in-flight step
         ├─ loop.wait_fence     the step's fence waited on
         └─ loop.materialize    each completed stream's logits (sid)
@@ -61,9 +60,8 @@ HARVEST = "loop.harvest"
 RETIRE = "loop.retire"
 WAIT_FENCE = "loop.wait_fence"
 MATERIALIZE = "loop.materialize"
-# each span's possible parents: the tree above (v1 resets its finished
-# slots at the root)
-PARENTS = {REFILL: (STEP,), RESET: (REFILL, ADVANCE, STEP), PLAN: (STEP,),
+# each span's possible parents: the tree above
+PARENTS = {REFILL: (STEP,), RESET: (REFILL,), PLAN: (STEP,),
            STAGE: (STEP,), WAIT_UPLOAD: (STAGE,), DISPATCH: (STEP,),
            ADVANCE: (STEP,), HARVEST: (ADVANCE,), RETIRE: (STEP,),
            WAIT_FENCE: (RETIRE,), MATERIALIZE: (RETIRE,)}

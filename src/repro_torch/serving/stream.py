@@ -9,9 +9,10 @@ over 10-ms audio frames, from the pruned int4 model or the float one
    a static calibrated scale (``quantize_features``).
 2. **Slots.** ``StreamLoop`` packs N concurrent utterances into a fixed
    batch of ``batch_slots`` slots.  Every step advances each active slot by
-   one frame (or by up to ``chunk_frames`` frames); a finished slot has its
-   recurrent state zeroed in place (``reset_slot_``) and is refilled from
-   the queue without stopping the batch.
+   one frame (or by up to ``chunk_frames`` frames); a finished slot is
+   refilled from the queue without stopping the batch, and the new
+   stream's first step zeroes the slot's recurrent state in place before
+   it advances it (``reset_slots_``, under the control word's fresh flags).
 3. **State.** ``CompiledRSNN`` carries ``RSNNState`` (per-ts spikes + LIF
    membrane chain) across frames, wrapped in ``DeltaRSNNState`` (held
    input, cached L0 pre-activation) when the backend gates its input.
@@ -175,6 +176,25 @@ def reset_slot_(state, i: int) -> None:
     for s in (state.lif0, state.lif1):
         s.u[i].zero_()
         s.spike[i].zero_()
+
+
+def reset_slots_(state, fresh: torch.Tensor) -> None:
+    """``reset_slot_`` of every slot whose flag in ``fresh`` ((slots,),
+    int or bool) is set, in place, as a fixed handful of masked writes
+    whatever the flags: a captured step carries it.  ``masked_fill_``
+    writes +0.0, the bits ``zero_`` writes (a multiply by a keep mask would
+    leave -0.0 in a negative membrane)."""
+    m = fresh.bool()
+    if isinstance(state, DeltaRSNNState):
+        reset_slots_(state.rsnn, m)
+        state.x_prev.masked_fill_(m[:, None], 0.0)
+        state.pre.masked_fill_(m[:, None], 0.0)
+        return
+    state.h0.masked_fill_(m[None, :, None], 0.0)
+    state.h1.masked_fill_(m[None, :, None], 0.0)
+    for s in (state.lif0, state.lif1):
+        s.u.masked_fill_(m[:, None], 0.0)
+        s.spike.masked_fill_(m[:, None], 0.0)
 
 
 def reset_slot(state, i: int):
@@ -794,9 +814,13 @@ class StreamLoop(SlotScheduler):
 
     N submitted utterances share a fixed batch of ``batch_slots`` rows.
     Each ``step_once`` advances every active slot by one frame; a slot
-    whose utterance ends is state-reset and refilled from the queue
-    mid-batch.  Idle slots carry zero frames and are excluded from the
-    sparsity counters.
+    whose utterance ends is refilled from the queue mid-batch.  A fill
+    flags the slot fresh, and the next step zeroes the state of its fresh
+    slots before it advances them (``reset_slots_``): the flags ride in the
+    control word, so no reset is launched from the host.  Idle slots
+    (finished and not refilled) advance on zero frames, masked out of the
+    sparsity counters; their ring writes land on rows nothing reads, and
+    nothing reads their state before a fill zeroes it.
 
     ``pipeline_depth`` selects the contract (module docstring): ``0`` is
     the synchronous v1 loop (the logits, and the packed counter vector
@@ -814,7 +838,7 @@ class StreamLoop(SlotScheduler):
     in every contract; only when data crosses to the host changes.
 
     The loop allocates its state, ring, counter accumulator and step
-    inputs once and only writes into them (``reset_slot_``, ``copy_``,
+    inputs once and only writes into them (``reset_slots_``, ``copy_``,
     ``index_put_``, ``add_``).  Frames and the control word reach the card
     through ``pipeline_depth + 1`` pinned host buffers in rotation, copied
     asynchronously.  With ``aot_warmup=True`` on a CUDA engine the
@@ -832,14 +856,14 @@ class StreamLoop(SlotScheduler):
     ``_build_data_path`` (state, ring, accumulator, inputs, step),
     ``_dispatch_step``, ``_dispatch_ring_step``, ``_dispatch_step_chunk``
     and ``_dispatch_ring_chunk`` (one each for v1 and v2, by frame and by
-    chunk), ``_reset_slot``, ``_harvest``, ``_aux_total`` and
-    ``_zero_aux``.
+    chunk, each given the loop's control word), ``_harvest``,
+    ``_aux_total`` and ``_zero_aux``.
 
     ``host_syncs`` counts the device->host transfers the loop makes,
     ``dispatches`` its step dispatches (one a chunk), ``frames_served``
-    the slot-frames advanced, ``resets`` the slot resets (one at a fill
-    and one at a finish, so two a stream) and ``finishes`` the streams
-    that left a slot.  ``track_sparsity=False`` detaches the counter sink: no
+    the slot-frames advanced, ``resets`` the slot resets (one at each
+    fill, so one a stream) and ``finishes`` the streams that left a
+    slot.  ``track_sparsity=False`` detaches the counter sink: no
     counter fetch and no accumulator.  Each ``step_once`` is the root
     span of its dispatch, and the parts of the host path its children
     (``serving/spans.py``), recorded while a profiler runs or inside
@@ -874,6 +898,9 @@ class StreamLoop(SlotScheduler):
         self.aot_warmup = aot_warmup
         self.clock = time.monotonic  # swappable for deterministic tests
         self._flushed = [0] * batch_slots  # frames already harvested, per slot
+        # slots filled since the last dispatch: the next control word's
+        # fresh flags (_ctrl_word), whose step zeroes their state
+        self._fresh = np.zeros(batch_slots, np.int32)
         self._inflight: collections.deque[_InflightStep] = collections.deque()
         self._fence = None  # the fence of the step being dispatched
         self._build_data_path()
@@ -931,8 +958,9 @@ class StreamLoop(SlotScheduler):
 
     def _init_inputs(self) -> None:
         """The step's static inputs on the device, ([C,] slots, input_dim)
-        frames and the (2, [C,] slots) int32 control word (row 0 the fill
-        mask, row 1 the ring row), and the host buffers they are staged
+        frames and the (3, [C,] slots) int32 control word (row 0 the fill
+        mask, row 1 the ring row, row 2 the fresh flags, ``_ctrl_word``),
+        and the host buffers they are staged
         in, allocated once (a fresh host buffer a step costs its page
         faults): on a CUDA engine ``pipeline_depth + 1`` pinned pairs,
         each with the event after which its last upload has landed; on
@@ -940,7 +968,7 @@ class StreamLoop(SlotScheduler):
         b, c = self.slots, self.chunk_frames
         lead = () if c == 1 else (c,)
         x_shape = (*lead, b, self.engine.cfg.input_dim)
-        ctrl_shape = (2, *lead, b)
+        ctrl_shape = (3, *lead, b)
         dev = self.engine.device
         if dev.type == "cuda":  # pin_memory needs CUDA
             self._x_in = torch.zeros(x_shape, dtype=torch.float32,
@@ -962,11 +990,12 @@ class StreamLoop(SlotScheduler):
         """(key, fn) of the step this loop dispatches: ``fn(x, ctrl, state,
         ring, aux_acc)`` quantizes the raw frames ``x`` and runs the
         contract's step over those buffers, in place (``_contract_fn``);
-        ``ctrl`` is the (2, [C,] slots) word [fill mask; ring row]."""
+        ``ctrl`` is the (3, [C,] slots) word [fill mask; ring row;
+        fresh]."""
         eng = self.engine
 
         def frames(x, ctrl):
-            return eng._quantize(x), ctrl[0], ctrl[1]
+            return eng._quantize(x), ctrl[0], ctrl[1], ctrl[2]
 
         return self._contract_fn(eng, self.slots, frames)
 
@@ -974,17 +1003,24 @@ class StreamLoop(SlotScheduler):
                      ) -> tuple[tuple, Callable]:
         """(key, fn) of the contract's step over ``slots`` slots of
         ``eng``: ``fn(src, ctrl, state, ring, aux_acc)`` takes the step's
-        quantized frames, fill mask and ring rows from ``frames(src,
-        ctrl)`` and updates its buffers in place; it returns v1's (logits,
-        packed counter vector) and nothing in v2.  The key is (contract,
-        slots, chunk, ring_frames, track_sparsity)."""
+        quantized frames, fill mask, ring rows and fresh flags from
+        ``frames(src, ctrl)``, zeroes the fresh slots' state (their flags
+        sit in sub-step 0) and updates its buffers in place; it returns
+        v1's (logits, packed counter vector) and nothing in v2.  The key is
+        (contract, slots, chunk, ring_frames, track_sparsity)."""
         c = self.chunk_frames
+
+        def inputs(src, ctrl, state):
+            x, active, ring_idx, fresh = frames(src, ctrl)
+            reset_slots_(state, fresh if c == 1 else fresh[0])
+            return x, active, ring_idx
+
         if self.pipeline_depth == 0:
             step = eng.step_masked if c == 1 else eng._masked_chunk_step
             contract = "v1" if c == 1 else "v1-chunk"
 
             def fn(src, ctrl, state, ring, aux_acc):
-                x, active, _ = frames(src, ctrl)
+                x, active, _ = inputs(src, ctrl, state)
                 new, logits, vec = step(state, x, active)
                 copy_state_(state, new)
                 return logits, vec
@@ -993,7 +1029,7 @@ class StreamLoop(SlotScheduler):
             contract = "v2" if c == 1 else "v2-chunk"
 
             def fn(src, ctrl, state, ring, aux_acc):
-                x, active, ring_idx = frames(src, ctrl)
+                x, active, ring_idx = inputs(src, ctrl, state)
                 step(state, x, active, ring, ring_idx, aux_acc)
         else:
             step = (eng._ring_frame_step_quiet if c == 1
@@ -1001,7 +1037,7 @@ class StreamLoop(SlotScheduler):
             contract = "v2-quiet" if c == 1 else "v2-chunk-quiet"
 
             def fn(src, ctrl, state, ring, aux_acc):
-                x, _, ring_idx = frames(src, ctrl)
+                x, _, ring_idx = inputs(src, ctrl, state)
                 step(state, x, ring, ring_idx)
         key = (contract, slots, c, self.ring_frames, self.track_sparsity)
         return key, fn
@@ -1041,18 +1077,18 @@ class StreamLoop(SlotScheduler):
         return _StepGraph(graph, fn, outputs, launches)
 
     def _stage(self) -> tuple[np.ndarray, np.ndarray]:
-        """The host buffers of the next step's frames and control word,
-        zeroed: the next pinned pair of the rotation once the upload that
-        last read it has landed (CUDA), or the step's own inputs (CPU)."""
+        """The host buffers of the next step's frames, zeroed, and control
+        word, which the caller writes whole: the next pinned pair of the
+        rotation once the upload that last read it has landed (CUDA), or
+        the step's own inputs (CPU)."""
         hx, hc, landed = self._staging[self._stage_next]
         if landed is not None:
             t = spans.now()
             landed.synchronize()
             spans.end(spans.WAIT_UPLOAD, t)
-        x, ctrl = hx.numpy(), hc.numpy()
+        x = hx.numpy()
         x.fill(0)
-        ctrl.fill(0)
-        return x, ctrl
+        return x, hc.numpy()
 
     def _dispatch(self):
         """Dispatch the step over the staged inputs (replay its graph, or
@@ -1116,9 +1152,10 @@ class StreamLoop(SlotScheduler):
         return sid
 
     def _on_slot_filled(self, i: int, req: StreamRequest) -> None:
-        """Fresh utterance boundary: zero the slot's recurrent state and
-        harvest cursor.  The previous occupant's ring rows were copied out
-        at its completion, so the new stream may overwrite them."""
+        """Fresh utterance boundary: flag the slot's recurrent state to be
+        zeroed by the next step, and zero its harvest cursor.  The previous
+        occupant's ring rows were copied out at its completion, so the new
+        stream may overwrite them."""
         req.t_start = self.clock()
         self._flushed[i] = 0
         self._reset(i, req.sid)
@@ -1132,8 +1169,23 @@ class StreamLoop(SlotScheduler):
         spans.end(spans.RESET, t, sid)
 
     def _reset_slot(self, i: int) -> None:
-        """Zero slot ``i``'s recurrent state in place."""
-        reset_slot_(self.state, i)
+        """Flag slot ``i`` fresh: the next step zeroes its recurrent state
+        in place before it advances it (``_ctrl_word``, ``reset_slots_``).
+        Nothing is launched here."""
+        self._fresh[i] = 1
+
+    def _ctrl_word(self, mask: np.ndarray, ring_rows=0) -> np.ndarray:
+        """The step's (3, [C,] slots) int32 control word [fill mask; ring
+        row; fresh] from the ([C,] slots) fill ``mask`` and ``ring_rows``.
+        The fresh flags of the slots filled since the last dispatch go
+        into sub-step 0 (a slot is filled only at a chunk boundary) and are
+        cleared."""
+        word = np.zeros((3, *mask.shape), np.int32)
+        word[0] = mask
+        word[1] = ring_rows
+        (word[2] if mask.ndim == 1 else word[2, 0])[:] = self._fresh
+        self._fresh.fill(0)
+        return word
 
     def _finish_slot(self, i: int) -> StreamRequest:
         req = super()._finish_slot(i)
@@ -1161,20 +1213,22 @@ class StreamLoop(SlotScheduler):
             if r is not None:
                 x[i] = r.frames[self.slot_pos[i]]
 
-    def _dispatch_step(self, active: np.ndarray):
-        """v1: advance every slot one frame.  Returns (logits (slots,
-        fc_dim) np, packed masked counter vector)."""
+    def _dispatch_step(self, ctrl: np.ndarray):
+        """v1: advance every slot one frame under the (3, slots) control
+        word (``_ctrl_word``).  Returns (logits (slots, fc_dim) np, packed
+        masked counter vector)."""
         t = spans.now()
-        x, ctrl = self._stage()
+        x, word = self._stage()
         self._gather_host_frames(x)
-        ctrl[0] = active
+        word[:] = ctrl
         spans.end(spans.STAGE, t)
         logits, vec = self._dispatch()
         return logits.cpu().numpy(), vec
 
     def _dispatch_ring_step(self, ctrl: np.ndarray) -> None:
-        """v2: dispatch one pipelined step over the (2, slots) control
-        word [active mask; ring row]; nothing crosses to the host."""
+        """v2: dispatch one pipelined step over the (3, slots) control
+        word [active mask; ring row; fresh]; nothing crosses to the
+        host."""
         t = spans.now()
         x, word = self._stage()
         self._gather_host_frames(x)
@@ -1214,11 +1268,10 @@ class StreamLoop(SlotScheduler):
         if self.chunk_frames > 1:
             return self._step_once_chunk(plan)
 
-        ctrl = np.zeros((2, self.slots), np.int32)  # [active; ring row]
-        ctrl[0] = active
-        ctrl[1] = [self.slot_pos[i] - self._flushed[i]
-                   if self.slot_req[i] is not None else 0
-                   for i in range(self.slots)]
+        ctrl = self._ctrl_word(active, [
+            self.slot_pos[i] - self._flushed[i]
+            if self.slot_req[i] is not None else 0
+            for i in range(self.slots)])
         spans.end(spans.PLAN, plan)
         self._dispatch_ring_step(ctrl)
         self.steps += 1
@@ -1236,8 +1289,9 @@ class StreamLoop(SlotScheduler):
         """v1: fetch the logits (and the counters, when a sink is
         attached) to the host every step.  ``plan`` is the start of the
         step's ``loop.plan`` span."""
+        ctrl = self._ctrl_word(active)
         spans.end(spans.PLAN, plan)
-        logits_np, aux_vec = self._dispatch_step(active)
+        logits_np, aux_vec = self._dispatch_step(ctrl)
         self.host_syncs += 1  # per-frame logit fetch
         self.steps += 1
         self.dispatches += 1
@@ -1254,12 +1308,11 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += 1
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                self._reset(i, r.sid)
         return True
 
     def _advance_slots(self) -> list[StreamRequest]:
         """Dispatch-time bookkeeping of v2: advance the cursors, harvest
-        completed and watermark-full slots, reset and free finished ones.
+        completed and watermark-full slots, free finished ones.
         Completion depends only on host-side frame counts, so this runs
         while the step is in flight; the schedule is v1's."""
         return self._advance_slots_chunk([1 if r is not None else 0
@@ -1270,7 +1323,7 @@ class StreamLoop(SlotScheduler):
     def _chunk_counts(self) -> list[int]:
         """Frames each slot serves in this chunk: the chunk size, or the
         stream's remaining frames (ragged tail).  A slot that completes
-        idles to the chunk boundary, masked, and is reset there.  In the
+        idles to the chunk boundary, masked, and is freed there.  In the
         pipelined contract a live slot never idles: ``ring_frames`` is a
         multiple of ``chunk_frames``, so the fill reaches the watermark at
         a chunk boundary and the flush restores full capacity."""
@@ -1303,20 +1356,20 @@ class StreamLoop(SlotScheduler):
                 x[:counts[i], i] = r.frames[p:p + counts[i]]
         return ctrl
 
-    def _dispatch_step_chunk(self, counts: list[int], act: np.ndarray):
-        """v1 chunked: the (F, slots) fill mask ``act`` -> (logits (F,
-        slots, fc_dim) np, packed masked counter vector)."""
+    def _dispatch_step_chunk(self, counts: list[int], ctrl: np.ndarray):
+        """v1 chunked: the (3, F, slots) control word (``_ctrl_word``) ->
+        (logits (F, slots, fc_dim) np, packed masked counter vector)."""
         t = spans.now()
-        ctrl = self._stage_chunk(counts)
-        ctrl[0] = act
+        word = self._stage_chunk(counts)
+        word[:] = ctrl
         spans.end(spans.STAGE, t)
         logits, vec = self._dispatch()
         return logits.cpu().numpy(), vec
 
     def _dispatch_ring_chunk(self, counts: list[int],
                              ctrl: np.ndarray) -> None:
-        """v2 chunked: dispatch one pipelined step over the (2, F, slots)
-        control word [fill mask; ring row]; nothing crosses to the
+        """v2 chunked: dispatch one pipelined step over the (3, F, slots)
+        control word [fill mask; ring row; fresh]; nothing crosses to the
         host."""
         t = spans.now()
         word = self._stage_chunk(counts)
@@ -1328,9 +1381,9 @@ class StreamLoop(SlotScheduler):
         """v1 at ``chunk_frames > 1``: one dispatch and one logit fetch a
         chunk, the schedule otherwise that of frame-by-frame stepping."""
         counts = self._chunk_counts()
-        act = self._chunk_mask(counts)
+        ctrl = self._ctrl_word(self._chunk_mask(counts))
         spans.end(spans.PLAN, plan)
-        logits_np, aux_vec = self._dispatch_step_chunk(counts, act)
+        logits_np, aux_vec = self._dispatch_step_chunk(counts, ctrl)
         self.host_syncs += 1  # per-chunk logit fetch
         self.steps += 1
         self.dispatches += 1
@@ -1348,7 +1401,6 @@ class StreamLoop(SlotScheduler):
             self.slot_pos[i] += counts[i]
             if self.slot_pos[i] == len(r.frames):
                 self._finish_slot(i)
-                self._reset(i, r.sid)
         return True
 
     def _step_once_chunk(self, plan: int) -> bool:
@@ -1358,10 +1410,9 @@ class StreamLoop(SlotScheduler):
         live = self._chunk_mask(counts)
         base = np.array([self.slot_pos[i] - self._flushed[i]
                          for i in range(self.slots)])
-        ctrl = np.zeros((2, *live.shape), np.int32)  # [fill mask; ring row]
-        ctrl[0] = live
-        ctrl[1] = np.where(live, base + np.arange(self.chunk_frames)[:, None],
-                           self.ring_frames)
+        ctrl = self._ctrl_word(live, np.where(
+            live, base + np.arange(self.chunk_frames)[:, None],
+            self.ring_frames))
         spans.end(spans.PLAN, plan)
         self._dispatch_ring_chunk(counts, ctrl)
         self.steps += 1
@@ -1394,7 +1445,6 @@ class StreamLoop(SlotScheduler):
                 completed.append(r)
                 self._finish_slot(i)
                 self._flushed[i] = 0
-                self._reset(i, r.sid)
             elif fill == self.ring_frames:  # watermark flush: ring is full
                 t = spans.now()
                 self._harvest(r, i, fill)

@@ -6,7 +6,8 @@ chunked as the benchmark runs it, v2 by frame, v1 by frame and chunked)
 and through ``ShardedStreamLoop`` over two CPU shards.  Recording must
 not change what the loop computes; the records must form the span tree
 of ``serving/spans.py``, carry their request's id and lie on the clock
-they were stamped on; the reset counter must count every reset; a
+they were stamped on; the reset counter must count every reset, one at
+each fill; a
 profiler session must turn recording on and off; and a full ring must
 be seen as one.
 """
@@ -164,15 +165,15 @@ def test_every_reset_is_counted_and_spanned(engine, contract, monkeypatch):
         for _ in range(3):
             loop.step_once()
         occupied = sum(r is not None for r in loop.slot_req)
-        assert loop.resets == len(calls) == 2 * loop.finishes + occupied
+        assert loop.resets == len(calls) == loop.finishes + occupied
         while loop.step_once():
             pass
     n_resets = sum(r.name == spans.RESET for r in spans.records())
     assert n_resets == loop.resets == len(calls)
-    # a reset at each fill and at each finish; the empty stream takes no
+    # a reset at each fill, none at a finish; the empty stream takes no
     # slot
     assert loop.finishes == sum(n > 0 for n in LENS)
-    assert loop.resets == 2 * loop.finishes
+    assert loop.resets == loop.finishes
     loop.reset_metrics()
     assert loop.resets == loop.finishes == 0
 
