@@ -8,7 +8,7 @@ puts the reference computed one precision below the configuration's (TF32
 weights, float32 sums: ``reference/model.py``'s ``"tf32"``) in the
 program's place over ``--streams`` of the pool's utterances, and holds its
 logits against the float64 reference with the run's own comparison.  It
-prints one line a seed with ``diverged_frames_pct`` (the control's reading,
+prints one line a seed with ``diverged_decided_pct`` (the control's reading,
 which the cell's limit must lie below) and, last, a JSON summary.
 """
 
@@ -60,14 +60,19 @@ def main(argv=None) -> int:
 
     _, cfg, mix, limits = harness.cell_files(harness.manifest(),
                                              args.workload)
+    if cfg.get("family") != "rsnn":
+        raise SystemExit(f"{args.workload}: the control is the RSNN "
+                         f"reference's, not the {cfg.get('family')} family's")
     readings = []
     for seed in (int(s) for s in args.seeds.split(",")):
         r = control_reading(cfg, mix, seed, args.streams,
                             torch.device(args.device))
-        readings.append(r["diverged_frames_pct"])
-        print(f"seed {seed}: diverged_frames_pct {r['diverged_frames_pct']}"
-              f" ({r['diverged_streams']} of {r['checked_streams']} streams)"
-              f" limit {limits['diverged_frames_pct']}", flush=True)
+        readings.append(r["diverged_decided_pct"])
+        print(f"seed {seed}: diverged_decided_pct "
+              f"{r['diverged_decided_pct']} ({r['diverged_streams']} of "
+              f"{r['checked_streams']} streams, {r['decided_frames']} of "
+              f"{r['checked_frames']} frames decided) limit "
+              f"{limits['diverged_decided_pct']}", flush=True)
     print(json.dumps({"workload": args.workload, "control": readings,
                       "min": min(readings)}))
     return 0

@@ -1,16 +1,18 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
 A run reads its cell from ``BENCHMARK.json`` (a configuration and a
-traffic mix), draws the model and the feature pool from the seed on the
-card, writes the artifact, builds the program (``program.py``), warms it
-up, serves the mix for ``--seconds`` (``drive.py``), and then, with the
-window closed and the program's memory peak read and its state freed,
-holds a seeded sample of the window's answers against the reference
-(``reference/``).  It prints the numbers compared beside their limits on
-standard error, and one JSON object: the cell's end-to-end metrics
-(``--trace 0``) or its per-layer metrics, read by ``metrics/<name>.py``
-from the device trace, the harness's spans and the loop's counters
-(``--trace 1``), with the numbers compared under ``checks``, last.
+traffic mix) and hands both to the configuration's family
+(``families/<family>.py``, named in the configuration's file), which
+draws the model and its inputs from the seed, builds and warms up the
+program and serves the mix for ``--seconds``.  With the window closed,
+the program's memory peak read and its state freed, the family holds the
+window's answers against its plain reference.  The run prints the set-up's
+phases, where the process ran, and the numbers compared beside their
+limits on standard error, and one JSON object: the cell's end-to-end
+metrics (``--trace 0``) or its per-layer metrics, read by
+``metrics/<name>.py`` from the device trace, the spans and the program's
+counters (``--trace 1``), with the numbers compared under ``checks``,
+last.
 """
 
 from __future__ import annotations
@@ -18,18 +20,16 @@ from __future__ import annotations
 import gc
 import importlib.util
 import json
-import shutil
+import os
 import subprocess
 import sys
-import tempfile
+import time
 from pathlib import Path
 
 import torch
 
-from bench import drive, traffic
+from bench import families, traffic
 from bench.devtrace import DeviceTrace, Spans
-from bench.reference import compare, data
-from bench.reference.model import Reference
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -57,6 +57,13 @@ def cell_files(bench: dict, workload: str) -> tuple[dict, dict, dict, dict]:
     mix = traffic.load(cell["traffic"])
     limits = json.loads((HERE / "cells" / f"{workload}.json").read_text())
     return cell, cfg, mix, limits["limits"]
+
+
+def family(cfg: dict):
+    """The family module of the configuration ``cfg``."""
+    if "family" not in cfg:
+        raise RunError(f"configuration {cfg.get('name')!r} names no family")
+    return families.load(cfg["family"])
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list[dict]:
@@ -88,125 +95,166 @@ def banned_modules() -> list[str]:
     return sorted(n for n in sys.modules if n.split(".")[0] in BANNED)
 
 
+def _smi(device: torch.device, field: str) -> str | None:
+    """One field of ``nvidia-smi``'s query for the card; None where it gives
+    none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader",
+             "-i", str(device.index or 0)],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out if out and not out.startswith("[") else None
+
+
 def card(device: torch.device) -> dict:
     """The card's name and power limit, and the run's card count."""
-    out = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-           "count": 1}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": 1,
+            "power_limit": _smi(device, "power.limit") or "not read"}
+
+
+# ---- the host: where the process runs, relative to the card
+
+def parse_cpulist(text: str) -> set[int]:
+    """The CPUs of a kernel cpulist such as ``0-3,8,10-11``."""
+    cpus: set[int] = set()
+    for part in text.strip().split(","):
+        if part:
+            lo, _, hi = part.partition("-")
+            cpus.update(range(int(lo), int(hi or lo) + 1))
+    return cpus
+
+
+def cpulist(cpus) -> str:
+    """``cpus`` as a kernel cpulist, in runs: ``{0, 1, 2, 5}`` -> ``0-2,5``."""
+    out, run = [], []
+    for c in sorted(cpus):
+        if run and c != run[-1] + 1:
+            out.append(run)
+            run = []
+        run.append(c)
+    if run:
+        out.append(run)
+    return ",".join(f"{r[0]}-{r[-1]}" if len(r) > 1 else f"{r[0]}"
+                    for r in out)
+
+
+def _read(path: Path) -> str | None:
     try:
-        out["power_limit"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
-             "-i", str(device.index or 0)], capture_output=True, text=True,
-            timeout=30).stdout.strip() or "not read"
-    except (OSError, subprocess.SubprocessError):
-        out["power_limit"] = "not read"
+        return path.read_text().strip()
+    except OSError:
+        return None
+
+
+def cpu_nodes(sys_root: Path = Path("/sys")) -> dict[int, set[int]]:
+    """NUMA node -> its CPUs; empty where the kernel shows no nodes."""
+    out = {}
+    for d in sorted((sys_root / "devices/system/node").glob("node[0-9]*")):
+        text = _read(d / "cpulist")
+        if text is not None:
+            out[int(d.name[4:])] = parse_cpulist(text)
     return out
 
 
-def fc_entries(cfg: dict, model: dict) -> int:
-    """CSC entries a column of the stored FC (the densest column's kept
-    count, which the layout pads every column to); 0 for a dense FC."""
-    if cfg["precision"] != "int4":
-        return 0
-    keep = model["layers"]["fc_w"][2]
-    return max(int(keep.sum(dim=0).max()), 1)
+def card_sysfs(bus_id: str | None, sys_root: Path = Path("/sys")
+               ) -> Path | None:
+    """The card's PCI directory, from ``nvidia-smi``'s bus id
+    (``00000000:18:00.0``, an 8-digit domain, where sysfs has 4)."""
+    if not bus_id:
+        return None
+    bus = bus_id.lower()[-12:]
+    path = sys_root / "bus/pci/devices" / bus
+    return path if path.is_dir() else None
 
 
-class Served:
-    """What the window measured: the window, the loop's counters at its
-    bounds, every harvested request's (t_harvest, frames), and in the open
-    loop each due request's completion latency."""
+def host(bus_id: str | None, sys_root: Path = Path("/sys")) -> dict:
+    """Where the process may run: ``host_cpus``, its CPU set, and
+    ``host_node``, the NUMA nodes of those CPUs and the card's node (None
+    where sysfs does not say)."""
+    cpus = os.sched_getaffinity(0)
+    nodes = cpu_nodes(sys_root)
+    pci = card_sysfs(bus_id, sys_root)
+    node = _read(pci / "numa_node") if pci is not None else None
+    return {"host_cpus": cpulist(cpus),
+            "host_node": {"cpus": sorted(n for n, s in nodes.items()
+                                         if s & cpus),
+                          "card": int(node) if node is not None else None}}
 
-    def __init__(self):
+
+class Timeline:
+    """Set-up's phases on the harness's clock (``time.monotonic``), from
+    the process's start ``t_start``."""
+
+    def __init__(self, t_start: float):
+        self.t_start = t_start
+        self.phases: list[tuple[str, float]] = []
+
+    def phase(self, name: str) -> None:
+        """The phase ``name`` ends now."""
+        self.phases.append((name, time.monotonic()))
+
+    def durations(self, t0: float) -> list[tuple[str, float]]:
+        """Each phase's seconds, and the rest up to the window's open
+        ``t0``."""
+        out, last = [], self.t_start
+        for name, t in self.phases:
+            out.append((name, t - last))
+            last = t
+        out.append(("to_window", t0 - last))
+        return out
+
+
+class Window:
+    """The measured window, handed to a family's ``serve``: ``settle()``
+    once set-up is done, then ``open(t0, t1)`` as the window opens and
+    ``close()`` as it closes.  Settling starts the device trace, lets the
+    card finish what set-up queued and moves set-up's objects out of the
+    collector's way; opening and closing mark the trace's window.  After
+    ``serve`` the harness refuses a run that skipped a step (``verify``)."""
+
+    def __init__(self, seconds: float, device: torch.device,
+                 trace: DeviceTrace | None, timeline: Timeline):
+        self.seconds = seconds
+        self.device, self.trace, self.timeline = device, trace, timeline
+        self.settled = self.closed = False
         self.t0 = self.t1 = None
-        self.open: dict = {}
-        self.close: dict = {}
-        self.harvests: list[tuple[float, int]] = []
-        self.latency: dict[int, float] = {}  # open loop: sid -> seconds
 
-    def in_window(self, t: float) -> bool:
-        return self.t0 is not None and self.t0 <= t <= self.t1
+    def settle(self) -> None:
+        if self.trace is not None:
+            self.trace.start()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        gc.collect()
+        gc.freeze()
+        self.settled = True
+        self.timeline.phase("settle")
 
-    def frames(self) -> int:
-        return sum(n for t, n in self.harvests if self.in_window(t))
+    def open(self, t0: float, t1: float) -> None:
+        if not self.settled:
+            raise RunError("the window opened before set-up settled")
+        self.t0, self.t1 = t0, t1
+        if self.trace is not None:
+            self.trace.open()
 
+    def close(self) -> None:
+        if self.t0 is None:
+            raise RunError("the window closed before it opened")
+        if self.trace is not None:
+            self.trace.close()
+        self.closed = True
 
-def serve(loop, mix: dict, pool, seed: int, window: float, trace: bool
-          ) -> tuple[Served, drive.Feed, DeviceTrace | None, Spans]:
-    """Warm up (the open loop: with ``warmup_s`` of arrivals), then serve
-    the mix over the window.  Returns what was measured, the feed (its
-    sample and bookkeeping), the device trace and the spans; set-up ends
-    as the window opens (``Served.t0``)."""
-    spans = Spans(trace)
-    collector = drive.Collector(loop, mix["check"], seed, mix["max_frames"])
-    order = traffic.submission_order(len(pool), seed)
-    dt = DeviceTrace() if trace else None
-    got = Served()
-    cls = drive.Backlog if mix["mode"] == "backlog" else drive.OpenLoop
-    feed = cls(mix, loop, pool, order, collector, spans)
-
-    def counters() -> dict:
-        return {"dispatches": loop.dispatches, "host_syncs": loop.host_syncs,
-                "frames_served": loop.frames_served,
-                "step_s": feed.step_s}
-
-    def on_open(t0, t1):
-        got.t0, got.t1 = t0, t1
-        if dt is not None:
-            dt.open()
-        got.open = counters()
-
-    def on_close():
-        got.close = counters()
-        if dt is not None:
-            dt.close()
-
-    if mix["mode"] == "backlog":
-        collector.on_harvest = lambda r: got.harvests.append(
-            (r.t_harvest, len(r.frames)))
-        collector.counts = lambda r: got.in_window(r.t_harvest)
-        rate = feed.warm(mix["warmup_dispatches"])
-        collector.stride_for(rate * window)
-        _settle(loop, dt)
-        feed.window(window, on_open, on_close)
-    else:
-        def harvest(r):
-            got.harvests.append((r.t_harvest, len(r.frames)))
-            if r.sid in feed.due:
-                got.latency[r.sid] = r.t_harvest - feed.due[r.sid]
-
-        collector.on_harvest = harvest
-        collector.counts = lambda r: r.sid in feed.due
-        warm = traffic.arrival_offsets(mix["rate"], mix["warmup_s"], seed, 0)
-        offs = traffic.arrival_offsets(mix["rate"], window, seed, 1)
-        collector.stride_for(len(offs))
-        _settle(loop, dt)
-        feed.run(warm, offs, mix["warmup_s"], window, mix["drain_s"],
-                   on_open, on_close)
-    loop.flush()
-    collector.poll()
-    if dt is not None:
-        dt.stop()
-    return got, feed, dt, spans
-
-
-def _settle(loop, dt: DeviceTrace | None) -> None:
-    """Start the trace, let the card finish what set-up queued, and move
-    set-up's objects out of the collector's way."""
-    if dt is not None:
-        dt.start()
-    if loop.engine.device.type == "cuda":
-        torch.cuda.synchronize(loop.engine.device)
-    gc.collect()
-    gc.freeze()
-
-
-def open_loop_latencies(got: Served, feed, mix: dict) -> list[float]:
-    """Completion latency (s) of every due request, from its scheduled
-    arrival to its harvest; one not harvested by the drain's end counts
-    from its arrival to that end."""
-    end = got.t1 + mix["drain_s"]
-    return [got.latency.get(sid, end - due)
-            for sid, due in feed.due.items()]
+    def verify(self) -> None:
+        """Raise ``RunError`` unless the window was settled, opened and
+        closed, and a trace's window has a length."""
+        if not (self.settled and self.t0 is not None and self.closed):
+            raise RunError(
+                f"the family's serve left the window unfinished (settled "
+                f"{self.settled}, opened {self.t0 is not None}, closed "
+                f"{self.closed})")
+        if self.trace is not None and not self.trace.t1 > self.trace.t0:
+            raise RunError("the traced window has no length")
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool,
@@ -216,8 +264,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     the tests (the program's plain versions, no trace); ``files`` replaces
     ``cell_files``' (cell, configuration, mix, limits) and ``bench`` the
     manifest."""
+    timeline = Timeline(t_start)
+    timeline.phase("imports")
     bench = manifest() if bench is None else bench
     cell, cfg, mix, limits = files or cell_files(bench, workload)
+    fam = family(cfg)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", dev.index or 0)
@@ -231,70 +282,36 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     torch.set_num_threads(1)
     window = min(seconds, TRACE_SECONDS) if trace else float(seconds)
 
-    # ---- set-up: model, features, artifact, program, warm-up
-    model = data.weights(cfg, seed, dev)
-    pool = traffic.Pool(mix, cfg, seed, dev)
-    scale = data.input_scale(pool.frames, cfg["input_bits"])
-    workdir = Path(tempfile.mkdtemp(prefix="bench-"))
-    try:
-        from bench import program
-
-        loop = program.build(cfg, mix, model, scale, workdir, dev)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    got, feed, dt, spans = serve(loop, mix, pool, seed, window, trace)
+    # ---- set-up and the window
+    spans = Spans(trace)
+    dt = DeviceTrace() if trace else None
+    setup = fam.build(cfg, mix, seed, dev, timeline)
+    win = Window(window, dev, dt, timeline)
+    got = fam.serve(setup, win, spans, timeline)
+    win.verify()
+    if dt is not None:
+        dt.stop()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    sample = feed.collector.sample
-    sid_utt = feed.sid_utt
-    if mix["mode"] == "backlog":
-        attempted = sum(1 for t, _ in got.harvests if got.in_window(t))
-        e2e = {"frames_per_s": got.frames() / window}
-        missing_due = 0
-    else:
-        lat = open_loop_latencies(got, feed, mix)
-        attempted = len(feed.due)
-        missing_due = attempted - len(got.latency)
-        e2e = {"completion_p95_ms": 1e3 * traffic.nearest_rank(lat, 95)}
-        late = feed.late_s or [0.0]
-        print(f"open loop: {attempted} due, {missing_due} not harvested by "
-              f"the drain's end; completion p50 "
-              f"{1e3 * traffic.nearest_rank(lat, 50):.3f} ms p95 "
-              f"{e2e['completion_p95_ms']:.3f} ms; generator late p50 "
-              f"{1e3 * traffic.nearest_rank(late, 50):.3f} ms max "
-              f"{1e3 * max(late):.3f} ms", file=sys.stderr)
-    e2e["setup_s"] = got.t0 - t_start
-    del loop, feed
+    e2e = dict(got.e2e, setup_s=win.t0 - t_start)
+    setup.program = None
     gc.unfreeze()
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # ---- the check: the window's sample against the reference
-    streams = [pool.utterance(sid_utt[sid]) for sid, _ in sample]
-    served = [logits for _, logits in sample]
-    ref = Reference(cfg, model, "exact", dev)
-    cmp = compare.compare(ref, streams, served, scale)
-    checks = {
-        "diverged_frames_pct": {"value": cmp["diverged_frames_pct"],
-                                "limit": limits["diverged_frames_pct"]},
-        "missing_streams": {"value": cmp["missing_streams"], "limit": 0},
-        "checked_streams": {"value": cmp["checked_streams"],
-                            "limit": limits["min_checked_streams"]},
-    }
-    correct = (cmp["diverged_frames_pct"] <= limits["diverged_frames_pct"]
-               and cmp["missing_streams"] == 0
-               and cmp["checked_streams"] >= limits["min_checked_streams"])
+    # ---- the check: the window's answers against the reference
+    checks, correct, failed = fam.check(setup, got, limits, dev)
 
     # ---- metrics
     metrics = {}
     result_device = card(dev) if dev.type == "cuda" else {
         "platform": "cpu", "kind": "cpu", "count": 1}
     result_device["memory_peak_bytes"] = int(peak)
+    result_device.update(host(_smi(dev, "pci.bus_id")
+                              if dev.type == "cuda" else None))
     breakdown = None
     if trace:
-        ctx = {"cfg": cfg, "mix": mix, "trace": dt, "open": got.open,
-               "close": got.close, "macs_per_frame": cmp["macs_per_frame"],
-               "fc_entries": fc_entries(cfg, model)}
+        ctx = dict(fam.context(setup, got), trace=dt)
         for m in cell_metrics(bench, workload, True):
             value = reader(m["name"])(ctx)
             if value is not None:
@@ -304,17 +321,18 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         breakdown = dt.breakdown(spans)
     else:
         for m in cell_metrics(bench, workload, False):
+            if m["name"] not in e2e:
+                raise RunError(f"the {cfg['family']} family gives no "
+                               f"{m['name']} for {workload}")
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
-    lines = [f"{k}: {v['value']} (limit {v['limit']})"
-             for k, v in checks.items()]
-    print(f"checked {cmp['checked_streams']} streams, "
-          f"{cmp['checked_frames']} frames; {cmp['diverged_streams']} "
-          f"streams diverged", file=sys.stderr)
-    for line in lines:
-        print(line, file=sys.stderr)
-    out = {"correct": bool(correct), "attempted": int(attempted),
-           "failed": int(missing_due + cmp["missing_streams"]),
-           "metrics": metrics, "device": result_device}
+    print("set-up phases (s): " + ", ".join(
+        f"{name} {s:.3f}" for name, s in timeline.durations(win.t0)),
+        file=sys.stderr)
+    for k, v in checks.items():
+        print(f"{k}: {v['value']} (limit {v['limit']})", file=sys.stderr)
+    out = {"correct": bool(correct), "attempted": int(got.attempted),
+           "failed": int(failed), "metrics": metrics,
+           "device": result_device}
     if breakdown is not None:
         out["breakdown"] = breakdown
     out["checks"] = checks

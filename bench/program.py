@@ -67,7 +67,13 @@ def build(cfg: dict, mix: dict, model: dict, scale: np.float32,
           workdir: Path, device) -> StreamLoop:
     """The artifact written into ``workdir``, the engine loaded from it on
     ``device`` and the mix's slot loop over it."""
-    path = write_artifact(Path(workdir) / "artifact", cfg, model, scale)
+    return load(write_artifact(Path(workdir) / "artifact", cfg, model, scale),
+                mix, device)
+
+
+def load(path: Path, mix: dict, device) -> StreamLoop:
+    """The engine loaded from the artifact at ``path`` on ``device`` and
+    the mix's slot loop over it (on the card, its step captured)."""
     engine = CompiledRSNN.from_artifact(path, device=device)
     return StreamLoop(engine, batch_slots=mix["slots"],
                       pipeline_depth=mix["pipeline_depth"],

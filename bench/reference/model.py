@@ -30,6 +30,17 @@ which sets the comparison's tolerance, and counts the multiply-accumulates
 the frame's inputs need at the stored nonzero weights (the zero-skipping
 dataflow's work: nonzero inputs and spikes times the nonzero weights of
 their rows), from which ``counts.py`` takes the kernel's operations.
+
+It also marks the streams that reach a threshold tie: a membrane potential
+within ``TIE`` float32 roundings of its threshold, ``|U - vth| <= TIE *
+2^-24 * (A + vth)``, where ``A`` is the magnitude of U's terms with its
+leaked history (``A[ts] = |x_q| |W0x| + S0[t-1] |W0h| + beta (1 - S)
+(|U[ts-1]| + A[ts-1])``, and alike for L1).  There float32 arithmetic in
+any order may take either side of the threshold, and the stream may run
+apart from the truth from then on without any fault.  An int4 model makes
+such ties common on some draws: a neuron's integer sums of spike-driven
+inputs, times its two column scales, can land within a few float32
+roundings of 1.0, and every stream that reaches those sums ties.
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ import torch
 from bench.reference import data
 
 PRECISIONS = ("exact", "tf32")
+# a threshold tie: |U - vth| within TIE float32 roundings (2^-24) of the
+# magnitude of U's terms; sound runs' spike flips lie within 0.2 of them
+TIE = 4.0
 
 
 def quantize(x: torch.Tensor, scale, bits: int = 8) -> torch.Tensor:
@@ -90,6 +104,10 @@ class Reference:
                 nnz[name] = (m != 0).sum(dim=1).to(f64)
                 w[name] = m.to(f64) if precision == "exact" else to_tf32(m)
         self.w = w
+        self.abs_w = {k: v.abs() for k, v in w.items()}
+        # after each frame that ``frames`` yields: (B,) bool, the streams
+        # that reached a threshold tie at that frame or before
+        self.tied = None
         self.row_nnz = nnz  # stored nonzero weights of each input row
         self.abs_fc = w["fc_w"].abs()
         lif = model["lif"]
@@ -114,7 +132,8 @@ class Reference:
         fc_dim) float64 on the device (``magnitude`` the sum of the
         logit's terms' absolute values), ``macs`` (B,) the frame's
         multiply-accumulates at the stored nonzero weights (0 where not
-        live)."""
+        live); ``self.tied`` then marks the streams that have reached a
+        threshold tie (module docstring) at frame t or before."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         b, h, ts = len(streams), cfg["hidden_dim"], cfg["num_ts"]
         lens = np.array([len(s) for s in streams])
@@ -125,34 +144,51 @@ class Reference:
         xq_all = quantize(torch.from_numpy(x).to(dev), scale,
                           cfg["input_bits"])
         lens_t = torch.from_numpy(lens).to(dev)
-        w, nnz = self.w, self.row_nnz
+        w, nnz, aw = self.w, self.row_nnz, self.abs_w
         beta0, beta1 = self.beta
         vth0, vth1 = self.vth
         zeros = torch.zeros((b, h), dtype=dt, device=dev)
         s0_prev = torch.zeros((ts, b, h), dtype=dt, device=dev)
         s1_prev = torch.zeros((ts, b, h), dtype=dt, device=dev)
         u0, h0, u1, h1 = zeros, zeros, zeros, zeros
+        a0, a1 = zeros, zeros  # the magnitudes of U0's and U1's terms
+        tied = torch.zeros(b, dtype=torch.bool, device=dev)
+        band = TIE * 2.0 ** -24
+
+        def ties(u, a, vth):
+            return ((u - vth).abs() <= band * (a + vth)).any(dim=1)
+
         for t in range(steps):
+            live = lens_t > t
             xq = xq_all[t].to(dt)
             ff0 = xq @ w["l0_wx"]
+            aff0 = xq.abs() @ aw["l0_wx"]
             s0 = []
+            tie = torch.zeros_like(tied)
             for k in range(ts):
+                a0 = (aff0 + s0_prev[k] @ aw["l0_wh"]
+                      + beta0 * (1.0 - h0) * (u0.abs() + a0))
                 u0 = (ff0 + s0_prev[k] @ w["l0_wh"]) + beta0 * u0 * (1.0 - h0)
                 h0 = (u0 >= vth0).to(dt)
                 s0.append(h0)
+                tie |= ties(u0, a0, vth0)
             s0 = torch.stack(s0)
             s1 = []
             for k in range(ts):
+                a1 = (s0[k] @ aw["l1_wx"] + s1_prev[k] @ aw["l1_wh"]
+                      + beta1 * (1.0 - h1) * (u1.abs() + a1))
                 u1 = ((s0[k] @ w["l1_wx"] + s1_prev[k] @ w["l1_wh"])
                       + beta1 * u1 * (1.0 - h1))
                 h1 = (u1 >= vth1).to(dt)
                 s1.append(h1)
+                tie |= ties(u1, a1, vth1)
             s1 = torch.stack(s1)
+            tied = tied | (tie & live)
+            self.tied = tied
             merged = s1.sum(dim=0)
             logits = (merged @ w["fc_w"]).to(torch.float64)
             magnitude = merged.to(torch.float64) @ self.abs_fc.to(
                 torch.float64)
-            live = lens_t > t
             f64 = torch.float64
             macs = ((xq != 0).to(f64) @ nnz["l0_wx"]
                     + (s0_prev.to(f64) @ nnz["l0_wh"]).sum(dim=0)

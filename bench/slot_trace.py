@@ -181,23 +181,27 @@ def analyse(recs: list, ops: list[tuple[str, int, int]], t0: int, t1: int,
 
 def trace(args) -> int:
     from bench import harness
+    from bench.families import rsnn
 
     # keep the window's device trace and counters, which the result line
     # leaves out
     seen = {}
-    serve = harness.serve
+    serve = rsnn.serve
 
-    def keep(loop, *a, **k):
-        got = serve(loop, *a, **k)
-        seen.update(got=got[0], dt=got[2], depth=loop.pipeline_depth)
+    def keep(setup, window, *a, **k):
+        got = serve(setup, window, *a, **k)
+        seen.update(got=got, dt=window.trace,
+                    depth=setup.program.pipeline_depth)
         return got
 
-    harness.serve = keep
+    rsnn.serve = keep
     try:
         result = harness.run(args.workload, args.seed, 10.0, True, T_START)
     except harness.RunError as e:
         print(f"no result: {e}", file=sys.stderr)
         return 2
+    finally:
+        rsnn.serve = serve
     print(json.dumps(result))
     summary = {"workload": args.workload, "seed": args.seed,
                "result": result, "spans": False}

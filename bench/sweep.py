@@ -107,18 +107,17 @@ def main(argv=None) -> int:
     p.add_argument("--bisect", type=int, default=3)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    import tempfile
-
-    from bench import harness, program, traffic
-    from bench.reference import data
+    from bench import harness, traffic
+    from bench.families import rsnn
 
     _, cfg, mix, _ = harness.cell_files(harness.manifest(), args.workload)
+    if cfg.get("family") != "rsnn":
+        raise SystemExit(f"{args.workload}: the sweep drives the RSNN slot "
+                         f"loop, not the {cfg.get('family')} family")
     dev = torch.device(args.device)
-    model = data.weights(cfg, args.seed, dev)
-    pool = traffic.Pool(mix, cfg, args.seed, dev)
-    scale = data.input_scale(pool.frames, cfg["input_bits"])
-    with tempfile.TemporaryDirectory() as tmp:
-        loop = program.build(cfg, mix, model, scale, Path(tmp), dev)
+    setup = rsnn.build(cfg, mix, args.seed, dev,
+                       harness.Timeline(time.monotonic()))
+    loop, pool = setup.program, setup.pool
     order = traffic.submission_order(len(pool), args.seed)
     service_rate(loop, pool, order, 2.0, mix["slots"])  # warm-up
     service = service_rate(loop, pool, order, args.probe_seconds,

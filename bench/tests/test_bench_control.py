@@ -15,7 +15,7 @@ from bench import control
 from repro_torch.serving import stream
 
 LIMITS = {c: json.loads((ROOT / "bench" / "cells" / f"{c}.json").read_text())
-          ["limits"]["diverged_frames_pct"] for c in CELLS}
+          ["limits"]["diverged_decided_pct"] for c in CELLS}
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -24,7 +24,7 @@ def test_control_fails_the_limit(cell):
     mix = dict(mix, min_frames=60, max_frames=120)
     got = control.control_reading(cfg, mix, 2 ** 31 + 3, 16,
                                   torch.device("cpu"))
-    assert got["diverged_frames_pct"] > 3 * LIMITS[cell]
+    assert got["diverged_decided_pct"] > 3 * LIMITS[cell]
 
 
 def _unchanged_state(orig):
@@ -75,4 +75,4 @@ def test_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
                         FAULTS[fault](stream.CompiledRSNN._chunk_step))
     out = tiny_run(cell)
     assert out["correct"] is False
-    assert out["checks"]["diverged_frames_pct"]["value"] > LIMITS[cell]
+    assert out["checks"]["diverged_decided_pct"]["value"] > LIMITS[cell]

@@ -23,6 +23,7 @@ else:
     import runpy
     runpy.run_path(str(root / "bench" / "run.py"), run_name="bench_run")
     import bench.harness, bench.program, bench.control, bench.drive
+    import bench.families.rsnn, bench.sweep, bench.slot_trace
     for path in sorted((root / "bench" / "metrics").glob("*.py")):
         spec = importlib.util.spec_from_file_location("m" + path.stem.replace(".", "_"), path)
         spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -16,7 +16,7 @@ from bench.reference.model import Reference, quantize, to_tf32
 def test_sound_run_is_correct(cell):
     out = tiny_run(cell)
     assert out["correct"] is True
-    assert out["checks"]["diverged_frames_pct"]["value"] == 0.0
+    assert out["checks"]["diverged_decided_pct"]["value"] == 0.0
     assert out["checks"]["checked_streams"]["value"] >= 8
     assert out["failed"] == 0 and out["attempted"] > 0
     assert list(out)[-1] == "checks"
@@ -60,6 +60,62 @@ def test_missing_or_misshapen_answers_count_as_diverged():
     got = compare.compare(ref, xs, bad, scale)
     assert got["missing_streams"] == 2
     assert got["diverged_frames"] == len(xs[0]) + len(xs[1])
+
+
+def test_a_threshold_tie_marks_its_stream():
+    """A membrane potential on its threshold marks the stream tied from
+    that frame on; the other streams stay decided."""
+    _, cfg, mix, _ = tiny_files(CELLS[0])
+    dev = torch.device("cpu")
+    model = data.weights(cfg, 8, dev)
+    pool = traffic.Pool(mix, cfg, 8, dev)
+    scale = data.input_scale(pool.frames)
+    xs = [pool.utterance(k) for k in range(4)]
+    ref = Reference(cfg, model, "exact", dev)
+    first = [ref.tied.clone() for t, *_ in ref.frames(xs, scale) if t == 0]
+    assert not first[0].any()
+    # the first frame's first step: U0 = x_q W0x exactly; put neuron 0's
+    # threshold on stream 2's value there
+    u = quantize(torch.from_numpy(xs[2][:1]), scale).to(torch.float64) \
+        @ ref.w["l0_wx"]
+    ref.vth[0] = ref.vth[0].clone()
+    ref.vth[0][0] = u[0, 0]
+    marks = [ref.tied.clone() for _ in ref.frames(xs, scale)]
+    assert all(m[2] for m in marks)
+    assert not marks[0][[0, 1, 3]].any()
+
+
+class _Frames:
+    """A reference that yields given logits, with stream 1 tied from frame
+    2 on."""
+
+    def __init__(self, logits):
+        self.cfg = {"fc_dim": logits.shape[2]}
+        self.logits = torch.from_numpy(logits).to(torch.float64)
+
+    def frames(self, streams, scale):
+        b = len(streams)
+        for t in range(self.logits.shape[0]):
+            self.tied = torch.tensor([False, t >= 2])
+            live = torch.tensor([t < len(x) for x in streams])
+            yield (t, live, self.logits[t], torch.ones(b, self.cfg["fc_dim"],
+                   dtype=torch.float64), torch.zeros(b))
+
+
+def test_frames_after_a_tie_are_not_judged():
+    logits = np.random.default_rng(0).normal(size=(5, 2, 3)).astype(
+        np.float32)
+    xs = [np.zeros((5, 1)), np.zeros((5, 1))]
+    served = [logits[:, 0].copy(), logits[:, 1].copy()]
+    served[1][3] += 1.0  # after stream 1's tie: counted only in all frames
+    got = compare.compare(_Frames(logits), xs, served, 1.0)
+    assert got["decided_frames"] == 5 + 2 and got["tied_streams"] == 1
+    assert got["diverged_decided_pct"] == 0.0
+    assert got["diverged_frames_pct"] == 100.0 / 10
+    served[1][1] += 1.0  # before it: counted in both
+    got = compare.compare(_Frames(logits), xs, served, 1.0)
+    assert got["diverged_decided_pct"] == 100.0 / 7
+    assert got["diverged_frames"] == 2
 
 
 def test_quantize_matches_the_port():
